@@ -1,0 +1,10 @@
+"""PyTorch + CUDA port of ``repro`` for NVIDIA Hopper (H100).
+
+Imports torch and numpy only: never JAX and nothing of the JAX package
+``repro``, which stays the reference the port is held against.  Entry points
+run on the card unless the caller passes ``device="cpu"``.
+
+Subpackages mirror the reference: ``configs``, ``kernels`` (hand-written
+sm_90a kernels with their plain versions), ``models``, ``serve``,
+``launch``; ``bridge`` converts reference parameters into the port's.
+"""

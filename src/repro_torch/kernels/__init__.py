@@ -1,0 +1,35 @@
+"""Hand-written Hopper (sm_90a) kernels of the port, one package each.
+
+Each package keeps the reference layout: ``kernel.py`` (the wrapper that
+launches the CUDA kernel built from ``csrc/``), ``ref.py`` (the plain PyTorch
+version of the same function).  What runs is decided by the tensors alone,
+replacing the reference's ``resolve_interpret``:
+
+* every tensor on the CPU  -> the plain version (the CPU tests);
+* every tensor on a CUDA card -> the kernel, or an exception.
+
+There is no switch that puts the plain version on a CUDA tensor.
+
+Packages:
+  paged_attention — paged-KV decode attention for the serving engine
+                    (replaces ``repro/kernels/paged_attention/kernel.py``)
+"""
+from __future__ import annotations
+
+
+def use_kernel(*tensors) -> bool:
+    """True when the tensors lie on a CUDA device (launch the kernel), False
+    when they all lie on the CPU (run the plain version).  ``None`` entries
+    are ignored; any other mix of devices raises."""
+    devs = {t.device for t in tensors if t is not None}
+    kinds = {d.type for d in devs}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len(devs) == 1:
+        return True
+    raise ValueError(
+        f"kernel inputs lie on {sorted(str(d) for d in devs)}: all must lie "
+        "on one CUDA device (kernel) or all on the CPU (plain version)")
+
+
+__all__ = ["use_kernel"]

@@ -1,0 +1,69 @@
+"""Core layer primitives: RMSNorm, SwiGLU, RoPE, initialisers.
+
+Port of ``repro/models/layers.py``.  Parameters are plain dicts of tensors
+in the JAX layout (a dense weight is ``(d_in, d_out)``, applied as
+``x @ w``); initialisers draw from an explicit ``torch.Generator`` (None on
+the ``meta`` device, which only describes shapes).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _normal(gen, shape, device):
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+
+
+def dense_init(gen, d_in: int, d_out: int, *, device, dtype=torch.float32,
+               scale: float = 1.0):
+    std = scale / math.sqrt(d_in)
+    return _normal(gen, (d_in, d_out), device).mul_(std).to(dtype)
+
+
+def embed_init(gen, vocab: int, d: int, *, device, dtype=torch.float32):
+    return _normal(gen, (vocab, d), device).mul_(0.02).to(dtype)
+
+
+def rmsnorm_init(d: int, *, device, dtype=torch.float32):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    """RMSNorm computed in f32 and cast back to ``x``'s dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def swiglu_init(gen, d: int, d_ff: int, *, device, dtype=torch.float32):
+    return {"w_gate": dense_init(gen, d, d_ff, device=device, dtype=dtype),
+            "w_up": dense_init(gen, d, d_ff, device=device, dtype=dtype),
+            "w_down": dense_init(gen, d_ff, d, device=device, dtype=dtype)}
+
+
+def swiglu(params, x):
+    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Half-split rotation.  x: (..., S, H, hd); positions broadcastable to
+    (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
+    ang = positions[..., :, None, None].float() * freqs        # (...,S,1,hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

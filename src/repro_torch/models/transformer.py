@@ -1,0 +1,117 @@
+"""Decoder-only language model: embed -> blocks -> final norm -> head.
+
+Port of ``repro/models/transformer.py``.  The reference stacks the repeating
+layers on a leading axis and runs them with ``lax.scan``; here parameters are
+a plain dict ``{"embed", "final_norm", "head", "layers"}`` whose ``layers``
+list holds one block dict per layer, in layer order, and the stack is a
+Python loop.  ``stack_plan`` is kept because it says how the reference's
+``prefix``/``cycles``/``suffix`` map onto those layers (see
+``repro_torch.bridge``).  Caches are a list of per-layer dicts, updated in
+place.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks
+from repro_torch.models.layers import dense_init, embed_init, rmsnorm, rmsnorm_init
+
+
+@dataclass(frozen=True)
+class StackPlan:
+    prefix: Tuple[int, ...]      # absolute layer indices
+    n_cycles: int
+    pattern: Tuple[str, ...]
+    cycle_start: int             # absolute index of the first cycled layer
+    suffix: Tuple[int, ...]
+
+
+def stack_plan(cfg: ModelConfig) -> StackPlan:
+    patt = cfg.block_pattern or (("ssm",) if cfg.arch_type == "ssm" else ("attn",))
+    n_prefix = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    remaining = cfg.n_layers - n_prefix
+    n_suffix = remaining % len(patt)
+    return StackPlan(prefix=tuple(range(n_prefix)),
+                     n_cycles=remaining // len(patt),
+                     pattern=patt,
+                     cycle_start=n_prefix,
+                     suffix=tuple(range(cfg.n_layers - n_suffix, cfg.n_layers)))
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                dtype=torch.float32):
+    """Random parameters drawn on ``device`` from a ``torch.Generator``
+    seeded with ``seed`` (``device="meta"`` gives shapes only)."""
+    dev = resolve_device(device)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    kw = dict(device=dev, dtype=dtype)
+    p = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, **kw),
+         "final_norm": rmsnorm_init(cfg.d_model, **kw)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, **kw)
+    p["layers"] = [blocks.block_init(gen, cfg, cfg.pattern[i],
+                                     blocks.ffn_kind(cfg, i), **kw)
+                   for i in range(cfg.n_layers)]
+    return p
+
+
+def run_stack(params, cfg: ModelConfig, h, *, caches=None, cache_len=None):
+    """Run every block.  Returns (h, caches)."""
+    for i, bp in enumerate(params["layers"]):
+        c = None if caches is None else caches[i]
+        h, _ = blocks.block_apply(bp, cfg, cfg.pattern[i],
+                                  blocks.ffn_kind(cfg, i), h, cache=c,
+                                  cache_len=cache_len)
+    return h, caches
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    """tokens (B,S) -> (B,S,d), scaled by sqrt(d_model) as the reference."""
+    emb = params["embed"]
+    # sqrt(d_model) rounded to the table's dtype, as the reference does
+    scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype))
+    return emb[tokens.long()] * scale
+
+
+def _logits(params, cfg: ModelConfig, h):
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return h @ head
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Full forward: tokens (B,S) -> logits (B,S,V)."""
+    h, _ = run_stack(params, cfg, embed_tokens(params, cfg, tokens))
+    return _logits(params, cfg, h)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
+               dtype=torch.float32):
+    return [blocks.block_cache_init(cfg, cfg.pattern[i], batch, max_len,
+                                    device=device, dtype=dtype)
+            for i in range(cfg.n_layers)]
+
+
+def prefill(params, cfg: ModelConfig, caches, tokens):
+    """Fill the caches with the whole prompt; return the last position's
+    logits (B,V) and the caches."""
+    h = embed_tokens(params, cfg, tokens)
+    h, caches = run_stack(params, cfg, h, caches=caches, cache_len=0)
+    return _logits(params, cfg, h[:, -1:])[:, 0], caches
+
+
+def decode_step(params, cfg: ModelConfig, caches, token, cache_len: int):
+    """One decode step.  token (B,); cache_len tokens already cached.
+    Returns (logits (B,V), caches)."""
+    h = embed_tokens(params, cfg, token[:, None])
+    h, caches = run_stack(params, cfg, h, caches=caches, cache_len=cache_len)
+    return _logits(params, cfg, h)[:, 0], caches

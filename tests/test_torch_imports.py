@@ -1,0 +1,113 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+* ``import repro_torch`` (every module) leaves ``jax`` and the JAX package
+  ``repro`` out of ``sys.modules``, checked in a fresh interpreter, and no
+  source of the port or ``chip_smoke.py`` imports either.
+* Every entry point called without a device targets CUDA, and on a machine
+  without a card raises instead of running on the CPU.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__")
+    for p in PORT.rglob("*.py"))
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert "repro_torch.serve.engine" in MODULES
+
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                        re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_neither_jax_nor_repro(path):
+    hits = _FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path} imports {hits}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small():
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("deepseek-7b", reduced=True)
+    model = build_model(cfg)
+    return cfg, model, model.init(seed=0, device="cpu")
+
+
+def test_init_params_defaults_to_cuda(no_card):
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(get_config("deepseek-7b", reduced=True))
+
+
+def test_engine_defaults_to_cuda(no_card):
+    from repro_torch.serve import ServeEngine
+    cfg, model, params = _small()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(model, cfg, params)
+
+
+def test_generate_defaults_to_cuda(no_card):
+    from repro_torch.launch.serve import generate
+    cfg, model, params = _small()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(model, cfg, params, np.zeros((1, 3), np.int32), 2)
+
+
+def test_cli_defaults_to_cuda(no_card):
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--engine", "continuous"])
+
+
+def test_cpu_params_are_refused_by_a_cuda_engine(monkeypatch):
+    """Asked for a device the params do not lie on, the engine raises
+    rather than moving or mixing them."""
+    from repro_torch.serve import ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg, model, params = _small()
+    with pytest.raises(ValueError, match="params on cpu"):
+        ServeEngine(model, cfg, params, device="cuda")
+
+
+def test_cli_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch.serve import main
+    main(["--device", "cpu", "--engine", "continuous", "--requests", "2",
+          "--prompt-len", "4", "--gen", "3", "--page-size", "4"])
+    out = capsys.readouterr().out
+    assert "served 2 requests / 6 tokens" in out
+    assert "on cpu" in out
