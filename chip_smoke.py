@@ -8,16 +8,30 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
 1. Device and build: the card's name and power limit from ``nvidia-smi``;
-   ``nvcc`` builds every kernel of the serving path from ``csrc/``.
-2. Each kernel against its plain PyTorch version, on the card.
-3. The main path: deepseek-7b at full width (30 layers, d_model 4096,
-   random weights from a seed) serves 4 ragged requests through
-   ``ServeEngine(attention="paged")``; the kernel's launch count over that
-   run must be positive, and the greedy streams must equal the dense path's
-   and the static ``generate``'s.
-4. Kernel timing (median of CUDA-event-timed runs) beside its plain
-   version, one PyTorch library call and the card's bound.
-5. One JSON line listing every kernel, then the last line
+   ``nvcc`` builds every kernel source of the port from ``csrc/`` (one
+   ``nvcc`` per source, all started together).
+2. Each kernel against its plain PyTorch version, on the card:
+   ``paged_decode``; ``permute_rows`` in scatter and gather mode and its
+   autograd backward (exact equality); ``quantize_rows`` /
+   ``dequantize_rows`` (bit-equal, constant rows exact, error bound).
+3. Main path 1, serving: deepseek-7b at full width (30 layers, d_model
+   4096, random weights from a seed) serves 4 ragged requests through
+   ``ServeEngine(attention="paged")``; ``paged_decode``'s launch count over
+   that run must be positive, and the greedy streams must equal the dense
+   path's and the static ``generate``'s.
+4. Main path 2, TL training: the three paper models at their configured
+   widths (DATRET MLP, ConvNet, tiny Transformer), 3 nodes of 96/64/32
+   samples, batch 64, 2 epochs, through ``Engine(mode="sim")`` with kernel
+   reassembly, plus an int8 error-feedback wire run on DATRET.  The
+   ``permute_rows`` / ``quantize_rows`` / ``dequantize_rows`` counts over
+   that run must equal virtual batches and visits x float leaves; kernel
+   reassembly must be bit-equal to torch reassembly, fused within 1e-6
+   (loss) of eager, the TL gradient within 2e-5 of the centralized one,
+   eq. 12 within 1e-5, and the wire bytes equal to a CPU run's.
+5. Timing (median of CUDA-event-timed calls, or host clock around a synced
+   TL step) beside each kernel's plain version, one PyTorch library call
+   where one computes the same function, and the card's bound.
+6. One JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository around it, it prints no
@@ -25,8 +39,10 @@ result and exits with code 2.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -280,6 +296,454 @@ def time_paged_decode(kern, ref, context: int, lengths=None):
             "shape": f"B={B} H=KV={H} d={d} page={page} lengths={lengths} f32"}
 
 
+# ------------------------------------------------------------ vb_scatter
+
+def _abs_err(got, want) -> float:
+    """Max |got - want| over one tensor pair, in float64 (0.0 when both
+    are empty)."""
+    if got.numel() == 0:
+        return 0.0
+    return float((got.double() - want.double()).abs().max())
+
+
+def _rows(rng, shape, dtype):
+    """A (N, D) tensor on the card from numpy: floats N(0, 1), ints
+    uniform, so every row is distinguishable."""
+    import numpy as np
+    import torch
+    if dtype in (torch.int32, torch.int8):
+        a = rng.integers(-100, 100, size=shape).astype(np.int32)
+    else:
+        a = rng.normal(size=shape).astype(np.float32)
+    return torch.as_tensor(a, device=DEVICE).to(dtype)
+
+
+def check_vb_scatter():
+    """Phase 2: permute_rows (scatter), take_rows (gather) and the autograd
+    Function, each exactly equal to its plain version on the same inputs.
+    Covers ragged N, one row, bf16, int32 rows in the same launch, a narrow
+    (N, 2) tensor next to a wide (N, 4096) one, and rows whose byte length
+    forces every vector width (16/8/4/2/1 bytes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.vb_scatter import (permute_rows,
+                                                permute_rows_ref,
+                                                scatter_rows,
+                                                scatter_rows_ref, take_rows,
+                                                vb_scatter, vb_scatter_ref)
+    f32, bf16, i32, i8 = torch.float32, torch.bfloat16, torch.int32, torch.int8
+    cases = [
+        ("main path DATRET N=64", 64, [(512, f32), (2, f32), (512, f32)]),
+        ("main path ConvNet N=64", 64, [(1024, f32), (10, f32), (1024, f32)]),
+        ("main path Transformer N=64", 64,
+         [(2048, f32), (2, f32), (2048, f32)]),
+        ("ragged N=37", 37, [(1024, f32), (10, f32), (1024, f32)]),
+        ("one row", 1, [(512, f32), (2, f32)]),
+        ("bf16 + int32 rows", 29, [(96, bf16), (4, i32), (96, bf16)]),
+        ("narrow (N,2) + wide (N,4096)", 50, [(2, f32), (4096, f32)]),
+        ("vector widths 16/8/4/2/1", 33,
+         [(4, f32), (2, f32), (3, f32), (5, bf16), (7, i8)]),
+    ]
+    rng = np.random.default_rng(0)
+    errs = {"scatter": 0.0, "gather": 0.0}
+    for name, N, cols in cases:
+        ts = [_rows(rng, (N, d), dt) for d, dt in cols]
+        perm = torch.as_tensor(rng.permutation(N).astype(np.int32),
+                               device=DEVICE)
+        for kern, mode in ((permute_rows, "scatter"), (take_rows, "gather")):
+            got = kern(perm, *ts)
+            torch.cuda.synchronize()
+            want = permute_rows_ref(perm, *ts, mode=mode)
+            for g, w in zip(got, want):
+                errs[mode] = max(errs[mode], _abs_err(g, w))
+                assert g.dtype == w.dtype and torch.equal(g, w), (name, mode)
+        print(f"  permute_rows {name}: scatter and gather exactly equal")
+
+    # the autograd Function: forward and backward exact against the
+    # zero-filled plain scatter, with row-dependent weights so a backward
+    # with the wrong index cannot pass; int32 rows ride along, no gradient
+    N = 45
+    perm = torch.as_tensor(rng.permutation(N).astype(np.int32),
+                           device=DEVICE)
+    w = torch.arange(1, N + 1, dtype=f32, device=DEVICE)
+    for dt in (f32, bf16):
+        base = [_rows(rng, (N, 4, 6), dt), _rows(rng, (N, 3), dt),
+                _rows(rng, (N, 4, 6), dt)]
+        tok = _rows(rng, (N, 4), i32)
+
+        def grads(fn):
+            xs = [b.clone().requires_grad_(True) for b in base]
+            a, b, c, t = fn(perm, (*xs, tok))
+            loss = (w[:, None, None] * a.float() ** 2).sum() \
+                + (w[:, None] * b.float()).sum() \
+                + (w[:, None, None] * c.float() ** 3).sum() \
+                + (a.float().sum((1, 2)) * t.float().sum(-1)).sum()
+            loss.backward()
+            return [a, b, c, t], [x.grad for x in xs]
+
+        out_k, g_k = grads(scatter_rows)
+        out_r, g_r = grads(scatter_rows_ref)
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_r):
+            errs["scatter"] = max(errs["scatter"], _abs_err(a.detach(), b))
+            assert a.dtype == b.dtype and torch.equal(a.detach(), b.detach())
+        for a, b in zip(g_k, g_r):
+            errs["gather"] = max(errs["gather"], _abs_err(a, b))
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        got = vb_scatter(*base, perm)
+        for a, b in zip(got, vb_scatter_ref(*base, perm)):
+            errs["scatter"] = max(errs["scatter"], _abs_err(a, b))
+            assert torch.equal(a, b)
+    print("  scatter_rows autograd (f32, bf16, int32 rows riding along): "
+          "forward and backward exactly equal; vb_scatter exactly equal")
+    return errs
+
+
+# ----------------------------------------------------------- act_compress
+
+def check_act_compress():
+    """Phase 2: quantize_rows / dequantize_rows against the plain versions:
+    int8 q and scale bit-equal, fp8 q bit-equal to torch's own cast,
+    dequant bit-equal, constant rows exact, EF residual of a constant
+    exactly 0, quantization error within half an int8 level."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.act_compress import (dequantize_rows,
+                                                  dequantize_rows_ref,
+                                                  ef_compress, quantize_rows,
+                                                  quantize_rows_ref)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(1)
+    # the main path's rows (DATRET x1 (k,512), delta (k,2), gw1 w (32,512)
+    # and b (1,512); ConvNet x1 rows (k*64,16); Transformer rows (k*32,64))
+    # plus a ragged and a wide shape
+    shapes = [(21, 512), (64, 2), (32, 512), (1, 512), (2048, 16),
+              (1024, 64), (37, 1000), (16384, 1024)]
+    # max |difference| of the scales and of the codes' values (quantize)
+    # and of the dequantized values (dequantize), kernel against plain
+    errs = {"quantize_rows": 0.0, "dequantize_rows": 0.0}
+    for codec in ("int8", "fp8"):
+        for R, D in shapes:
+            for dt in (f32, bf16):
+                x = (torch.as_tensor(rng.normal(size=(R, D)).astype(np.float32),
+                                     device=DEVICE) * 5).to(dt)
+                if R > 2:
+                    x[R // 2] = 0.0                      # an all-zero row
+                q, s = quantize_rows(x, codec)
+                qr, sr = quantize_rows_ref(x, codec)
+                torch.cuda.synchronize()
+                errs["quantize_rows"] = max(errs["quantize_rows"],
+                                            _abs_err(s, sr),
+                                            _abs_err(q.float(), qr.float()))
+                assert torch.equal(s, sr), (codec, R, D, dt, "scale")
+                assert torch.equal(q.view(torch.uint8), qr.view(torch.uint8)), \
+                    (codec, R, D, dt, "q")
+                for out_dt in (f32, bf16):
+                    xr = dequantize_rows(q, s, out_dt, codec)
+                    want = dequantize_rows_ref(q, s, out_dt, codec)
+                    torch.cuda.synchronize()
+                    errs["dequantize_rows"] = max(errs["dequantize_rows"],
+                                                  _abs_err(xr, want))
+                    assert torch.equal(xr.view(torch.int16 if out_dt == bf16
+                                               else torch.int32),
+                                       want.view(torch.int16 if out_dt == bf16
+                                                 else torch.int32)), \
+                        (codec, R, D, dt, out_dt, "dequant")
+                xr = dequantize_rows(q, s, f32, codec).double()
+                absmax = x.float().abs().amax(-1, keepdim=True).double()
+                half = 0.5 / 127 if codec == "int8" else 1.0 / 16
+                assert bool(((xr - x.double()).abs()
+                             <= absmax * half * 1.01 + 1e-7).all()), \
+                    (codec, R, D, dt, "error bound")
+        print(f"  quantize_rows/dequantize_rows {codec}: q, scale and "
+              f"dequant bit-equal to the plain versions over {len(shapes)} "
+              "shapes x {f32, bf16} in and out; error within half a level")
+        # fp8: the plain version's q *is* torch's cast of (x/scale)*256
+        # constants: exact round trip and EF residual 0 for c = 0 or
+        # |c| >= 1e-12 (below the 1e-12 scale floor x/scale != +-1)
+        for c in (0.0, 1e-12, -1e-12, 3.5, -7.25e-3, 1e3, -1e30, 2.0 ** -20):
+            x = torch.full((5, 33), c, dtype=f32, device=DEVICE)
+            residual = None
+            for _ in range(3):
+                _, delivered, residual = ef_compress(x, residual, codec=codec)
+                torch.cuda.synchronize()
+                assert torch.equal(delivered, x), (codec, c)
+                assert bool((residual == 0).all()), (codec, c)
+        print(f"  {codec}: constant rows (c = 0 and |c| >= 1e-12) round-trip "
+              "exactly; their EF residual is exactly 0 over 3 sends")
+    return errs
+
+
+# ---------------------------------------------------------- TL training
+
+TL_SIZES = (96, 64, 32)
+TL_BATCH = 64
+TL_EPOCHS = 2
+
+
+def tl_shards(cfg):
+    """3 uneven shards (96/64/32) of the paper-model dataset for ``cfg``,
+    made from a numpy seed by the port's dataset generators."""
+    from repro_torch.data.shards import paper_model_shards
+    return paper_model_shards(cfg, TL_SIZES)
+
+
+def tl_engine(cfg, shards, *, device=None, **kw):
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.small import SmallModel
+    from repro_torch.optim import sgd
+    eng = Engine(SmallModel(cfg), cfg, sgd(0.05), mode="sim",
+                 batch_size=TL_BATCH, seed=0, device=device or DEVICE, **kw)
+    return eng, eng.run(shards, epochs=TL_EPOCHS)
+
+
+def _leaves_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.core.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def tl_vs_cl(cfg, shards):
+    """The paper's claim on the card: one TL step's update equals the
+    centralized gradient on the same virtual batch; eq. 12 holds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import PlanSpec, TLNode, TLOrchestrator, Transport
+    from repro_torch.core.node import ce_sum
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.models.small import SmallModel
+    from repro_torch.optim import sgd
+    model = SmallModel(cfg)
+    nodes = [TLNode(i, model, s.x, s.y, device=DEVICE)
+             for i, s in enumerate(shards)]
+    orch = TLOrchestrator(model, nodes, sgd(0.05), Transport(),
+                          batch_size=TL_BATCH, plan=PlanSpec(seed=0),
+                          reassembly="kernel", device=DEVICE)
+    orch.initialize(1)
+    p0 = orch.params
+    plan = orch.build_plan(0)
+    vb = plan.batches[0]
+    xs = torch.cat([n.x for n in nodes])
+    ys = torch.cat([n.y for n in nodes])
+    offs = np.cumsum([0] + list(TL_SIZES[:-1]))
+    rows = torch.as_tensor(offs[plan.global_to_node[vb.global_ids]]
+                           + plan.global_to_local[vb.global_ids],
+                           device=DEVICE)
+    flat, treedef = tree_flatten(p0)
+    leaves = [t.detach().requires_grad_(True) for t in flat]
+    loss = ce_sum(model.forward(tree_unflatten(treedef, leaves), xs[rows]),
+                  ys[rows]) / vb.size
+    cl = torch.autograd.grad(loss, leaves)
+    for n in nodes:
+        n.receive_model(p0)
+    orch.cache_model_per_epoch = True
+    stats = orch.train_batch(vb, {n.node_id: n for n in nodes})
+    tl = [(a - b) / 0.05 for a, b in zip(flat, tree_flatten(orch.params)[0])]
+    err = max(float((a - b).abs().max()) for a, b in zip(cl, tl))
+    cons = float(stats.grad_consistency)
+    assert err < 2e-5, f"{cfg.name}: TL gradient deviates from CL by {err}"
+    assert cons < 1e-5, f"{cfg.name}: eq. 12 consistency {cons}"
+    return err, cons
+
+
+def tl_training(card: str):
+    """Phase 4: TL training of the three paper models on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_models import SMALL_MODELS
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.act_compress import (dequantize_rows,
+                                                  quantize_rows)
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+
+    counters = (permute_rows, take_rows, quantize_rows, dequantize_rows)
+    data = {name: tl_shards(cfg) for name, cfg in SMALL_MODELS.items()}
+    # the main path: every model trained with kernel reassembly, and DATRET
+    # once more over the int8 error-feedback wire
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    runs = {name: tl_engine(cfg, data[name], reassembly="kernel")
+            for name, cfg in SMALL_MODELS.items()}
+    ef_eng, ef_res = tl_engine(SMALL_MODELS["datret"], data["datret"],
+                               reassembly="kernel", wire="int8",
+                               wire_ef=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c: c.launches for c in counters}
+    n_batches = sum(r.steps for _, r in runs.values()) + ef_res.steps
+    tr = ef_eng.orchestrator.transport
+    visits = sum(1 for r in tr.window_log if r.kind == "wire:int8")
+    # DATRET's visit payload: x1, delta_L, dx1 and the two first-layer
+    # weight grads are float tensors; loss_sum and n_correct are scalars
+    float_leaves = 5
+    assert launches[permute_rows] == n_batches > 0, (launches, n_batches)
+    assert launches[take_rows] == 0, launches
+    assert launches[quantize_rows] == visits * float_leaves > 0, \
+        (launches, visits)
+    assert launches[dequantize_rows] == visits * float_leaves, launches
+    print(f"  main path: {n_batches} TL steps in {wall:.3f}s; launches "
+          f"permute_rows {launches[permute_rows]} (one per virtual batch), "
+          f"quantize_rows {launches[quantize_rows]} and dequantize_rows "
+          f"{launches[dequantize_rows]} ({visits} visits x {float_leaves} "
+          f"float leaves) [{card}]")
+
+    for name, cfg in SMALL_MODELS.items():
+        _, res_k = runs[name]
+        losses = res_k.losses
+        assert res_k.steps == TL_EPOCHS * (sum(TL_SIZES) // TL_BATCH)
+        assert np.all(np.isfinite(losses))
+        assert all(np.isfinite(p.cpu().numpy()).all()
+                   for p in tree_leaves(res_k.params))
+        _, res_t = tl_engine(cfg, data[name], reassembly="torch")
+        assert _leaves_equal(res_k.params, res_t.params), name
+        assert np.array_equal(res_k.losses, res_t.losses), name
+        cons = [s.grad_consistency for s in res_k.stats]
+        assert max(cons) < 1e-5, (name, cons)
+        _, res_e = tl_engine(cfg, data[name], fused=False, pipeline=False)
+        dloss = max(abs(a - b) for a, b in zip(res_k.losses, res_e.losses))
+        assert dloss < 1e-6, (name, dloss)
+        eps = np.finfo(np.float32).eps
+        for a, b in zip(tree_leaves(res_e.params), tree_leaves(res_k.params)):
+            a, b = a.double(), b.double()
+            tol = 16 * eps * max(1.0, float(a.abs().max()))
+            assert float((a - b).abs().max()) <= tol, name
+        err, cons1 = tl_vs_cl(cfg, data[name])
+        print(f"  {name}: {res_k.steps} steps, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; kernel == torch reassembly (params and "
+              f"losses bit-equal); fused - eager loss {dloss:.2e}; eq. 12 "
+              f"max {max(cons):.2e}; TL - CL gradient {err:.2e} "
+              f"(eq. 12 {cons1:.2e})")
+
+    # the compressed wire: the card's bytes equal a CPU run's, per tag
+    cpu_eng, _ = tl_engine(SMALL_MODELS["datret"], data["datret"],
+                           device="cpu", reassembly="kernel", wire="int8",
+                           wire_ef=True)
+    cpu_tr = cpu_eng.orchestrator.transport
+    assert tr.bytes_sent == cpu_tr.bytes_sent, (tr.bytes_sent,
+                                                cpu_tr.bytes_sent)
+    assert tr.raw_bytes == cpu_tr.raw_bytes
+    assert tr.clock_s == cpu_tr.clock_s
+    tag = "activations_grads"
+    ratio = tr.raw_bytes[tag] / tr.bytes_sent[tag]
+    assert ratio >= 3.5, ratio
+    assert tr.bytes_sent["model"] == tr.raw_bytes["model"]   # never lossy
+    assert np.all(np.isfinite(ef_res.losses))
+    print(f"  datret int8+EF wire: {tag} raw {tr.raw_bytes[tag]} -> wire "
+          f"{tr.bytes_sent[tag]} ({ratio:.2f}x), model "
+          f"{tr.bytes_sent['model']} (1.00x); bytes and clock equal to the "
+          f"CPU run's; loss {ef_res.losses[0]:.4f} -> {ef_res.losses[-1]:.4f}")
+    return launches, {"tl_steps": n_batches, "wall_s": wall,
+                      "wire_ratio": ratio}
+
+
+# ------------------------------------------------------------- K1/K2 timing
+
+def time_vb_scatter(N, widths):
+    """permute_rows (scatter) and take_rows (gather) over f32 (N, w)
+    tensors, against the plain version and three ``index_copy_`` calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.vb_scatter import (permute_rows,
+                                                permute_rows_ref, take_rows)
+    rng = np.random.default_rng(2)
+    ts = [_rows(rng, (N, w), torch.float32) for w in widths]
+    perm = torch.as_tensor(rng.permutation(N).astype(np.int32),
+                           device=DEVICE)
+    perm64 = perm.long()
+    outs = [torch.empty_like(t) for t in ts]
+
+    def library():
+        for o, t in zip(outs, ts):
+            o.index_copy_(0, perm64, t)
+
+    library()
+    want = permute_rows(perm, *ts)
+    assert all(torch.equal(a, b) for a, b in zip(outs, want))
+    nbytes = 2 * sum(t.numel() * 4 for t in ts) + 4 * N
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    shape = f"N={N} widths={list(widths)} f32"
+    lib_ms = cuda_ms(library)
+    res = {}
+    for kern, mode in ((permute_rows, "scatter"), (take_rows, "gather")):
+        res[mode] = {
+            "ms": cuda_ms(lambda: kern(perm, *ts)),
+            "plain_ms": cuda_ms(
+                lambda: permute_rows_ref(perm, *ts, mode=mode)),
+            "library_ms": lib_ms if mode == "scatter" else cuda_ms(
+                lambda: [torch.index_select(t, 0, perm64, out=o)
+                         for o, t in zip(outs, ts)]),
+            "bound_ms": bound, "bound_by": "bytes", "shape": shape}
+    return res
+
+
+def time_act_compress(R, D):
+    """quantize_rows / dequantize_rows on f32 (R, D), int8 and fp8."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.act_compress import (dequantize_rows,
+                                                  dequantize_rows_ref,
+                                                  quantize_rows,
+                                                  quantize_rows_ref)
+    x = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(R, D)).astype(np.float32), device=DEVICE)
+    # bytes: 4 B read + 1 B written per element + 4 B of scale per row;
+    # operations: ~6 f32 ops per element to quantize (abs, max, divide,
+    # multiply, round, clamp), 3 to dequantize (compare, divide, multiply)
+    nbytes = 5 * R * D + 4 * R
+    res = {}
+    for codec in ("int8", "fp8"):
+        q, s = quantize_rows(x, codec)
+        for name, fn, ref, ops in (
+                ("quantize_rows", lambda: quantize_rows(x, codec),
+                 lambda: quantize_rows_ref(x, codec), 6),
+                ("dequantize_rows", lambda: dequantize_rows(q, s, codec=codec),
+                 lambda: dequantize_rows_ref(q, s, codec=codec), 3)):
+            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            t_ops = 1e3 * ops * R * D / F32_FLOPS
+            res[(name, codec)] = {
+                "ms": cuda_ms(fn), "plain_ms": cuda_ms(ref),
+                "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "shape": f"R={R} D={D} f32 {codec}"}
+    return res
+
+
+def time_tl_step(card: str):
+    """Host-clock ms of one fused TL step (node visits with their sends,
+    then centralized BP with the update, synced after each half) per paper
+    model at batch 64: reassembly torch vs kernel, wire off vs int8 with
+    error feedback.  Median over the 15 steps of 5 epochs, after the 2
+    epochs of ``tl_engine`` as warm-up
+    (``repro_torch.launch.profile_train.time_steps``)."""
+    from repro_torch.configs.paper_models import SMALL_MODELS
+    from repro_torch.launch.profile_train import time_steps
+    out = {}
+    for name, cfg in SMALL_MODELS.items():
+        shards = tl_shards(cfg)
+        for reas in ("torch", "kernel"):
+            for wire in ("off", "int8"):
+                eng, _ = tl_engine(cfg, shards, reassembly=reas, wire=wire,
+                                   wire_ef=wire != "off", pipeline=False)
+                visits, bp = time_steps(eng.orchestrator, 5)
+                out[f"{name}/{reas}/{wire}"] = statistics.median(
+                    v + b for v, b in zip(visits, bp))
+        print(f"  TL step ms ({name}, batch {TL_BATCH}, 3 nodes): "
+              + ", ".join(f"{k.split('/', 1)[1]} {v:.3f}"
+                          for k, v in out.items() if k.startswith(name))
+              + f" [{card}]")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         die(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
@@ -290,14 +754,22 @@ def main() -> None:
         die("torch is not installed")
     if not torch.cuda.is_available():
         die("no CUDA device: torch.cuda.is_available() is False")
+    # deterministic cuBLAS for the bit-equality checks of phase 4; read when
+    # CUDA initialises, so it is set before the first CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32, as the reference
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels.build import library_path
+    from repro_torch.kernels.act_compress import (dequantize_rows,
+                                                  quantize_rows)
+    from repro_torch.kernels.act_compress import kernel as ac_kernel
+    from repro_torch.kernels.build import build, library_path
     from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                      paged_decode_attention_ref)
     from repro_torch.kernels.paged_attention.kernel import SOURCE
+    from repro_torch.kernels.vb_scatter import kernel as vb_kernel
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
 
     kind = torch.cuda.get_device_name(0)
     card = smi()
@@ -305,22 +777,37 @@ def main() -> None:
     print(card)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    sources = [SOURCE, vb_kernel.SOURCE, ac_kernel.SOURCE]
     t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build, sources))          # one nvcc per source
     paged_decode_attention.library()
-    print(f"  built {SOURCE.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.1f}s (sm_90a)")
-    for line in library_path(SOURCE).with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"    ptxas: {line.strip()}")
+    vb_kernel.library()
+    ac_kernel.library()
+    print(f"  built {', '.join(str(s.relative_to(ROOT)) for s in sources)} "
+          f"in {time.perf_counter() - t0:.1f}s (sm_90a, in parallel)")
+    for src in sources:
+        for line in library_path(src).with_suffix(".log").read_text() \
+                .splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"    ptxas {src.stem}: {line.strip()}")
 
     print("== phase 2: kernels against their plain versions")
     max_err = check_paged_decode(paged_decode_attention,
                                  paged_decode_attention_ref)
+    vb_err = check_vb_scatter()
+    ac_err = check_act_compress()
 
-    print("== phase 3: deepseek-7b at full width through the paged engine")
+    print("== phase 3: main path 1, deepseek-7b at full width through the "
+          "paged engine")
     launches, serve = serve_full_width(card)
 
-    print("== phase 4: kernel timing")
+    print("== phase 4: main path 2, TL training of the paper models")
+    torch.use_deterministic_algorithms(True)
+    tl_launches, tl = tl_training(card)
+    torch.use_deterministic_algorithms(False)
+
+    print("== phase 5: timing")
     served = time_paged_decode(paged_decode_attention,
                                paged_decode_attention_ref, 80,
                                lengths=[21, 33, 49, 80])
@@ -328,19 +815,60 @@ def main() -> None:
     long = time_paged_decode(paged_decode_attention,
                              paged_decode_attention_ref, 2048)
     print(f"  paged_decode at context 2048: {json.dumps(long)} [{card}]")
+    vb_main = time_vb_scatter(64, (512, 2, 512))
+    vb_large = time_vb_scatter(16384, (1024, 10, 1024))
+    for mode in ("scatter", "gather"):
+        print(f"  permute_rows {mode} at the DATRET main-path shape: "
+              f"{json.dumps(vb_main[mode])} [{card}]")
+        print(f"  permute_rows {mode} at N 16384: "
+              f"{json.dumps(vb_large[mode])} [{card}]")
+    ac = time_act_compress(16384, 1024)
+    for (name, codec), r in ac.items():
+        print(f"  {name} {codec}: {json.dumps(r)} [{card}]")
+    tl_ms = time_tl_step(card)
 
-    kernels = [{
-        "name": "paged_decode", "route": "cuda",
-        "source": str(SOURCE.relative_to(ROOT)),
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:100",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": long["ms"], "plain_ms": long["plain_ms"],
-        "bound_ms": long["bound_ms"], "bound_by": long["bound_by"],
-        "library_ms": long["library_ms"], "shape": long["shape"],
-        "served_ms": served["ms"], "served_bound_ms": served["bound_ms"],
-    }]
-    assert all(math.isfinite(x) for x in (max_err, long["ms"], served["ms"]))
+    def entry(name, source, replaces, n, err, t, **extra):
+        return {"name": name, "route": "cuda",
+                "source": str(source.relative_to(ROOT)),
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "shape": t["shape"], **extra}
+
+    kernels = [
+        entry("paged_decode", SOURCE,
+              "src/repro/kernels/paged_attention/kernel.py:100", launches,
+              max_err, long, served_ms=served["ms"],
+              served_bound_ms=served["bound_ms"]),
+        entry("permute_rows", vb_kernel.SOURCE,
+              "src/repro/kernels/vb_scatter/kernel.py:57",
+              tl_launches[permute_rows], vb_err["scatter"],
+              vb_large["scatter"],
+              main_path_ms=vb_main["scatter"]["ms"],
+              main_path_bound_ms=vb_main["scatter"]["bound_ms"]),
+        entry("take_rows", vb_kernel.SOURCE,
+              "src/repro/kernels/vb_scatter/kernel.py:103",
+              tl_launches[take_rows], vb_err["gather"], vb_large["gather"],
+              main_path_ms=vb_main["gather"]["ms"],
+              note="gather mode: the autograd backward of the scatter; the "
+                   "simulator's fused step does not differentiate through "
+                   "the reassembly, so it launches 0 times on that path, as "
+                   "in the reference; held against its plain version in "
+                   "phase 2"),
+        entry("quantize_rows", ac_kernel.SOURCE,
+              "src/repro/kernels/act_compress/kernel.py:100",
+              tl_launches[quantize_rows], ac_err["quantize_rows"],
+              ac[("quantize_rows", "int8")],
+              fp8_ms=ac[("quantize_rows", "fp8")]["ms"]),
+        entry("dequantize_rows", ac_kernel.SOURCE,
+              "src/repro/kernels/act_compress/kernel.py:125",
+              tl_launches[dequantize_rows], ac_err["dequantize_rows"],
+              ac[("dequantize_rows", "int8")],
+              fp8_ms=ac[("dequantize_rows", "fp8")]["ms"]),
+    ]
+    assert all(math.isfinite(k["ms"]) for k in kernels)
     print(f"  serve: {json.dumps(serve)} [{card}]")
+    print(f"  tl: {json.dumps({**tl, 'step_ms': tl_ms})} [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -13,6 +13,13 @@ There is no switch that puts the plain version on a CUDA tensor.
 Packages:
   paged_attention — paged-KV decode attention for the serving engine
                     (replaces ``repro/kernels/paged_attention/kernel.py``)
+  vb_scatter      — virtual-batch reassembly: one launch routes the rows of
+                    every payload tensor by a permutation (scatter) or its
+                    transpose (gather, the autograd backward) (replaces
+                    ``repro/kernels/vb_scatter/kernel.py``)
+  act_compress    — per-row absmax int8/fp8 quantize and dequantize of the
+                    compressed traversal wire (replaces
+                    ``repro/kernels/act_compress/kernel.py``)
 """
 from __future__ import annotations
 

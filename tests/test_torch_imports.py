@@ -39,7 +39,20 @@ def test_import_pulls_in_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert "repro_torch.serve.engine" in MODULES
+    for m in ("repro_torch.serve.engine", "repro_torch.core.tree",
+              "repro_torch.core.virtual_batch", "repro_torch.core.plan",
+              "repro_torch.core.faults", "repro_torch.core.transport",
+              "repro_torch.core.node", "repro_torch.core.orchestrator",
+              "repro_torch.core.pipeline", "repro_torch.core.baselines",
+              "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
+              "repro_torch.data.datasets", "repro_torch.models.small",
+              "repro_torch.configs.paper_models",
+              "repro_torch.kernels.vb_scatter.kernel",
+              "repro_torch.kernels.vb_scatter.ops",
+              "repro_torch.kernels.act_compress.kernel",
+              "repro_torch.kernels.act_compress.ops",
+              "repro_torch.launch.engine", "repro_torch.launch.train"):
+        assert m in MODULES, m
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
@@ -111,3 +124,32 @@ def test_cli_runs_on_cpu_when_asked(capsys):
     out = capsys.readouterr().out
     assert "served 2 requests / 6 tokens" in out
     assert "on cpu" in out
+
+
+def _datret():
+    from repro_torch.configs.paper_models import DATRET
+    from repro_torch.models.small import SmallModel
+    return DATRET, SmallModel(DATRET)
+
+
+def test_tl_entry_points_default_to_cuda(no_card):
+    """The TL slice's entry points, called without a device, target CUDA
+    and raise on a machine without a card."""
+    from repro_torch.core import TLNode, TLOrchestrator
+    from repro_torch.launch.engine import Engine
+    from repro_torch.optim import sgd
+    cfg, model = _datret()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(model, cfg, sgd(0.1), mode="sim")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TLOrchestrator(model, [], sgd(0.1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TLNode(0, model, np.zeros((2, 32), np.float32), np.zeros(2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(0)
+
+
+def test_train_cli_defaults_to_cuda(no_card):
+    from repro_torch.launch.train import main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--mode", "sim", "--epochs", "1"])
