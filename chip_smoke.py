@@ -13,12 +13,25 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 2. Each kernel against its plain PyTorch version, on the card:
    ``paged_decode``; ``permute_rows`` in scatter and gather mode and its
    autograd backward (exact equality); ``quantize_rows`` /
-   ``dequantize_rows`` (bit-equal, constant rows exact, error bound).
+   ``dequantize_rows`` (bit-equal, constant rows exact, error bound);
+   ``ssd_bh`` (2e-4 against its plain chunked version and the sequential
+   oracle) and ``rglru_scan_b`` (1e-5), at the reference test shapes and
+   the main path's.
 3. Main path 1, serving: deepseek-7b at full width (30 layers, d_model
    4096, random weights from a seed) serves 4 ragged requests through
    ``ServeEngine(attention="paged")``; ``paged_decode``'s launch count over
    that run must be positive, and the greedy streams must equal the dense
    path's and the static ``generate``'s.
+3b. Main path 3, recurrent serving: mamba2-780m, then recurrentgemma-9b,
+   each at full width (random weights from a seed, freed before the next
+   model loads), serve 4 prompts of 1024 tokens, 16 greedy tokens each,
+   through the static ``generate``; ``ssd_bh`` / ``rglru_scan_b`` must
+   launch exactly once per SSM / RG-LRU layer (48 / 26) in that run's
+   prefill.  Oracle: a 320-token prompt fed one token at a time through
+   ``decode_step`` (no kernel) against the kernel prefill of the same
+   prompt: last logits within rel 2e-3, the first recurrent layer's final
+   state elementwise and every layer's normwise within 2e-4 (SSM) / 1e-5
+   (RG-LRU), and 8 greedy tokens identical.
 4. Main path 2, TL training: the three paper models at their configured
    widths (DATRET MLP, ConvNet, tiny Transformer), 3 nodes of 96/64/32
    samples, batch 64, 2 epochs, through ``Engine(mode="sim")`` with kernel
@@ -30,7 +43,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    eq. 12 within 1e-5, and the wire bytes equal to a CPU run's.
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
-   where one computes the same function, and the card's bound.
+   where one computes the same function, and the card's bound; prefill
+   ms, decode ms a step, tok/s and peak memory of each recurrent family.
 6. One JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -40,6 +54,7 @@ result and exits with code 2.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -303,7 +318,7 @@ def _abs_err(got, want) -> float:
     are empty)."""
     if got.numel() == 0:
         return 0.0
-    return float((got.double() - want.double()).abs().max())
+    return float((got.detach().double() - want.detach().double()).abs().max())
 
 
 def _rows(rng, shape, dtype):
@@ -474,6 +489,292 @@ def check_act_compress():
         print(f"  {codec}: constant rows (c = 0 and |c| >= 1e-12) round-trip "
               "exactly; their EF residual is exactly 0 over 3 sends")
     return errs
+
+
+# --------------------------------------------------------- ssd / rglru
+
+SSD_MAIN = (4, 1024, 48, 64, 128, 256)          # B, S, H, P, N, chunk
+SSD_TOL = 2e-4                                  # the reference kernel test's
+RGLRU_TOL = 1e-5
+
+
+def ssd_case(B, S, H, P, N, seed):
+    """The kernel's inputs on the card from a numpy seed, drawn as the
+    reference kernel test draws them: x, B, C ~ N(0, 1), dt = softplus of
+    N(0, 1), A_log ~ N(0, 0.25); returns (dA, x*dt, Bm, Cm)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=DEVICE)  # noqa: E731
+    x = t(rng.normal(size=(B, S, H, P)))
+    dt = t(np.logaddexp(rng.normal(size=(B, S, H)), 0))
+    A_log = t(rng.normal(size=(H,)) * 0.5)
+    Bm, Cm = t(rng.normal(size=(B, S, N))), t(rng.normal(size=(B, S, N)))
+    return ((dt * -torch.exp(A_log)).contiguous(),
+            (x * dt[..., None]).contiguous(), Bm, Cm)
+
+
+def check_ssd():
+    """Phase 2: ssd_bh against its plain chunked version at the reference
+    test shapes and the main path's, y and the final state within 2e-4
+    abs/rel; at the test shapes also against the sequential oracle
+    (reference layout).  At chunk 256 the chunked form itself is a worse f32
+    conditioned sum than the recurrence: |seg| reaches ~200, whose ulp
+    (1.5e-5) moves the decays exp(seg_t - seg_s) by as much, and outputs
+    that cancel to near 0 carry that error times the sum of their terms'
+    sizes; so there the distance of both chunked forms to the sequential
+    oracle is printed, not held to 2e-4."""
+    import torch
+
+    from repro_torch.kernels.ssd import ssd_bh, ssd_chunked_ref, ssd_ref_bh
+    worst = 0.0
+    for i, (B, S, H, P, N, chunk) in enumerate(
+            [(1, 32, 2, 16, 8, 8), (2, 64, 3, 32, 16, 16),
+             (1, 128, 1, 64, 32, 32), (2, 96, 5, 64, 128, 32), SSD_MAIN]):
+        dA, x, Bm, Cm = ssd_case(B, S, H, P, N, seed=10 + i)
+        y, hT = ssd_bh(dA, x, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+        yp, hp = ssd_chunked_ref(dA, x, Bm, Cm, chunk)
+        ys, hs = ssd_ref_bh(
+            dA.permute(0, 2, 1).reshape(B * H, S),
+            x.permute(0, 2, 1, 3).reshape(B * H, S, P),
+            Bm[:, None].expand(B, H, S, N).reshape(B * H, S, N),
+            Cm[:, None].expand(B, H, S, N).reshape(B * H, S, N))
+        ys = ys.reshape(B, H, S, P).permute(0, 2, 1, 3)
+        hs = hs.reshape(B, H, P, N)
+        wants = [(yp, hp)] if (B, S, H, P, N, chunk) == SSD_MAIN else \
+            [(yp, hp), (ys, hs)]
+        for want_y, want_h in wants:
+            torch.testing.assert_close(y, want_y, atol=SSD_TOL, rtol=SSD_TOL)
+            torch.testing.assert_close(hT, want_h, atol=SSD_TOL, rtol=SSD_TOL)
+        err = max(_abs_err(y, yp), _abs_err(hT, hp))
+        worst = max(worst, err)
+        seq = max(_abs_err(y, ys), _abs_err(hT, hs))
+        plain_seq = max(_abs_err(yp, ys), _abs_err(hp, hs))
+        print(f"  ssd_bh B={B} S={S} H={H} P={P} N={N} chunk={chunk}: "
+              f"max_abs_err {err:.3e} vs plain (tol {SSD_TOL}); vs "
+              f"sequential: kernel {seq:.3e}, plain {plain_seq:.3e} "
+              f"(|y| <= {float(y.abs().max()):.1f})")
+    return worst
+
+
+def check_rglru():
+    """Phase 2: rglru_scan_b (through the padding ``rglru_scan``) against
+    the plain version at the reference test shapes and the main path's
+    (S = 1000 padded to 1024, and 1024), h and h_final within 1e-5."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rglru import rglru_ref, rglru_scan
+    worst = 0.0
+    for i, (B, S, W, chunk) in enumerate(
+            [(1, 32, 64, 8), (2, 48, 128, 16), (1, 40, 64, 16),
+             (4, 1000, 4096, 64), (4, 1024, 4096, 64)]):
+        rng = np.random.default_rng(20 + i)
+        a = torch.as_tensor((1 / (1 + np.exp(-rng.normal(size=(B, S, W)))))
+                            .astype(np.float32), device=DEVICE)
+        b = torch.as_tensor(rng.normal(size=(B, S, W)).astype(np.float32),
+                            device=DEVICE)
+        h, hT = rglru_scan(a, b, chunk=chunk)
+        torch.cuda.synchronize()
+        hr, hTr = rglru_ref(a, b)
+        torch.testing.assert_close(h, hr, atol=RGLRU_TOL, rtol=0)
+        torch.testing.assert_close(hT, hTr, atol=RGLRU_TOL, rtol=0)
+        assert torch.equal(hT, h[:, -1]), "h_final is not the last h"
+        err = max(_abs_err(h, hr), _abs_err(hT, hTr))
+        worst = max(worst, err)
+        print(f"  rglru_scan_b B={B} S={S} W={W} chunk={chunk}: max_abs_err "
+              f"{err:.3e} (tol {RGLRU_TOL})")
+    return worst
+
+
+# ------------------------------------------------- full-width recurrent serve
+
+# arch -> (layer kind, state tolerance, cache key, scan kernel)
+RECURRENT = {"mamba2-780m": ("ssm", SSD_TOL, "state", "ssd_bh"),
+             "recurrentgemma-9b": ("rglru", RGLRU_TOL, "h", "rglru_scan_b")}
+SERVE_B, SERVE_P, SERVE_GEN, ORACLE_P = 4, 1024, 16, 320
+
+
+def _greedy(model, params, cache, logits, pos, n):
+    """n greedy tokens from a filled cache whose next position is pos."""
+    import torch
+
+    from repro_torch.serve.sampling import sample_tokens
+    out, tok = [], sample_tokens(logits)
+    for t in range(n):
+        out.append(tok)
+        if t < n - 1:
+            logits, cache = model.decode_step(params, cache, tok, pos + t)
+            tok = sample_tokens(logits)
+    return torch.stack(out, 1).tolist()
+
+
+def serve_recurrent(card: str, arch: str):
+    """Phase 3b: one recurrent family at full width (random weights from
+    seed 0) through the static ``generate``, 4 prompts of 1024 tokens, 16
+    greedy tokens each.  Returns the scan kernel's launches over that run,
+    the oracle's numbers and the timings."""
+    import gc
+    import statistics as st
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru import rglru_scan_b
+    from repro_torch.kernels.ssd import ssd_bh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    kind, tol, state_key, name = RECURRENT[arch]
+    kern, other = ((ssd_bh, rglru_scan_b) if kind == "ssm"
+                   else (rglru_scan_b, ssd_bh))
+    cfg = get_config(arch, reduced=False)
+    n_layers = sum(k == kind for k in cfg.pattern)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = n_elements(params)
+    print(f"  {cfg.name}: {cfg.n_layers} layers ({n_layers} {kind}), "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {n_params:,} "
+          f"params f32 ({n_params * 4 / 1e9:.1f} GB), init "
+          f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_B, SERVE_P)).astype(np.int32)
+
+    generate(model, cfg, params, prompts[:, :64], 2, device=DEVICE)  # warm-up
+    kern.launches = other.launches = 0
+    t0 = time.perf_counter()
+    tokens = generate(model, cfg, params, prompts, SERVE_GEN, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kern.launches
+    assert launches == n_layers, (arch, launches, n_layers)   # one prefill
+    assert other.launches == 0, (arch, other.launches)
+    assert tuple(tokens.shape) == (SERVE_B, SERVE_GEN)
+    assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  main path: static generate B={SERVE_B} prompt {SERVE_P} gen "
+          f"{SERVE_GEN} in {wall:.3f}s ({SERVE_B * SERVE_GEN / wall:.2f} tok/s)"
+          f"; {name} launches {launches} ({n_layers} "
+          f"layers x 1 prefill); peak {peak:.2f} GB [{card}]")
+
+    # oracle: a 320-token prompt token by token through decode_step (no
+    # kernel) against the kernel prefill of the same prompt
+    op = torch.as_tensor(prompts[:2, :ORACLE_P], device=DEVICE)
+    dt = params["embed"].dtype
+    cache_k = model.init_cache(2, ORACLE_P + 8, device=DEVICE, dtype=dt)
+    lg_k, cache_k = model.prefill(params, cache_k, op)
+    cache_d = model.init_cache(2, ORACLE_P + 8, device=DEVICE, dtype=dt)
+    for t in range(ORACLE_P):
+        lg_d, cache_d = model.decode_step(params, cache_d, op[:, t], t)
+    torch.cuda.synchronize()
+    rel = float((lg_k - lg_d).abs().max() / lg_d.abs().max())
+    assert rel < 2e-3, (arch, "logits", rel)
+    # the first recurrent layer's state elementwise (its inputs differ
+    # between the two paths only by GEMM rounding at other row counts);
+    # every layer's normwise, max|diff| / max|state| (deeper layers see
+    # inputs that drifted through the earlier layers' two paths)
+    layers = [i for i, k in enumerate(cfg.pattern) if k == kind]
+    first_k, first_d = cache_k[layers[0]][state_key], cache_d[layers[0]][state_key]
+    torch.testing.assert_close(first_k, first_d, atol=tol, rtol=tol)
+    state_err = _abs_err(first_k, first_d)
+    state_rel = 0.0
+    for i in layers:
+        got, want = cache_k[i][state_key], cache_d[i][state_key]
+        state_rel = max(state_rel, _abs_err(got, want)
+                        / float(want.abs().max()))
+    assert state_rel < tol, (arch, "states", state_rel)
+    cont_k = _greedy(model, params, cache_k, lg_k, ORACLE_P, 8)
+    cont_d = _greedy(model, params, cache_d, lg_d, ORACLE_P, 8)
+    assert cont_k == cont_d, (arch, cont_k, cont_d)
+    print(f"  oracle: {ORACLE_P}-token prompt token by token through "
+          f"decode_step vs the kernel prefill: last logits rel {rel:.2e} "
+          f"(< 2e-3); {state_key}: layer {layers[0]} max_abs_err "
+          f"{state_err:.2e}, all {len(layers)} layers max|diff|/max|state| "
+          f"{state_rel:.2e} (tol {tol}); 8 greedy tokens identical")
+    del cache_k, cache_d
+
+    # timing: prefill (B=4, P=1024) and decode steps, host clock, synced
+    cache = model.init_cache(SERVE_B, SERVE_P + SERVE_GEN, device=DEVICE,
+                             dtype=dt)
+    pt = torch.as_tensor(prompts, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, cache, pt)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    tok = logits.argmax(-1).to(torch.int32)
+    steps = []
+    for t in range(SERVE_GEN):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tok, SERVE_P + t)
+        torch.cuda.synchronize()
+        steps.append(1e3 * (time.perf_counter() - t0))
+    res = {"arch": arch, "launches": launches,
+           "tok_per_s": SERVE_B * SERVE_GEN / wall, "generate_s": wall,
+           "prefill_ms": prefill_ms, "decode_step_ms": st.median(steps),
+           "peak_gb": peak, "oracle_logits_rel": rel,
+           "oracle_state_err_first_layer": state_err,
+           "oracle_state_rel_all_layers": state_rel}
+    del params, cache, logits, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_ssd():
+    """ssd_bh at the main path's shape against its plain version."""
+    from repro_torch.kernels.ssd import ssd_bh, ssd_chunked_ref
+    B, S, H, P, N, CK = SSD_MAIN
+    dA, x, Bm, Cm = ssd_case(B, S, H, P, N, seed=30)
+    nc = S // CK
+    # bytes: dA, x, B, C read once; y and the final state written once
+    nbytes = 4 * (B * S * H + 2 * B * S * H * P + 2 * B * S * N + B * H * P * N)
+    # operations the causal chunked form needs: C.B^T over the L = CK(CK+1)/2
+    # (t, s <= t) pairs once per (batch, chunk) (B/C are shared by heads);
+    # per (batch, head, chunk) the L decays (exp and product) and the
+    # decayed L x P product, the state update (CK x P x N) and, after the
+    # first chunk, the inter-chunk term (CK x N x P)
+    L = CK * (CK + 1) // 2
+    flops = (B * nc * L * 2 * N
+             + B * H * nc * (L * (2 + 2 * P) + CK * 2 * P * N)
+             + B * H * (nc - 1) * CK * 2 * N * P)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOPS
+    return {"ms": cuda_ms(lambda: ssd_bh(dA, x, Bm, Cm, chunk=CK), runs=20),
+            "plain_ms": cuda_ms(lambda: ssd_chunked_ref(dA, x, Bm, Cm, CK),
+                                runs=10, warmup=2),
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={CK} f32",
+            "flops": flops, "bytes": nbytes}
+
+
+def time_rglru():
+    """rglru_scan_b at the main path's shape against its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rglru import rglru_ref, rglru_scan_b
+    B, S, W = 4, 1024, 4096
+    rng = np.random.default_rng(31)
+    a = torch.as_tensor((1 / (1 + np.exp(-rng.normal(size=(B, S, W)))))
+                        .astype(np.float32), device=DEVICE)
+    b = torch.as_tensor(rng.normal(size=(B, S, W)).astype(np.float32),
+                        device=DEVICE)
+    nbytes = 12 * B * S * W + 4 * B * W       # read a, b; write h, h_final
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * 2 * B * S * W / F32_FLOPS
+    return {"ms": cuda_ms(lambda: rglru_scan_b(a, b, chunk=64)),
+            "plain_ms": cuda_ms(lambda: rglru_ref(a, b), runs=10),
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "shape": f"B={B} S={S} W={W} f32", "bytes": nbytes}
 
 
 # ---------------------------------------------------------- TL training
@@ -768,6 +1069,8 @@ def main() -> None:
     from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                      paged_decode_attention_ref)
     from repro_torch.kernels.paged_attention.kernel import SOURCE
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.vb_scatter import kernel as vb_kernel
     from repro_torch.kernels.vb_scatter import permute_rows, take_rows
 
@@ -777,13 +1080,16 @@ def main() -> None:
     print(card)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    sources = [SOURCE, vb_kernel.SOURCE, ac_kernel.SOURCE]
+    sources = [SOURCE, vb_kernel.SOURCE, ac_kernel.SOURCE, ssd_kernel.SOURCE,
+               rglru_kernel.SOURCE]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build, sources))          # one nvcc per source
     paged_decode_attention.library()
     vb_kernel.library()
     ac_kernel.library()
+    ssd_kernel.library()
+    rglru_kernel.library()
     print(f"  built {', '.join(str(s.relative_to(ROOT)) for s in sources)} "
           f"in {time.perf_counter() - t0:.1f}s (sm_90a, in parallel)")
     for src in sources:
@@ -797,10 +1103,18 @@ def main() -> None:
                                  paged_decode_attention_ref)
     vb_err = check_vb_scatter()
     ac_err = check_act_compress()
+    ssd_err = check_ssd()
+    rglru_err = check_rglru()
 
     print("== phase 3: main path 1, deepseek-7b at full width through the "
           "paged engine")
     launches, serve = serve_full_width(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("== phase 3b: main path 3, mamba2-780m and recurrentgemma-9b at "
+          "full width through the static engine (one model at a time)")
+    recurrent = {arch: serve_recurrent(card, arch) for arch in RECURRENT}
 
     print("== phase 4: main path 2, TL training of the paper models")
     torch.use_deterministic_algorithms(True)
@@ -826,6 +1140,17 @@ def main() -> None:
     for (name, codec), r in ac.items():
         print(f"  {name} {codec}: {json.dumps(r)} [{card}]")
     tl_ms = time_tl_step(card)
+    ssd_t = time_ssd()
+    print(f"  ssd_bh at the main-path shape: {json.dumps(ssd_t)} [{card}]")
+    rglru_t = time_rglru()
+    print(f"  rglru_scan_b at the main-path shape: {json.dumps(rglru_t)} "
+          f"[{card}]")
+    for arch, r in recurrent.items():
+        print(f"  {arch} B={SERVE_B} prompt {SERVE_P}: prefill "
+              f"{r['prefill_ms']:.3f} ms, decode {r['decode_step_ms']:.3f} "
+              f"ms/step (median of {SERVE_GEN}), {r['tok_per_s']:.2f} tok/s "
+              f"over the static generate of {SERVE_GEN} tokens, peak "
+              f"{r['peak_gb']:.2f} GB [{card}]")
 
     def entry(name, source, replaces, n, err, t, **extra):
         return {"name": name, "route": "cuda",
@@ -865,9 +1190,17 @@ def main() -> None:
               tl_launches[dequantize_rows], ac_err["dequantize_rows"],
               ac[("dequantize_rows", "int8")],
               fp8_ms=ac[("dequantize_rows", "fp8")]["ms"]),
+        entry("ssd_bh", ssd_kernel.SOURCE,
+              "src/repro/kernels/ssd/kernel.py:73",
+              recurrent["mamba2-780m"]["launches"], ssd_err, ssd_t),
+        entry("rglru_scan_b", rglru_kernel.SOURCE,
+              "src/repro/kernels/rglru/kernel.py:47",
+              recurrent["recurrentgemma-9b"]["launches"], rglru_err,
+              rglru_t),
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(f"  serve: {json.dumps(serve)} [{card}]")
+    print(f"  recurrent: {json.dumps(recurrent)} [{card}]")
     print(f"  tl: {json.dumps({**tl, 'step_ms': tl_ms})} [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 """Architecture registry of the port.
 
 ``get_config(arch_id)`` returns the full-width configuration;
-``get_config(arch_id, reduced=True)`` the 2-layer CPU-test variant.  Only the
+``get_config(arch_id, reduced=True)`` the small CPU-test variant.  Only the
 architectures the port can run are registered.
 """
-from repro_torch.configs import deepseek_7b
+from repro_torch.configs import deepseek_7b, mamba2_780m, recurrentgemma_9b
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (deepseek_7b,)}
+ARCHS = {m.CONFIG.name: m.CONFIG
+         for m in (deepseek_7b, mamba2_780m, recurrentgemma_9b)}
 
 
 def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:

@@ -3,7 +3,7 @@
 Field for field the same as ``repro.configs.base`` of the JAX package, so a
 config built here describes the same model there; the port keeps its own copy
 because it imports nothing of the JAX package.  ``reduced()`` derives the
-2-layer CPU-test variant exactly as the reference does.
+small CPU-test variant exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -45,6 +45,12 @@ class SSMConfig:
     head_dim: int = 64
     conv_kernel: int = 4
     chunk_size: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,96 @@
+"""Mamba-2 SSD chunked scan: the wrapper of the CUDA kernel.
+
+Replaces ``repro/kernels/ssd/kernel.py::ssd_bh`` (the Pallas TPU kernel).
+The kernel is ``csrc/ssd_scan.cu``, built with ``nvcc`` for ``sm_90a`` on
+the first launch and called through ``ctypes``; its header says what it
+computes, what bounds it on the card and how the design deals with that.
+
+The reference kernel takes (batch·heads)-flattened inputs with B/C
+broadcast over heads; this one reads the model layout directly (one CTA per
+(batch, head)), so nothing is transposed or broadcast before the launch.
+On CPU tensors the wrapper runs the plain chunked version
+(:func:`~repro_torch.kernels.ssd.ref.ssd_chunked_ref`); on CUDA tensors it
+launches the kernel or raises.  ``launches`` counts the kernel launches,
+and only those.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import use_kernel
+from repro_torch.kernels.build import load_library
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
+P_MAX, N_MAX = 64, 128          # the kernel's register and shared-memory tiles
+_LIB = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (first call only) and load the kernel's shared library."""
+    global _LIB
+    if _LIB is None:
+        lib = load_library(SOURCE)
+        lib.ssd_bh.restype = ctypes.c_int
+        lib.ssd_bh.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        _LIB = lib
+    return _LIB
+
+
+def _check(dA, x, Bm, Cm, chunk):
+    if x.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)} must be (B, S, H, P)")
+    B, S, H, P = x.shape
+    if tuple(dA.shape) != (B, S, H):
+        raise ValueError(f"dA {tuple(dA.shape)} must be ({B}, {S}, {H})")
+    if Bm.dim() != 3 or tuple(Bm.shape[:2]) != (B, S) or \
+            tuple(Cm.shape) != tuple(Bm.shape):
+        raise ValueError(f"Bm {tuple(Bm.shape)} and Cm {tuple(Cm.shape)} "
+                         f"must both be ({B}, {S}, N)")
+    for name, t in (("dA", dA), ("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor, "
+                             f"got {t.dtype}")
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"S={S} must divide by chunk={chunk}")
+
+
+class SsdBh:
+    """``(dA, x, Bm, Cm, *, chunk=256) -> (y, hT)``: dA (B,S,H) per-step
+    log-decay, x (B,S,H,P) dt-scaled inputs, Bm/Cm (B,S,N) shared across
+    heads, all float32; y (B,S,H,P) float32 and the final state hT
+    (B,H,P,N) float32."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, dA, x, Bm, Cm, *, chunk: int = 256):
+        _check(dA, x, Bm, Cm, chunk)
+        if not use_kernel(dA, x, Bm, Cm):
+            return ssd_chunked_ref(dA, x, Bm, Cm, chunk)
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        if P > P_MAX or N > N_MAX:
+            raise ValueError(f"head_dim P={P} / d_state N={N}: the kernel "
+                             f"takes P <= {P_MAX} and N <= {N_MAX}")
+        y = torch.empty_like(x)
+        hT = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+        if B * S * H == 0:
+            return y, hT.zero_()
+        rc = library().ssd_bh(dA.data_ptr(), x.data_ptr(), Bm.data_ptr(),
+                              Cm.data_ptr(), y.data_ptr(), hT.data_ptr(),
+                              B, S, H, P, N, chunk,
+                              torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ssd_bh launch failed: CUDA error {rc}")
+        self.launches += 1
+        return y, hT
+
+
+ssd_bh = SsdBh()
+
+__all__ = ["ssd_bh", "SOURCE", "library"]

@@ -11,8 +11,18 @@ unless ``--device cpu``:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --engine continuous --requests 4 --gen 8
 
-The reference's ``--reduced`` is ``store_true`` with ``default=True`` and so
-can never go full width; here ``--no-reduced`` does.
+    # full-width mamba2-780m / recurrentgemma-9b on one H100: the static
+    # engine, prefill scans through the ssd_bh / rglru_scan_b CUDA kernels
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+        --no-reduced --requests 4 --prompt-len 1024 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --no-reduced --requests 4 \\
+        --prompt-len 1024 --gen 16
+
+The continuous engine serves all-attention stacks only and refuses the
+recurrent archs with the reference's ``ValueError``.  The reference's
+``--reduced`` is ``store_true`` with ``default=True`` and so can never go
+full width; here ``--no-reduced`` does.
 """
 from __future__ import annotations
 
@@ -83,12 +93,19 @@ def main(argv=None):
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
     if args.engine == "static":
+        from repro_torch.kernels.rglru import rglru_scan_b
+        from repro_torch.kernels.ssd import ssd_bh
+        scans = {"ssd_bh": ssd_bh, "rglru_scan_b": rglru_scan_b}
+        before = {name: k.launches for name, k in scans.items()}
         t0 = time.perf_counter()
         tokens = generate(model, cfg, params, prompts, args.gen,
                           device=dev).cpu().numpy()
         dt = time.perf_counter() - t0
         print(f"generated {tokens.shape} in {dt:.3f}s "
-              f"({args.batch * args.gen / dt:.1f} tok/s on {where})")
+              f"({args.batch * args.gen / dt:.1f} tok/s on {where}, "
+              f"{cfg.name} {cfg.n_layers} layers d_model {cfg.d_model})")
+        print("  " + " ".join(f"{name} launches={k.launches - before[name]}"
+                              for name, k in scans.items()))
         print(tokens[:2])
         return tokens
 

@@ -1,17 +1,22 @@
-"""Residual block: attention mixer + dense SwiGLU FFN.
+"""Residual block: mixer (attn | rglru | ssm) + FFN (dense | none).
 
-Port of ``repro/models/blocks.py`` for the kinds this slice serves
-(``attn`` mixer, ``dense`` or no FFN).  rglru / ssm mixers, MoE FFNs and
-cross-attention raise until their slice ports them.  No aux loss is returned:
-only MoE produces one.
+Port of ``repro/models/blocks.py`` for decoder stacks.  MoE FFNs and
+cross-attention (encoder-decoder) raise until their slices port them.  No
+aux loss is returned: only MoE produces one.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, rglru, ssm
 from repro_torch.models.layers import rmsnorm, rmsnorm_init, swiglu, swiglu_init
+
+_MIXERS = {
+    "attn": (attention.attn_init, attention.gqa_apply),
+    "rglru": (rglru.rglru_init, rglru.rglru_apply),
+    "ssm": (ssm.mamba2_init, ssm.mamba2_apply),
+}
 
 
 def ffn_kind(cfg: ModelConfig, layer_idx: int) -> str:
@@ -25,10 +30,12 @@ def ffn_kind(cfg: ModelConfig, layer_idx: int) -> str:
 
 
 def _check_kinds(kind: str, ffn: str):
-    if kind != "attn" or ffn not in ("dense", "none"):
+    if kind not in _MIXERS:
+        raise ValueError(kind)
+    if ffn not in ("dense", "none"):
         raise NotImplementedError(
-            f"block kind={kind!r} ffn={ffn!r} is not ported yet (ROADMAP.md, "
-            "queue 1); this slice runs attn + dense blocks")
+            f"ffn={ffn!r} is not ported yet (ROADMAP.md queue 1, item 12: "
+            "moe.py and the MoE FFN)")
 
 
 def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *, device,
@@ -36,7 +43,7 @@ def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *, device,
     _check_kinds(kind, ffn)
     kw = dict(device=device, dtype=dtype)
     p = {"norm1": rmsnorm_init(cfg.d_model, **kw),
-         "mixer": attention.attn_init(gen, cfg, **kw)}
+         "mixer": _MIXERS[kind][0](gen, cfg, **kw)}
     if ffn == "dense":
         p["norm2"] = rmsnorm_init(cfg.d_model, **kw)
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, **kw)
@@ -47,7 +54,7 @@ def block_apply(params, cfg: ModelConfig, kind: str, ffn: str, h, *,
                 cache=None, cache_len=None):
     """Returns (h, cache)."""
     _check_kinds(kind, ffn)
-    mixed, cache = attention.gqa_apply(
+    mixed, cache = _MIXERS[kind][1](
         params["mixer"], cfg, rmsnorm(params["norm1"], h, cfg.norm_eps),
         cache=cache, cache_len=cache_len)
     h = h + mixed
@@ -58,6 +65,11 @@ def block_apply(params, cfg: ModelConfig, kind: str, ffn: str, h, *,
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, *,
                      device, dtype=torch.float32):
-    _check_kinds(kind, "dense")
-    return attention.gqa_cache_init(cfg, batch, max_len, device=device,
-                                    dtype=dtype)
+    if kind == "attn":
+        return attention.gqa_cache_init(cfg, batch, max_len, device=device,
+                                        dtype=dtype)
+    if kind == "rglru":
+        return rglru.rglru_cache_init(cfg, batch, device=device, dtype=dtype)
+    if kind == "ssm":
+        return ssm.mamba2_cache_init(cfg, batch, device=device, dtype=dtype)
+    raise ValueError(kind)

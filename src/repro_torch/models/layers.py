@@ -1,4 +1,5 @@
-"""Core layer primitives: RMSNorm, SwiGLU, RoPE, initialisers.
+"""Core layer primitives: RMSNorm, SwiGLU, RoPE, softplus, causal conv,
+initialisers.
 
 Port of ``repro/models/layers.py``.  Parameters are plain dicts of tensors
 in the JAX layout (a dense weight is ``(d_in, d_out)``, applied as
@@ -67,3 +68,38 @@ def apply_rope(x, positions, theta: float = 10000.0):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` with no cut-off (torch's
+    ``F.softplus`` returns ``x`` above 20; in f32 the two agree there to
+    below an ulp, this keeps the reference's formula)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# ------------------------------------------------------- causal depthwise conv
+
+def causal_conv1d_init(gen, channels: int, kernel: int, *, device,
+                       dtype=torch.float32):
+    w = _normal(gen, (kernel, channels), device).div_(math.sqrt(kernel))
+    return {"w": w.to(dtype),
+            "b": torch.zeros((channels,), dtype=dtype, device=device)}
+
+
+def causal_conv1d(params, x):
+    """Depthwise causal conv.  x: (B, S, C) -> (B, S, C); ``w`` is (k, C)."""
+    w = params["w"]
+    k, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + S] * w[i]
+    return out + params["b"]
+
+
+def causal_conv1d_step(params, state, x_t):
+    """Single decode step.  state: (B, k-1, C); x_t: (B, C).  Returns the
+    new state and the output (B, C)."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)           # (B, k, C)
+    out = torch.einsum("bkc,kc->bc", window, params["w"]) + params["b"]
+    return window[:, 1:, :], out

@@ -1,7 +1,8 @@
 """Model facade: build once from a ModelConfig, use everywhere.
 
-Port of ``repro/models/model.py`` for decoder LMs (the training loss comes
-with the training slice):
+Port of ``repro/models/model.py`` for decoder LMs, whose blocks mix with
+attention, RG-LRU or Mamba-2 SSD (the training loss comes with the training
+slice):
 
   m = build_model(cfg)
   params = m.init(seed=0, device="cuda")
@@ -32,7 +33,8 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.is_encdec:
         raise NotImplementedError("encoder-decoder models are not ported yet "
-                                  "(ROADMAP.md, queue 1)")
+                                  "(ROADMAP.md queue 1, item 17: "
+                                  "models/encdec.py)")
     return Model(
         cfg=cfg,
         init=lambda **kw: transformer.init_params(cfg, **kw),

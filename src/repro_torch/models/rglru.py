@@ -1,0 +1,108 @@
+"""Griffin recurrent block: RG-LRU (real-gated linear recurrent unit).
+[arXiv:2402.19427]
+
+    r_t = sigmoid(W_a x_t + b_a)             (recurrence gate)
+    i_t = sigmoid(W_x x_t + b_x)             (input gate)
+    log a_t = -c * softplus(Λ) * r_t          (c = 8)
+    h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
+
+Port of ``repro/models/rglru.py``.  The reference evaluates the recurrence
+with ``jax.lax.associative_scan`` and keeps ``repro.kernels.rglru`` (the
+Pallas TPU kernel for the same scan) beside it; here :func:`rglru_scan`
+goes through ``repro_torch.kernels.rglru.ops.rglru_scan``, so the tensors'
+device picks the path: the hand-written CUDA kernel on the card, its plain
+version on the CPU.  The full Griffin block is: linear in -> temporal conv
+-> RG-LRU, gated by a parallel GeLU branch (tanh approximation, as
+``jax.nn.gelu``'s default), linear out.  Caches are dicts ``{conv, h}``
+updated in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rglru.ops import rglru_scan as _rglru_scan
+from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
+                                       causal_conv1d_step, dense_init,
+                                       softplus)
+
+C_FACTOR = 8.0
+
+
+def rglru_scan(a, bx):
+    """Diagonal linear recurrence h_t = a_t h_{t-1} + bx_t.
+
+    a, bx: (B, S, W) with a in (0, 1).  Returns h: (B, S, W).
+    """
+    return _rglru_scan(a, bx)[0]
+
+
+def rglru_init(gen, cfg: ModelConfig, *, device, dtype=torch.float32):
+    d = cfg.d_model
+    w = cfg.rglru_width or d
+    kw = dict(device=device, dtype=dtype)
+    # Λ init so that a^c spans ~(0.9, 0.999) as in the paper
+    lam = torch.log(torch.expm1(
+        -torch.log(torch.linspace(0.9, 0.999, w, device=device)) / C_FACTOR))
+    return {
+        "w_x": dense_init(gen, d, w, **kw),          # recurrent branch in
+        "w_gate": dense_init(gen, d, w, **kw),       # gelu gate branch
+        "conv": causal_conv1d_init(gen, w, 4, **kw),
+        "w_a": dense_init(gen, w, w, scale=0.1, **kw),
+        "b_a": torch.zeros((w,), **kw),
+        "w_i": dense_init(gen, w, w, scale=0.1, **kw),
+        "b_i": torch.zeros((w,), **kw),
+        "lam": lam.float(),
+        "w_out": dense_init(gen, w, d, **kw),
+    }
+
+
+def _gates(params, xw):
+    r = torch.sigmoid(xw @ params["w_a"] + params["b_a"])
+    i = torch.sigmoid(xw @ params["w_i"] + params["b_i"])
+    log_a = -C_FACTOR * softplus(params["lam"]) * r.float()
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, beta, i.float()
+
+
+def rglru_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
+    """x: (B,S,d).  cache: {"conv": (B,3,W), "h": (B,W)}, filled in place by
+    a prefill (S > 1) or advanced by one decode step (S == 1).  Returns
+    (out, cache)."""
+    xw = x @ params["w_x"]
+    gate = F.gelu(x @ params["w_gate"], approximate="tanh")
+
+    if cache is None or x.shape[1] > 1:
+        # full scan (training, or prefill-from-empty when a cache is given)
+        xc = causal_conv1d(params["conv"], xw)
+        a, beta, i = _gates(params, xc)
+        bx = beta * i * xc.float()
+        h = rglru_scan(a, bx)
+        if cache is not None:
+            # the last k-1 conv inputs (behind the empty cache's zeros when
+            # the prompt is shorter) and the final state h[:, -1]
+            k = params["conv"]["w"].shape[0] - 1
+            cache["conv"] = torch.cat([cache["conv"], xw.to(
+                cache["conv"].dtype)], dim=1)[:, -k:]
+            cache["h"] = h[:, -1]
+    else:
+        conv_state, xc1 = causal_conv1d_step(params["conv"], cache["conv"],
+                                             xw[:, 0])
+        a, beta, i = _gates(params, xc1)
+        h1 = a * cache["h"] + beta * i * xc1.float()
+        h = h1[:, None, :]
+        cache["conv"], cache["h"] = conv_state, h1
+
+    out = h.to(x.dtype) * gate
+    return out @ params["w_out"], cache
+
+
+def rglru_cache_init(cfg: ModelConfig, batch: int, *, device,
+                     dtype=torch.float32):
+    w = cfg.rglru_width or cfg.d_model
+    return {
+        "conv": torch.zeros((batch, 3, w), dtype=dtype, device=device),
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+    }

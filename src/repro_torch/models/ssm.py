@@ -1,0 +1,151 @@
+"""Mamba-2 block with SSD (state-space duality) mixing. [arXiv:2405.21060]
+
+Port of ``repro/models/ssm.py``.  The reference computes the chunked SSD
+scan in jnp and keeps ``repro.kernels.ssd`` (the Pallas TPU kernel for the
+same computation) beside it; here :func:`ssd_chunked` goes through
+``repro_torch.kernels.ssd.ops.ssd``, so the tensors' device picks the path:
+the hand-written CUDA kernel on the card, its plain chunked version on the
+CPU.  Caches are dicts ``{conv, state}`` updated in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
+                                       causal_conv1d_step, dense_init,
+                                       rmsnorm, rmsnorm_init, softplus)
+
+
+def ssd_chunked(x, dt, A_log, Bmat, Cmat, chunk: int):
+    """Chunked SSD scan.
+
+    x:  (B, S, H, P)   inputs (already conv'd/activated)
+    dt: (B, S, H)      softplus'd timestep
+    A_log: (H,)        state decay log (A = -exp(A_log))
+    Bmat, Cmat: (B, S, N)  shared across heads (ngroups=1)
+    Returns y (B, S, H, P) and final state (B, H, P, N).
+    """
+    return ssd(x, dt, A_log, Bmat, Cmat, chunk=chunk)
+
+
+def ssd_ref(x, dt, A_log, Bmat, Cmat):
+    """O(S^2) reference (naive materialized) — used by tests as oracle."""
+    S = x.shape[1]
+    A = -torch.exp(A_log.float())
+    dA = dt.float() * A
+    seg = torch.cumsum(dA, dim=1)                               # (B,S,H)
+    rel = seg[:, :, None, :] - seg[:, None, :, :]               # (B,t,s,H)
+    tri = torch.tril(torch.ones((S, S), dtype=torch.bool, device=x.device))
+    decay = torch.exp(torch.where(tri[None, :, :, None], rel, -1e9))
+    scores = torch.einsum("btn,bsn->bts", Cmat.float(), Bmat.float())
+    xdt = x.float() * dt[..., None]
+    y = torch.einsum("btsh,bshp->bthp", decay * scores[..., None], xdt)
+    return y.to(x.dtype)
+
+
+# -------------------------------------------------------------- Mamba2 block
+
+def mamba2_init(gen, cfg: ModelConfig, *, device, dtype=torch.float32):
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    H = s.n_heads(d)
+    kw = dict(device=device, dtype=dtype)
+    conv_ch = di + 2 * s.d_state                # conv over [x, B, C]
+    return {
+        # fused input projection -> [z, x, B, C, dt]
+        "w_in": dense_init(gen, d, 2 * di + 2 * s.d_state + H, **kw),
+        "conv": causal_conv1d_init(gen, conv_ch, s.conv_kernel, **kw),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),
+        "D": torch.ones((H,), dtype=torch.float32, device=device),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=device),
+        "out_norm": rmsnorm_init(di, **kw),
+        "w_out": dense_init(gen, di, d, **kw),
+    }
+
+
+def _split_in(proj, di, N, H):
+    z = proj[..., :di]
+    x = proj[..., di:2 * di]
+    Bm = proj[..., 2 * di:2 * di + N]
+    Cm = proj[..., 2 * di + N:2 * di + 2 * N]
+    dt = proj[..., 2 * di + 2 * N:]
+    return z, x, Bm, Cm, dt
+
+
+def mamba2_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
+    """x: (B,S,d).  cache: {"conv": (B,k-1,conv_ch), "state": (B,H,P,N)},
+    filled in place by a prefill (S > 1) or advanced by one decode step
+    (S == 1).  Returns (out, cache)."""
+    s = cfg.ssm
+    B, S, d = x.shape
+    di, N, H, P = s.d_inner(d), s.d_state, s.n_heads(d), s.head_dim
+    proj = x @ params["w_in"]
+    z, xs, Bm, Cm, dt = _split_in(proj, di, N, H)
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)
+
+    if cache is None or S > 1:
+        # full scan (training, or prefill-from-empty when a cache is given)
+        conv_out = F.silu(causal_conv1d(params["conv"], conv_in))
+        xs, Bm, Cm = (conv_out[..., :di], conv_out[..., di:di + N],
+                      conv_out[..., di + N:])
+        dt = softplus(dt.float() + params["dt_bias"])
+        xh = xs.reshape(B, S, H, P)
+        pad = (-S) % s.chunk_size
+        if pad:
+            # pad with dt=0, x=0: decay exp(0·A)=1 and zero input, so the
+            # final state hT passes through padding unchanged (exact)
+            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+            dt = F.pad(dt, (0, 0, 0, pad))
+            Bm = F.pad(Bm, (0, 0, 0, pad))
+            Cm = F.pad(Cm, (0, 0, 0, pad))
+        y, hT = ssd_chunked(xh, dt, params["A_log"], Bm, Cm, s.chunk_size)
+        y = y[:, :S]
+        y = y + params["D"][None, None, :, None] * xh[:, :S]
+        if cache is not None:
+            # the last k-1 conv inputs, behind the empty cache's zeros when
+            # the prompt is shorter than that
+            k = s.conv_kernel - 1
+            cache["conv"] = torch.cat([cache["conv"], conv_in.to(
+                cache["conv"].dtype)], dim=1)[:, -k:]
+            cache["state"] = hT
+        y = y.reshape(B, S, di).to(x.dtype)     # keep dtype scan-stable
+    else:
+        # decode: one step through conv state + SSM state (plain torch: one
+        # recurrence step, which no Pallas kernel of the reference computes)
+        conv_state, conv_out = causal_conv1d_step(params["conv"],
+                                                  cache["conv"], conv_in[:, 0])
+        conv_out = F.silu(conv_out)
+        xs1, Bm1, Cm1 = (conv_out[..., :di], conv_out[..., di:di + N],
+                         conv_out[..., di + N:])
+        dt1 = softplus(dt[:, 0].float() + params["dt_bias"])
+        xh = xs1.reshape(B, H, P)
+        A = -torch.exp(params["A_log"])
+        decay = torch.exp(dt1 * A)                               # (B,H)
+        upd = torch.einsum("bhp,bn->bhpn", xh * dt1[..., None],
+                           Bm1.to(xh.dtype))
+        ssm_state = cache["state"] * decay[..., None, None] + upd
+        y = torch.einsum("bhpn,bn->bhp", ssm_state,
+                         Cm1.to(ssm_state.dtype))
+        y = y + params["D"][None, :, None] * xh
+        y = y.reshape(B, 1, di).to(x.dtype)
+        cache["conv"], cache["state"] = conv_state, ssm_state
+
+    y = rmsnorm(params["out_norm"], y * F.silu(z), cfg.norm_eps)
+    return y @ params["w_out"], cache
+
+
+def mamba2_cache_init(cfg: ModelConfig, batch: int, *, device,
+                      dtype=torch.float32):
+    s = cfg.ssm
+    d = cfg.d_model
+    di, N, H, P = s.d_inner(d), s.d_state, s.n_heads(d), s.head_dim
+    return {
+        "conv": torch.zeros((batch, s.conv_kernel - 1, di + 2 * N),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((batch, H, P, N), dtype=torch.float32,
+                             device=device),
+    }

@@ -34,8 +34,10 @@ from repro_torch.models.layers import rmsnorm, swiglu
 
 def check_servable(cfg: ModelConfig) -> None:
     """The paged engine serves decoder-only, all-attention stacks with full
-    attention and rope/no positions.  MLA and MoE are servable by the
-    reference and wait for their slice of the port."""
+    attention and rope/no positions; ssm/rglru mixers and sliding-window
+    caches stay on the static ``generate`` path, with the reference's
+    reasons.  MLA and MoE are servable by the reference and wait for their
+    slice of the port."""
     reasons = []
     if cfg.is_encdec:
         reasons.append("encoder-decoder")
@@ -43,9 +45,11 @@ def check_servable(cfg: ModelConfig) -> None:
         reasons.append(f"frontend={cfg.frontend}")
     if any(k != "attn" for k in cfg.pattern):
         reasons.append("non-attention mixers in block pattern")
-    if cfg.attention != "full":
-        reasons.append(f"attention={cfg.attention!r} (the port serves full; "
-                       "MLA serving is ROADMAP.md queue 1)")
+    if cfg.attention == "mla":
+        reasons.append("attention='mla' (MLA serving is ROADMAP.md queue 1, "
+                       "item 15c)")
+    elif cfg.attention != "full":
+        reasons.append(f"attention={cfg.attention!r} (need full or mla)")
     if cfg.moe is not None:
         reasons.append("MoE FFN (ROADMAP.md queue 1)")
     if cfg.rope not in ("rope", "none"):

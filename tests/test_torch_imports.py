@@ -51,8 +51,28 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.kernels.vb_scatter.ops",
               "repro_torch.kernels.act_compress.kernel",
               "repro_torch.kernels.act_compress.ops",
-              "repro_torch.launch.engine", "repro_torch.launch.train"):
+              "repro_torch.launch.engine", "repro_torch.launch.train",
+              "repro_torch.configs.mamba2_780m",
+              "repro_torch.configs.recurrentgemma_9b",
+              "repro_torch.kernels.ssd.kernel", "repro_torch.kernels.ssd.ops",
+              "repro_torch.kernels.ssd.ref",
+              "repro_torch.kernels.rglru.kernel",
+              "repro_torch.kernels.rglru.ops",
+              "repro_torch.kernels.rglru.ref", "repro_torch.models.ssm",
+              "repro_torch.models.rglru", "repro_torch.launch.profile_serve"):
         assert m in MODULES, m
+
+
+@pytest.mark.parametrize("source", sorted(PORT.rglob("csrc/*.cu")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_cuda_source_has_an_imported_wrapper(source):
+    """Each kernel source is built by its package's ``kernel.py`` (which the
+    no-jax import above loads): the wrapper names the file as its SOURCE."""
+    wrapper = source.parents[1] / "kernel.py"
+    assert wrapper.exists(), f"{source} has no kernel.py beside csrc/"
+    assert f'"csrc" / "{source.name}"' in wrapper.read_text()
+    module = ".".join(wrapper.relative_to(ROOT / "src").with_suffix("").parts)
+    assert module in MODULES
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
