@@ -16,22 +16,38 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``dequantize_rows`` (bit-equal, constant rows exact, error bound);
    ``ssd_bh`` (2e-4 against its plain chunked version and the sequential
    oracle) and ``rglru_scan_b`` (1e-5), at the reference test shapes and
-   the main path's.
+   the main path's; ``flash_attention_bh`` (f32 1e-5, bf16 2e-2) at the
+   prefill shapes of deepseek-7b, Griffin (window 2048) and MLA (H 128 on
+   one latent of D 576, V = its first 512 lanes, scale 1/sqrt(192)), a
+   ragged S and bf16.
 3. Main path 1, serving: deepseek-7b at full width (30 layers, d_model
    4096, random weights from a seed) serves 4 ragged requests through
-   ``ServeEngine(attention="paged")``; ``paged_decode``'s launch count over
-   that run must be positive, and the greedy streams must equal the dense
+   ``ServeEngine(attention="paged")``; over that run ``paged_decode`` must
+   launch once per layer and decode step and ``flash_attention_bh`` once
+   per layer and prefill, and the greedy streams must equal the dense
    path's and the static ``generate``'s.
 3b. Main path 3, recurrent serving: mamba2-780m, then recurrentgemma-9b,
    each at full width (random weights from a seed, freed before the next
    model loads), serve 4 prompts of 1024 tokens, 16 greedy tokens each,
    through the static ``generate``; ``ssd_bh`` / ``rglru_scan_b`` must
    launch exactly once per SSM / RG-LRU layer (48 / 26) in that run's
-   prefill.  Oracle: a 320-token prompt fed one token at a time through
+   prefill, and ``flash_attention_bh`` once per attention layer (0 / 12).
+   Oracle: a 320-token prompt fed one token at a time through
    ``decode_step`` (no kernel) against the kernel prefill of the same
    prompt: last logits within rel 2e-3, the first recurrent layer's final
    state elementwise and every layer's normwise within 2e-4 (SSM) / 1e-5
    (RG-LRU), and 8 greedy tokens identical.
+3c. Main path 4, MLA + MoE serving: deepseek-v2-236b at full width, depth
+   cut to 3 layers (a dense-FFN layer and two MoE layers; 9.33 B
+   parameters, 37.3 GB f32), serves phase 3's requests through the engine:
+   ``flash_attention_bh`` once per layer and prefill, ``paged_decode`` (its
+   ``v_width`` fused-latent mode) once per layer and decode step, streams
+   paged == dense == static ``generate``.  Then the static ``generate`` at
+   B=4, prompt 1024, 16 tokens (prefill ms, decode ms a step, tok/s, peak
+   memory) and layer 0's own MLA tensors through the kernel against the
+   plain version (1e-5).  No token-by-token oracle: capacity routing drops
+   overflow choices in a prefill but never in a decode step, so a prompt fed
+   token by token is a different computation (as in the reference).
 4. Main path 2, TL training: the three paper models at their configured
    widths (DATRET MLP, ConvNet, tiny Transformer), 3 nodes of 96/64/32
    samples, batch 64, 2 epochs, through ``Engine(mode="sim")`` with kernel
@@ -44,7 +60,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
    where one computes the same function, and the card's bound; prefill
-   ms, decode ms a step, tok/s and peak memory of each recurrent family.
+   ms, decode ms a step, tok/s and peak memory of each recurrent family
+   and of deepseek-v2.
 6. One JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +71,7 @@ result and exits with code 2.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import gc
 import json
 import math
@@ -202,19 +220,83 @@ def check_paged_decode(kern, ref):
 
 # ------------------------------------------------------- full-width serve
 
-def serve_full_width(card: str):
-    """Phase 3: deepseek-7b at full width through the paged engine."""
+SERVE_LENS, SERVE_ARRIVALS, ENGINE_GEN = [5, 17, 33, 64], [0, 2, 5, 9], 16
+
+
+def engine_paths(model, cfg, params, card):
+    """Phases 3 and 3c: 4 ragged requests admitted at engine steps
+    0/2/5/9, 16 greedy tokens each, through the continuous engine.  After a
+    warm-up run, the main path (``attention="paged"``) runs with every
+    kernel count at 0: ``paged_decode`` must launch once per layer and
+    decode step, ``flash_attention_bh`` once per layer and prefill.  The
+    streams must equal the dense path's and the static ``generate``'s.
+    Returns the main path's launches and numbers."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bh
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.launch.serve import generate
-    from repro_torch.models import build_model
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config("deepseek-7b", reduced=False)
+    rng = np.random.default_rng(0)
+    n, gen = len(SERVE_LENS), ENGINE_GEN
+    prompts = [rng.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)
+               for p in SERVE_LENS]
+
+    def run(attention):
+        eng = ServeEngine(model, cfg, params, num_pages=64, page_size=16,
+                          max_slots=n, max_len=max(SERVE_LENS) + gen,
+                          attention=attention, device=DEVICE)
+        t0 = time.perf_counter()
+        res = eng.serve([Request(rid=i, prompt=prompts[i], max_new_tokens=gen)
+                         for i in range(n)], arrival_steps=SERVE_ARRIVALS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng.check_invariants()
+        return [res[i].tokens for i in range(n)], eng, wall
+
+    run("paged")                                    # warm-up: cuBLAS, caches
+    paged_decode_attention.launches = flash_attention_bh.launches = 0
+    paged, eng, wall = run("paged")                 # the main path
+    launches = {"paged_decode": paged_decode_attention.launches,
+                "flash_attention_bh": flash_attention_bh.launches}
+    steps = eng.n_decode_steps
+    assert launches["paged_decode"] > 0, "the engine never launched paged_decode"
+    assert launches["paged_decode"] == steps * cfg.n_layers, (launches, steps)
+    assert launches["flash_attention_bh"] == n * cfg.n_layers, launches
+    dense, _, wall_dense = run("dense")
+    static = [generate(model, cfg, params, prompts[i][None], gen,
+                       device=DEVICE)[0].tolist() for i in range(n)]
+    for i in range(n):
+        assert len(paged[i]) == gen
+        assert all(0 <= t < cfg.vocab_size for t in paged[i])
+        assert paged[i] == dense[i], (i, paged[i], dense[i])
+        assert paged[i] == static[i], (i, paged[i], static[i])
+    n_tok = n * gen
+    step_ms = 1e3 * eng.decode_s / steps
+    print(f"  streams token-identical: paged == dense == static generate "
+          f"({n} requests x {gen} tokens)")
+    print(f"  serve paged: {n_tok / wall:.2f} tok/s ({wall:.3f}s wall), "
+          f"{steps} decode steps, {step_ms:.3f} ms/decode step, "
+          f"paged_decode launches {launches['paged_decode']} "
+          f"({cfg.n_layers}/step), flash_attention_bh launches "
+          f"{launches['flash_attention_bh']} ({cfg.n_layers}/prefill) [{card}]")
+    print(f"  serve dense: {n_tok / wall_dense:.2f} tok/s ({wall_dense:.3f}s "
+          f"wall) [{card}]")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB")
+    return launches, {"tok_per_s": n_tok / wall, "decode_step_ms": step_ms,
+                      "decode_steps": steps}
+
+
+def load_model(cfg):
+    """The model and its random f32 weights from seed 0, on the card."""
+    import torch
+
+    from repro_torch.models import build_model
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(seed=0, device=DEVICE)      # the only weight copy
     torch.cuda.synchronize()
@@ -223,52 +305,15 @@ def serve_full_width(card: str):
           f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{n_params:,} params f32 ({n_params * 4 / 1e9:.1f} GB), "
           f"init {time.perf_counter() - t0:.1f}s")
+    return model, params
 
-    rng = np.random.default_rng(0)
-    lens, gen, arrivals = [5, 17, 33, 64], 16, [0, 2, 5, 9]
-    prompts = [rng.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)
-               for p in lens]
 
-    def run(attention):
-        eng = ServeEngine(model, cfg, params, num_pages=64, page_size=16,
-                          max_slots=4, max_len=max(lens) + gen,
-                          attention=attention, device=DEVICE)
-        t0 = time.perf_counter()
-        res = eng.serve([Request(rid=i, prompt=prompts[i], max_new_tokens=gen)
-                         for i in range(4)], arrival_steps=arrivals)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        eng.check_invariants()
-        return [res[i].tokens for i in range(4)], eng, wall
-
-    run("paged")                                    # warm-up: cuBLAS, caches
-    paged_decode_attention.launches = 0
-    paged, eng, wall = run("paged")                 # the main path
-    launches = paged_decode_attention.launches
-    steps = eng.n_decode_steps
-    assert launches > 0, "the paged engine never launched paged_decode"
-    assert launches == steps * cfg.n_layers, (launches, steps)
-    dense, _, wall_dense = run("dense")
-    static = [generate(model, cfg, params, prompts[i][None], gen,
-                       device=DEVICE)[0].tolist() for i in range(4)]
-    for i in range(4):
-        assert len(paged[i]) == gen
-        assert all(0 <= t < cfg.vocab_size for t in paged[i])
-        assert paged[i] == dense[i], (i, paged[i], dense[i])
-        assert paged[i] == static[i], (i, paged[i], static[i])
-    n_tok = 4 * gen
-    step_ms = 1e3 * eng.decode_s / steps
-    print(f"  streams token-identical: paged == dense == static generate "
-          f"(4 requests x {gen} tokens)")
-    print(f"  serve paged: {n_tok / wall:.2f} tok/s ({wall:.3f}s wall), "
-          f"{steps} decode steps, {step_ms:.3f} ms/decode step, "
-          f"paged_decode launches {launches} ({cfg.n_layers}/step) [{card}]")
-    print(f"  serve dense: {n_tok / wall_dense:.2f} tok/s ({wall_dense:.3f}s "
-          f"wall) [{card}]")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-          f" GB")
-    return launches, {"tok_per_s": n_tok / wall, "decode_step_ms": step_ms,
-                      "decode_steps": steps}
+def serve_full_width(card: str):
+    """Phase 3: deepseek-7b at full width through the paged engine."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-7b", reduced=False)
+    model, params = load_model(cfg)
+    return engine_paths(model, cfg, params, card)
 
 
 # ------------------------------------------------------------ kernel timing
@@ -588,6 +633,204 @@ def check_rglru():
     return worst
 
 
+# ------------------------------------------------------- flash attention
+
+MLA_SCALE = 1 / math.sqrt(128 + 64)          # 1/sqrt(nope + rope)
+# name, (B, S, H, KV, D), window, v_width (0: a V tensor), scale, causal,
+# dtype; the first three are the main paths' prefill shapes
+FLASH_CASES = [
+    ("deepseek-7b", (1, 1024, 32, 32, 128), 0, 0, None, True, "float32"),
+    ("griffin window 2048", (1, 4096, 16, 1, 256), 2048, 0, None, True,
+     "float32"),
+    ("mla v=k[:512]", (4, 1024, 128, 1, 576), 0, 512, MLA_SCALE, True,
+     "float32"),
+    ("ragged S1000 gqa", (2, 1000, 8, 2, 128), 0, 0, None, True, "float32"),
+    ("ragged S1000 non-causal", (1, 1000, 8, 2, 128), 0, 0, None, False,
+     "float32"),
+    ("bf16 deepseek-7b", (1, 1024, 32, 32, 128), 0, 0, None, True,
+     "bfloat16"),
+    ("bf16 mla", (1, 1000, 128, 1, 576), 0, 512, MLA_SCALE, True,
+     "bfloat16"),
+]
+
+
+def flash_case(B, S, H, KV, D, v_width, *, seed, dtype):
+    """q (B,S,H,D), k (B,S,KV,D) and v (B,S,KV,D) or None, N(0, 1) from a
+    numpy seed, on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=DEVICE).to(  # noqa: E731
+        getattr(torch, dtype))
+    q, k = t(rng.normal(size=(B, S, H, D))), t(rng.normal(size=(B, S, KV, D)))
+    v = None if v_width else t(rng.normal(size=(B, S, KV, D)))
+    return q, k, v
+
+
+def check_flash_attention():
+    """Phase 2: flash_attention_bh against its plain version at the main
+    paths' prefill shapes, a ragged S (causal and not) and bf16."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bh,
+                                                     flash_attention_ref)
+    worst = 0.0
+    for i, (name, shape, window, v_width, scale, causal, dtype) in \
+            enumerate(FLASH_CASES):
+        q, k, v = flash_case(*shape, v_width, seed=40 + i, dtype=dtype)
+        kw = dict(scale=scale or shape[4] ** -0.5, causal=causal,
+                  window=window, v_width=v_width)
+        out = flash_attention_bh(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, **kw)
+        tol = TOL[dtype]
+        err = _abs_err(out.float(), want.float())
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        if dtype == "float32":
+            worst = max(worst, err)
+        print(f"  flash_attention_bh {name} B,S,H,KV,D={shape} {dtype}: "
+              f"max_abs_err={err:.3e} (tol {tol})")
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _top_kernel(fn) -> str:
+    """Name of the device kernel that takes the most time in one call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _device_us
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    return max(rows, key=_device_us).key[:120] if rows else "not measured"
+
+
+def time_flash(name, B, S, H, KV, D, window, v_width, scale, *,
+               library=False):
+    """flash_attention_bh against its plain version at one prefill shape,
+    with its bound: the causal (and windowed) pairs' QK and PV products
+    against q, k (and v) read once and the output written once.  With
+    ``library``, one ``scaled_dot_product_attention`` call on the same
+    inputs (K/V broadcast over the heads as an expanded view, V = K[...,
+    :v_width]) as the yardstick, and the kernel SDPA ran."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bh,
+                                                     flash_attention_ref)
+    q, k, v = flash_case(B, S, H, KV, D, v_width, seed=50, dtype="float32")
+    dv = v_width or D
+    scale = scale or D ** -0.5
+    kw = dict(scale=scale, window=window, v_width=v_width)
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    flops = B * H * pairs * 2 * (D + dv)
+    nbytes = 4 * (B * S * H * D + B * S * KV * D
+                  + (0 if v_width else B * S * KV * dv) + B * S * H * dv)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOPS
+    res = {"ms": cuda_ms(lambda: flash_attention_bh(q, k, v, **kw), runs=10,
+                         warmup=2),
+           "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                               runs=5, warmup=1),
+           "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "shape": f"{name}: B={B} S={S} H={H} KV={KV} D={D} dv={dv} "
+                    f"window={window} f32",
+           "gflop": flops / 1e9, "bytes": nbytes}
+    if library:
+        qh = q.transpose(1, 2)
+        kh = k.transpose(1, 2).expand(B, H, S, D)
+        vh = kh[..., :dv] if v_width else v.transpose(1, 2).expand(B, H, S, dv)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  scale=scale)
+        got = sdpa().transpose(1, 2)
+        err = _abs_err(got, flash_attention_bh(q, k, v, **kw))
+        assert err < 1e-3, ("sdpa computes another function", err)
+        res.update(library_ms=cuda_ms(sdpa, runs=5, warmup=1),
+                   library_kernel=_top_kernel(sdpa), library_max_abs_err=err)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------- MLA + MoE serving
+
+MLA_LAYERS = 3      # a dense-FFN layer, then two MoE layers (one 2-cycle)
+
+
+def serve_mla(card: str):
+    """Phase 3c: deepseek-v2-236b at full width, depth cut to MLA_LAYERS,
+    through the engine (phase 3's requests), then the static ``generate``
+    at B=4, prompt 1024, and layer 0's MLA tensors through the kernel
+    against the plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bh,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.layers import rmsnorm
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b", reduced=False),
+                              n_layers=MLA_LAYERS)
+    model, params = load_model(cfg)
+    launches, serve = engine_paths(model, cfg, params, card)
+
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_B, SERVE_P)).astype(np.int32)
+    counts = (flash_attention_bh, paged_decode_attention)
+    _, wall, peak = static_generate(model, cfg, params, prompts, counts)
+    assert flash_attention_bh.launches == cfg.n_layers, \
+        flash_attention_bh.launches
+    assert paged_decode_attention.launches == 0
+    prefill_ms, decode_ms = prefill_decode_ms(model, params, prompts)
+    print(f"  static generate B={SERVE_B} prompt {SERVE_P} gen {SERVE_GEN} "
+          f"in {wall:.3f}s ({SERVE_B * SERVE_GEN / wall:.2f} tok/s); prefill "
+          f"{prefill_ms:.3f} ms, decode {decode_ms:.3f} ms/step; peak "
+          f"{peak:.2f} GB [{card}]")
+
+    # layer 0's own q_full and latent through the kernel and the plain version
+    m = cfg.mla
+    pt = torch.as_tensor(prompts, device=DEVICE)
+    layer = params["layers"][0]
+    xn = rmsnorm(layer["norm1"], transformer.embed_tokens(params, cfg, pt),
+                 cfg.norm_eps)
+    q_pos = torch.arange(SERVE_P, dtype=torch.int32, device=DEVICE)
+    q_full, c_kv, k_rope = attention.mla_project(
+        layer["mixer"], cfg, xn, q_pos.expand(SERVE_B, SERVE_P))
+    k_full = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]
+    kw = dict(scale=MLA_SCALE, v_width=m.kv_lora_rank)
+    out = flash_attention(q_full, k_full, None, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q_full, k_full, None, **kw)
+    layer_err = _abs_err(out, want)
+    torch.testing.assert_close(out, want, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    print(f"  layer 0 MLA prefill on its own tensors (q_full "
+          f"{tuple(q_full.shape)}, latent {tuple(k_full.shape)}): kernel vs "
+          f"plain max_abs_err {layer_err:.3e} (tol {TOL['float32']})")
+    res = {"launches": launches, "engine": serve,
+           "tok_per_s_static": SERVE_B * SERVE_GEN / wall,
+           "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "peak_gb": peak, "layer0_max_abs_err": layer_err}
+    del params, model, q_full, k_full, out, want, xn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------- full-width recurrent serve
 
 # arch -> (layer kind, state tolerance, cache key, scan kernel)
@@ -615,53 +858,38 @@ def serve_recurrent(card: str, arch: str):
     seed 0) through the static ``generate``, 4 prompts of 1024 tokens, 16
     greedy tokens each.  Returns the scan kernel's launches over that run,
     the oracle's numbers and the timings."""
-    import gc
-    import statistics as st
-
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bh
     from repro_torch.kernels.rglru import rglru_scan_b
     from repro_torch.kernels.ssd import ssd_bh
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import build_model
 
     kind, tol, state_key, name = RECURRENT[arch]
     kern, other = ((ssd_bh, rglru_scan_b) if kind == "ssm"
                    else (rglru_scan_b, ssd_bh))
     cfg = get_config(arch, reduced=False)
     n_layers = sum(k == kind for k in cfg.pattern)
-    model = build_model(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model.init(seed=0, device=DEVICE)
-    torch.cuda.synchronize()
-    n_params = n_elements(params)
-    print(f"  {cfg.name}: {cfg.n_layers} layers ({n_layers} {kind}), "
-          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {n_params:,} "
-          f"params f32 ({n_params * 4 / 1e9:.1f} GB), init "
-          f"{time.perf_counter() - t0:.1f}s")
+    n_attn = sum(k == "attn" for k in cfg.pattern)
+    model, params = load_model(cfg)
     rng = np.random.default_rng(1)
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(SERVE_B, SERVE_P)).astype(np.int32)
 
-    generate(model, cfg, params, prompts[:, :64], 2, device=DEVICE)  # warm-up
-    kern.launches = other.launches = 0
-    t0 = time.perf_counter()
-    tokens = generate(model, cfg, params, prompts, SERVE_GEN, device=DEVICE)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    counts = (kern, other, flash_attention_bh)
+    _, wall, peak = static_generate(
+        model, cfg, params, prompts, counts)            # the main path
     launches = kern.launches
+    flash = flash_attention_bh.launches
     assert launches == n_layers, (arch, launches, n_layers)   # one prefill
     assert other.launches == 0, (arch, other.launches)
-    assert tuple(tokens.shape) == (SERVE_B, SERVE_GEN)
-    assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert flash == n_attn, (arch, flash, n_attn)
     print(f"  main path: static generate B={SERVE_B} prompt {SERVE_P} gen "
           f"{SERVE_GEN} in {wall:.3f}s ({SERVE_B * SERVE_GEN / wall:.2f} tok/s)"
-          f"; {name} launches {launches} ({n_layers} "
-          f"layers x 1 prefill); peak {peak:.2f} GB [{card}]")
+          f"; {name} launches {launches} ({n_layers} layers x 1 prefill), "
+          f"flash_attention_bh launches {flash} ({n_attn} attention layers x "
+          f"1 prefill); peak {peak:.2f} GB [{card}]")
 
     # oracle: a 320-token prompt token by token through decode_step (no
     # kernel) against the kernel prefill of the same prompt
@@ -699,9 +927,47 @@ def serve_recurrent(card: str, arch: str):
           f"{state_rel:.2e} (tol {tol}); 8 greedy tokens identical")
     del cache_k, cache_d
 
-    # timing: prefill (B=4, P=1024) and decode steps, host clock, synced
-    cache = model.init_cache(SERVE_B, SERVE_P + SERVE_GEN, device=DEVICE,
-                             dtype=dt)
+    prefill_ms, decode_ms = prefill_decode_ms(model, params, prompts)
+    res = {"arch": arch, "launches": launches, "flash_launches": flash,
+           "tok_per_s": SERVE_B * SERVE_GEN / wall, "generate_s": wall,
+           "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "peak_gb": peak, "oracle_logits_rel": rel,
+           "oracle_state_err_first_layer": state_err,
+           "oracle_state_rel_all_layers": state_rel}
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def static_generate(model, cfg, params, prompts, counts):
+    """The static ``generate`` of prompts (B, P), SERVE_GEN greedy tokens,
+    after a short warm-up, with the kernel counts in ``counts`` at 0 just
+    before it.  Returns the tokens, the wall seconds and the peak GB."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+    generate(model, cfg, params, prompts[:, :64], 2, device=DEVICE)  # warm-up
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    tokens = generate(model, cfg, params, prompts, SERVE_GEN, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert tuple(tokens.shape) == (len(prompts), SERVE_GEN)
+    assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    return tokens, wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+def prefill_decode_ms(model, params, prompts):
+    """Host-clock ms of one prefill of ``prompts`` into a fresh cache and
+    the median of SERVE_GEN decode steps after it, each synced."""
+    import statistics as st
+
+    import torch
+    B, P = prompts.shape
+    cache = model.init_cache(B, P + SERVE_GEN, device=DEVICE,
+                             dtype=params["embed"].dtype)
     pt = torch.as_tensor(prompts, device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -712,19 +978,10 @@ def serve_recurrent(card: str, arch: str):
     steps = []
     for t in range(SERVE_GEN):
         t0 = time.perf_counter()
-        logits, cache = model.decode_step(params, cache, tok, SERVE_P + t)
+        logits, cache = model.decode_step(params, cache, tok, P + t)
         torch.cuda.synchronize()
         steps.append(1e3 * (time.perf_counter() - t0))
-    res = {"arch": arch, "launches": launches,
-           "tok_per_s": SERVE_B * SERVE_GEN / wall, "generate_s": wall,
-           "prefill_ms": prefill_ms, "decode_step_ms": st.median(steps),
-           "peak_gb": peak, "oracle_logits_rel": rel,
-           "oracle_state_err_first_layer": state_err,
-           "oracle_state_rel_all_layers": state_rel}
-    del params, cache, logits, model
-    gc.collect()
-    torch.cuda.empty_cache()
-    return res
+    return prefill_ms, st.median(steps)
 
 
 def time_ssd():
@@ -1066,6 +1323,7 @@ def main() -> None:
                                                   quantize_rows)
     from repro_torch.kernels.act_compress import kernel as ac_kernel
     from repro_torch.kernels.build import build, library_path
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                      paged_decode_attention_ref)
     from repro_torch.kernels.paged_attention.kernel import SOURCE
@@ -1081,7 +1339,7 @@ def main() -> None:
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     sources = [SOURCE, vb_kernel.SOURCE, ac_kernel.SOURCE, ssd_kernel.SOURCE,
-               rglru_kernel.SOURCE]
+               rglru_kernel.SOURCE, flash_kernel.SOURCE]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build, sources))          # one nvcc per source
@@ -1090,6 +1348,7 @@ def main() -> None:
     ac_kernel.library()
     ssd_kernel.library()
     rglru_kernel.library()
+    flash_kernel.library()
     print(f"  built {', '.join(str(s.relative_to(ROOT)) for s in sources)} "
           f"in {time.perf_counter() - t0:.1f}s (sm_90a, in parallel)")
     for src in sources:
@@ -1105,6 +1364,7 @@ def main() -> None:
     ac_err = check_act_compress()
     ssd_err = check_ssd()
     rglru_err = check_rglru()
+    flash_err = check_flash_attention()
 
     print("== phase 3: main path 1, deepseek-7b at full width through the "
           "paged engine")
@@ -1115,6 +1375,10 @@ def main() -> None:
     print("== phase 3b: main path 3, mamba2-780m and recurrentgemma-9b at "
           "full width through the static engine (one model at a time)")
     recurrent = {arch: serve_recurrent(card, arch) for arch in RECURRENT}
+
+    print(f"== phase 3c: main path 4, deepseek-v2-236b (MLA + MoE) at full "
+          f"width, {MLA_LAYERS} layers, through the paged engine")
+    mla = serve_mla(card)
 
     print("== phase 4: main path 2, TL training of the paper models")
     torch.use_deterministic_algorithms(True)
@@ -1145,6 +1409,21 @@ def main() -> None:
     rglru_t = time_rglru()
     print(f"  rglru_scan_b at the main-path shape: {json.dumps(rglru_t)} "
           f"[{card}]")
+    flash_t = {
+        "mla": time_flash("mla", 4, 1024, 128, 1, 576, 0, 512, MLA_SCALE,
+                          library=True),
+        "griffin": time_flash("griffin", SERVE_B, SERVE_P, 16, 1, 256, 2048,
+                              0, None),
+        "deepseek-7b": time_flash("deepseek-7b", 1, 1024, 32, 32, 128, 0, 0,
+                                  None)}
+    for name, r in flash_t.items():
+        print(f"  flash_attention_bh at the {name} prefill shape: "
+              f"{json.dumps(r)} [{card}]")
+    print(f"  deepseek-v2-236b ({MLA_LAYERS} layers) B={SERVE_B} prompt "
+          f"{SERVE_P}: prefill {mla['prefill_ms']:.3f} ms, decode "
+          f"{mla['decode_step_ms']:.3f} ms/step (median of {SERVE_GEN}), "
+          f"{mla['tok_per_s_static']:.2f} tok/s over the static generate of "
+          f"{SERVE_GEN} tokens, peak {mla['peak_gb']:.2f} GB [{card}]")
     for arch, r in recurrent.items():
         print(f"  {arch} B={SERVE_B} prompt {SERVE_P}: prefill "
               f"{r['prefill_ms']:.3f} ms, decode {r['decode_step_ms']:.3f} "
@@ -1162,9 +1441,10 @@ def main() -> None:
 
     kernels = [
         entry("paged_decode", SOURCE,
-              "src/repro/kernels/paged_attention/kernel.py:100", launches,
-              max_err, long, served_ms=served["ms"],
-              served_bound_ms=served["bound_ms"]),
+              "src/repro/kernels/paged_attention/kernel.py:100",
+              launches["paged_decode"], max_err, long,
+              served_ms=served["ms"], served_bound_ms=served["bound_ms"],
+              launches_mla_v_width=mla["launches"]["paged_decode"]),
         entry("permute_rows", vb_kernel.SOURCE,
               "src/repro/kernels/vb_scatter/kernel.py:57",
               tl_launches[permute_rows], vb_err["scatter"],
@@ -1197,10 +1477,23 @@ def main() -> None:
               "src/repro/kernels/rglru/kernel.py:47",
               recurrent["recurrentgemma-9b"]["launches"], rglru_err,
               rglru_t),
+        entry("flash_attention_bh", flash_kernel.SOURCE,
+              "src/repro/kernels/flash_attention/kernel.py:75",
+              mla["launches"]["flash_attention_bh"], flash_err,
+              flash_t["mla"],
+              library_kernel=flash_t["mla"]["library_kernel"],
+              launches_deepseek_7b=launches["flash_attention_bh"],
+              launches_griffin=recurrent["recurrentgemma-9b"][
+                  "flash_launches"],
+              griffin_ms=flash_t["griffin"]["ms"],
+              griffin_bound_ms=flash_t["griffin"]["bound_ms"],
+              deepseek_7b_ms=flash_t["deepseek-7b"]["ms"],
+              deepseek_7b_bound_ms=flash_t["deepseek-7b"]["bound_ms"]),
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(f"  serve: {json.dumps(serve)} [{card}]")
     print(f"  recurrent: {json.dumps(recurrent)} [{card}]")
+    print(f"  mla: {json.dumps(mla)} [{card}]")
     print(f"  tl: {json.dumps({**tl, 'step_ms': tl_ms})} [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,13 @@
 ``get_config(arch_id, reduced=True)`` the small CPU-test variant.  Only the
 architectures the port can run are registered.
 """
-from repro_torch.configs import deepseek_7b, mamba2_780m, recurrentgemma_9b
+from repro_torch.configs import (deepseek_7b, deepseek_v2_236b, mamba2_780m,
+                                 recurrentgemma_9b)
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
 ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (deepseek_7b, mamba2_780m, recurrentgemma_9b)}
+         for m in (deepseek_7b, deepseek_v2_236b, mamba2_780m,
+                   recurrentgemma_9b)}
 
 
 def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:

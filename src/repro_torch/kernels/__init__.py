@@ -11,8 +11,16 @@ replacing the reference's ``resolve_interpret``:
 There is no switch that puts the plain version on a CUDA tensor.
 
 Packages:
+  flash_attention — causal / sliding-window attention over a whole sequence,
+                    GQA/MQA read in place and MLA's fused latent as V; every
+                    prefill and full forward of the attention models
+                    (replaces ``repro/kernels/flash_attention/kernel.py``)
   paged_attention — paged-KV decode attention for the serving engine
                     (replaces ``repro/kernels/paged_attention/kernel.py``)
+  ssd             — the Mamba-2 SSD chunked scan of a prefill (replaces
+                    ``repro/kernels/ssd/kernel.py``)
+  rglru           — the RG-LRU linear recurrence of a prefill (replaces
+                    ``repro/kernels/rglru/kernel.py``)
   vb_scatter      — virtual-batch reassembly: one launch routes the rows of
                     every payload tensor by a permutation (scatter) or its
                     transpose (gather, the autograd backward) (replaces

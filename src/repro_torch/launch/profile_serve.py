@@ -16,10 +16,15 @@ by kernel name and the device's busy share of the unprofiled call.
         --arch mamba2-780m --prompt-len 1024
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --no-reduced \\
         --arch recurrentgemma-9b --prompt-len 1024
+    # deepseek-v2-236b at full width, depth cut to 3 layers (a dense-FFN
+    # layer and two MoE layers; 60 layers of f32 weights hold 944 GB)
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --no-reduced \\
+        --arch deepseek-v2-236b --layers 3 --prompt-len 1024
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -86,6 +91,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the config's)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -94,6 +101,8 @@ def main(argv=None):
         raise ValueError("profile_serve measures the card: --device must be "
                          "a CUDA device")
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
     dtype = params["embed"].dtype

@@ -19,10 +19,17 @@ unless ``--device cpu``:
         --arch recurrentgemma-9b --no-reduced --requests 4 \\
         --prompt-len 1024 --gen 16
 
-The continuous engine serves all-attention stacks only and refuses the
-recurrent archs with the reference's ``ValueError``.  The reference's
-``--reduced`` is ``store_true`` with ``default=True`` and so can never go
-full width; here ``--no-reduced`` does.
+    # deepseek-v2-236b (MLA + MoE) reduced on the CPU through the engine
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch deepseek-v2-236b --engine continuous
+
+Every prefill's attention runs on ``flash_attention_bh`` (K4) on the card;
+the CLI prints its launches beside the other kernels'.  The continuous
+engine serves all-attention stacks only (full attention or MLA, dense or
+MoE FFNs) and refuses the recurrent archs with the reference's
+``ValueError``.  The reference's ``--reduced`` is ``store_true`` with
+``default=True`` and so can never go full width; here ``--no-reduced``
+does.
 """
 from __future__ import annotations
 
@@ -92,11 +99,13 @@ def main(argv=None):
                            size=(args.batch, args.prompt_len)).astype(np.int32)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
+    from repro_torch.kernels.flash_attention import flash_attention_bh
     if args.engine == "static":
         from repro_torch.kernels.rglru import rglru_scan_b
         from repro_torch.kernels.ssd import ssd_bh
-        scans = {"ssd_bh": ssd_bh, "rglru_scan_b": rglru_scan_b}
-        before = {name: k.launches for name, k in scans.items()}
+        kernels = {"ssd_bh": ssd_bh, "rglru_scan_b": rglru_scan_b,
+                   "flash_attention_bh": flash_attention_bh}
+        before = {name: k.launches for name, k in kernels.items()}
         t0 = time.perf_counter()
         tokens = generate(model, cfg, params, prompts, args.gen,
                           device=dev).cpu().numpy()
@@ -105,7 +114,7 @@ def main(argv=None):
               f"({args.batch * args.gen / dt:.1f} tok/s on {where}, "
               f"{cfg.name} {cfg.n_layers} layers d_model {cfg.d_model})")
         print("  " + " ".join(f"{name} launches={k.launches - before[name]}"
-                              for name, k in scans.items()))
+                              for name, k in kernels.items()))
         print(tokens[:2])
         return tokens
 
@@ -117,6 +126,7 @@ def main(argv=None):
                       attention=args.attention,
                       decode_priority=args.decode_priority, device=dev)
     launches0 = paged_decode_attention.launches
+    flash0 = flash_attention_bh.launches
     t0 = time.perf_counter()
     for r in range(args.batch):
         eng.submit(Request(rid=r, prompt=prompts[r], max_new_tokens=args.gen,
@@ -131,7 +141,8 @@ def main(argv=None):
     print(f"  decode steps={st['n_decode_steps']} "
           f"per-step={1e3 * st['decode_s'] / max(1, st['n_decode_steps']):.3f} ms"
           f" paged_decode launches="
-          f"{paged_decode_attention.launches - launches0}")
+          f"{paged_decode_attention.launches - launches0}"
+          f" flash_attention_bh launches={flash_attention_bh.launches - flash0}")
     for r in sorted(results.values(), key=lambda r: r.rid)[:2]:
         print(f"  rid={r.rid} [{r.finish_reason}] {r.tokens}")
     return results

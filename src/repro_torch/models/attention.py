@@ -1,14 +1,26 @@
-"""GQA / MHA attention with a contiguous KV cache.
+"""Attention: MHA / GQA and DeepSeek MLA, with contiguous KV caches.
 
-Port of the GQA half of ``repro/models/attention.py``; MLA waits for a later
-slice.  Two execution paths share one math definition, as in the reference:
+Port of ``repro/models/attention.py``.  Four execution paths share one math
+definition:
 
-* ``attend_dense``     — materialised scores (short sequences, decode);
+* ``attend_dense``     — materialised scores (decode, short sequences);
 * ``attend_blockwise`` — online softmax over KV blocks (above
-  ``DENSE_MAX_SEQ`` keys), a Python loop where the reference scans.
+  ``DENSE_MAX_SEQ`` keys), a Python loop where the reference scans;
+* ``ops.flash_attention`` (K4) — every causal self-attention over a whole
+  sequence (full forward, prefill into an empty cache): ``attend`` routes
+  it there, and the tensors' device picks the CUDA kernel or its plain
+  version.  The reference computes these with ``attend_dense`` /
+  ``attend_blockwise`` and never calls its own Pallas kernel; the kernel is
+  held to the same function at the reference kernel test's tolerance;
+* decode — one query token against the cache (``attend_dense``).
 
-Caches are dicts ``{k, v, pos}`` updated **in place** (the reference returns
-new arrays); ``gqa_apply`` still returns the cache so call sites read alike.
+MLA runs in latent form as in the reference: queries are absorbed into the
+kv_lora latent, so attention is MQA over ``c_kv ‖ k_rope`` with the latent
+as values (``v_width = kv_lora_rank``) and the cache holds only the latent
+and the shared rope key.
+
+Caches are dicts updated **in place** (the reference returns new arrays);
+the apply functions still return the cache so call sites read alike.
 """
 from __future__ import annotations
 
@@ -17,7 +29,8 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
 
 NEG_INF = -1e30
 DENSE_MAX_SEQ = 2048        # use the blockwise path above this length
@@ -27,10 +40,23 @@ INT32_MAX = 2 ** 31 - 1     # position of an empty cache slot
 
 def attn_init(gen, cfg: ModelConfig, *, device, dtype=torch.float32):
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    if cfg.attention == "mla":
-        raise NotImplementedError("MLA is not ported yet (ROADMAP.md, queue 1: "
-                                  "MLA serving)")
     kw = dict(device=device, dtype=dtype)
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return {
+            "w_dq": dense_init(gen, d, m.q_lora_rank, **kw),
+            "q_norm": rmsnorm_init(m.q_lora_rank, **kw),
+            "w_uq": dense_init(gen, m.q_lora_rank,
+                               H * (m.qk_nope_head_dim + m.qk_rope_head_dim),
+                               **kw),
+            "w_dkv": dense_init(gen, d, m.kv_lora_rank, **kw),
+            "kv_norm": rmsnorm_init(m.kv_lora_rank, **kw),
+            "w_kr": dense_init(gen, d, m.qk_rope_head_dim, **kw),
+            "w_uk": dense_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                               **kw),
+            "w_uv": dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, **kw),
+            "w_o": dense_init(gen, H * m.v_head_dim, d, **kw),
+        }
     p = {"w_q": dense_init(gen, d, H * hd, **kw),
          "w_k": dense_init(gen, d, KV * hd, **kw),
          "w_v": dense_init(gen, d, KV * hd, **kw),
@@ -93,7 +119,18 @@ def attend_blockwise(q, k, v, q_pos, k_pos, window: int, scale: float,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(v.dtype)
 
 
-def attend(q, k, v, q_pos, k_pos, window: int, scale: float):
+def attend(q, k, v, q_pos, k_pos, window: int, scale: float, *,
+           v_width: int = 0):
+    """q (B,Sq,H,dh), k (B,Sk,KV,dh), v (B,Sk,KV,dv) or ``v=None`` with
+    ``v_width`` (V = K[..., :v_width], MLA's latent).  A causal
+    self-attention over a whole sequence (``Sq == Sk > 1``, ``q_pos ==
+    k_pos``) goes to ``flash_attention``; decode and anything else to the
+    reference's dense or blockwise path."""
+    if q.shape[1] == k.shape[1] > 1 and torch.equal(q_pos, k_pos):
+        return flash_attention(q, k, v, scale=scale, causal=True,
+                               window=window, v_width=v_width)
+    if v is None:
+        v = k[..., :v_width]
     if k.shape[1] <= DENSE_MAX_SEQ or q.shape[1] == 1:
         return attend_dense(q, k, v, q_pos, k_pos, window, scale)
     return attend_blockwise(q, k, v, q_pos, k_pos, window, scale)
@@ -165,3 +202,91 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
         "pos": torch.full((max_len,), INT32_MAX, dtype=torch.int32,
                           device=device),
     }
+
+
+# ======================================================================== MLA
+
+def mla_project(params, cfg: ModelConfig, x, q_pos):
+    """Latent-form MLA projections; q_pos (B,S) absolute positions.
+
+    Returns (q_full (B,S,H,lora+rope), c_kv (B,S,lora), k_rope (B,S,rope)),
+    with q_nope already absorbed through W_UK into the latent.  Shared by
+    ``mla_apply`` and the paged serving runner."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, lora = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+    q = (cq @ params["w_uq"]).reshape(B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    c_kv = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
+    k_rope = x @ params["w_kr"]                        # shared, (B,S,rope_d)
+    q_rope = apply_rope(q_rope, q_pos, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], q_pos, cfg.rope_theta)[:, :, 0]
+    w_uk = params["w_uk"].reshape(lora, H, nope)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+    return torch.cat([q_lat, q_rope], dim=-1), c_kv, k_rope
+
+
+def mla_output(params, cfg: ModelConfig, out_lat):
+    """Decompress attended latents (B,S,H,lora) through W_UV, then W_O."""
+    m = cfg.mla
+    B, S, H = out_lat.shape[:3]
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bshr,rhv->bshv", out_lat, w_uv)
+    return out.reshape(B, S, H * m.v_head_dim) @ params["w_o"]
+
+
+def mla_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
+    """DeepSeek multi-head latent attention in latent (weight-absorbed)
+    form: MQA with head dim ``kv_lora + rope`` over ``c_kv ‖ k_rope``, the
+    latent ``c_kv`` as values, scale ``1/sqrt(nope + rope)``.  Full forward
+    (cache=None), prefill into an empty cache (S > 1) or one decode step.
+    Returns (out, cache)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    pos0 = 0 if cache_len is None else int(cache_len)
+    q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
+    q_full, c_kv, k_rope = mla_project(params, cfg, x, q_pos.expand(B, S))
+    if cache is not None:
+        idx = q_pos.long()
+        cache["c_kv"][:, idx] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, idx] = k_rope.to(cache["k_rope"].dtype)
+        cache["pos"][idx] = q_pos
+    if cache is None or S > 1:
+        # full forward / prefill-from-empty: attend over the current latents
+        lat, rope, k_pos = c_kv, k_rope, q_pos
+    else:
+        lat, rope, k_pos = cache["c_kv"], cache["k_rope"], cache["pos"]
+    k_full = torch.cat([lat, rope], dim=-1)[:, :, None, :]          # MQA
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    out_lat = attend(q_full, k_full, None, q_pos, k_pos, 0, scale,
+                     v_width=m.kv_lora_rank)                    # (B,S,H,lora)
+    return mla_output(params, cfg, out_lat), cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                   dtype=torch.float32):
+    m = cfg.mla
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), **kw),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim), **kw),
+        "pos": torch.full((max_len,), INT32_MAX, dtype=torch.int32,
+                          device=device),
+    }
+
+
+# ============================================================ unified facade
+
+def attention_apply(params, cfg: ModelConfig, x, **kw):
+    if cfg.attention == "mla":
+        return mla_apply(params, cfg, x, **kw)
+    return gqa_apply(params, cfg, x, **kw)
+
+
+def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
+                         device, dtype=torch.float32):
+    if cfg.attention == "mla":
+        return mla_cache_init(cfg, batch, max_len, device=device, dtype=dtype)
+    return gqa_cache_init(cfg, batch, max_len, device=device, dtype=dtype)

@@ -1,19 +1,21 @@
-"""Residual block: mixer (attn | rglru | ssm) + FFN (dense | none).
+"""Residual block: mixer (attn | rglru | ssm) + FFN (dense | moe | none).
 
-Port of ``repro/models/blocks.py`` for decoder stacks.  MoE FFNs and
-cross-attention (encoder-decoder) raise until their slices port them.  No
-aux loss is returned: only MoE produces one.
+Port of ``repro/models/blocks.py`` for decoder stacks.  The ``attn`` mixer
+goes through the attention facade (GQA/MHA or MLA by ``cfg.attention``).
+The MoE FFN's aux loss is dropped: the reference's ``block_apply`` returns
+it for the training loss, which the port has not taken over yet (ROADMAP.md
+queue 1, item 12).  Cross-attention (encoder-decoder) is not ported.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, rglru, ssm
+from repro_torch.models import attention, moe, rglru, ssm
 from repro_torch.models.layers import rmsnorm, rmsnorm_init, swiglu, swiglu_init
 
 _MIXERS = {
-    "attn": (attention.attn_init, attention.gqa_apply),
+    "attn": (attention.attn_init, attention.attention_apply),
     "rglru": (rglru.rglru_init, rglru.rglru_apply),
     "ssm": (ssm.mamba2_init, ssm.mamba2_apply),
 }
@@ -32,10 +34,8 @@ def ffn_kind(cfg: ModelConfig, layer_idx: int) -> str:
 def _check_kinds(kind: str, ffn: str):
     if kind not in _MIXERS:
         raise ValueError(kind)
-    if ffn not in ("dense", "none"):
-        raise NotImplementedError(
-            f"ffn={ffn!r} is not ported yet (ROADMAP.md queue 1, item 12: "
-            "moe.py and the MoE FFN)")
+    if ffn not in ("dense", "moe", "none"):
+        raise ValueError(ffn)
 
 
 def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *, device,
@@ -47,6 +47,9 @@ def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *, device,
     if ffn == "dense":
         p["norm2"] = rmsnorm_init(cfg.d_model, **kw)
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, **kw)
+    elif ffn == "moe":
+        p["norm2"] = rmsnorm_init(cfg.d_model, **kw)
+        p["ffn"] = moe.moe_init(gen, cfg, **kw)
     return p
 
 
@@ -57,17 +60,27 @@ def block_apply(params, cfg: ModelConfig, kind: str, ffn: str, h, *,
     mixed, cache = _MIXERS[kind][1](
         params["mixer"], cfg, rmsnorm(params["norm1"], h, cfg.norm_eps),
         cache=cache, cache_len=cache_len)
-    h = h + mixed
+    return ffn_apply(params, cfg, ffn, h + mixed), cache
+
+
+def ffn_apply(params, cfg: ModelConfig, ffn: str, h):
+    """``h`` plus the block's FFN of its normed ``h`` (the MoE aux loss is
+    dropped).  Shared with the paged serving runner."""
     if ffn == "dense":
-        h = h + swiglu(params["ffn"], rmsnorm(params["norm2"], h, cfg.norm_eps))
-    return h, cache
+        return h + swiglu(params["ffn"], rmsnorm(params["norm2"], h,
+                                                 cfg.norm_eps))
+    if ffn == "moe":
+        out, _ = moe.moe_apply(params["ffn"], cfg,
+                               rmsnorm(params["norm2"], h, cfg.norm_eps))
+        return h + out
+    return h
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, *,
                      device, dtype=torch.float32):
     if kind == "attn":
-        return attention.gqa_cache_init(cfg, batch, max_len, device=device,
-                                        dtype=dtype)
+        return attention.attention_cache_init(cfg, batch, max_len,
+                                              device=device, dtype=dtype)
     if kind == "rglru":
         return rglru.rglru_cache_init(cfg, batch, device=device, dtype=dtype)
     if kind == "ssm":

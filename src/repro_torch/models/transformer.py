@@ -8,8 +8,8 @@ Python loop.  ``stack_plan`` is kept because it says how the reference's
 ``prefix``/``cycles``/``suffix`` map onto those layers (see
 ``repro_torch.bridge``): Griffin's 38 layers, for instance, are 12 cycles
 of (rglru, rglru, attn) and a suffix of 2.  Caches are a list of per-layer
-dicts of the layer's kind (attention ``{k, v, pos}``, RG-LRU ``{conv, h}``,
-Mamba-2 ``{conv, state}``), updated in place.
+dicts of the layer's kind (attention ``{k, v, pos}``, MLA ``{c_kv, k_rope,
+pos}``, RG-LRU ``{conv, h}``, Mamba-2 ``{conv, state}``), updated in place.
 """
 from __future__ import annotations
 

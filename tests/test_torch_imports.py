@@ -59,7 +59,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.kernels.rglru.kernel",
               "repro_torch.kernels.rglru.ops",
               "repro_torch.kernels.rglru.ref", "repro_torch.models.ssm",
-              "repro_torch.models.rglru", "repro_torch.launch.profile_serve"):
+              "repro_torch.models.rglru", "repro_torch.launch.profile_serve",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.flash_attention.ref",
+              "repro_torch.models.moe", "repro_torch.configs.deepseek_v2_236b"):
         assert m in MODULES, m
 
 

@@ -180,7 +180,8 @@ def test_greedy_only(setup):
 
 
 @pytest.mark.parametrize("change", [
-    dict(attention="mla"), dict(block_pattern=("attn", "ssm")),
+    dict(attention="sliding", sliding_window=16),
+    dict(block_pattern=("attn", "ssm")),
     dict(n_encoder_layers=2), dict(rope="mrope")])
 def test_check_servable_rejects_unported_stacks(change):
     cfg = dataclasses.replace(get_config("deepseek-7b", reduced=True), **change)
