@@ -11,7 +11,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``nvcc`` builds every kernel source of the port from ``csrc/`` (one
    ``nvcc`` per source, all started together).
 2. Each kernel against its plain PyTorch version, on the card:
-   ``paged_decode``; ``permute_rows`` in scatter and gather mode and its
+   ``paged_decode`` (GQA, window, MLA ``v_width``, bf16, and shapes whose
+   pages split over several CTAs: context 2048 with ragged lengths 1 / 16 /
+   2048 / 1000, MLA H 128 d 576 at context 1050; the trash page poisoned
+   and a length-0 row at a split shape, bit-identical from call to call);
+   ``permute_rows`` in scatter and gather mode and its
    autograd backward (exact equality); ``quantize_rows`` /
    ``dequantize_rows`` (bit-equal, constant rows exact, error bound);
    ``ssd_bh`` (2e-4 against its plain chunked version and the sequential
@@ -19,7 +23,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the main path's; ``flash_attention_bh`` (f32 1e-5, bf16 2e-2) at the
    prefill shapes of deepseek-7b, Griffin (window 2048) and MLA (H 128 on
    one latent of D 576, V = its first 512 lanes, scale 1/sqrt(192)), a
-   ragged S and bf16.
+   ragged S, head counts that do not fill the kernel's 64-row packing
+   (80 MLA heads, 12 heads on one KV head) and bf16; at the MLA shape the
+   kernel also within 5e-6 of a float64 softmax and no further from it
+   than the plain version, and a D the kernel does not take refused.
 3. Main path 1, serving: deepseek-7b at full width (30 layers, d_model
    4096, random weights from a seed) serves 4 ragged requests through
    ``ServeEngine(attention="paged")``; over that run ``paged_decode`` must
@@ -45,7 +52,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    paged == dense == static ``generate``.  Then the static ``generate`` at
    B=4, prompt 1024, 16 tokens (prefill ms, decode ms a step, tok/s, peak
    memory) and layer 0's own MLA tensors through the kernel against the
-   plain version (1e-5).  No token-by-token oracle: capacity routing drops
+   plain version (1e-5).  Layer 1's router zeroed: ``moe.route`` must
+   pick experts [0..k-1] in every row (ties go to the lower index, as
+   ``jax.lax.top_k``).  No token-by-token oracle: capacity routing drops
    overflow choices in a prefill but never in a decode step, so a prompt fed
    token by token is a different computation (as in the reference).
 4. Main path 2, TL training: the three paper models at their configured
@@ -59,7 +68,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    eq. 12 within 1e-5, and the wire bytes equal to a CPU run's.
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
-   where one computes the same function, and the card's bound; prefill
+   where one computes the same function, and the card's bound (for
+   attention's matrix products the faster of f32 CUDA cores and 3xTF32 on
+   the tensor cores; the f32-core bound beside it); for
+   ``paged_decode`` (GQA at context 2048, its ``v_width`` mode at the MLA
+   decode shape) and ``flash_attention_bh`` (MLA, Griffin, deepseek-7b
+   prefill shapes) also the device time of the kernel and of the library
+   call from the torch profiler, which counts no host time; prefill
    ms, decode ms a step, tok/s and peak memory of each recurrent family
    and of deepseek-v2.
 6. One JSON line listing every kernel, then the last line
@@ -86,9 +101,18 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core f32.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core f32 and
+# tensor-core TF32.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12          # dense, tensor cores
+
+
+def products_ms(flops: float) -> float:
+    """Least ms for ``flops`` of f32-accurate matrix products: the lower of
+    the CUDA cores' f32 rate and 3xTF32 (three TF32 products for each, the
+    route ``flash_attention_bh`` takes) at the tensor cores' rate."""
+    return 1e3 * min(flops / F32_FLOPS, 3 * flops / TF32_FLOPS)
 
 # Kernel vs plain version.  f32: the kernel sums scores across warp lanes
 # and the softmax page by page (online), the plain version in one pass;
@@ -175,13 +199,22 @@ def check_paged_decode(kern, ref):
         ("gqa window 20", (4, 8, 2, 128, 16, 8), {"window": 20}, (f32,)),
         ("mla fused pool d576 v512", (3, 16, 1, 576, 16, 4),
          {"v_width": 512}, (f32, bf16)),
+        # several page splits a row (the wrapper's plan is printed)
+        ("gqa context 2048 ragged, split", (4, 32, 32, 128, 16, 128),
+         {"lengths": [1, 16, 2048, 1000]}, (f32, bf16)),
+        ("gqa context 2048 window 300, split", (4, 32, 32, 128, 16, 128),
+         {"lengths": [1, 16, 2048, 1000], "window": 300}, (f32,)),
+        ("mla H128 d576 v512 context 1050, split", (4, 128, 1, 576, 16, 66),
+         {"lengths": [1050, 3, 700, 1050], "v_width": 512}, (f32, bf16)),
     ]
     worst = 0.0
     for i, (name, shape, extra, dtypes) in enumerate(cases):
         d = shape[3]
+        extra = dict(extra)
+        lengths = extra.pop("lengths", None)
         for dtype in dtypes:
             args = paged_case(*shape, seed=i, dtype=dtype,
-                              fused="v_width" in extra)
+                              fused="v_width" in extra, lengths=lengths)
             kw = dict(scale=d ** -0.5, **extra)
             out = kern(*args, **kw)
             torch.cuda.synchronize()
@@ -193,20 +226,27 @@ def check_paged_decode(kern, ref):
             if dtype == f32:
                 worst = max(worst, err)
             print(f"  paged_decode {name} {dtype}: max_abs_err={err:.3e} "
-                  f"(tol {tol})")
+                  f"(tol {tol}) {paged_plan(kern, args, extra)}")
 
-    # trash page 0: poisoning it changes no output bit
-    lengths = [3, 16, 33, 47]
-    q, k, v, bt, lens = paged_case(4, 32, 32, 128, 16, 5, seed=9,
+    # trash page 0: poisoning it changes no output bit, with several page
+    # splits a row (some empty)
+    lengths = [3, 16, 1000, 47]
+    q, k, v, bt, lens = paged_case(4, 32, 32, 128, 16, 128, seed=9,
                                    dtype=f32, lengths=lengths)
     for b, n in enumerate(lengths):
         bt[b, -(-n // 16):] = 0                     # unused slots -> trash
+    plan = paged_plan(kern, (q, k, v, bt, lens), {})
+    assert plan["n_splits"] > 1, plan
     base = kern(q, k, v, bt, lens, scale=128 ** -0.5)
     k[0], v[0] = 1e6, -1e6
     poisoned = kern(q, k, v, bt, lens, scale=128 ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(base, poisoned), "trash page leaked into the output"
-    print("  paged_decode trash page poisoned: outputs bit-identical")
+    again = kern(q, k, v, bt, lens, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, again), "split combine not deterministic"
+    print(f"  paged_decode trash page poisoned: outputs bit-identical, and "
+          f"from call to call ({plan})")
 
     # a row with length 0 returns exactly 0, as the TPU kernel does
     lens0 = lens.clone()
@@ -214,8 +254,21 @@ def check_paged_decode(kern, ref):
     out0 = kern(q, k, v, bt, lens0, scale=128 ** -0.5)
     torch.cuda.synchronize()
     assert torch.count_nonzero(out0[1]).item() == 0, "length-0 row not zero"
-    print("  paged_decode length-0 row: exactly 0")
+    print(f"  paged_decode length-0 row: exactly 0 ({plan})")
     return worst
+
+
+def paged_plan(kern, args, kw):
+    """The wrapper's host-side plan for a call: rows a CTA, page splits a
+    row, pages a split."""
+    q, k, _, bt, _ = args
+    B, H, d = q.shape
+    _, page, KV, _ = k.shape
+    v_width = kw.get("v_width", 0)
+    dv = v_width or (args[2].shape[-1])
+    rows, n_splits, per = kern.plan(q.device, B, H, KV, d, dv, page,
+                                    bt.shape[1], v_width, q.dtype)
+    return {"rows": rows, "n_splits": n_splits, "pages_per_split": per}
 
 
 # ------------------------------------------------------- full-width serve
@@ -318,42 +371,97 @@ def serve_full_width(card: str):
 
 # ------------------------------------------------------------ kernel timing
 
-def time_paged_decode(kern, ref, context: int, lengths=None):
-    """Phase 4 at the served widths (B=4, H=KV=32, d=128, page 16)."""
+def device_time(fn, calls: int = 10):
+    """``(device ms a call, top kernel)`` from the torch profiler over
+    ``calls`` calls of ``fn`` after one warm-up call: each kernel's mean
+    device time a launch, summed over the kernels a call launches (each
+    once here: K3's split pass and combine, K4's one kernel, SDPA's
+    attention kernel), so no host time counts, and a session that drops a
+    launch's record now and then (sessions do, for long kernels) still
+    reads right.  Also the name of the kernel that takes the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _device_us
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    if not rows:
+        raise RuntimeError("the profiler recorded no device time")
+    top = max(rows, key=_device_us)
+    return (sum(_device_us(e) / e.count for e in rows) / 1e3,
+            top.key[:120])
+
+
+def time_paged_decode(kern, ref, context: int, lengths=None, *, mla=False):
+    """Phase 5 at the served widths (B=4, page 16): GQA H=KV=32, d=128, or
+    with ``mla`` deepseek-v2's fused latent pool (H 128 on one KV head of
+    d 576, V = its first 512 lanes, scale 1/sqrt(192)).  With every row at
+    one length, one SDPA call over the gathered K/V (MLA: K expanded over
+    the heads, V = K[..., :512]) is the yardstick; it and the kernel are
+    also timed by device time alone."""
     import torch
     import torch.nn.functional as F
-    B, H, KV, d, page = 4, 32, 32, 128, 16
+    B, page = 4, 16
+    H, KV, d, dv = (128, 1, 576, 512) if mla else (32, 32, 128, 128)
     maxp = -(-context // page)
     lengths = lengths or [context] * B
     q, k, v, bt, lens = paged_case(B, H, KV, d, page, maxp, seed=42,
-                                   dtype=torch.float32, lengths=lengths)
-    scale = d ** -0.5
-    ms = cuda_ms(lambda: kern(q, k, v, bt, lens, scale=scale))
-    plain_ms = cuda_ms(lambda: ref(q, k, v, bt, lens, scale=scale))
-    library_ms = None
-    if len(set(lengths)) == 1 and lengths[0] == maxp * page:
+                                   dtype=torch.float32, lengths=lengths,
+                                   fused=mla)
+    kw = dict(scale=MLA_SCALE if mla else d ** -0.5,
+              v_width=dv if mla else 0)
+
+    def call():
+        return kern(q, k, v, bt, lens, **kw)
+    res = {"ms": cuda_ms(call), "device_ms": device_time(call)[0],
+           "plain_ms": cuda_ms(lambda: ref(q, k, v, bt, lens, **kw)),
+           "library_ms": None, "library_device_ms": None,
+           **paged_plan(kern, (q, k, v, bt, lens), kw)}
+    if len(set(lengths)) == 1:
         # yardstick only: one SDPA call over K/V already gathered contiguously
-        L = maxp * page
-        kc = k[bt.long()].reshape(B, L, KV, d).permute(0, 2, 1, 3).contiguous()
-        vc = v[bt.long()].reshape(B, L, KV, d).permute(0, 2, 1, 3).contiguous()
+        L = lengths[0]
+        kc = k[bt.long()].reshape(B, maxp * page, KV, d)[:, :L] \
+            .permute(0, 2, 1, 3)
+        if mla:
+            kc = kc.expand(B, H, L, d)
+            vc = kc[..., :dv]
+        else:
+            kc = kc.contiguous()
+            vc = v[bt.long()].reshape(B, maxp * page, KV, dv)[:, :L] \
+                .permute(0, 2, 1, 3).contiguous()
         q4 = q[:, :, None, :]
-        got = F.scaled_dot_product_attention(q4, kc, vc, scale=scale)[:, :, 0]
-        torch.testing.assert_close(got, kern(q, k, v, bt, lens, scale=scale),
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, kc, vc,
+                                                  scale=kw["scale"])
+        torch.testing.assert_close(sdpa()[:, :, 0], call(),
                                    atol=TOL["float32"], rtol=TOL["float32"])
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q4, kc, vc, scale=scale))
+        res.update(library_ms=cuda_ms(sdpa),
+                   library_device_ms=device_time(sdpa)[0])
     n_keys = sum(lengths)
-    # bytes the function must move: q, the valid keys' K and V rows, the
-    # block-table entries it routes through, lengths, and the output
+    # bytes the function must move: q, the valid keys' K (and V) rows, the
+    # block-table entries it routes through, lengths, and the output; the
+    # products: QK^T over d and PV over dv for every head and key
     n_pages = sum(-(-n // page) for n in lengths)
-    nbytes = 4 * (B * H * d + 2 * n_keys * KV * d + n_pages + B + B * H * d)
-    flops = 2 * n_keys * H * d * 2                 # QK^T and PV
+    nbytes = 4 * (B * H * d + n_keys * KV * (d + (0 if mla else dv))
+                  + n_pages + B + B * H * dv)
+    flops = 2 * n_keys * H * (d + dv)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / F32_FLOPS
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "shape": f"B={B} H=KV={H} d={d} page={page} lengths={lengths} f32"}
+    t_ops = products_ms(flops)
+    res.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_f32_ms=max(t_bytes, 1e3 * flops / F32_FLOPS),
+               shape=f"B={B} H={H} KV={KV} d={d} dv={dv} page={page} "
+                     f"lengths={lengths} f32" + (" v_width" if mla else ""))
+    return res
 
 
 # ------------------------------------------------------------ vb_scatter
@@ -651,6 +759,12 @@ FLASH_CASES = [
      "bfloat16"),
     ("bf16 mla", (1, 1000, 128, 1, 576), 0, 512, MLA_SCALE, True,
      "bfloat16"),
+    # head counts that do not fill the kernel's 64-row packing: 80 MLA
+    # heads (tiles of 64 + 16), 12 heads on one KV head (5 positions x 12)
+    ("mla ragged S777 H80", (1, 777, 80, 1, 576), 0, 512, MLA_SCALE, True,
+     "float32"),
+    ("ragged S333 H12/KV1", (2, 333, 12, 1, 128), 0, 0, None, True,
+     "float32"),
 ]
 
 
@@ -674,7 +788,7 @@ def check_flash_attention():
 
     from repro_torch.kernels.flash_attention import (flash_attention_bh,
                                                      flash_attention_ref)
-    worst = 0.0
+    worst, f64_err = 0.0, None
     for i, (name, shape, window, v_width, scale, causal, dtype) in \
             enumerate(FLASH_CASES):
         q, k, v = flash_case(*shape, v_width, seed=40 + i, dtype=dtype)
@@ -691,34 +805,65 @@ def check_flash_attention():
             worst = max(worst, err)
         print(f"  flash_attention_bh {name} B,S,H,KV,D={shape} {dtype}: "
               f"max_abs_err={err:.3e} (tol {tol})")
+        if name == "mla v=k[:512]":
+            truth = attention_f64(q, k, v, **kw)
+            f64_err = {"kernel": _abs_err(out, truth),
+                       "plain": _abs_err(want, truth)}
+            print(f"    against a float64 softmax: kernel "
+                  f"{f64_err['kernel']:.3e}, plain {f64_err['plain']:.3e}")
+            # the plain version is ~1.1e-5 from float64 here, so the 1e-5
+            # above cannot see a kernel error below that: float64 can
+            assert f64_err["kernel"] <= min(5e-6, f64_err["plain"]), f64_err
+            del truth
         del q, k, v, out, want
+    # a shape outside the kernel's tiles is refused, and launches nothing
+    n0 = flash_attention_bh.launches
+    q, k, v = flash_case(1, 16, 2, 2, 12, 0, seed=49, dtype="float32")
+    try:
+        flash_attention_bh(q, k, v, scale=12 ** -0.5)
+    except ValueError as e:
+        print(f"  flash_attention_bh D=12 refused: {e}")
+    else:
+        raise AssertionError("flash_attention_bh took D=12")
+    assert flash_attention_bh.launches == n0
     torch.cuda.empty_cache()
-    return worst
+    return worst, f64_err
 
 
-def _top_kernel(fn) -> str:
-    """Name of the device kernel that takes the most time in one call."""
+def attention_f64(q, k, v, *, scale, causal, window, v_width):
+    """The same attention in float64, one batch row at a time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    if v is None:
+        v = k[..., :v_width]
+    S, H, KV = q.shape[1], q.shape[2], k.shape[2]
+    i = torch.arange(S, device=q.device)
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window:
+        mask &= i[None, :] > i[:, None] - window
+    rows = []
+    for b in range(q.shape[0]):
+        kb = k[b].double().repeat_interleave(H // KV, 1).transpose(0, 1)
+        vb = v[b].double().repeat_interleave(H // KV, 1).transpose(0, 1)
+        s = torch.einsum("hqd,hkd->hqk", q[b].double().transpose(0, 1),
+                         kb) * scale
+        p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+        del s
+        rows.append(torch.einsum("hqk,hkd->hqd", p, vb).transpose(0, 1))
+    return torch.stack(rows)
 
-    from repro_torch.launch.profile_serve import _device_us
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    return max(rows, key=_device_us).key[:120] if rows else "not measured"
 
-
-def time_flash(name, B, S, H, KV, D, window, v_width, scale, *,
-               library=False):
+def time_flash(name, B, S, H, KV, D, window, v_width, scale):
     """flash_attention_bh against its plain version at one prefill shape,
-    with its bound: the causal (and windowed) pairs' QK and PV products
-    against q, k (and v) read once and the output written once.  With
-    ``library``, one ``scaled_dot_product_attention`` call on the same
-    inputs (K/V broadcast over the heads as an expanded view, V = K[...,
-    :v_width]) as the yardstick, and the kernel SDPA ran."""
+    by CUDA-event pairs and by device time, with its bound: the causal (and
+    windowed) pairs' QK and PV products against q, k (and v) read once and
+    the output written once, the products at the faster of the f32 CUDA
+    cores and 3xTF32 on the tensor cores (``bound_f32_ms``: the CUDA
+    cores').  One ``scaled_dot_product_attention`` call on the same inputs
+    (K/V broadcast over the heads as an expanded view, V = K[...,
+    :v_width], a window as a boolean mask) is the yardstick, with the
+    kernel SDPA ran."""
     import torch
     import torch.nn.functional as F
 
@@ -733,29 +878,40 @@ def time_flash(name, B, S, H, KV, D, window, v_width, scale, *,
     nbytes = 4 * (B * S * H * D + B * S * KV * D
                   + (0 if v_width else B * S * KV * dv) + B * S * H * dv)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / F32_FLOPS
-    res = {"ms": cuda_ms(lambda: flash_attention_bh(q, k, v, **kw), runs=10,
-                         warmup=2),
+    t_ops = products_ms(flops)
+
+    def call():
+        return flash_attention_bh(q, k, v, **kw)
+    res = {"ms": cuda_ms(call, runs=10, warmup=2),
+           "device_ms": device_time(call, calls=3)[0],
            "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
                                runs=5, warmup=1),
-           "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+           "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_f32_ms": max(t_bytes, 1e3 * flops / F32_FLOPS),
            "shape": f"{name}: B={B} S={S} H={H} KV={KV} D={D} dv={dv} "
                     f"window={window} f32",
            "gflop": flops / 1e9, "bytes": nbytes}
-    if library:
-        qh = q.transpose(1, 2)
-        kh = k.transpose(1, 2).expand(B, H, S, D)
-        vh = kh[..., :dv] if v_width else v.transpose(1, 2).expand(B, H, S, dv)
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).expand(B, H, S, D)
+    vh = kh[..., :dv] if v_width else v.transpose(1, 2).expand(B, H, S, dv)
+    mask = None
+    if window:
+        i = torch.arange(S, device=DEVICE)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
-        def sdpa():
+    def sdpa():
+        if mask is None:
             return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                                   scale=scale)
-        got = sdpa().transpose(1, 2)
-        err = _abs_err(got, flash_attention_bh(q, k, v, **kw))
-        assert err < 1e-3, ("sdpa computes another function", err)
-        res.update(library_ms=cuda_ms(sdpa, runs=5, warmup=1),
-                   library_kernel=_top_kernel(sdpa), library_max_abs_err=err)
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              scale=scale)
+    err = _abs_err(sdpa().transpose(1, 2), call())
+    assert err < 1e-3, ("sdpa computes another function", err)
+    lib_device_ms, lib_kernel = device_time(sdpa, calls=3)
+    res.update(library_ms=cuda_ms(sdpa, runs=5, warmup=1),
+               library_device_ms=lib_device_ms, library_kernel=lib_kernel,
+               library_max_abs_err=err)
     del q, k, v
     torch.cuda.empty_cache()
     return res
@@ -786,6 +942,7 @@ def serve_mla(card: str):
                               n_layers=MLA_LAYERS)
     model, params = load_model(cfg)
     launches, serve = engine_paths(model, cfg, params, card)
+    tied_router_check(cfg, params)
 
     rng = np.random.default_rng(1)
     prompts = rng.integers(0, cfg.vocab_size,
@@ -829,6 +986,27 @@ def serve_mla(card: str):
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def tied_router_check(cfg, params):
+    """``moe.route`` of layer 1 with its router zeroed: every token's
+    probabilities tie, and the chosen experts must be [0..k-1] in every row,
+    the lower index first, as ``jax.lax.top_k`` picks them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+    ffn = params["layers"][1]["ffn"]
+    tied = {**ffn, "router": torch.zeros_like(ffn["router"])}
+    x = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(2, 64, cfg.d_model)).astype(np.float32), device=DEVICE)
+    _, gate, expert_idx, _, _, _ = moe.route(tied, cfg, x)
+    k = cfg.moe.top_k
+    want = torch.arange(k, device=DEVICE).expand_as(expert_idx)
+    assert torch.equal(expert_idx, want), expert_idx[0, :2].tolist()
+    assert torch.allclose(gate, torch.full_like(gate, 1 / k))
+    print(f"  tied router (zero weights, {cfg.moe.n_routed_experts} experts,"
+          f" top-{k}): experts [0..{k - 1}] in all {2 * 64} rows")
 
 
 # ------------------------------------------------- full-width recurrent serve
@@ -1364,7 +1542,7 @@ def main() -> None:
     ac_err = check_act_compress()
     ssd_err = check_ssd()
     rglru_err = check_rglru()
-    flash_err = check_flash_attention()
+    flash_err, flash_f64_err = check_flash_attention()
 
     print("== phase 3: main path 1, deepseek-7b at full width through the "
           "paged engine")
@@ -1393,6 +1571,10 @@ def main() -> None:
     long = time_paged_decode(paged_decode_attention,
                              paged_decode_attention_ref, 2048)
     print(f"  paged_decode at context 2048: {json.dumps(long)} [{card}]")
+    mla_t = time_paged_decode(paged_decode_attention,
+                              paged_decode_attention_ref, 1050, mla=True)
+    print(f"  paged_decode v_width mode at the MLA decode shape: "
+          f"{json.dumps(mla_t)} [{card}]")
     vb_main = time_vb_scatter(64, (512, 2, 512))
     vb_large = time_vb_scatter(16384, (1024, 10, 1024))
     for mode in ("scatter", "gather"):
@@ -1410,8 +1592,7 @@ def main() -> None:
     print(f"  rglru_scan_b at the main-path shape: {json.dumps(rglru_t)} "
           f"[{card}]")
     flash_t = {
-        "mla": time_flash("mla", 4, 1024, 128, 1, 576, 0, 512, MLA_SCALE,
-                          library=True),
+        "mla": time_flash("mla", 4, 1024, 128, 1, 576, 0, 512, MLA_SCALE),
         "griffin": time_flash("griffin", SERVE_B, SERVE_P, 16, 1, 256, 2048,
                               0, None),
         "deepseek-7b": time_flash("deepseek-7b", 1, 1024, 32, 32, 128, 0, 0,
@@ -1443,8 +1624,18 @@ def main() -> None:
         entry("paged_decode", SOURCE,
               "src/repro/kernels/paged_attention/kernel.py:100",
               launches["paged_decode"], max_err, long,
+              device_ms=long["device_ms"],
+              library_device_ms=long["library_device_ms"],
+              n_splits=long["n_splits"],
               served_ms=served["ms"], served_bound_ms=served["bound_ms"],
-              launches_mla_v_width=mla["launches"]["paged_decode"]),
+              launches_mla_v_width=mla["launches"]["paged_decode"],
+              mla_ms=mla_t["ms"], mla_device_ms=mla_t["device_ms"],
+              mla_bound_ms=mla_t["bound_ms"], mla_bound_by=mla_t["bound_by"],
+              mla_bound_f32_ms=mla_t["bound_f32_ms"],
+              mla_plain_ms=mla_t["plain_ms"],
+              mla_library_ms=mla_t["library_ms"],
+              mla_library_device_ms=mla_t["library_device_ms"],
+              mla_n_splits=mla_t["n_splits"], mla_shape=mla_t["shape"]),
         entry("permute_rows", vb_kernel.SOURCE,
               "src/repro/kernels/vb_scatter/kernel.py:57",
               tl_launches[permute_rows], vb_err["scatter"],
@@ -1481,14 +1672,21 @@ def main() -> None:
               "src/repro/kernels/flash_attention/kernel.py:75",
               mla["launches"]["flash_attention_bh"], flash_err,
               flash_t["mla"],
+              device_ms=flash_t["mla"]["device_ms"],
+              mla_f64_max_abs_err=flash_f64_err["kernel"],
+              plain_mla_f64_max_abs_err=flash_f64_err["plain"],
+              library_device_ms=flash_t["mla"]["library_device_ms"],
+              bound_f32_ms=flash_t["mla"]["bound_f32_ms"],
               library_kernel=flash_t["mla"]["library_kernel"],
               launches_deepseek_7b=launches["flash_attention_bh"],
               launches_griffin=recurrent["recurrentgemma-9b"][
                   "flash_launches"],
-              griffin_ms=flash_t["griffin"]["ms"],
-              griffin_bound_ms=flash_t["griffin"]["bound_ms"],
-              deepseek_7b_ms=flash_t["deepseek-7b"]["ms"],
-              deepseek_7b_bound_ms=flash_t["deepseek-7b"]["bound_ms"]),
+              **{f"{pre}_{key}": flash_t[name][key]
+                 for name, pre in (("griffin", "griffin"),
+                                   ("deepseek-7b", "deepseek_7b"))
+                 for key in ("ms", "device_ms", "bound_ms", "bound_f32_ms",
+                             "plain_ms", "library_ms",
+                             "library_device_ms")}),
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(f"  serve: {json.dumps(serve)} [{card}]")

@@ -28,9 +28,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's tiles (csrc/flash_attention.cu) and the card's shared memory
-BQ, BK, COLS, MAX_NC = 32, 32, 128, 5
-SMEM_MAX = 232448                 # bytes a block may opt into on an H100
+_INVALID_VALUE = 1            # cudaErrorInvalidValue: a shape it does not take
 _LIB = None
 
 
@@ -46,12 +44,6 @@ def library() -> ctypes.CDLL:
                ctypes.c_void_p])
         _LIB = lib
     return _LIB
-
-
-def smem_bytes(D: int, dv: int, fused: bool) -> int:
-    """Dynamic shared memory of one CTA (the launcher's formula)."""
-    return 4 * (BQ * D + BK * (D + 4) + (0 if fused else BK * dv)
-                + BQ * (BK + 1) + BK * (BQ + 4) + 3 * BQ)
 
 
 def _check(q, k, v, v_width):
@@ -110,16 +102,8 @@ class FlashAttentionBh:
                                        window=window, v_width=v_width)
         B, Sq, H, D = q.shape
         Sk, KV = k.shape[1], k.shape[2]
-        if D % 4 or dv % 4 or -(-dv // COLS) > MAX_NC:
-            raise ValueError(f"D={D} and dv={dv}: the kernel takes multiples "
-                             f"of 4 and dv <= {COLS * MAX_NC}")
-        smem = smem_bytes(D, dv, v is None)
-        if smem > SMEM_MAX:
-            raise ValueError(f"D={D}, dv={dv} need {smem} B of shared memory "
-                             f"per block, more than the card's {SMEM_MAX}")
-        align = 16 if q.dtype == torch.float32 else 8
-        if any(t is not None and t.data_ptr() % align for t in (q, k, v)):
-            raise ValueError(f"q, k and v must be {align}-byte aligned")
+        if any(t is not None and t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("q, k and v must be 16-byte aligned")
         out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
         if out.numel() == 0:
             return out
@@ -128,6 +112,11 @@ class FlashAttentionBh:
             out.data_ptr(), B, Sq, Sk, H, KV, D, dv, float(scale),
             int(bool(causal)), int(window), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
+        if rc == _INVALID_VALUE:
+            raise ValueError(f"D={D}, dv={dv}: the kernel takes D and dv in "
+                             "multiples of 8 (16 from dv 129, 32 from dv "
+                             "257), dv <= 512, and tiles within the card's "
+                             "shared memory (csrc/flash_attention.cu)")
         if rc != 0:
             raise RuntimeError(f"flash_attention_bh launch failed: CUDA "
                                f"error {rc}")
@@ -137,4 +126,4 @@ class FlashAttentionBh:
 
 flash_attention_bh = FlashAttentionBh()
 
-__all__ = ["flash_attention_bh", "SOURCE", "library", "smem_bytes"]
+__all__ = ["flash_attention_bh", "SOURCE", "library"]

@@ -56,7 +56,10 @@ def route(params, cfg: ModelConfig, x):
     E, k = m.n_routed_experts, m.top_k
     C = _capacity(T, cfg)
     probs = torch.softmax((x @ params["router"]).float(), dim=-1)
-    gate, expert_idx = torch.topk(probs, k, dim=-1)
+    # top-k by a stable descending sort: among equal probabilities the lower
+    # expert index comes first, which is ``jax.lax.top_k``'s order
+    gate, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert_idx = gate[..., :k], expert_idx[..., :k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     # rank of each (token, choice) within its expert: a stable sort by

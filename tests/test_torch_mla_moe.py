@@ -129,6 +129,71 @@ def test_moe_matches_reference(setup, capacity_factor):
     assert want_keep.all() == (capacity_factor is None)
 
 
+def _tied_router_case(setup, case):
+    """(jcfg, jax params, cfg, torch params, x) whose router ties: a zero
+    router makes every token's probabilities uniform; integer router rows
+    read by one-hot tokens give integer logits with many equal maxima."""
+    jcfg, jp, cfg, p = _moe_params(setup)
+    if case == "zero_router_moe":
+        # capacity factor 1: C = 4 for 8 tokens x top-2 over 4 experts
+        moe_cfg = dataclasses.replace(cfg.moe, capacity_factor=1.0)
+        jcfg = dataclasses.replace(jcfg, moe=moe_cfg)
+        cfg = dataclasses.replace(cfg, moe=moe_cfg)
+        router = np.zeros(np.asarray(jp["router"]).shape, np.float32)
+        x = _x(cfg, (3, 8), seed=11, scale=1.0)
+    else:
+        # route alone at the full config's router width: E 160, top-6
+        moe_cfg = dataclasses.replace(cfg.moe, n_routed_experts=160, top_k=6)
+        jcfg = dataclasses.replace(jcfg, moe=moe_cfg)
+        cfg = dataclasses.replace(cfg, moe=moe_cfg)
+        rng = np.random.default_rng(12)
+        if case == "route_uniform_E160":
+            router = np.zeros((cfg.d_model, 160), np.float32)
+            x = _x(cfg, (2, 64), seed=13, scale=1.0)
+        else:                                       # "route_integer_ties_E160"
+            router = rng.integers(0, 4, size=(cfg.d_model, 160)).astype(
+                np.float32)
+            x = np.eye(cfg.d_model, dtype=np.float32)[
+                rng.integers(0, cfg.d_model, size=(2, 64))]
+    jp = {**jp, "router": jnp.asarray(router)}
+    p = {**p, "router": torch.from_numpy(router)}
+    return jcfg, jp, cfg, p, x
+
+
+@pytest.mark.parametrize("case", ["zero_router_moe", "route_uniform_E160",
+                                  "route_integer_ties_E160"])
+def test_moe_tied_router_matches_reference(setup, case):
+    """Tied probabilities pick the reference's experts: ``jax.lax.top_k``
+    puts the lower expert index first among equals, and so must ``route``.
+    With the zero router ``moe_apply``'s output and aux also stay within
+    1e-5, and keep / slots equal the one-hot-cumsum oracle (8 tokens x
+    top-2 all on experts 0 and 1 overflow C = 4, so choices drop)."""
+    jcfg, jp, cfg, p, x = _tied_router_case(setup, case)
+    probs = jax.nn.softmax(jnp.einsum("gtd,de->gte", jnp.asarray(x),
+                                      jp["router"]).astype(jnp.float32), -1)
+    jgate, jidx = jax.lax.top_k(probs, cfg.moe.top_k)
+    _, gate, expert_idx, keep, slot, C = moe.route(p, cfg, torch.from_numpy(x))
+    jidx = np.asarray(jidx)
+    top = np.asarray(probs).max(-1, keepdims=True)
+    assert (np.asarray(probs) == top).sum(-1).min() > cfg.moe.top_k, \
+        "the case must tie beyond top-k in every row"
+    np.testing.assert_array_equal(expert_idx.numpy(), jidx)
+    jgate = np.asarray(jgate)
+    np.testing.assert_allclose(
+        gate.numpy(), jgate / np.maximum(jgate.sum(-1, keepdims=True), 1e-9),
+        **TOL)
+    want_keep, want_slot = _slot_oracle(jidx, cfg.moe.n_routed_experts, C)
+    np.testing.assert_array_equal(keep.numpy(), want_keep)
+    np.testing.assert_array_equal(slot.numpy(), want_slot)
+    if case == "zero_router_moe":
+        assert (jidx == np.arange(cfg.moe.top_k)).all()
+        assert not want_keep.all()
+        want, want_aux = jax_moe.moe_apply(jp, jcfg, jnp.asarray(x))
+        got, aux = moe.moe_apply(p, cfg, torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+
+
 def test_moe_capacity_and_combine_weights(setup):
     _, _, cfg, p = _moe_params(setup)
     x = torch.from_numpy(_x(cfg, (2, 8), seed=6))
