@@ -18,9 +18,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``permute_rows`` in scatter and gather mode and its
    autograd backward (exact equality); ``quantize_rows`` /
    ``dequantize_rows`` (bit-equal, constant rows exact, error bound);
-   ``ssd_bh`` (2e-4 against its plain chunked version and the sequential
-   oracle) and ``rglru_scan_b`` (1e-5), at the reference test shapes and
-   the main path's; ``flash_attention_bh`` (f32 1e-5, bf16 2e-2) at the
+   ``ssd_bh`` (2e-4 against its plain chunked version, and the sequential
+   oracle up to chunk 32; bit-identical from call to call; at the main
+   shape no further from the oracle than 1.2x the plain version) at the
+   reference test shapes, the main path's and the shapes its grid has to
+   handle (one chunk, H 1 / 5 / 12 / 48, 16 chunks, ragged tiles, 4-byte
+   copies); ``rglru_scan_b`` (1e-5) at the reference test shapes and the
+   main path's; ``flash_attention_bh`` (f32 1e-5, bf16 2e-2) at the
    prefill shapes of deepseek-7b, Griffin (window 2048) and MLA (H 128 on
    one latent of D 576, V = its first 512 lanes, scale 1/sqrt(192)), a
    ragged S, head counts that do not fill the kernel's 64-row packing
@@ -68,13 +72,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    eq. 12 within 1e-5, and the wire bytes equal to a CPU run's.
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
-   where one computes the same function, and the card's bound (for
-   attention's matrix products the faster of f32 CUDA cores and 3xTF32 on
-   the tensor cores; the f32-core bound beside it); for
-   ``paged_decode`` (GQA at context 2048, its ``v_width`` mode at the MLA
-   decode shape) and ``flash_attention_bh`` (MLA, Griffin, deepseek-7b
-   prefill shapes) also the device time of the kernel and of the library
-   call from the torch profiler, which counts no host time; prefill
+   where one computes the same function, and the card's bound (for the
+   matrix products of attention and of the SSD scan the faster of f32 CUDA
+   cores and 3xTF32 on the tensor cores; the f32-core bound beside it);
+   every kernel also by
+   the device time of its launches from the torch profiler, which counts
+   no host time (K1 and K2 also at their DATRET main-path shapes), and
+   where a library call is timed, that call's too; prefill
    ms, decode ms a step, tok/s and peak memory of each recurrent family
    and of deepseek-v2.
 6. One JSON line listing every kernel, then the last line
@@ -371,14 +375,17 @@ def serve_full_width(card: str):
 
 # ------------------------------------------------------------ kernel timing
 
-def device_time(fn, calls: int = 10):
+def device_time(fn, calls: int = 10, *, per_launch: bool = True):
     """``(device ms a call, top kernel)`` from the torch profiler over
     ``calls`` calls of ``fn`` after one warm-up call: each kernel's mean
     device time a launch, summed over the kernels a call launches (each
-    once here: K3's split pass and combine, K4's one kernel, SDPA's
-    attention kernel), so no host time counts, and a session that drops a
-    launch's record now and then (sessions do, for long kernels) still
-    reads right.  Also the name of the kernel that takes the most time."""
+    once here: K3's split pass and combine, K5's four passes, the other
+    kernels' one, SDPA's attention kernel), so no host time counts, and a
+    session that drops a launch's record now and then (sessions do, for
+    long kernels) still reads right.  With ``per_launch`` False, for a call
+    that launches one kernel several times (three ``index_copy_``), the
+    kernels' total device time over the calls, divided by the calls.  Also
+    the name of the kernel that takes the most time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -396,8 +403,11 @@ def device_time(fn, calls: int = 10):
     if not rows:
         raise RuntimeError("the profiler recorded no device time")
     top = max(rows, key=_device_us)
-    return (sum(_device_us(e) / e.count for e in rows) / 1e3,
-            top.key[:120])
+    if per_launch:
+        us = sum(_device_us(e) / e.count for e in rows)
+    else:
+        us = sum(_device_us(e) for e in rows) / calls
+    return us / 1e3, top.key[:120]
 
 
 def time_paged_decode(kern, ref, context: int, lengths=None, *, mla=False):
@@ -668,25 +678,39 @@ def ssd_case(B, S, H, P, N, seed):
 
 
 def check_ssd():
-    """Phase 2: ssd_bh against its plain chunked version at the reference
-    test shapes and the main path's, y and the final state within 2e-4
-    abs/rel; at the test shapes also against the sequential oracle
-    (reference layout).  At chunk 256 the chunked form itself is a worse f32
-    conditioned sum than the recurrence: |seg| reaches ~200, whose ulp
-    (1.5e-5) moves the decays exp(seg_t - seg_s) by as much, and outputs
-    that cancel to near 0 carry that error times the sum of their terms'
-    sizes; so there the distance of both chunked forms to the sequential
-    oracle is printed, not held to 2e-4."""
+    """Phase 2: ssd_bh against its plain chunked version, y and the final
+    state within 2e-4 abs/rel, and bit-identical from call to call, at the
+    reference test shapes, the main path's and shapes the kernel's grid has
+    to handle: one chunk (S = chunk), H 1, head counts that are not a
+    multiple of the head tile (H 5; H 12 on tiles of 8 heads at P 16), 16
+    chunks (S 4096), a t-tile of 32 rows after one of 64 (chunk 96), and
+    widths that take 4-byte copies (P 18, N 10, chunk 10).  Where chunk <= 32
+    also against the sequential oracle (reference layout).  At chunk 256
+    the chunked form itself is a worse f32 conditioned sum than the
+    recurrence: |seg| reaches ~200, whose ulp (1.5e-5) moves the decays
+    exp(seg_t - seg_s) by as much, and outputs that cancel to near 0 carry
+    that error times the sum of their terms' sizes; so there the distance
+    of both chunked forms to the sequential oracle is printed, not held to
+    2e-4, and at the main shape the kernel's must be within 1.2x the plain
+    version's."""
     import torch
 
     from repro_torch.kernels.ssd import ssd_bh, ssd_chunked_ref, ssd_ref_bh
     worst = 0.0
     for i, (B, S, H, P, N, chunk) in enumerate(
             [(1, 32, 2, 16, 8, 8), (2, 64, 3, 32, 16, 16),
-             (1, 128, 1, 64, 32, 32), (2, 96, 5, 64, 128, 32), SSD_MAIN]):
+             (1, 128, 1, 64, 32, 32), (2, 96, 5, 64, 128, 32),
+             (1, 40, 3, 18, 10, 10), (1, 64, 12, 16, 16, 16),
+             (2, 192, 12, 16, 24, 96), (2, 256, 48, 64, 128, 256),
+             (1, 512, 1, 64, 128, 256), (1, 512, 5, 64, 128, 256),
+             (2, 4096, 48, 64, 128, 256), SSD_MAIN]):
         dA, x, Bm, Cm = ssd_case(B, S, H, P, N, seed=10 + i)
         y, hT = ssd_bh(dA, x, Bm, Cm, chunk=chunk)
+        y2, hT2 = ssd_bh(dA, x, Bm, Cm, chunk=chunk)
         torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(hT, hT2), \
+            ("ssd_bh gave other bits on a second call", B, S, H, P, N, chunk)
+        del y2, hT2
         yp, hp = ssd_chunked_ref(dA, x, Bm, Cm, chunk)
         ys, hs = ssd_ref_bh(
             dA.permute(0, 2, 1).reshape(B * H, S),
@@ -695,8 +719,7 @@ def check_ssd():
             Cm[:, None].expand(B, H, S, N).reshape(B * H, S, N))
         ys = ys.reshape(B, H, S, P).permute(0, 2, 1, 3)
         hs = hs.reshape(B, H, P, N)
-        wants = [(yp, hp)] if (B, S, H, P, N, chunk) == SSD_MAIN else \
-            [(yp, hp), (ys, hs)]
+        wants = [(yp, hp), (ys, hs)] if chunk <= 32 else [(yp, hp)]
         for want_y, want_h in wants:
             torch.testing.assert_close(y, want_y, atol=SSD_TOL, rtol=SSD_TOL)
             torch.testing.assert_close(hT, want_h, atol=SSD_TOL, rtol=SSD_TOL)
@@ -704,10 +727,16 @@ def check_ssd():
         worst = max(worst, err)
         seq = max(_abs_err(y, ys), _abs_err(hT, hs))
         plain_seq = max(_abs_err(yp, ys), _abs_err(hp, hs))
+        if (B, S, H, P, N, chunk) == SSD_MAIN:
+            assert seq <= 1.2 * plain_seq, ("ssd_bh further from the "
+                                            "sequential oracle", seq,
+                                            plain_seq)
         print(f"  ssd_bh B={B} S={S} H={H} P={P} N={N} chunk={chunk}: "
-              f"max_abs_err {err:.3e} vs plain (tol {SSD_TOL}); vs "
-              f"sequential: kernel {seq:.3e}, plain {plain_seq:.3e} "
-              f"(|y| <= {float(y.abs().max()):.1f})")
+              f"max_abs_err {err:.3e} vs plain (tol {SSD_TOL}), same bits "
+              f"on a second call; vs sequential: kernel {seq:.3e}, plain "
+              f"{plain_seq:.3e} (|y| <= {float(y.abs().max()):.1f})")
+        del y, hT, yp, hp, ys, hs, dA, x, Bm, Cm
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -1163,35 +1192,47 @@ def prefill_decode_ms(model, params, prompts):
 
 
 def time_ssd():
-    """ssd_bh at the main path's shape against its plain version."""
+    """ssd_bh at the main path's shape against its plain version, by
+    CUDA-event pairs and by device time (its four passes' mean times a
+    call, summed)."""
     from repro_torch.kernels.ssd import ssd_bh, ssd_chunked_ref
     B, S, H, P, N, CK = SSD_MAIN
     dA, x, Bm, Cm = ssd_case(B, S, H, P, N, seed=30)
     nc = S // CK
     # bytes: dA, x, B, C read once; y and the final state written once
     nbytes = 4 * (B * S * H + 2 * B * S * H * P + 2 * B * S * N + B * H * P * N)
-    # operations the causal chunked form needs: C.B^T over the L = CK(CK+1)/2
+    # the causal chunked form's matrix products: C.B^T over the L = CK(CK+1)/2
     # (t, s <= t) pairs once per (batch, chunk) (B/C are shared by heads);
-    # per (batch, head, chunk) the L decays (exp and product) and the
-    # decayed L x P product, the state update (CK x P x N) and, after the
-    # first chunk, the inter-chunk term (CK x N x P)
+    # per (batch, head, chunk) the decayed L x P product and the state
+    # update (CK x P x N), and after the first chunk the inter-chunk term
+    # (CK x N x P).  Elementwise: the L decays (exp and product) per (batch,
+    # head, chunk)
     L = CK * (CK + 1) // 2
-    flops = (B * nc * L * 2 * N
-             + B * H * nc * (L * (2 + 2 * P) + CK * 2 * P * N)
-             + B * H * (nc - 1) * CK * 2 * N * P)
+    products = (B * nc * L * 2 * N
+                + B * H * nc * (L * 2 * P + CK * 2 * P * N)
+                + B * H * (nc - 1) * CK * 2 * N * P)
+    elementwise = B * H * nc * L * 2
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / F32_FLOPS
-    return {"ms": cuda_ms(lambda: ssd_bh(dA, x, Bm, Cm, chunk=CK), runs=20),
+    t_ops = max(products_ms(products), 1e3 * elementwise / F32_FLOPS)
+
+    def call():
+        return ssd_bh(dA, x, Bm, Cm, chunk=CK)
+    return {"ms": cuda_ms(call, runs=20),
+            "device_ms": device_time(call)[0],
             "plain_ms": cuda_ms(lambda: ssd_chunked_ref(dA, x, Bm, Cm, CK),
                                 runs=10, warmup=2),
             "library_ms": None, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_f32_ms": max(t_bytes, 1e3 * (products + elementwise)
+                                / F32_FLOPS),
             "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={CK} f32",
-            "flops": flops, "bytes": nbytes}
+            "product_flops": products, "elementwise_flops": elementwise,
+            "bytes": nbytes}
 
 
 def time_rglru():
-    """rglru_scan_b at the main path's shape against its plain version."""
+    """rglru_scan_b at the main path's shape against its plain version,
+    by CUDA-event pairs and by device time."""
     import numpy as np
     import torch
 
@@ -1205,7 +1246,9 @@ def time_rglru():
     nbytes = 12 * B * S * W + 4 * B * W       # read a, b; write h, h_final
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * 2 * B * S * W / F32_FLOPS
-    return {"ms": cuda_ms(lambda: rglru_scan_b(a, b, chunk=64)),
+    def call():
+        return rglru_scan_b(a, b, chunk=64)
+    return {"ms": cuda_ms(call), "device_ms": device_time(call)[0],
             "plain_ms": cuda_ms(lambda: rglru_ref(a, b), runs=10),
             "library_ms": None, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1383,7 +1426,9 @@ def tl_training(card: str):
 
 def time_vb_scatter(N, widths):
     """permute_rows (scatter) and take_rows (gather) over f32 (N, w)
-    tensors, against the plain version and three ``index_copy_`` calls."""
+    tensors, by CUDA-event pairs and by device time, against the plain
+    version and three ``index_copy_`` (scatter) / ``index_select``
+    (gather) calls, those also by device time."""
     import numpy as np
     import torch
 
@@ -1406,22 +1451,28 @@ def time_vb_scatter(N, widths):
     nbytes = 2 * sum(t.numel() * 4 for t in ts) + 4 * N
     bound = 1e3 * nbytes / HBM_BYTES_PER_S
     shape = f"N={N} widths={list(widths)} f32"
-    lib_ms = cuda_ms(library)
+    def select():
+        for o, t in zip(outs, ts):
+            torch.index_select(t, 0, perm64, out=o)
+
     res = {}
-    for kern, mode in ((permute_rows, "scatter"), (take_rows, "gather")):
+    for kern, mode, lib in ((permute_rows, "scatter", library),
+                            (take_rows, "gather", select)):
+        def call():
+            return kern(perm, *ts)
         res[mode] = {
-            "ms": cuda_ms(lambda: kern(perm, *ts)),
+            "ms": cuda_ms(call), "device_ms": device_time(call)[0],
             "plain_ms": cuda_ms(
                 lambda: permute_rows_ref(perm, *ts, mode=mode)),
-            "library_ms": lib_ms if mode == "scatter" else cuda_ms(
-                lambda: [torch.index_select(t, 0, perm64, out=o)
-                         for o, t in zip(outs, ts)]),
+            "library_ms": cuda_ms(lib),
+            "library_device_ms": device_time(lib, per_launch=False)[0],
             "bound_ms": bound, "bound_by": "bytes", "shape": shape}
     return res
 
 
 def time_act_compress(R, D):
-    """quantize_rows / dequantize_rows on f32 (R, D), int8 and fp8."""
+    """quantize_rows / dequantize_rows on f32 (R, D), int8 and fp8, by
+    CUDA-event pairs and by device time."""
     import numpy as np
     import torch
 
@@ -1446,7 +1497,8 @@ def time_act_compress(R, D):
             t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
             t_ops = 1e3 * ops * R * D / F32_FLOPS
             res[(name, codec)] = {
-                "ms": cuda_ms(fn), "plain_ms": cuda_ms(ref),
+                "ms": cuda_ms(fn), "device_ms": device_time(fn)[0],
+                "plain_ms": cuda_ms(ref),
                 "library_ms": None,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1583,8 +1635,11 @@ def main() -> None:
         print(f"  permute_rows {mode} at N 16384: "
               f"{json.dumps(vb_large[mode])} [{card}]")
     ac = time_act_compress(16384, 1024)
+    ac_main = time_act_compress(64, 512)    # DATRET's largest visit leaf
     for (name, codec), r in ac.items():
         print(f"  {name} {codec}: {json.dumps(r)} [{card}]")
+        print(f"  {name} {codec} at the DATRET main-path shape: "
+              f"{json.dumps(ac_main[(name, codec)])} [{card}]")
     tl_ms = time_tl_step(card)
     ssd_t = time_ssd()
     print(f"  ssd_bh at the main-path shape: {json.dumps(ssd_t)} [{card}]")
@@ -1620,6 +1675,24 @@ def main() -> None:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "shape": t["shape"], **extra}
 
+    def vb_extra(mode):
+        return dict(device_ms=vb_large[mode]["device_ms"],
+                    library_device_ms=vb_large[mode]["library_device_ms"],
+                    main_path_ms=vb_main[mode]["ms"],
+                    main_path_device_ms=vb_main[mode]["device_ms"],
+                    main_path_bound_ms=vb_main[mode]["bound_ms"],
+                    main_path_library_ms=vb_main[mode]["library_ms"],
+                    main_path_library_device_ms=vb_main[mode][
+                        "library_device_ms"])
+
+    def ac_extra(name):
+        return dict(device_ms=ac[(name, "int8")]["device_ms"],
+                    fp8_ms=ac[(name, "fp8")]["ms"],
+                    main_path_ms=ac_main[(name, "int8")]["ms"],
+                    main_path_device_ms=ac_main[(name, "int8")]["device_ms"],
+                    main_path_bound_ms=ac_main[(name, "int8")]["bound_ms"],
+                    main_path_shape=ac_main[(name, "int8")]["shape"])
+
     kernels = [
         entry("paged_decode", SOURCE,
               "src/repro/kernels/paged_attention/kernel.py:100",
@@ -1639,13 +1712,11 @@ def main() -> None:
         entry("permute_rows", vb_kernel.SOURCE,
               "src/repro/kernels/vb_scatter/kernel.py:57",
               tl_launches[permute_rows], vb_err["scatter"],
-              vb_large["scatter"],
-              main_path_ms=vb_main["scatter"]["ms"],
-              main_path_bound_ms=vb_main["scatter"]["bound_ms"]),
+              vb_large["scatter"], **vb_extra("scatter")),
         entry("take_rows", vb_kernel.SOURCE,
               "src/repro/kernels/vb_scatter/kernel.py:103",
               tl_launches[take_rows], vb_err["gather"], vb_large["gather"],
-              main_path_ms=vb_main["gather"]["ms"],
+              **vb_extra("gather"),
               note="gather mode: the autograd backward of the scatter; the "
                    "simulator's fused step does not differentiate through "
                    "the reassembly, so it launches 0 times on that path, as "
@@ -1654,20 +1725,21 @@ def main() -> None:
         entry("quantize_rows", ac_kernel.SOURCE,
               "src/repro/kernels/act_compress/kernel.py:100",
               tl_launches[quantize_rows], ac_err["quantize_rows"],
-              ac[("quantize_rows", "int8")],
-              fp8_ms=ac[("quantize_rows", "fp8")]["ms"]),
+              ac[("quantize_rows", "int8")], **ac_extra("quantize_rows")),
         entry("dequantize_rows", ac_kernel.SOURCE,
               "src/repro/kernels/act_compress/kernel.py:125",
               tl_launches[dequantize_rows], ac_err["dequantize_rows"],
               ac[("dequantize_rows", "int8")],
-              fp8_ms=ac[("dequantize_rows", "fp8")]["ms"]),
+              **ac_extra("dequantize_rows")),
         entry("ssd_bh", ssd_kernel.SOURCE,
               "src/repro/kernels/ssd/kernel.py:73",
-              recurrent["mamba2-780m"]["launches"], ssd_err, ssd_t),
+              recurrent["mamba2-780m"]["launches"], ssd_err, ssd_t,
+              device_ms=ssd_t["device_ms"],
+              bound_f32_ms=ssd_t["bound_f32_ms"]),
         entry("rglru_scan_b", rglru_kernel.SOURCE,
               "src/repro/kernels/rglru/kernel.py:47",
               recurrent["recurrentgemma-9b"]["launches"], rglru_err,
-              rglru_t),
+              rglru_t, device_ms=rglru_t["device_ms"]),
         entry("flash_attention_bh", flash_kernel.SOURCE,
               "src/repro/kernels/flash_attention/kernel.py:75",
               mla["launches"]["flash_attention_bh"], flash_err,

@@ -6,12 +6,14 @@ the first launch and called through ``ctypes``; its header says what it
 computes, what bounds it on the card and how the design deals with that.
 
 The reference kernel takes (batch·heads)-flattened inputs with B/C
-broadcast over heads; this one reads the model layout directly (one CTA per
-(batch, head)), so nothing is transposed or broadcast before the launch.
-On CPU tensors the wrapper runs the plain chunked version
+broadcast over heads; this one reads the model layout directly, so nothing
+is transposed or broadcast before the launch.  One call launches the
+kernel's four passes (C·Bᵀ, chunk states, state passing, scan) on the
+current stream, into scratch memory the wrapper allocates once per call;
+``launches`` counts such calls, and only those.  On CPU tensors the wrapper
+runs the plain chunked version
 (:func:`~repro_torch.kernels.ssd.ref.ssd_chunked_ref`); on CUDA tensors it
-launches the kernel or raises.  ``launches`` counts the kernel launches,
-and only those.
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
-P_MAX, N_MAX = 64, 128          # the kernel's register and shared-memory tiles
+_INVALID_VALUE = 1            # cudaErrorInvalidValue: a shape it does not take
 _LIB = None
 
 
@@ -35,8 +37,10 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = load_library(SOURCE)
         lib.ssd_bh.restype = ctypes.c_int
-        lib.ssd_bh.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        lib.ssd_bh.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
+        lib.ssd_bh_scratch_floats.restype = ctypes.c_longlong
+        lib.ssd_bh_scratch_floats.argtypes = [ctypes.c_int] * 6
         _LIB = lib
     return _LIB
 
@@ -74,17 +78,21 @@ class SsdBh:
             return ssd_chunked_ref(dA, x, Bm, Cm, chunk)
         B, S, H, P = x.shape
         N = Bm.shape[-1]
-        if P > P_MAX or N > N_MAX:
-            raise ValueError(f"head_dim P={P} / d_state N={N}: the kernel "
-                             f"takes P <= {P_MAX} and N <= {N_MAX}")
         y = torch.empty_like(x)
         hT = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
         if B * S * H == 0:
             return y, hT.zero_()
-        rc = library().ssd_bh(dA.data_ptr(), x.data_ptr(), Bm.data_ptr(),
-                              Cm.data_ptr(), y.data_ptr(), hT.data_ptr(),
-                              B, S, H, P, N, chunk,
-                              torch.cuda.current_stream(x.device).cuda_stream)
+        lib = library()
+        n = lib.ssd_bh_scratch_floats(B, S, H, P, N, chunk)
+        scratch = torch.empty(max(n, 0), dtype=torch.float32, device=x.device)
+        rc = lib.ssd_bh(dA.data_ptr(), x.data_ptr(), Bm.data_ptr(),
+                        Cm.data_ptr(), y.data_ptr(), hT.data_ptr(),
+                        scratch.data_ptr(), B, S, H, P, N, chunk,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+        if rc == _INVALID_VALUE:
+            raise ValueError(f"P={P}, N={N}, chunk={chunk}: the kernel takes "
+                             "P <= 64, N <= 128 and chunk <= 1024 "
+                             "(csrc/ssd_scan.cu)")
         if rc != 0:
             raise RuntimeError(f"ssd_bh launch failed: CUDA error {rc}")
         self.launches += 1
