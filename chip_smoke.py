@@ -17,14 +17,18 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    and a length-0 row at a split shape, bit-identical from call to call);
    ``permute_rows`` in scatter and gather mode and its
    autograd backward (exact equality); ``quantize_rows`` /
-   ``dequantize_rows`` (bit-equal, constant rows exact, error bound);
+   ``dequantize_rows`` (bit-equal, constant rows exact, error bound, every
+   row mapping and both access widths) and ``ef_round_trip_rows``
+   (bit-equal to the four-launch sequence and to its plain version);
    ``ssd_bh`` (2e-4 against its plain chunked version, and the sequential
    oracle up to chunk 32; bit-identical from call to call; at the main
    shape no further from the oracle than 1.2x the plain version) at the
    reference test shapes, the main path's and the shapes its grid has to
    handle (one chunk, H 1 / 5 / 12 / 48, 16 chunks, ragged tiles, 4-byte
-   copies); ``rglru_scan_b`` (1e-5) at the reference test shapes and the
-   main path's; ``flash_attention_bh`` (f32 1e-5, bf16 2e-2) at the
+   copies); ``rglru_scan_b`` (1e-5; bit-identical from call to call; the
+   float64 sequential distance printed) at the reference test shapes, the
+   main path's, a ragged channel tile, 4-byte copies, one step, S shorter
+   than a stage and S 4096; ``flash_attention_bh`` (f32 1e-5, bf16 2e-2) at the
    prefill shapes of deepseek-7b, Griffin (window 2048) and MLA (H 128 on
    one latent of D 576, V = its first 512 lanes, scale 1/sqrt(192)), a
    ragged S, head counts that do not fill the kernel's 64-row packing
@@ -65,11 +69,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    widths (DATRET MLP, ConvNet, tiny Transformer), 3 nodes of 96/64/32
    samples, batch 64, 2 epochs, through ``Engine(mode="sim")`` with kernel
    reassembly, plus an int8 error-feedback wire run on DATRET.  The
-   ``permute_rows`` / ``quantize_rows`` / ``dequantize_rows`` counts over
-   that run must equal virtual batches and visits x float leaves; kernel
-   reassembly must be bit-equal to torch reassembly, fused within 1e-6
-   (loss) of eager, the TL gradient within 2e-5 of the centralized one,
-   eq. 12 within 1e-5, and the wire bytes equal to a CPU run's.
+   ``permute_rows`` / ``ef_round_trip_rows`` counts over that run must
+   equal virtual batches and visits x float leaves (one launch a float
+   leaf's send), with no ``quantize_rows`` / ``dequantize_rows`` launch;
+   then a one-epoch DATRET run on the int8 wire without error feedback,
+   its own main path, must launch each of those two visits x float leaves
+   times.  Kernel reassembly must be bit-equal to torch reassembly, fused
+   within 1e-6 (loss) of eager, the TL gradient within 2e-5 of the
+   centralized one, eq. 12 within 1e-5, and the wire bytes, raw bytes and
+   clock of both wire runs equal to a CPU run's.
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
    where one computes the same function, and the card's bound (for the
@@ -77,7 +85,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    cores and 3xTF32 on the tensor cores; the f32-core bound beside it);
    every kernel also by
    the device time of its launches from the torch profiler, which counts
-   no host time (K1 and K2 also at their DATRET main-path shapes), and
+   no host time (K1 and K2 also at their DATRET main-path shapes; the EF
+   round trip also beside the four-launch sequence it replaces), and
    where a library call is timed, that call's too; prefill
    ms, decode ms a step, tok/s and peak memory of each recurrent family
    and of deepseek-v2.
@@ -375,17 +384,24 @@ def serve_full_width(card: str):
 
 # ------------------------------------------------------------ kernel timing
 
-def device_time(fn, calls: int = 10, *, per_launch: bool = True):
+PROFILER_SESSIONS = []      # sessions each device_time reading took
+
+
+def device_time(fn, calls: int = 10):
     """``(device ms a call, top kernel)`` from the torch profiler over
-    ``calls`` calls of ``fn`` after one warm-up call: each kernel's mean
-    device time a launch, summed over the kernels a call launches (each
-    once here: K3's split pass and combine, K5's four passes, the other
-    kernels' one, SDPA's attention kernel), so no host time counts, and a
-    session that drops a launch's record now and then (sessions do, for
-    long kernels) still reads right.  With ``per_launch`` False, for a call
-    that launches one kernel several times (three ``index_copy_``), the
-    kernels' total device time over the calls, divided by the calls.  Also
-    the name of the kernel that takes the most time."""
+    ``calls`` calls of ``fn`` after one warm-up call: for each kernel, its
+    mean device time a launch times the launches it makes a call (its
+    records over ``calls``, rounded, at least 1: K3's split pass and
+    combine, K5's four passes, the add that an elementwise add and subtract
+    share, three ``index_copy_``), summed, so no host time counts and a
+    record the profiler drops now and then (it does) does not read low.
+    Also the name of the kernel that takes the most time.  A reading is
+    used only from a session whose kernels account for every kernel launch
+    the host made in it (``cudaLaunch*`` / ``cuLaunch*`` calls); a session
+    that misses a kernel (one now and then records none) is run again, up
+    to three sessions.  The sessions each reading took are kept in
+    ``PROFILER_SESSIONS``; a reading that took more, or lost a record, is
+    printed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -393,20 +409,35 @@ def device_time(fn, calls: int = 10, *, per_launch: bool = True):
     from repro_torch.launch.profile_serve import _device_us
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    if not rows:
-        raise RuntimeError("the profiler recorded no device time")
-    top = max(rows, key=_device_us)
-    if per_launch:
-        us = sum(_device_us(e) / e.count for e in rows)
+    seen = []
+    for session in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        rows = [e for e in events
+                if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+                and not e.key.startswith(("Memcpy", "Memset"))]
+        per_call = {e.key: max(1, round(e.count / calls)) for e in rows}
+        launches = sum(e.count for e in events
+                       if e.device_type == DeviceType.CPU
+                       and e.key.startswith(("cudaLaunch", "cuLaunch")))
+        records = sum(e.count for e in rows)
+        seen.append(f"{records} records of {launches} launches")
+        if rows and sum(per_call.values()) * calls == launches:
+            break
     else:
-        us = sum(_device_us(e) for e in rows) / calls
+        raise RuntimeError("the profiler's kernels did not account for the "
+                           "host's launches in three sessions: "
+                           + ", ".join(seen))
+    top = max(rows, key=_device_us)
+    PROFILER_SESSIONS.append(session)
+    if session > 1 or records != launches:
+        print(f"    device_time of {top.key[:60]}: session {session} "
+              f"({', '.join(seen)})")
+    us = sum(_device_us(e) / e.count * per_call[e.key] for e in rows)
     return us / 1e3, top.key[:120]
 
 
@@ -584,31 +615,61 @@ def check_act_compress():
     """Phase 2: quantize_rows / dequantize_rows against the plain versions:
     int8 q and scale bit-equal, fp8 q bit-equal to torch's own cast,
     dequant bit-equal, constant rows exact, EF residual of a constant
-    exactly 0, quantization error within half an int8 level."""
+    exactly 0, quantization error within half an int8 level.  The EF round
+    trip ``ef_round_trip_rows``, with and without a residual, bit-equal in
+    all four outputs to the kernels' four-launch sequence (add, quantize,
+    dequantize, subtract) and to its plain version.  The shapes cover every
+    row mapping of the kernels: several rows a warp, a warp a row, a row
+    past a warp's registers (its tail read twice), 16-byte and one-element
+    accesses (D not a multiple of the vector, a pointer off 16 bytes)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.act_compress import (dequantize_rows,
                                                   dequantize_rows_ref,
-                                                  ef_compress, quantize_rows,
+                                                  ef_compress,
+                                                  ef_round_trip_rows,
+                                                  ef_round_trip_rows_ref,
+                                                  quantize_rows,
                                                   quantize_rows_ref)
     f32, bf16 = torch.float32, torch.bfloat16
     rng = np.random.default_rng(1)
     # the main path's rows (DATRET x1 (k,512), delta (k,2), gw1 w (32,512)
     # and b (1,512); ConvNet x1 rows (k*64,16); Transformer rows (k*32,64))
-    # plus a ragged and a wide shape
+    # plus a ragged and a wide shape, rows past a warp's registers (D 4096;
+    # D 9001, one element at a time) and narrow rows (D 3, 100)
     shapes = [(21, 512), (64, 2), (32, 512), (1, 512), (2048, 16),
-              (1024, 64), (37, 1000), (16384, 1024)]
+              (1024, 64), (37, 1000), (16384, 1024), (8, 4096), (3, 9001),
+              (9, 3), (5, 100)]
+
+    def bits(t):
+        return t.view(torch.uint8)
+
+    def card(a, dt):
+        return torch.as_tensor(a, device=DEVICE).to(dt)
+
+    def offset(t):
+        """A copy of t that starts 4 bytes past a 16-byte boundary, which
+        rules the 16-byte accesses out."""
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=DEVICE)
+        k = 4 // t.element_size()
+        view = buf[k:k + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
     # max |difference| of the scales and of the codes' values (quantize)
     # and of the dequantized values (dequantize), kernel against plain
-    errs = {"quantize_rows": 0.0, "dequantize_rows": 0.0}
+    errs = {"quantize_rows": 0.0, "dequantize_rows": 0.0,
+            "ef_round_trip_rows": 0.0}
     for codec in ("int8", "fp8"):
-        for R, D in shapes:
+        for R, D, shift in [(R, D, False) for R, D in shapes] + [
+                (37, 512, True)]:
             for dt in (f32, bf16):
-                x = (torch.as_tensor(rng.normal(size=(R, D)).astype(np.float32),
-                                     device=DEVICE) * 5).to(dt)
+                x = card(rng.normal(size=(R, D)).astype(np.float32) * 5, dt)
                 if R > 2:
                     x[R // 2] = 0.0                      # an all-zero row
+                if shift:
+                    x = offset(x)
                 q, s = quantize_rows(x, codec)
                 qr, sr = quantize_rows_ref(x, codec)
                 torch.cuda.synchronize()
@@ -616,18 +677,14 @@ def check_act_compress():
                                             _abs_err(s, sr),
                                             _abs_err(q.float(), qr.float()))
                 assert torch.equal(s, sr), (codec, R, D, dt, "scale")
-                assert torch.equal(q.view(torch.uint8), qr.view(torch.uint8)), \
-                    (codec, R, D, dt, "q")
+                assert torch.equal(bits(q), bits(qr)), (codec, R, D, dt, "q")
                 for out_dt in (f32, bf16):
                     xr = dequantize_rows(q, s, out_dt, codec)
                     want = dequantize_rows_ref(q, s, out_dt, codec)
                     torch.cuda.synchronize()
                     errs["dequantize_rows"] = max(errs["dequantize_rows"],
                                                   _abs_err(xr, want))
-                    assert torch.equal(xr.view(torch.int16 if out_dt == bf16
-                                               else torch.int32),
-                                       want.view(torch.int16 if out_dt == bf16
-                                                 else torch.int32)), \
+                    assert torch.equal(bits(xr), bits(want)), \
                         (codec, R, D, dt, out_dt, "dequant")
                 xr = dequantize_rows(q, s, f32, codec).double()
                 absmax = x.float().abs().amax(-1, keepdim=True).double()
@@ -635,9 +692,36 @@ def check_act_compress():
                 assert bool(((xr - x.double()).abs()
                              <= absmax * half * 1.01 + 1e-7).all()), \
                     (codec, R, D, dt, "error bound")
+                # the EF round trip: one launch == four launches == plain
+                res = card(rng.normal(size=(R, D)).astype(np.float32) * 0.05,
+                           f32)
+                if shift:
+                    res = offset(res)
+                for r in (None, res):
+                    got = ef_round_trip_rows(x, r, codec)
+                    xe = x.float() if r is None else x.float() + r
+                    q4, s4 = quantize_rows(xe, codec)
+                    d4 = dequantize_rows(q4, s4, f32, codec)
+                    four = (q4, s4, d4.to(dt), xe - d4)
+                    plain = ef_round_trip_rows_ref(x, r, codec)
+                    torch.cuda.synchronize()
+                    for name, g, f, w in zip(("q", "scale", "delivered",
+                                              "residual"), got, four, plain):
+                        errs["ef_round_trip_rows"] = max(
+                            errs["ef_round_trip_rows"],
+                            _abs_err(g.float(), w.float()))
+                        assert g.dtype == w.dtype and g.shape == w.shape
+                        assert torch.equal(bits(g), bits(f)), \
+                            (codec, R, D, dt, r is None, name, "four")
+                        assert torch.equal(bits(g), bits(w)), \
+                            (codec, R, D, dt, r is None, name, "plain")
         print(f"  quantize_rows/dequantize_rows {codec}: q, scale and "
-              f"dequant bit-equal to the plain versions over {len(shapes)} "
-              "shapes x {f32, bf16} in and out; error within half a level")
+              f"dequant bit-equal to the plain versions over "
+              f"{len(shapes) + 1} shapes (one off 16 bytes) x {{f32, bf16}} "
+              "in and out; error within half a level; ef_round_trip_rows "
+              "(no residual, a residual) bit-equal to the four-launch "
+              "sequence and to the plain version in q, scale, delivered and "
+              "residual")
         # fp8: the plain version's q *is* torch's cast of (x/scale)*256
         # constants: exact round trip and EF residual 0 for c = 0 or
         # |c| >= 1e-12 (below the 1e-12 scale floor x/scale != +-1)
@@ -740,33 +824,95 @@ def check_ssd():
     return worst
 
 
+def sequential_f64(a, b):
+    """h_t = a_t h_{t-1} + b_t from 0, step by step in float64."""
+    import torch
+    a64, b64 = a.double(), b.double()
+    h = torch.empty_like(a64)
+    st = torch.zeros_like(a64[:, 0])
+    for t in range(a.shape[1]):
+        st = a64[:, t] * st + b64[:, t]
+        h[:, t] = st
+    return h
+
+
+def fmaf_f32(a, h, b):
+    """fmaf(a, h, b) elementwise on float32 tensors, rounded once, as the
+    card's fmaf: a * h is exact in float64, the sum is rounded to odd there
+    (two-sum, then the odd neighbour when inexact), and round-to-odd at 53
+    bits followed by round-to-nearest at 24 rounds the exact value
+    correctly."""
+    import torch
+    p, b64 = a.double() * h.double(), b.double()
+    s = p + b64
+    bb = s - p
+    e = (p - (s - bb)) + (b64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(e > 0, torch.full_like(s, math.inf),
+                       torch.full_like(s, -math.inf))
+    return torch.where((e != 0) & even, torch.nextafter(s, away), s).float()
+
+
+def sequential_fmaf(a, b):
+    """h_t = fmaf(a_t, h_{t-1}, b_t) from 0, step by step in float32: the
+    kernel's chain, in its order."""
+    import torch
+    h = torch.empty_like(a)
+    st = torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1]):
+        st = fmaf_f32(a[:, t], st, b[:, t])
+        h[:, t] = st
+    return h
+
+
 def check_rglru():
-    """Phase 2: rglru_scan_b (through the padding ``rglru_scan``) against
-    the plain version at the reference test shapes and the main path's
-    (S = 1000 padded to 1024, and 1024), h and h_final within 1e-5."""
+    """Phase 2: rglru_scan_b against the plain version, h and h_final within
+    1e-5, at the reference test shapes and the main path's (S = 1000 padded
+    to 1024, and 1024), through the padding ``rglru_scan``; then the kernel
+    itself (chunk 1, no pad) where its ring has edges: a ragged channel
+    tile (W 100), 4-byte copies (W 99), one step (B 1 S 1), S shorter than
+    a stage, and B 4 S 4096 W 4096.  Every call is made twice and must give
+    the same bits, and h must be bit-equal to the fmaf chain run step by
+    step in float32 (``sequential_fmaf``); each shape's float64 sequential
+    distance of kernel and plain version is printed."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.rglru import rglru_ref, rglru_scan
+    from repro_torch.kernels.rglru import rglru_ref, rglru_scan, rglru_scan_b
     worst = 0.0
     for i, (B, S, W, chunk) in enumerate(
             [(1, 32, 64, 8), (2, 48, 128, 16), (1, 40, 64, 16),
-             (4, 1000, 4096, 64), (4, 1024, 4096, 64)]):
+             (4, 1000, 4096, 64), (4, 1024, 4096, 64), (2, 77, 100, 1),
+             (3, 50, 99, 1), (1, 1, 4096, 1), (2, 5, 64, 1),
+             (4, 4096, 4096, 1)]):
         rng = np.random.default_rng(20 + i)
         a = torch.as_tensor((1 / (1 + np.exp(-rng.normal(size=(B, S, W)))))
                             .astype(np.float32), device=DEVICE)
         b = torch.as_tensor(rng.normal(size=(B, S, W)).astype(np.float32),
                             device=DEVICE)
-        h, hT = rglru_scan(a, b, chunk=chunk)
+        scan = rglru_scan if chunk > 1 else rglru_scan_b
+        h, hT = scan(a, b, chunk=chunk)
+        h2, hT2 = scan(a, b, chunk=chunk)
         torch.cuda.synchronize()
+        assert torch.equal(h, h2) and torch.equal(hT, hT2), \
+            ("rglru_scan_b gave other bits on a second call", B, S, W)
+        del h2, hT2
         hr, hTr = rglru_ref(a, b)
         torch.testing.assert_close(h, hr, atol=RGLRU_TOL, rtol=0)
         torch.testing.assert_close(hT, hTr, atol=RGLRU_TOL, rtol=0)
         assert torch.equal(hT, h[:, -1]), "h_final is not the last h"
         err = max(_abs_err(h, hr), _abs_err(hT, hTr))
         worst = max(worst, err)
+        assert torch.equal(h, sequential_fmaf(a, b)), \
+            ("rglru_scan_b is not the in-order fmaf chain", B, S, W)
+        h64 = sequential_f64(a, b)
+        seq, plain_seq = _abs_err(h, h64), _abs_err(hr, h64)
         print(f"  rglru_scan_b B={B} S={S} W={W} chunk={chunk}: max_abs_err "
-              f"{err:.3e} (tol {RGLRU_TOL})")
+              f"{err:.3e} (tol {RGLRU_TOL}), same bits on a second call and "
+              f"as the in-order fmaf chain; vs float64 sequential: kernel "
+              f"{seq:.3e}, plain {plain_seq:.3e}")
+        del a, b, h, hT, hr, hTr, h64
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -1269,13 +1415,26 @@ def tl_shards(cfg):
     return paper_model_shards(cfg, TL_SIZES)
 
 
-def tl_engine(cfg, shards, *, device=None, **kw):
+def tl_engine(cfg, shards, *, device=None, epochs=TL_EPOCHS, **kw):
     from repro_torch.launch.engine import Engine
     from repro_torch.models.small import SmallModel
     from repro_torch.optim import sgd
     eng = Engine(SmallModel(cfg), cfg, sgd(0.05), mode="sim",
                  batch_size=TL_BATCH, seed=0, device=device or DEVICE, **kw)
-    return eng, eng.run(shards, epochs=TL_EPOCHS)
+    return eng, eng.run(shards, epochs=epochs)
+
+
+def wire_visits(transport) -> int:
+    """Visits whose payload went over the int8 wire."""
+    return sum(1 for r in transport.window_log if r.kind == "wire:int8")
+
+
+def same_wire(tr, cpu_tr) -> None:
+    """The card's wire bytes, raw bytes and clock equal a CPU run's."""
+    assert tr.bytes_sent == cpu_tr.bytes_sent, (tr.bytes_sent,
+                                                cpu_tr.bytes_sent)
+    assert tr.raw_bytes == cpu_tr.raw_bytes
+    assert tr.clock_s == cpu_tr.clock_s
 
 
 def _leaves_equal(a, b) -> bool:
@@ -1338,10 +1497,12 @@ def tl_training(card: str):
     from repro_torch.configs.paper_models import SMALL_MODELS
     from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels.act_compress import (dequantize_rows,
+                                                  ef_round_trip_rows,
                                                   quantize_rows)
     from repro_torch.kernels.vb_scatter import permute_rows, take_rows
 
-    counters = (permute_rows, take_rows, quantize_rows, dequantize_rows)
+    counters = (permute_rows, take_rows, quantize_rows, dequantize_rows,
+                ef_round_trip_rows)
     data = {name: tl_shards(cfg) for name, cfg in SMALL_MODELS.items()}
     # the main path: every model trained with kernel reassembly, and DATRET
     # once more over the int8 error-feedback wire
@@ -1358,20 +1519,48 @@ def tl_training(card: str):
     launches = {c: c.launches for c in counters}
     n_batches = sum(r.steps for _, r in runs.values()) + ef_res.steps
     tr = ef_eng.orchestrator.transport
-    visits = sum(1 for r in tr.window_log if r.kind == "wire:int8")
+    visits = wire_visits(tr)
     # DATRET's visit payload: x1, delta_L, dx1 and the two first-layer
-    # weight grads are float tensors; loss_sum and n_correct are scalars
+    # weight grads are float tensors; loss_sum and n_correct are scalars.
+    # The error-feedback lane sends each of them with one launch.
     float_leaves = 5
     assert launches[permute_rows] == n_batches > 0, (launches, n_batches)
     assert launches[take_rows] == 0, launches
-    assert launches[quantize_rows] == visits * float_leaves > 0, \
+    assert launches[ef_round_trip_rows] == visits * float_leaves > 0, \
         (launches, visits)
-    assert launches[dequantize_rows] == visits * float_leaves, launches
+    assert launches[quantize_rows] == launches[dequantize_rows] == 0, \
+        launches
     print(f"  main path: {n_batches} TL steps in {wall:.3f}s; launches "
           f"permute_rows {launches[permute_rows]} (one per virtual batch), "
-          f"quantize_rows {launches[quantize_rows]} and dequantize_rows "
-          f"{launches[dequantize_rows]} ({visits} visits x {float_leaves} "
-          f"float leaves) [{card}]")
+          f"ef_round_trip_rows {launches[ef_round_trip_rows]} ({visits} "
+          f"visits x {float_leaves} float leaves), quantize_rows and "
+          f"dequantize_rows 0 [{card}]")
+
+    # the int8 wire without error feedback, a main path of its own: each
+    # float leaf goes through quantize_rows and dequantize_rows
+    for c in counters:
+        c.launches = 0
+    wire_eng, wire_res = tl_engine(SMALL_MODELS["datret"], data["datret"],
+                                   reassembly="kernel", wire="int8", epochs=1)
+    torch.cuda.synchronize()
+    wire_launches = {c: c.launches for c in counters}
+    wire_tr = wire_eng.orchestrator.transport
+    n = wire_visits(wire_tr) * float_leaves
+    assert wire_launches[quantize_rows] == wire_launches[dequantize_rows] \
+        == n > 0, (wire_launches, n)
+    assert wire_launches[ef_round_trip_rows] == 0, wire_launches
+    assert np.all(np.isfinite(wire_res.losses))
+    cpu_wire, _ = tl_engine(SMALL_MODELS["datret"], data["datret"],
+                            device="cpu", reassembly="kernel", wire="int8",
+                            epochs=1)
+    same_wire(wire_tr, cpu_wire.orchestrator.transport)
+    print(f"  main path (int8 wire, no error feedback, {wire_res.steps} TL "
+          f"steps): quantize_rows {wire_launches[quantize_rows]} and "
+          f"dequantize_rows {wire_launches[dequantize_rows]} "
+          f"({n // float_leaves} visits x {float_leaves} float leaves); "
+          f"bytes and clock equal to the CPU run's [{card}]")
+    launches[quantize_rows] = wire_launches[quantize_rows]
+    launches[dequantize_rows] = wire_launches[dequantize_rows]
 
     for name, cfg in SMALL_MODELS.items():
         _, res_k = runs[name]
@@ -1404,11 +1593,7 @@ def tl_training(card: str):
     cpu_eng, _ = tl_engine(SMALL_MODELS["datret"], data["datret"],
                            device="cpu", reassembly="kernel", wire="int8",
                            wire_ef=True)
-    cpu_tr = cpu_eng.orchestrator.transport
-    assert tr.bytes_sent == cpu_tr.bytes_sent, (tr.bytes_sent,
-                                                cpu_tr.bytes_sent)
-    assert tr.raw_bytes == cpu_tr.raw_bytes
-    assert tr.clock_s == cpu_tr.clock_s
+    same_wire(tr, cpu_eng.orchestrator.transport)
     tag = "activations_grads"
     ratio = tr.raw_bytes[tag] / tr.bytes_sent[tag]
     assert ratio >= 3.5, ratio
@@ -1465,7 +1650,7 @@ def time_vb_scatter(N, widths):
             "plain_ms": cuda_ms(
                 lambda: permute_rows_ref(perm, *ts, mode=mode)),
             "library_ms": cuda_ms(lib),
-            "library_device_ms": device_time(lib, per_launch=False)[0],
+            "library_device_ms": device_time(lib)[0],
             "bound_ms": bound, "bound_by": "bytes", "shape": shape}
     return res
 
@@ -1504,6 +1689,49 @@ def time_act_compress(R, D):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "shape": f"R={R} D={D} f32 {codec}"}
     return res
+
+
+def time_ef_round_trip(R, D):
+    """ef_round_trip_rows on f32 (R, D) with an f32 residual, int8, by
+    CUDA-event pairs and by device time, against its plain version and the
+    kernels' four-launch sequence it replaces (add, quantize_rows,
+    dequantize_rows, subtract)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.act_compress import (dequantize_rows,
+                                                  ef_round_trip_rows,
+                                                  ef_round_trip_rows_ref,
+                                                  quantize_rows)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(R, D)).astype(np.float32),
+                        device=DEVICE)
+    res = torch.as_tensor(rng.normal(size=(R, D)).astype(np.float32) * 0.05,
+                          device=DEVICE)
+
+    def fused():
+        return ef_round_trip_rows(x, res)
+
+    def four():
+        xe = x + res
+        q, s = quantize_rows(xe)
+        d = dequantize_rows(q, s)
+        return q, s, d, xe - d
+
+    # bytes: x and the residual read (4 + 4 B), q (1 B), delivered (4 B)
+    # and the new residual (4 B) written per element, a 4 B scale per row;
+    # operations: ~11 f32 ops per element (add, abs, max, divide, multiply,
+    # round, clamp; look up, multiply; subtract)
+    nbytes = 17 * R * D + 4 * R
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * 11 * R * D / F32_FLOPS
+    return {"ms": cuda_ms(fused), "device_ms": device_time(fused)[0],
+            "four_launch_ms": cuda_ms(four),
+            "four_launch_device_ms": device_time(four)[0],
+            "plain_ms": cuda_ms(lambda: ef_round_trip_rows_ref(x, res)),
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "shape": f"R={R} D={D} f32 int8, f32 residual"}
 
 
 def time_tl_step(card: str):
@@ -1550,6 +1778,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels.act_compress import (dequantize_rows,
+                                                  ef_round_trip_rows,
                                                   quantize_rows)
     from repro_torch.kernels.act_compress import kernel as ac_kernel
     from repro_torch.kernels.build import build, library_path
@@ -1640,6 +1869,11 @@ def main() -> None:
         print(f"  {name} {codec}: {json.dumps(r)} [{card}]")
         print(f"  {name} {codec} at the DATRET main-path shape: "
               f"{json.dumps(ac_main[(name, codec)])} [{card}]")
+    ef_large = time_ef_round_trip(16384, 1024)
+    ef_main = time_ef_round_trip(64, 512)
+    print(f"  ef_round_trip_rows: {json.dumps(ef_large)} [{card}]")
+    print(f"  ef_round_trip_rows at the DATRET main-path shape: "
+          f"{json.dumps(ef_main)} [{card}]")
     tl_ms = time_tl_step(card)
     ssd_t = time_ssd()
     print(f"  ssd_bh at the main-path shape: {json.dumps(ssd_t)} [{card}]")
@@ -1731,6 +1965,25 @@ def main() -> None:
               tl_launches[dequantize_rows], ac_err["dequantize_rows"],
               ac[("dequantize_rows", "int8")],
               **ac_extra("dequantize_rows")),
+        entry("ef_round_trip_rows", ac_kernel.SOURCE,
+              "src/repro/kernels/act_compress/kernel.py:100",
+              tl_launches[ef_round_trip_rows], ac_err["ef_round_trip_rows"],
+              ef_large, device_ms=ef_large["device_ms"],
+              four_launch_ms=ef_large["four_launch_ms"],
+              four_launch_device_ms=ef_large["four_launch_device_ms"],
+              main_path_ms=ef_main["ms"],
+              main_path_device_ms=ef_main["device_ms"],
+              main_path_bound_ms=ef_main["bound_ms"],
+              main_path_four_launch_ms=ef_main["four_launch_ms"],
+              main_path_four_launch_device_ms=ef_main[
+                  "four_launch_device_ms"],
+              main_path_shape=ef_main["shape"],
+              note="the error-feedback round trip in one launch: "
+                   "quantize_rows (:100) and dequantize_rows (:125) as "
+                   "src/repro/kernels/act_compress/ops.py:83 ef_compress "
+                   "calls them, with the add and the subtract; launches "
+                   "from the int8+EF DATRET run, quantize_rows' and "
+                   "dequantize_rows' from the int8 run without EF"),
         entry("ssd_bh", ssd_kernel.SOURCE,
               "src/repro/kernels/ssd/kernel.py:73",
               recurrent["mamba2-780m"]["launches"], ssd_err, ssd_t,
@@ -1761,6 +2014,8 @@ def main() -> None:
                              "library_device_ms")}),
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
+    print(f"  profiler sessions each device-time reading took (its kernels "
+          f"accounting for every launch): {PROFILER_SESSIONS}")
     print(f"  serve: {json.dumps(serve)} [{card}]")
     print(f"  recurrent: {json.dumps(recurrent)} [{card}]")
     print(f"  mla: {json.dumps(mla)} [{card}]")

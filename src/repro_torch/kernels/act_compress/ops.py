@@ -4,14 +4,19 @@ error-feedback step of the transport's wire lanes.
 Port of ``repro/kernels/act_compress/ops.py``: the same payload
 (``{"q": (R, D) int8 | float8_e4m3fn, "scale": (R,) f32}`` over the rows
 of ``x.reshape(-1, D)``), the same wire size and the same EF arithmetic,
-on the kernels of :mod:`.kernel`.
+on the kernels of :mod:`.kernel`: ``compress`` / ``decompress`` launch
+``quantize_rows`` / ``dequantize_rows``, ``ef_compress`` the one-launch
+``ef_round_trip_rows``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.act_compress.kernel import (CODECS, dequantize_rows,
+                                                     ef_round_trip_rows,
                                                      quantize_rows)
+
+_ROW_DTYPES = (torch.float32, torch.bfloat16)   # what the kernels read
 
 
 def _codec_of(q) -> str:
@@ -54,10 +59,17 @@ def ef_compress(x, residual, *, codec: str = "int8"):
     """One error-feedback step: compress ``x + residual``, return
     ``(payload, delivered, new_residual)``.  ``residual`` may be ``None``
     (a fresh lane).  All EF arithmetic runs in f32; ``delivered`` is cast
-    back to ``x.dtype``."""
-    xe = x.float()
+    back to ``x.dtype``.  One launch of ``ef_round_trip_rows`` on a CUDA
+    tensor of float32 or bfloat16 (other float dtypes are cast to float32
+    first); its plain version on the CPU."""
+    shape = x.shape
+    rows = x.reshape(-1, shape[-1])
+    if rows.dtype not in _ROW_DTYPES:
+        rows = rows.float()
+    rows = rows.contiguous()
     if residual is not None:
-        xe = xe + residual
-    payload = compress(xe, codec=codec)
-    delivered = decompress(payload, xe.shape, out_dtype=torch.float32)
-    return payload, delivered.to(x.dtype), xe - delivered
+        residual = residual.reshape(rows.shape).contiguous()
+    q, scale, delivered, new_residual = ef_round_trip_rows(rows, residual,
+                                                           codec)
+    return ({"q": q, "scale": scale}, delivered.reshape(shape).to(x.dtype),
+            new_residual.reshape(shape))

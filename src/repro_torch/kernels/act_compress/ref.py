@@ -50,3 +50,17 @@ def dequantize_rows_ref(q, scale, out_dtype=torch.float32,
     # from the IEEE quotient the kernel and the CPU compute
     u = pin_rails(qf, qf / torch.full_like(qf, denom), denom)
     return (u * scale[:, None]).to(out_dtype)
+
+
+def ef_round_trip_rows_ref(x, residual=None, codec: str = "int8"):
+    """One error-feedback round trip of (R, D) rows, as four plain steps:
+    ``xe = x.float() + residual`` (no add when ``residual`` is None),
+    quantize ``xe``, dequantize it in f32 (``delivered``), and ``xe -
+    delivered``.  Returns ``(q, scale, delivered in x.dtype, new_residual
+    f32)``."""
+    xe = x.float()
+    if residual is not None:
+        xe = xe + residual
+    q, scale = quantize_rows_ref(xe, codec)
+    delivered = dequantize_rows_ref(q, scale, torch.float32, codec)
+    return q, scale, delivered.to(x.dtype), xe - delivered

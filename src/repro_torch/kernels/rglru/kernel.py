@@ -11,7 +11,8 @@ On CPU tensors the wrapper runs the plain version
 launches the kernel or raises.  ``launches`` counts the kernel launches,
 and only those.  ``chunk`` keeps the reference's contract (S a multiple of
 it; :func:`repro_torch.kernels.rglru.ops.rglru_scan` pads): the CUDA kernel
-itself walks time one step per iteration and needs no chunking.
+streams S through its own ring of shared-memory stages, takes any S and W,
+and needs no chunking.
 """
 from __future__ import annotations
 

@@ -21,7 +21,9 @@ from repro_torch.kernels.act_compress import (CODECS, compress,  # noqa: E402
                                               compressed_bytes, decompress,
                                               dequantize_rows,
                                               dequantize_rows_ref,
-                                              ef_compress, quantize_rows,
+                                              ef_compress, ef_round_trip_rows,
+                                              ef_round_trip_rows_ref,
+                                              quantize_rows,
                                               quantize_rows_ref)
 
 def _x(seed, shape, scale=5.0):
@@ -180,3 +182,83 @@ def test_quantizer_error_bound(codec, rows, cols, scale, zero_row):
     assert np.all(np.abs(xr - x).max(axis=1) <= bound * 1.01)
     if zero_row:
         assert np.all(xr[rows // 2] == 0.0)
+
+
+def _bits(t):
+    return t.view(torch.uint8)
+
+
+@pytest.mark.parametrize("R", [1, 64])
+@pytest.mark.parametrize("D", [1, 2, 3, 512])
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_ef_round_trip_is_the_four_step_composition(codec, dtype,
+                                                    with_residual, D, R):
+    """The plain EF round trip (what the wrapper runs on CPU tensors, and
+    the one-launch kernel's oracle on the card) is bit-equal to the four
+    steps it fuses: add the residual in f32, quantize, dequantize in f32,
+    subtract; delivered in x's dtype.  ``ef_compress`` returns the same."""
+    rng = np.random.default_rng(1000 * D + R)
+    x = torch.as_tensor(rng.normal(size=(R, D)).astype(np.float32) * 5).to(
+        dtype)
+    res = (torch.as_tensor(rng.normal(size=(R, D)).astype(np.float32) * 0.05)
+           if with_residual else None)
+    xe = x.float() if res is None else x.float() + res
+    q, scale = quantize_rows_ref(xe, codec)
+    d = dequantize_rows_ref(q, scale, torch.float32, codec)
+    want = (q, scale, d.to(dtype), xe - d)
+    for got in (ef_round_trip_rows(x, res, codec),
+                ef_round_trip_rows_ref(x, res, codec)):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(_bits(g), _bits(w))
+    payload, delivered, new_residual = ef_compress(x, res, codec=codec)
+    for g, w in zip((payload["q"], payload["scale"], delivered,
+                     new_residual), want):
+        assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
+    assert ef_round_trip_rows.launches == 0
+
+
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_ef_round_trip_matches_the_reference(codec):
+    """Four sends of one lane through the one-launch entry point (its plain
+    version on the CPU) against JAX's ``ef_compress``, at the tolerance of
+    ``test_ef_step_matches_the_reference``: scales to 1 ulp, delivered and
+    residual to one quantization level of their row."""
+    x = _x(8, (24, 48))
+    jres, tres = None, None
+    for _ in range(4):
+        jp, jd, jres = jax_ac.ef_compress(jnp.asarray(x), jres, codec=codec,
+                                          block_rows=8)
+        tq, ts, td, tres = ef_round_trip_rows(torch.as_tensor(x), tres, codec)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(jp["scale"]),
+                                   rtol=1.2e-7)
+        assert np.abs(_q_levels(tq) - _q_levels(jp["q"])).max() <= \
+            (1 if codec == "int8" else 16)
+        level = ts.numpy()[:, None] / (127.0 if codec == "int8" else 16.0)
+        assert np.all(np.abs(td.numpy() - np.asarray(jd)) <= level)
+        assert np.all(np.abs(tres.numpy() - np.asarray(jres)) <= level)
+
+
+@pytest.mark.parametrize("fault", ["x_dtype", "x_shape", "residual_dtype",
+                                   "residual_shape", "codec", "devices"])
+def test_ef_round_trip_rows_refuses_bad_calls(fault):
+    x = torch.as_tensor(_x(9, (4, 8)))
+    res = torch.zeros(4, 8)
+    codec = "int8"
+    if fault == "x_dtype":
+        x = x.double()
+    elif fault == "x_shape":
+        x = x.reshape(2, 2, 8)
+    elif fault == "residual_dtype":
+        res = res.double()
+    elif fault == "residual_shape":
+        res = res[:, :4]
+    elif fault == "codec":
+        codec = "int4"
+    else:
+        res = res.to("meta")
+    with pytest.raises(ValueError):
+        ef_round_trip_rows(x, res, codec)
+    assert ef_round_trip_rows.launches == 0
