@@ -78,6 +78,22 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    within 1e-6 (loss) of eager, the TL gradient within 2e-5 of the
    centralized one, eq. 12 within 1e-5, and the wire bytes, raw bytes and
    clock of both wire runs equal to a CPU run's.
+4b. Main path 5, hierarchical and async TL: benchmarks/bench_tl_step.py's
+   hierarchy column (DATRET, 2 samples a node, one virtual batch of 2n
+   rows, a 1e9 B/s link with rtt 0, compute 1e-4 s and BP 5e-4 s per
+   sample) at 64 / 256 / 1024 nodes with 8 / 16 / 32 subtrees, one flat
+   and one two-tier epoch each with kernel reassembly: both clocks equal
+   the ``hierarchy`` entry of BENCH_tl_step.json to its 6 digits and the
+   port's ``runtime_tl(hierarchy=)`` within 1e-9; ``permute_rows``
+   launches once per subtree (two-tier) and once (flat); two-tier within
+   16 float32 ULPs of flat; each overlap record's lane bytes sum to its
+   ``by_tag`` and carry no contribution bytes.  Then ``async_train_epoch``
+   on a fused kernel-reassembly orchestrator (tabular 400x32, 4 classes, 4
+   IID shards, batch 32): ``permute_rows`` once per buffered contribution,
+   and the flush-only run (``min_contributions=100``) bit-equal to the
+   exactly-full one.  Then the baselines on the non-IID task of
+   tests/test_baselines.py: |acc TL - acc CL| < 0.1, acc FL <= acc CL +
+   0.05, SL / SL+ / SFL above 0.3.  Each epoch's wall time is printed.
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
    where one computes the same function, and the card's bound (for the
@@ -86,7 +102,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    every kernel also by
    the device time of its launches from the torch profiler, which counts
    no host time (K1 and K2 also at their DATRET main-path shapes; the EF
-   round trip also beside the four-launch sequence it replaces), and
+   round trip also beside the four-launch sequence it replaces; K1 also
+   as one ``scatter_rows`` call at N 1, its launch floor), and
    where a library call is timed, that call's too; prefill
    ms, decode ms a step, tok/s and peak memory of each recurrent family
    and of deepseek-v2.
@@ -113,6 +130,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
+T_START = 0.0           # set by main: the script's total time is printed
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core f32 and
 # tensor-core TF32.
@@ -549,6 +567,8 @@ def check_vb_scatter():
          [(2048, f32), (2, f32), (2048, f32)]),
         ("ragged N=37", 37, [(1024, f32), (10, f32), (1024, f32)]),
         ("one row", 1, [(512, f32), (2, f32)]),
+        ("hierarchy contribution N=64", 64, [(512, f32), (2, f32)]),
+        ("async contribution N=8", 8, [(512, f32), (4, f32)]),
         ("bf16 + int32 rows", 29, [(96, bf16), (4, i32), (96, bf16)]),
         ("narrow (N,2) + wide (N,4096)", 50, [(2, f32), (4096, f32)]),
         ("vector widths 16/8/4/2/1", 33,
@@ -1607,6 +1627,266 @@ def tl_training(card: str):
                       "wire_ratio": ratio}
 
 
+# ------------------------------------------------- hierarchical and async TL
+
+# benchmarks/bench_tl_step.py's hierarchy column, as constants: DATRET, 2
+# samples a node, one virtual batch of 2n rows, a 1e9 B/s link with rtt 0,
+# node compute 1e-4 s and centralized BP 5e-4 s per sample.  Its clocks are
+# hardware-independent: the port's must equal the reference's committed
+# values in BENCH_tl_step.json.
+HIER_NODES = {64: 8, 256: 16, 1024: 32}      # nodes -> subtrees
+HIER_SAMPLES = 2
+HIER_BW = 1e9
+SIM_COMPUTE_S = 1e-4
+SIM_BP_S = 5e-4
+ULP_FACTOR = 16          # the reference's two-tier vs flat bound
+
+
+def hier_orchestrator(n_nodes, n_subtrees):
+    """The hierarchy column's flat (``n_subtrees=None``) or two-tier
+    orchestrator on the card, kernel reassembly, parameters from seed 0."""
+    import numpy as np
+
+    from repro_torch.configs.paper_models import DATRET
+    from repro_torch.core import (HierarchicalOrchestrator, NetworkModel,
+                                  PlanSpec, TLNode, TLOrchestrator, Transport)
+    from repro_torch.models.small import SmallModel
+    from repro_torch.optim import sgd
+    model = SmallModel(DATRET)
+    r = np.random.default_rng(0)
+    nodes = [TLNode(i, model, r.normal(size=(HIER_SAMPLES,) + DATRET.in_shape)
+                    .astype(np.float32),
+                    r.integers(0, DATRET.n_classes, HIER_SAMPLES),
+                    device=DEVICE) for i in range(n_nodes)]
+    tr = Transport(network=NetworkModel(bandwidth_bytes_per_s=HIER_BW,
+                                        rtt_s=0.0))
+    kw = dict(plan=PlanSpec(seed=0, batch_size=HIER_SAMPLES * n_nodes),
+              compute_time_fn=lambda m: SIM_COMPUTE_S * m,
+              bp_time_fn=lambda m: SIM_BP_S * m, reassembly="kernel",
+              device=DEVICE)
+    if n_subtrees is None:
+        orch = TLOrchestrator(model, nodes, sgd(0.05), tr, **kw)
+    else:
+        orch = HierarchicalOrchestrator(model, nodes, sgd(0.05), tr,
+                                        n_subtrees=n_subtrees, **kw)
+    orch.initialize(0)
+    return orch
+
+
+def hier_spec(n_nodes, model_bytes):
+    """The WorkloadSpec of ``hier_orchestrator``, byte for byte and tick
+    for tick (bench_tl_step.py's ``_hier_spec``)."""
+    from repro_torch.configs.paper_models import DATRET
+    from repro_torch.core.runtime_model import WorkloadSpec
+    client = 1e12
+    return WorkloadSpec(
+        n_nodes=n_nodes, samples_per_node=HIER_SAMPLES,
+        batch_size=HIER_SAMPLES * n_nodes, model_bytes=model_bytes,
+        first_layer_bytes_per_sample=DATRET.hidden[0] * 4,
+        logits_bytes_per_sample=DATRET.n_classes * 4,
+        first_layer_param_bytes=(DATRET.in_shape[0] + 1)
+        * DATRET.hidden[0] * 4,
+        flops_per_sample_fwd=SIM_COMPUTE_S / 2 * client,
+        flops_per_sample_bwd=SIM_COMPUTE_S / 2 * client,
+        client_flops_per_s=client,
+        server_flops_per_s=client * SIM_COMPUTE_S / SIM_BP_S,
+        bandwidth_bytes_per_s=HIER_BW, rtt_s=0.0)
+
+
+def ulp_drift(a, b) -> float:
+    """Largest |a - b| over the leaves, in units of the reference's bound
+    (16 float32 ULPs of max(1, |a|max)); <= 1 passes."""
+    import numpy as np
+
+    from repro_torch.core.tree import tree_leaves
+    eps = np.finfo(np.float32).eps
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.double(), y.double()
+        tol = float(ULP_FACTOR * eps) * max(1.0, float(x.abs().max()))
+        worst = max(worst, float((x - y).abs().max()) / tol)
+    return worst
+
+
+def hierarchy_column(card: str):
+    """Phase 4b, the hierarchy column: flat and two-tier epochs at 64 / 256
+    / 1024 nodes.  Clocks equal BENCH_tl_step.json's to its 6 digits and
+    the port's runtime_tl; K1 once per present subtree (two-tier) and once
+    per virtual batch (flat); two-tier within 16 ULPs of flat; lane bytes
+    reconcile and carry no contribution."""
+    import torch
+
+    from repro_torch.core import payload_bytes
+    from repro_torch.core.runtime_model import runtime_tl
+    from repro_torch.kernels.vb_scatter import permute_rows
+    bench = json.loads((ROOT / "BENCH_tl_step.json").read_text())
+    want = next(e["hierarchy"] for e in bench if "hierarchy" in e)
+    out = {}
+    for n, s in HIER_NODES.items():
+        row = {"n_subtrees": s}
+        runs = {}
+        for name, subtrees in (("flat", None), ("two_tier", s)):
+            orch = hier_orchestrator(n, subtrees)
+            torch.cuda.synchronize()
+            permute_rows.launches = 0
+            t0 = time.perf_counter()
+            stats = orch.train_epoch()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = permute_rows.launches
+            assert len(stats) == 1, (n, name, len(stats))
+            assert launches == (1 if subtrees is None else s), \
+                (n, name, launches)
+            clock = orch.transport.clock_s
+            assert round(clock, 6) == want[str(n)][f"{name}_clock_s"], \
+                (n, name, clock, want[str(n)])
+            pred = runtime_tl(hier_spec(n, payload_bytes(orch.params)),
+                              hierarchy=subtrees or 1)
+            assert abs(pred - clock) < 1e-9, (n, name, pred, clock)
+            runs[name] = orch
+            row.update({f"{name}_clock_s": clock, f"{name}_wall_s": wall,
+                        f"{name}_k1_launches": launches,
+                        f"{name}_pred_err": abs(pred - clock)})
+        flat, hier = runs["flat"], runs["two_tier"]
+        drift = ulp_drift(flat.params, hier.params)
+        assert drift <= 1.0, (n, drift)
+        overlaps = [r for r in hier.transport.window_log
+                    if r.kind == "overlap"]
+        assert len(overlaps) == 1 and len(overlaps[0].lanes) == s
+        for rec in overlaps:
+            summed = {}
+            for per_tag in rec.lane_bytes.values():
+                for tag, nb in per_tag.items():
+                    summed[tag] = summed.get(tag, 0) + nb
+            assert summed == rec.by_tag, (summed, rec.by_tag)
+            assert "contribution" not in rec.by_tag
+        contrib = hier.transport.bytes_sent["contribution"]
+        assert contrib == s * (payload_bytes(hier.params) + 8), contrib
+        row.update(ulp_drift=drift, contribution_bytes=contrib,
+                   speedup=row["flat_clock_s"] / row["two_tier_clock_s"])
+        out[str(n)] = row
+        print(f"  {n} nodes, {s} subtrees: clock flat {row['flat_clock_s']:.6f}"
+              f" s, two-tier {row['two_tier_clock_s']:.6f} s "
+              f"({row['speedup']:.3f}x; BENCH_tl_step.json's, and runtime_tl "
+              f"within {max(row['flat_pred_err'], row['two_tier_pred_err']):.1e}"
+              f"); K1 launches flat {row['flat_k1_launches']}, two-tier "
+              f"{row['two_tier_k1_launches']}; two-tier - flat "
+              f"{drift:.3f} of 16 ULPs; epoch wall flat "
+              f"{row['flat_wall_s']:.3f} s, two-tier "
+              f"{row['two_tier_wall_s']:.3f} s [{card}]")
+        del flat, hier, runs
+        gc.collect()
+    return out
+
+
+def paper_task(n, frac_seed, shard):
+    """tests/test_async_and_partial.py's (IID) or tests/test_baselines.py's
+    (non-IID) tabular task: 4 classes, 32 features, from numpy seeds."""
+    from repro_torch.data.datasets import tabular
+    ds = tabular(n, 32, 4, seed=0, margin=2.0, noise=0.8)
+    train, test = ds.split(0.8, seed=frac_seed)
+    return shard(train), test
+
+
+def cfg4():
+    from repro_torch.configs.paper_models import DATRET
+    return dataclasses.replace(DATRET, n_classes=4)
+
+
+def tl_orch(shards, gen):
+    from repro_torch.core import PlanSpec, TLNode, TLOrchestrator, Transport
+    from repro_torch.models.small import SmallModel
+    from repro_torch.optim import sgd
+    model = SmallModel(cfg4())
+    nodes = [TLNode(i, model, s.x, s.y, device=DEVICE)
+             for i, s in enumerate(shards)]
+    orch = TLOrchestrator(model, nodes, sgd(0.05), Transport(),
+                          batch_size=32, plan=PlanSpec(seed=0),
+                          check_consistency=False, reassembly="kernel",
+                          device=DEVICE)
+    orch.initialize(gen)
+    return orch
+
+
+def async_tl(card: str):
+    """Phase 4b, async TL: two buffered epochs on a fused, kernel-reassembly
+    DATRET orchestrator, one with the buffer exactly full and one that
+    updates only through the end-of-batch flush; K1 once per buffered
+    contribution in each, and the two runs bit-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.async_tl import async_train_epoch
+    from repro_torch.data.datasets import shard_iid
+    from repro_torch.kernels.vb_scatter import permute_rows
+    shards, _ = paper_task(400, 0, lambda d: shard_iid(d, 4, seed=0))
+    runs = {}
+    for min_c in (None, 100):
+        orch = tl_orch(shards, 4)
+        plan = orch.planner.plan([n.index_range() for n in orch.nodes],
+                                 batch_size=orch.batch_size, seed=orch.seed,
+                                 epoch=0)
+        contributions = sum(len(vb.traversal) for vb in plan.batches)
+        torch.cuda.synchronize()
+        permute_rows.launches = 0
+        t0 = time.perf_counter()
+        stats, _ = async_train_epoch(orch, min_contributions=min_c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = permute_rows.launches
+        assert launches == contributions > 0, (min_c, launches,
+                                                contributions)
+        assert stats and all(np.isfinite(s.loss) for s in stats)
+        runs[min_c] = (orch, launches, len(stats), wall)
+    assert _leaves_equal(runs[None][0].params, runs[100][0].params)
+    launches = runs[None][1] + runs[100][1]
+    print(f"  async TL: {runs[None][1]} buffered contributions an epoch, "
+          f"K1 once each ({launches} launches over both runs); "
+          f"{runs[None][2]} updates exactly full, {runs[100][2]} through the "
+          f"flush, parameters bit-equal; epoch wall {runs[None][3]:.3f} / "
+          f"{runs[100][3]:.3f} s [{card}]")
+    return launches
+
+
+def baselines(card: str):
+    """Phase 4b, the baselines on tests/test_baselines.py's non-IID task:
+    TL within 0.1 of CL, FedAvg no better than CL + 0.05, SL / SL+ / SFL
+    above 0.3 (every method from the same generator seed)."""
+    from repro_torch.core import baselines as B
+    from repro_torch.data.datasets import shard_noniid
+    from repro_torch.models.small import SmallModel
+    from repro_torch.optim import sgd
+    shards, test = paper_task(
+        600, 1, lambda d: shard_noniid(d, n_nodes=4, alpha=0.25, seed=2))
+    shards = [B.ShardData(s.x, s.y) for s in shards]
+    model = SmallModel(cfg4())
+    kw = dict(generator=0, batch_size=32, device=DEVICE)
+    t0 = time.perf_counter()
+    orch = tl_orch(shards, 0)
+    for _ in range(3):
+        orch.train_epoch()
+    params = {
+        "TL": orch.params,
+        "CL": B.train_cl(model, shards, sgd(0.05), epochs=3, **kw),
+        "FL": B.train_fl(model, shards, sgd(0.05), rounds=3, local_epochs=1,
+                         **kw),
+        "SL": B.train_sl(model, shards, sgd(0.05), rounds=2, **kw),
+        "SL+": B.train_sl(model, shards, sgd(0.05), rounds=2,
+                          no_label_sharing=True, **kw),
+        "SFL": B.train_sfl(model, shards, sgd(0.05), rounds=2, **kw)}
+    acc = {k: B.evaluate(model, p, test.x, test.y)["acc"]
+           for k, p in params.items()}
+    wall = time.perf_counter() - t0
+    assert abs(acc["TL"] - acc["CL"]) < 0.1, acc
+    assert acc["FL"] <= acc["CL"] + 0.05, acc
+    assert all(acc[k] > 0.3 for k in ("SL", "SL+", "SFL")), acc
+    print(f"  baselines (non-IID, 4 nodes): test accuracy "
+          + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
+          + f"; |TL - CL| < 0.1, FL <= CL + 0.05, SL / SL+ / SFL > 0.3; "
+          f"{wall:.3f} s [{card}]")
+    return acc
+
+
 # ------------------------------------------------------------- K1/K2 timing
 
 def time_vb_scatter(N, widths):
@@ -1653,6 +1933,26 @@ def time_vb_scatter(N, widths):
             "library_device_ms": device_time(lib)[0],
             "bound_ms": bound, "bound_by": "bytes", "shape": shape}
     return res
+
+
+def time_scatter_rows(N):
+    """One ``scatter_rows`` call (what the fused and contribution steps
+    call) over f32 (N, 512), (N, 2), (N, 512) rows, by CUDA-event pairs and
+    by device time: at N 1 the launch floor, at N 64 the DATRET main path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.vb_scatter import scatter_rows
+    rng = np.random.default_rng(5)
+    ts = [_rows(rng, (N, w), torch.float32) for w in (512, 2, 512)]
+    perm = torch.as_tensor(rng.permutation(N).astype(np.int32),
+                           device=DEVICE)
+
+    def call():
+        return scatter_rows(perm, ts)
+
+    return {"ms": cuda_ms(call), "device_ms": device_time(call)[0],
+            "shape": f"N={N} widths=[512, 2, 512] f32"}
 
 
 def time_act_compress(R, D):
@@ -1761,6 +2061,8 @@ def time_tl_step(card: str):
 
 
 def main() -> None:
+    global T_START
+    T_START = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
         die(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
             "checkout of the repository")
@@ -1844,6 +2146,15 @@ def main() -> None:
     tl_launches, tl = tl_training(card)
     torch.use_deterministic_algorithms(False)
 
+    print("== phase 4b: main path 5, hierarchical and async TL, baselines")
+    torch.use_deterministic_algorithms(True)
+    hier = hierarchy_column(card)
+    async_launches = async_tl(card)
+    accs = baselines(card)
+    torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     print("== phase 5: timing")
     served = time_paged_decode(paged_decode_attention,
                                paged_decode_attention_ref, 80,
@@ -1863,6 +2174,10 @@ def main() -> None:
               f"{json.dumps(vb_main[mode])} [{card}]")
         print(f"  permute_rows {mode} at N 16384: "
               f"{json.dumps(vb_large[mode])} [{card}]")
+    k1_floor, k1_main = time_scatter_rows(1), time_scatter_rows(64)
+    print(f"  scatter_rows launch floor (N 1): {json.dumps(k1_floor)}; at the "
+          f"main-path N 64: {json.dumps(k1_main)}; N 64 / N 1 device time "
+          f"{k1_main['device_ms'] / k1_floor['device_ms']:.3f} [{card}]")
     ac = time_act_compress(16384, 1024)
     ac_main = time_act_compress(64, 512)    # DATRET's largest visit leaf
     for (name, codec), r in ac.items():
@@ -1910,7 +2225,21 @@ def main() -> None:
                 "library_ms": t["library_ms"], "shape": t["shape"], **extra}
 
     def vb_extra(mode):
-        return dict(device_ms=vb_large[mode]["device_ms"],
+        if mode == "scatter":
+            extra = dict(
+                launches_hierarchy=sum(r["two_tier_k1_launches"]
+                                       for r in hier.values()),
+                launches_hierarchy_flat=sum(r["flat_k1_launches"]
+                                            for r in hier.values()),
+                launches_async=async_launches,
+                floor_ms=k1_floor["ms"],
+                floor_device_ms=k1_floor["device_ms"],
+                floor_shape=k1_floor["shape"],
+                main_path_scatter_rows_ms=k1_main["ms"],
+                main_path_scatter_rows_device_ms=k1_main["device_ms"])
+        else:
+            extra = {}
+        return dict(extra, device_ms=vb_large[mode]["device_ms"],
                     library_device_ms=vb_large[mode]["library_device_ms"],
                     main_path_ms=vb_main[mode]["ms"],
                     main_path_device_ms=vb_main[mode]["device_ms"],
@@ -2020,6 +2349,9 @@ def main() -> None:
     print(f"  recurrent: {json.dumps(recurrent)} [{card}]")
     print(f"  mla: {json.dumps(mla)} [{card}]")
     print(f"  tl: {json.dumps({**tl, 'step_ms': tl_ms})} [{card}]")
+    print(f"  hierarchy: {json.dumps(hier)} [{card}]")
+    print(f"  baselines: {json.dumps(accs)} [{card}]")
+    print(f"  chip_smoke total {time.perf_counter() - T_START:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -7,10 +7,19 @@
                        ``PlanSpec``; numpy only
 * ``faults``         — seeded fault injection and the recovery policy
 * ``transport``      — byte accounting, network model, wire lanes
-* ``node`` / ``orchestrator`` — Algorithm 2 over the transport
+* ``node`` / ``orchestrator`` — Algorithm 2 over the transport; the
+                       orchestrator executes plans
+* ``hierarchy``      — two-tier orchestration: subtree executors under a
+                       contribution-merging root (lossless)
+* ``async_tl``       — §3.4 gradient buffer, adaptive traversal, buffered
+                       epochs
+* ``partial_update`` — §5.1 partial parameter transfer
 * ``pipeline``       — double-buffered epoch engine
-* ``baselines``      — ``ShardData`` (the baselines wait)
+* ``baselines``      — CL / FL (FedAvg) / SL / SL+ / SFL comparison methods
+* ``runtime_model``  — analytic runtime, paper eqs. (15)-(19); numpy only
+* ``watchdog``       — deadline watchdog for hung device calls
 """
+from repro_torch.core.hierarchy import HierarchicalOrchestrator
 from repro_torch.core.node import TLNode
 from repro_torch.core.orchestrator import StepStats, TLOrchestrator
 from repro_torch.core.pipeline import (PipelinedEpochEngine,
@@ -23,9 +32,9 @@ from repro_torch.core.virtual_batch import (IndexRange, VirtualBatch,
                                             VirtualBatchPlan,
                                             create_virtual_batches)
 
-__all__ = ["TLNode", "TLOrchestrator", "StepStats", "NetworkModel",
-           "Transport", "WirePolicy", "LaneSpec", "payload_bytes",
-           "IndexRange", "VirtualBatch", "VirtualBatchPlan",
+__all__ = ["TLNode", "TLOrchestrator", "HierarchicalOrchestrator",
+           "StepStats", "NetworkModel", "Transport", "WirePolicy", "LaneSpec",
+           "payload_bytes", "IndexRange", "VirtualBatch", "VirtualBatchPlan",
            "create_virtual_batches", "PipelinedEpochEngine",
            "pipelined_train_epoch", "TraversalPlan", "Planner", "PlanSpec",
            "FlatPlanner", "TreePlanner"]

@@ -36,6 +36,11 @@ redistribution + node visits) and a consumer half (``apply_update`` —
 centralized BP + optimizer); ``pipelined=True`` routes ``train_epoch``
 through the double-buffered engine (:mod:`repro_torch.core.pipeline`).
 
+``_contrib_step`` is the centralized BP of one *contribution* (a node's
+segment in async TL, a subtree's rows in the hierarchy's root merge): the
+same reassembly strategy restricted to the contribution's rows, the tail
+vjp and the first-layer grads, with no optimizer.
+
 Parameters are never updated in place: nodes alias them after a model
 send.  ``donate=True`` is accepted for parity with the reference and keeps
 its guard against ``cache_model_per_epoch=True``; the port allocates new
@@ -166,6 +171,7 @@ class TLOrchestrator:
         self._epoch = 0
         self._step = 0              # global virtual-batch counter
         self._gw1_leaves = None
+        self._active_plan: Optional[TraversalPlan] = None
 
     # ------------------------------------------------------------- lifecycle
     def initialize(self, generator):
@@ -336,6 +342,23 @@ class TLOrchestrator:
                                                       self.opt_state)
         return cons
 
+    def _contrib_step(self, x1, delta_L, gw1, ranks):
+        """Centralized BP of one contribution (async TL §3.4, and the
+        hierarchy's per-subtree merge): the contribution's rows reassembled
+        by ``ranks`` (their int32 ranks within its virtual-batch positions,
+        a permutation) through the orchestrator's strategy, the tail vjp
+        from X^(1), and the node-supplied first-layer weight grads ``gw1``
+        added in: a full gradient tree, no optimizer.  The tail vjp is
+        row-wise up to the weight-gradient reduction, so the reassembly
+        moves the gradient only by f32 summation order."""
+        if self.reassembly == "kernel":
+            from repro_torch.kernels.vb_scatter import scatter_rows
+            x1, delta_L = scatter_rows(ranks, (x1, delta_L))
+        else:
+            x1, delta_L = _reassemble_torch(ranks, (x1, delta_L))
+        g_tail, _ = tail_vjp(self.model, self.params, x1, delta_L)
+        return add_first_layer_grads(g_tail, gw1)
+
     def _train_batch_fused(self, vb, results, order) -> StepStats:
         N = vb.size
         segs = [results[nid][0] for nid in order]
@@ -417,7 +440,10 @@ class TLOrchestrator:
     def execute_plan(self, plan: TraversalPlan, *, start_batch: int = 0,
                      max_batches: Optional[int] = None) -> List[StepStats]:
         """Pure executor: run (a slice of) an already-built epoch plan;
-        ``_epoch`` advances only when the epoch's final batch ran."""
+        ``_epoch`` advances only when the epoch's final batch ran.  The
+        plan stays readable as ``_active_plan`` while it runs (the
+        hierarchy's ``train_batch`` takes its child plans from it)."""
+        self._active_plan = plan
         batches, completes = self._epoch_batches(plan, start_batch,
                                                  max_batches)
         node_by_id = {n.node_id: n for n in self.nodes}

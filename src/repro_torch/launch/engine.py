@@ -4,13 +4,14 @@ Port of the simulator mode of ``repro/launch/engine.py``
 (``Engine(..., mode="sim")``): it builds one ``TLNode`` per shard and a
 ``TLOrchestrator`` over a transport (optionally with a compressed visit
 wire), and runs epochs, serially or through the double-buffered epoch
-engine (``pipeline=True``, the reference's default).
+engine (``pipeline=True``, the reference's default).  ``hierarchy=s > 0``
+builds a two-tier ``HierarchicalOrchestrator`` with ``s`` subtrees instead
+(simulator-only, and only with ``pipeline=False``, as in the reference).
 
 Not ported yet, and refused loudly rather than ignored:
 
 * ``mode="production"`` — the pjit TL step over decoder LMs
   (ROADMAP.md queue 1, item 13);
-* ``hierarchy > 0`` — two-tier orchestration (item 10);
 * ``ckpt_dir`` — the reference checkpoint format (item 1).
 
 Runs on ``device`` (default ``"cuda"``; raises without a card unless the
@@ -47,9 +48,11 @@ class Engine:
     ``fused``, ``cache_model_per_epoch``, ``seed``; ``pipeline`` selects the
     double-buffered epoch engine and ``reassembly`` ("none" | "torch" |
     "kernel"; "none" keeps the orchestrator's default, "torch") the
-    virtual-batch scatter.  ``wire`` ("off" | "int8" | "fp8") + ``wire_ef``
-    build a visit-payload ``WirePolicy`` transport (model parameters never
-    quantize; mutually exclusive with ``transport``).
+    virtual-batch scatter; ``hierarchy`` the number of subtrees of a
+    two-tier ``HierarchicalOrchestrator`` (0: flat).  ``wire`` ("off" |
+    "int8" | "fp8") + ``wire_ef`` build a visit-payload ``WirePolicy``
+    transport (model parameters never quantize; mutually exclusive with
+    ``transport``).
     """
 
     def __init__(self, model, cfg, opt, *, mode: str = "production",
@@ -61,6 +64,18 @@ class Engine:
                  hierarchy: int = 0, device="cuda"):
         if mode not in ("production", "sim"):
             raise ValueError(f"unknown engine mode: {mode!r}")
+        if hierarchy < 0:
+            raise ValueError(f"hierarchy must be >= 0, got {hierarchy}")
+        if hierarchy and mode != "sim":
+            raise ValueError(
+                "hierarchy= (two-tier orchestration fan-out) is "
+                "simulator-only: the production pjit path shards one flat "
+                "step instead of nesting orchestrators")
+        if hierarchy and pipeline:
+            raise ValueError(
+                "hierarchy= needs pipeline=False: the subtree lanes are "
+                "the overlap; the double-buffered epoch engine on top "
+                "would double-book the clock")
         if mode == "production":
             raise NotImplementedError(
                 "mode='production' (the pjit TL step over decoder LMs) is not "
@@ -70,12 +85,6 @@ class Engine:
                              "not both")
         if reassembly not in ("none", "torch", "kernel"):
             raise ValueError(f"unknown reassembly strategy: {reassembly!r}")
-        if hierarchy < 0:
-            raise ValueError(f"hierarchy must be >= 0, got {hierarchy}")
-        if hierarchy:
-            raise NotImplementedError(
-                "hierarchy= (two-tier orchestration) is not ported yet: "
-                "ROADMAP.md queue 1, item 10")
         if ckpt_dir:
             raise NotImplementedError(
                 "ckpt_dir= needs the reference checkpoint format, which the "
@@ -98,6 +107,7 @@ class Engine:
         self.fused = fused
         self.cache_model_per_epoch = cache_model_per_epoch
         self.seed = seed
+        self.hierarchy = hierarchy
         self.orchestrator = None
         self.params = None
         self._sim_shards = None
@@ -126,15 +136,25 @@ class Engine:
             nodes = [TLNode(i, self.model, s.x, s.y, jit_visits=self.fused,
                             device=self.device)
                      for i, s in enumerate(shards)]
-            self.orchestrator = TLOrchestrator(
-                self.model, nodes, self.opt, self.transport or Transport(),
+            common = dict(
                 plan=PlanSpec(seed=self.seed, batch_size=self.batch_size),
                 fused=self.fused, donate=False,
                 cache_model_per_epoch=self.cache_model_per_epoch,
-                pipelined=self.pipeline,
                 reassembly=("torch" if self.reassembly == "none"
                             else self.reassembly),
                 device=self.device)
+            if self.hierarchy:
+                from repro_torch.core.hierarchy import \
+                    HierarchicalOrchestrator
+                self.orchestrator = HierarchicalOrchestrator(
+                    self.model, nodes, self.opt,
+                    self.transport or Transport(),
+                    n_subtrees=self.hierarchy, **common)
+            else:
+                self.orchestrator = TLOrchestrator(
+                    self.model, nodes, self.opt,
+                    self.transport or Transport(),
+                    pipelined=self.pipeline, **common)
             if self.params is not None:       # caller-provided init (eq. 13)
                 self.orchestrator.params = self.params
                 self.orchestrator.opt_state = self.opt.init(self.params)

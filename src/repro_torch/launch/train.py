@@ -17,9 +17,14 @@ orchestrator's default strategy (``"torch"``, the reference's ``"xla"``):
 the reference CLI never forwards its ``--reassembly`` to sim mode, so this
 CLI has no such flag; ``Engine(reassembly="kernel")`` reaches the kernel.
 
+``--hierarchy N`` trains two-tier (``N`` subtrees under a merging root,
+``repro_torch.core.hierarchy``) and turns the double-buffered pipeline off,
+as in the reference: the subtree lanes are the overlap.
+
 ``--mode production`` (the default, as in the reference) is not ported yet
-and raises (ROADMAP.md queue 1, item 13); the reference's ``--hierarchy``
-waits for item 10.  Runs on ``--device`` (default ``cuda``).
+and raises (ROADMAP.md queue 1, item 13); checkpointing (``--ckpt`` and
+its kin, item 1) is not ported, and this CLI has no such flags.  Runs on
+``--device`` (default ``cuda``).
 """
 from __future__ import annotations
 
@@ -41,12 +46,13 @@ def _run_sim(args):
         r.normal(size=(64,) + DATRET.in_shape).astype(np.float32),
         r.integers(0, DATRET.n_classes, 64)) for _ in range(args.nodes)]
     engine = Engine(SmallModel(DATRET), DATRET, sgd(0.05), mode="sim",
-                    pipeline=args.pipeline, batch_size=32, seed=0,
+                    pipeline=args.pipeline and not args.hierarchy,
+                    batch_size=32, seed=0, hierarchy=args.hierarchy,
                     wire=args.wire, wire_ef=args.wire_ef, device=args.device)
     result = engine.run(shards, epochs=args.epochs)
     tr = engine.orchestrator.transport
     print(f"mode=sim arch=datret nodes={args.nodes} epochs={args.epochs} "
-          f"wire={args.wire} ef={args.wire_ef} "
+          f"hierarchy={args.hierarchy} wire={args.wire} ef={args.wire_ef} "
           f"device={engine.device}")
     for tag in sorted(tr.bytes_sent):
         raw, wire = tr.raw_bytes.get(tag, 0), tr.bytes_sent[tag]
@@ -71,6 +77,10 @@ def main(argv=None):
                     help="double-buffered epoch engine (default)")
     ap.add_argument("--no-pipeline", dest="pipeline", action="store_false",
                     help="strictly batch-serial epochs (the oracle)")
+    ap.add_argument("--hierarchy", type=int, default=0,
+                    help="sim mode: two-tier orchestration fan-out, the "
+                         "number of subtrees (0: flat); implies "
+                         "--no-pipeline: the subtree lanes are the overlap")
     ap.add_argument("--wire", default="off", choices=["off", "int8", "fp8"],
                     help="visit-payload wire codec in the sim transport "
                          "(model parameters never quantize)")

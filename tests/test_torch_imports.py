@@ -63,7 +63,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.kernels.flash_attention.kernel",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.flash_attention.ref",
-              "repro_torch.models.moe", "repro_torch.configs.deepseek_v2_236b"):
+              "repro_torch.models.moe", "repro_torch.configs.deepseek_v2_236b",
+              "repro_torch.core.runtime_model", "repro_torch.core.watchdog",
+              "repro_torch.core.async_tl", "repro_torch.core.hierarchy",
+              "repro_torch.core.partial_update"):
         assert m in MODULES, m
 
 
@@ -173,7 +176,27 @@ def test_tl_entry_points_default_to_cuda(no_card):
         model.init(0)
 
 
+def test_slice8_entry_points_default_to_cuda(no_card):
+    """The two-tier orchestrator and the baselines, called without a
+    device, target CUDA and raise on a machine without a card."""
+    from repro_torch.core import HierarchicalOrchestrator
+    from repro_torch.core.baselines import ShardData, train_cl
+    from repro_torch.launch.engine import Engine
+    from repro_torch.optim import sgd
+    cfg, model = _datret()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HierarchicalOrchestrator(model, [], sgd(0.1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(model, cfg, sgd(0.1), mode="sim", pipeline=False, hierarchy=2)
+    shard = ShardData(np.zeros((4, 32), np.float32), np.zeros(4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cl(model, [shard], sgd(0.1), generator=0, epochs=1,
+                 batch_size=2)
+
+
 def test_train_cli_defaults_to_cuda(no_card):
     from repro_torch.launch.train import main
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--mode", "sim", "--epochs", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--mode", "sim", "--epochs", "1", "--hierarchy", "2"])

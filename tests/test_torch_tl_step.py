@@ -343,7 +343,7 @@ def test_engine_sim_mode_trains_and_refuses_what_is_not_ported():
     assert res.params is eng.orchestrator.params is eng.params
     with pytest.raises(NotImplementedError, match="item 13"):
         engine(mode="production")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="pipeline=False"):
         engine(hierarchy=2)
     with pytest.raises(NotImplementedError, match="item 1"):
         engine(ckpt_dir="ckpt")
