@@ -94,6 +94,27 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    exactly-full one.  Then the baselines on the non-IID task of
    tests/test_baselines.py: |acc TL - acc CL| < 0.1, acc FL <= acc CL +
    0.05, SL / SL+ / SFL above 0.3.  Each epoch's wall time is printed.
+4c. Main path 6, the production TL step: (a) starcoder2-3b at full width
+   (d_model 3072, 24 heads on 2 KV heads, d_ff 12288, vocab 49152, QKV
+   bias, window 4096), depth cut to 12 layers (1.906 B parameters; 30
+   would need ~121 GB for the functional Adam update), random weights from
+   seed 0, through ``Engine(mode="production", reassembly="kernel",
+   remat_mode="tl")`` on ``VirtualBatchLoader(shard_corpus(
+   synthetic_corpus(64, 512, 49152), 4), 8)`` for 4 steps: losses finite,
+   ``permute_rows`` and ``take_rows`` once a step each, ms a step (synced
+   host clock, median of steps 2-4) and peak memory printed.  Then, with
+   deterministic algorithms: (b) on the first batch, from the trained
+   parameters, TL loss and grads with kernel reassembly bit-equal to torch
+   reassembly, and the TL loss within 1e-5 relative of ``model.loss`` on
+   the batch in shuffled order, the grads within 1e-4 of the largest
+   grad; (c) reduced deepseek-v3 (MoE, MLA, MTP) one step, K1 routing
+   X^(1), the targets and the int32 MTP tokens in one launch, bit-equal to
+   torch reassembly; (d) reduced deepseek-7b through ``launch.train.main``
+   with ``--halt-at 3 --ckpt-every 2`` and then ``--resume`` to step 6:
+   losses and final checkpoint (SHA-256 of every array) equal to an
+   uninterrupted run's and to ``--no-pipeline``'s.  (e) K4, K5, K6 and K3
+   raise on a CUDA input that requires grad, launching nothing, and
+   launch without grad.
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
    where one computes the same function, and the card's bound (for the
@@ -101,7 +122,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    cores and 3xTF32 on the tensor cores; the f32-core bound beside it);
    every kernel also by
    the device time of its launches from the torch profiler, which counts
-   no host time (K1 and K2 also at their DATRET main-path shapes; the EF
+   no host time (K1 also at the production step's shape, beside
+   ``index_copy_`` / ``index_select``; K1 and K2 also at their DATRET
+   main-path shapes; the EF
    round trip also beside the four-launch sequence it replaces; K1 also
    as one ``scatter_rows`` call at N 1, its launch floor), and
    where a library call is timed, that call's too; prefill
@@ -1887,6 +1910,286 @@ def baselines(card: str):
     return acc
 
 
+# ------------------------------------------------- production TL step
+
+PROD_ARCH = "starcoder2-3b"
+PROD_LAYERS = 12            # 30 layers' Adam update would need ~121 GB
+PROD_SEQ = 512
+PROD_BATCH = 8
+PROD_NODES = 4
+PROD_DOCS = 64
+PROD_STEPS = 4
+
+
+def production_loader(vocab: int, seq: int = PROD_SEQ):
+    from repro_torch.data.pipeline import (VirtualBatchLoader, shard_corpus,
+                                           synthetic_corpus)
+    return VirtualBatchLoader(shard_corpus(
+        synthetic_corpus(PROD_DOCS, seq, vocab), PROD_NODES), PROD_BATCH)
+
+
+def production_opt(steps: int):
+    from repro_torch.optim import adamw, warmup_cosine
+    return adamw(warmup_cosine(3e-4, 10, steps), clip_norm=1.0)
+
+
+def production_step(card: str):
+    """Phase 4c (a) and (b): starcoder2-3b at full width, 12 layers,
+    through ``Engine(mode="production", reassembly="kernel",
+    remat_mode="tl")`` for 4 steps; then on the first batch, from the
+    trained parameters, the TL loss and grads with kernel reassembly
+    against torch reassembly (bit-equal) and against ``model.loss`` on the
+    batch in shuffled order (loss 1e-5 relative, grads 1e-4 of the largest
+    grad).  (b) runs with deterministic algorithms, which it turns on."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tl_step import tl_loss_fn, value_and_grad
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(PROD_ARCH), n_layers=PROD_LAYERS)
+    model = build_model(cfg)
+    eng = Engine(model, cfg, production_opt(PROD_STEPS), mode="production",
+                 reassembly="kernel", remat_mode="tl", log_every=1,
+                 device=DEVICE).init(0)
+    n_params = eng.n_params()
+    loader = production_loader(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: K1's counts from 0 just before, read just after
+    permute_rows.launches = take_rows.launches = 0
+    res = eng.run(loader, steps=PROD_STEPS)
+    launches = {"permute_rows": permute_rows.launches,
+                "take_rows": take_rows.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert res.steps == PROD_STEPS and np.all(np.isfinite(res.losses)), \
+        res.losses
+    assert launches == {"permute_rows": PROD_STEPS, "take_rows": PROD_STEPS}, \
+        launches
+    step_ms = statistics.median(1e3 * t for t in res.step_s[1:])
+    print(f"  (a) {cfg.name} at full width, {PROD_LAYERS} layers "
+          f"({n_params / 1e9:.3f} B params), batch {PROD_BATCH} x "
+          f"{PROD_SEQ}, {PROD_NODES} nodes: losses "
+          f"{[round(float(x), 6) for x in res.losses]}, "
+          f"{step_ms:.3f} ms a step (synced host clock, median of steps "
+          f"2-{PROD_STEPS}: {[round(1e3 * t, 3) for t in res.step_s]}), "
+          f"peak {peak_gb:.2f} GB, permute_rows {launches['permute_rows']} "
+          f"/ take_rows {launches['take_rows']} launches [{card}]")
+
+    params = eng.params
+    eng.params = eng.opt_state = None
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bit-equality from here on (main turns this off after phase 4c (d)):
+    # the embedding's backward accumulates rows, by atomics otherwise
+    torch.use_deterministic_algorithms(True)
+    batch = {k: v.to(DEVICE) for k, v in
+             eng._host_batch(next(iter(loader))).items()}
+    t0 = time.perf_counter()
+    k_loss, k_grads = value_and_grad(tl_loss_fn(model, cfg, "tl", "kernel"),
+                                     params, batch)
+    t_loss, t_grads = value_and_grad(tl_loss_fn(model, cfg, "tl", "torch"),
+                                     params, batch)
+    assert torch.equal(k_loss, t_loss), (float(k_loss), float(t_loss))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(k_grads),
+                                                 tree_leaves(t_grads)))
+    del t_grads
+    perm = batch["perm"].long()
+    shuffled = {k: torch.empty_like(batch[k]).index_copy_(0, perm, batch[k])
+                for k in ("tokens", "targets")}
+    cl_loss, cl_grads = value_and_grad(lambda p, b: model.loss(p, b)[0],
+                                       params, shuffled)
+    rel = abs(float(k_loss) - float(cl_loss)) / abs(float(cl_loss))
+    gmax = max(float(g.abs().max()) for g in tree_leaves(cl_grads))
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(tree_leaves(k_grads), tree_leaves(cl_grads)))
+    assert rel <= 1e-5, f"TL loss {float(k_loss)} vs CL {float(cl_loss)}"
+    assert gap <= 1e-4 * gmax, f"TL grads {gap} from CL (max {gmax})"
+    print(f"  (b) first batch: TL loss kernel == torch reassembly, grads "
+          f"bit-equal; TL {float(k_loss):.6f} vs CL {float(cl_loss):.6f} "
+          f"(rel {rel:.3e}); max grad gap {gap:.3e} = "
+          f"{gap / gmax:.3e} of the largest grad {gmax:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del params, k_grads, cl_grads, batch, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": PROD_LAYERS, "n_params": n_params,
+            "batch": PROD_BATCH, "seq": PROD_SEQ, "step_ms": step_ms,
+            "peak_gb": peak_gb, "launches": launches,
+            "tl_cl_rel": rel, "grad_gap_rel": gap / gmax}
+
+
+def production_mtp(card: str):
+    """Phase 4c (c): reduced deepseek-v3 (MoE, MLA, MTP) one step with
+    kernel reassembly, where K1 routes X^(1), the targets and the int32
+    MTP tokens in one launch, bit-equal to torch reassembly."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import build_model
+
+    cfg = get_config("deepseek-v3-671b", reduced=True)
+    out = {}
+    for reas in ("kernel", "torch"):
+        permute_rows.launches = take_rows.launches = 0
+        eng = Engine(build_model(cfg), cfg, production_opt(1),
+                     reassembly=reas, device=DEVICE).init(0)
+        res = eng.run(production_loader(cfg.vocab_size, 32), steps=1)
+        out[reas] = (res, permute_rows.launches, take_rows.launches)
+    (rk, pk, tk), (rt, pt, tt) = out["kernel"], out["torch"]
+    assert (pk, tk, pt, tt) == (1, 1, 0, 0), (pk, tk, pt, tt)
+    assert rk.losses.tobytes() == rt.losses.tobytes()
+    assert _leaves_equal(rk.params, rt.params)
+    assert _leaves_equal(rk.opt_state, rt.opt_state)
+    print(f"  (c) {cfg.name}: one step, loss {float(rk.losses[0]):.6f}; "
+          f"kernel reassembly (permute_rows {pk}, take_rows {tk} launch) "
+          f"bit-equal to torch in loss, params and Adam state [{card}]")
+
+
+def production_resume(card: str):
+    """Phase 4c (d): reduced deepseek-7b through ``launch.train.main``:
+    ``--halt-at 3 --ckpt-every 2``, then ``--resume`` to step 6, ends with
+    the checkpoint bytes of an uninterrupted run, which ``--no-pipeline``
+    (the serial oracle) also gives."""
+    import tempfile
+
+    from repro_torch.launch.train import main as train_main
+
+    args = ["--arch", "deepseek-7b", "--nodes", "2", "--batch", "4",
+            "--seq", "32", "--lr", "3e-3", "--steps", "6",
+            "--reassembly", "kernel", "--log-every", "0", "--device", DEVICE]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("full", "part", "serial")}
+        full = train_main(args + ["--ckpt", dirs["full"]])
+        first = train_main(args + ["--ckpt", dirs["part"], "--ckpt-every",
+                                   "2", "--halt-at", "3"])
+        rest = train_main(args + ["--ckpt", dirs["part"], "--resume"])
+        serial = train_main(args + ["--ckpt", dirs["serial"],
+                                    "--no-pipeline"])
+        metas = {}
+        for k, d in dirs.items():
+            with open(os.path.join(d, "step_00000006", "meta.json")) as f:
+                metas[k] = json.load(f)
+    assert full == first + rest == serial, (full, first, rest, serial)
+    for k in ("part", "serial"):
+        assert metas[k]["names"] == metas["full"]["names"]
+        assert metas[k]["checksums"] == metas["full"]["checksums"], k
+    print(f"  (d) deepseek-7b reduced, kill at 3 + resume to 6: losses and "
+          f"final checkpoint ({len(metas['full']['names'])} arrays, "
+          f"SHA-256) equal to the uninterrupted run and to --no-pipeline "
+          f"[{card}]")
+
+
+def forward_only_guards(card: str):
+    """Phase 4c (e): K4, K5, K6 and K3 raise on CUDA inputs that require
+    grad (they would return a detached output), launching nothing."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.rglru import rglru_scan_b
+    from repro_torch.kernels.ssd import ssd_bh
+
+    rng = np.random.default_rng(11)
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=DEVICE)
+
+    q, kk, vv = t(1, 64, 4, 64), t(1, 64, 1, 64), t(1, 64, 1, 64)
+    pq, pk, pv, tables, lengths = paged_case(2, 4, 1, 64, 16, 4, seed=12,
+                                             dtype=torch.float32)
+    dA, x, Bm, Cm = ssd_case(2, 64, 3, 32, 16, seed=13)   # phase 2's shapes
+    a, b = t(2, 48, 128).sigmoid(), t(2, 48, 128)
+    cases = {
+        "flash_attention_bh": (flash_attention_bh, lambda g: (
+            (q.requires_grad_(g), kk, vv), {"scale": 0.125})),
+        "ssd_bh": (ssd_bh, lambda g: (
+            (dA, x.requires_grad_(g), Bm, Cm), {"chunk": 16})),
+        "rglru_scan_b": (rglru_scan_b, lambda g: (
+            (a.requires_grad_(g), b), {"chunk": 16})),
+        "paged_decode": (paged_decode_attention, lambda g: (
+            (pq.requires_grad_(g), pk, pv, tables, lengths),
+            {"scale": 0.125})),
+    }
+    for name, (kern, make) in cases.items():
+        before = kern.launches
+        args, kw = make(True)
+        try:
+            kern(*args, **kw)
+        except RuntimeError as e:
+            assert "forward-only" in str(e), e
+        else:
+            raise AssertionError(f"{name} returned a detached output for an "
+                                 "input that requires grad")
+        assert kern.launches == before, name
+        args, kw = make(False)
+        kern(*args, **kw)                   # without grad it launches
+        assert kern.launches == before + 1, name
+    print(f"  (e) {', '.join(cases)} raise on a CUDA input that requires "
+          f"grad and launch without it [{card}]")
+
+
+def time_vb_production(prod):
+    """K1 at the production step's shape: permute_rows over X^(1) (8, 512 x
+    3072) f32 and the targets (8, 512) int32, take_rows over X^(1)'s
+    cotangent, by CUDA-event pairs and device time, against the plain
+    version and ``index_copy_`` / ``index_select``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.vb_scatter import (permute_rows,
+                                                permute_rows_ref, take_rows)
+    cfg = get_config(prod["arch"])
+    rng = np.random.default_rng(6)
+    N, W = prod["batch"], prod["seq"] * cfg.d_model
+    h1 = _rows(rng, (N, W), torch.float32)
+    tgt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (N, prod["seq"]),
+                                       dtype=np.int32), device=DEVICE)
+    perm = torch.as_tensor(rng.permutation(N).astype(np.int32),
+                           device=DEVICE)
+    perm64 = perm.long()
+    res = {}
+    for kern, mode, ts in ((permute_rows, "scatter", [h1, tgt]),
+                           (take_rows, "gather", [h1])):
+        outs = [torch.empty_like(x) for x in ts]
+
+        def library():
+            for o, x in zip(outs, ts):
+                if mode == "scatter":
+                    o.index_copy_(0, perm64, x)
+                else:
+                    torch.index_select(x, 0, perm64, out=o)
+
+        def call():
+            return kern(perm, *ts)
+
+        library()
+        assert all(torch.equal(a, b) for a, b in zip(outs, call()))
+        nbytes = 2 * sum(x.numel() * x.element_size() for x in ts) + 4 * N
+        res[mode] = {
+            "ms": cuda_ms(call), "device_ms": device_time(call)[0],
+            "plain_ms": cuda_ms(
+                lambda: permute_rows_ref(perm, *ts, mode=mode)),
+            "library_ms": cuda_ms(library),
+            "library_device_ms": device_time(library)[0],
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "shape": f"N={N} " + " + ".join(
+                f"({x.shape[0]}, {x.shape[1]}) {str(x.dtype)[6:]}"
+                for x in ts)}
+    return res
+
+
 # ------------------------------------------------------------- K1/K2 timing
 
 def time_vb_scatter(N, widths):
@@ -2155,6 +2458,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    print(f"== phase 4c: main path 6, the production TL step: {PROD_ARCH} at "
+          f"full width, {PROD_LAYERS} layers, K1 reassembling X^(1)")
+    prod = production_step(card)        # deterministic from its (b) on
+    production_mtp(card)
+    production_resume(card)
+    torch.use_deterministic_algorithms(False)
+    forward_only_guards(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     print("== phase 5: timing")
     served = time_paged_decode(paged_decode_attention,
                                paged_decode_attention_ref, 80,
@@ -2174,6 +2487,10 @@ def main() -> None:
               f"{json.dumps(vb_main[mode])} [{card}]")
         print(f"  permute_rows {mode} at N 16384: "
               f"{json.dumps(vb_large[mode])} [{card}]")
+    vb_prod = time_vb_production(prod)
+    for mode in ("scatter", "gather"):
+        print(f"  permute_rows {mode} at the production step's shape: "
+              f"{json.dumps(vb_prod[mode])} [{card}]")
     k1_floor, k1_main = time_scatter_rows(1), time_scatter_rows(64)
     print(f"  scatter_rows launch floor (N 1): {json.dumps(k1_floor)}; at the "
           f"main-path N 64: {json.dumps(k1_main)}; N 64 / N 1 device time "
@@ -2239,6 +2556,10 @@ def main() -> None:
                 main_path_scatter_rows_device_ms=k1_main["device_ms"])
         else:
             extra = {}
+        extra.update({f"production_{k}": v
+                      for k, v in vb_prod[mode].items()})
+        extra["launches_production"] = prod["launches"][
+            "permute_rows" if mode == "scatter" else "take_rows"]
         return dict(extra, device_ms=vb_large[mode]["device_ms"],
                     library_device_ms=vb_large[mode]["library_device_ms"],
                     main_path_ms=vb_main[mode]["ms"],
@@ -2278,13 +2599,14 @@ def main() -> None:
               vb_large["scatter"], **vb_extra("scatter")),
         entry("take_rows", vb_kernel.SOURCE,
               "src/repro/kernels/vb_scatter/kernel.py:103",
-              tl_launches[take_rows], vb_err["gather"], vb_large["gather"],
-              **vb_extra("gather"),
-              note="gather mode: the autograd backward of the scatter; the "
-                   "simulator's fused step does not differentiate through "
-                   "the reassembly, so it launches 0 times on that path, as "
-                   "in the reference; held against its plain version in "
-                   "phase 2"),
+              prod["launches"]["take_rows"], vb_err["gather"],
+              vb_large["gather"], **vb_extra("gather"),
+              launches_sim=tl_launches[take_rows],
+              note="gather mode: the autograd backward of the scatter; "
+                   "launches from the production step (phase 4c, once a "
+                   "step: X^(1)'s cotangent); the simulator's fused step "
+                   "does not differentiate through the reassembly "
+                   "(launches_sim, as in the reference)"),
         entry("quantize_rows", ac_kernel.SOURCE,
               "src/repro/kernels/act_compress/kernel.py:100",
               tl_launches[quantize_rows], ac_err["quantize_rows"],
@@ -2350,6 +2672,7 @@ def main() -> None:
     print(f"  mla: {json.dumps(mla)} [{card}]")
     print(f"  tl: {json.dumps({**tl, 'step_ms': tl_ms})} [{card}]")
     print(f"  hierarchy: {json.dumps(hier)} [{card}]")
+    print(f"  production: {json.dumps(prod)} [{card}]")
     print(f"  baselines: {json.dumps(accs)} [{card}]")
     print(f"  chip_smoke total {time.perf_counter() - T_START:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 Field for field the same as ``repro.configs.base`` of the JAX package, so a
 config built here describes the same model there; the port keeps its own copy
 because it imports nothing of the JAX package.  ``reduced()`` derives the
-small CPU-test variant exactly as the reference does.
+small CPU-test variant, and ``n_params`` / ``n_active_params`` count
+parameters, exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -109,6 +110,71 @@ class ModelConfig:
             base = ("attn",)
         return tuple(base[i % len(base)] for i in range(self.n_layers))
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True when decode with a 500k context is sub-quadratic by design."""
+        kinds = set(self.pattern)
+        if kinds <= {"ssm", "rglru"}:
+            return True
+        if "attn" in kinds and self.attention == "sliding":
+            return True
+        if self.block_pattern and "attn" in kinds:
+            # hybrid local-attention blocks use a bounded window
+            return self.sliding_window > 0
+        return False
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embedding + blocks + head)."""
+        d, L = self.d_model, self.n_layers
+        total = self.vocab_size * d  # embedding
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        per_kind = {}
+        hd = self.resolved_head_dim
+        if self.mla is not None:
+            m = self.mla
+            attn = (d * m.q_lora_rank
+                    + m.q_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                    + self.n_heads * m.v_head_dim * d)
+        else:
+            attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        per_kind["attn"] = attn + 3 * d * self.d_ff  # swiglu
+        if self.ssm is not None:
+            di = self.ssm.d_inner(d)
+            per_kind["ssm"] = d * (2 * di + 2 * self.ssm.d_state + self.ssm.n_heads(d)) + di * d
+        if self.rglru_width or "rglru" in self.pattern:
+            w = self.rglru_width or d
+            per_kind["rglru"] = d * w * 2 + 3 * w * w // 1 + w * d + 3 * d * self.d_ff
+        counts = {}
+        for k in self.pattern:
+            counts[k] = counts.get(k, 0) + 1
+        for k, c in counts.items():
+            total += c * per_kind.get(k, per_kind.get("attn", 0))
+        if self.moe is not None:
+            # replace dense FFN with expert FFNs on MoE layers
+            moe_layers = max(0, L - self.moe.first_k_dense)
+            total -= moe_layers * 3 * d * self.d_ff
+            total += moe_layers * (
+                (self.moe.n_routed_experts + self.moe.n_shared_experts)
+                * 3 * d * self.moe.d_ff_expert
+                + d * self.moe.n_routed_experts)
+            total += self.moe.first_k_dense * 0  # dense layers already counted
+        total += self.n_encoder_layers * per_kind.get("attn", 0)
+        return int(total)
+
+    def n_active_params(self) -> int:
+        """Parameters touched per token (MoE activates top_k + shared only)."""
+        if self.moe is None:
+            return self.n_params()
+        d, L = self.d_model, self.n_layers
+        total = self.n_params()
+        moe_layers = max(0, L - self.moe.first_k_dense)
+        inactive = (self.moe.n_routed_experts - self.moe.top_k)
+        total -= moe_layers * inactive * 3 * d * self.moe.d_ff_expert
+        return int(total)
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (2 layers, d<=512)."""
         kw = dict(
@@ -143,3 +209,11 @@ class ModelConfig:
         if self.block_pattern:
             kw["n_layers"] = max(2, len(self.block_pattern))
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode

@@ -31,6 +31,8 @@ Packages:
 """
 from __future__ import annotations
 
+import torch
+
 
 def use_kernel(*tensors) -> bool:
     """True when the tensors lie on a CUDA device (launch the kernel), False
@@ -47,4 +49,19 @@ def use_kernel(*tensors) -> bool:
         "on one CUDA device (kernel) or all on the CPU (plain version)")
 
 
-__all__ = ["use_kernel"]
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when a forward-only kernel is about to launch on inputs that
+    autograd tracks: its output would come back with no ``grad_fn``, and a
+    loss through it would silently get no gradient for them.  Called by
+    the wrappers of K3-K6 just before a CUDA launch (on the CPU the plain
+    version runs and is differentiable)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is a forward-only CUDA kernel and an input requires "
+            "grad: its output would be detached.  Call it under "
+            "torch.no_grad(), or train through the models' differentiable "
+            "path (attention: attend_dense / attend_blockwise)")
+
+
+__all__ = ["refuse_grad", "use_kernel"]

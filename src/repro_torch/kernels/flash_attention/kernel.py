@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import refuse_grad, use_kernel
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -100,6 +100,7 @@ class FlashAttentionBh:
         if not use_kernel(q, k, v):
             return flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                        window=window, v_width=v_width)
+        refuse_grad("flash_attention_bh", q, k, v)
         B, Sq, H, D = q.shape
         Sk, KV = k.shape[1], k.shape[2]
         if any(t is not None and t.data_ptr() % 16 for t in (q, k, v)):

@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import refuse_grad, use_kernel
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
 
@@ -169,6 +169,7 @@ class PagedDecodeAttention:
             return paged_decode_attention_ref(
                 q, k_pages, v_pages, block_tables, lengths, scale=scale,
                 window=window, v_width=v_width)
+        refuse_grad("paged_decode", q, k_pages, v_pages)
         B, H, d = q.shape
         _, page, KV, _ = k_pages.shape
         elt = q.element_size()

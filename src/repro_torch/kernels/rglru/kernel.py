@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import refuse_grad, use_kernel
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.rglru.ref import rglru_ref
 
@@ -61,6 +61,7 @@ class RglruScanB:
             raise ValueError(f"S={S} must divide by chunk={chunk}")
         if not use_kernel(a, b):
             return rglru_ref(a, b)
+        refuse_grad("rglru_scan_b", a, b)
         h = torch.empty_like(a)
         h_final = torch.empty((B, W), dtype=torch.float32, device=a.device)
         if B * S * W == 0:

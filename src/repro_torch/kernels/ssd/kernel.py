@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import refuse_grad, use_kernel
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
@@ -76,6 +76,7 @@ class SsdBh:
         _check(dA, x, Bm, Cm, chunk)
         if not use_kernel(dA, x, Bm, Cm):
             return ssd_chunked_ref(dA, x, Bm, Cm, chunk)
+        refuse_grad("ssd_bh", dA, x, Bm, Cm)
         B, S, H, P = x.shape
         N = Bm.shape[-1]
         y = torch.empty_like(x)

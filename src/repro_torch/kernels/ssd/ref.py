@@ -64,7 +64,9 @@ def ssd_chunked_ref(dA, x, Bm, Cm, chunk: int):
                                 device=x.device))
     decay = torch.exp(rel.masked_fill_(~tri[None, None, :, :, None], -1e9))
     scores = torch.einsum("bctn,bcsn->bcts", Cc, Bc)            # (B,nc,t,s)
-    y = torch.einsum("bctsh,bcshp->bcthp", decay.mul_(scores[..., None]), xc)
+    # out of place: autograd needs exp's output for the backward (the CPU
+    # path of a training step differentiates through this function)
+    y = torch.einsum("bctsh,bcshp->bcthp", decay * scores[..., None], xc)
     del decay, rel
 
     # chunk summary states: sum_s exp(seg_end - seg_s) x_s B_s^T

@@ -1,7 +1,21 @@
-"""Where a TL training step of the simulator spends its time on the card.
+"""Where a TL training step spends its time on the card.
 
-For each paper model: builds the sim-mode engine (3 nodes, batch 64 by
-default), warms up one epoch, then
+``--mode production`` (the production TL step over a decoder LM): builds
+``Engine(mode="production")`` on ``--arch`` (full width, depth cut to
+``--layers``) over ``VirtualBatchLoader(shard_corpus(synthetic_corpus(
+--docs, --seq, vocab), --nodes), --batch)``, warms up one step, then prints
+the host-clock ms of each of ``--steps`` steps (synced), the peak device
+memory (``torch.cuda.max_memory_allocated``), and, over ``--steps`` more
+steps under ``torch.profiler``, the device time per step by kernel, the
+device's busy share of the unprofiled step and K1's (``permute_rows`` /
+``take_rows``) device time:
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --mode production --arch starcoder2-3b --layers 12 --seq 512 \
+        --batch 8
+
+``--mode sim`` (the default), for each paper model: builds the sim-mode
+engine (3 nodes, batch 64 by default), warms up one epoch, then
 
 * times each virtual batch's two halves with the host clock, synced after
   each: the node visits with their transport sends
@@ -106,17 +120,92 @@ def profile_model(cfg, args, dev):
               f"{e.count / steps:10.1f}  {e.key[:90]}")
 
 
+def profile_production(args, dev):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (VirtualBatchLoader, shard_corpus,
+                                           synthetic_corpus)
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    total = 1 + 2 * args.steps
+    eng = Engine(build_model(cfg), cfg,
+                 adamw(warmup_cosine(3e-4, 10, total), clip_norm=1.0),
+                 reassembly=args.reassembly, remat_mode=args.remat,
+                 log_every=1, device=dev)
+    loader = VirtualBatchLoader(shard_corpus(synthetic_corpus(
+        args.docs, args.seq, cfg.vocab_size), args.nodes), args.batch)
+    eng.init(0)
+    print(f"{cfg.name}: {cfg.n_layers} layers, {eng.n_params() / 1e9:.3f} B "
+          f"params, batch {args.batch}, seq {args.seq}, nodes {args.nodes}, "
+          f"reassembly={args.reassembly}, remat={args.remat} on "
+          f"{torch.cuda.get_device_name(dev)}")
+    eng.run(loader, steps=1)                # warm-up: cuBLAS, the kernel
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = eng.run(loader, steps=args.steps)  # log_every=1: synced steps
+    step_s, losses = res.step_s, res.losses
+    del res                     # it holds the previous parameters and state
+    step_ms = statistics.median(1e3 * t for t in step_s)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(loader, steps=args.steps)
+        torch.cuda.synchronize(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time: time the "
+                           "step with CUDA events instead")
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.steps
+    k1 = [e for e in kernels if "permute_rows" in e.key]
+    print(f"  step: {step_ms:.3f} ms wall unprofiled (median of "
+          f"{args.steps}: {', '.join(f'{1e3 * t:.3f}' for t in step_s)}),"
+          f" {wall_ms:.3f} ms profiled; device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / step_ms:.1f}% of the unprofiled step); peak "
+          f"memory {peak_gb:.2f} GB; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}")
+    for e in k1:       # permute_rows and its backward take_rows: one kernel
+        print(f"  K1 (permute_rows + take_rows) {e.key[:48]}: "
+              f"{e.count / args.steps:.1f} launches a step, "
+              f"{_device_us(e) / e.count / 1e3:.4f} device ms each")
+    print(f"  {'device ms/step':>14} {'calls/step':>10}  kernel")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
+        print(f"  {_device_us(e) / 1e3 / args.steps:14.4f} "
+              f"{e.count / args.steps:10.1f}  {e.key[:90]}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="sim", choices=["sim", "production"])
+    ap.add_argument("--arch", default="starcoder2-3b",
+                    help="production mode: the decoder LM (full width)")
+    ap.add_argument("--layers", type=int, default=12,
+                    help="production mode: depth cut (0: the config's)")
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--docs", type=int, default=64,
+                    help="production mode: documents of the corpus")
+    ap.add_argument("--steps", type=int, default=3,
+                    help="production mode: timed steps, and profiled steps")
+    ap.add_argument("--remat", default="tl", choices=["tl", "none", "dots"])
     ap.add_argument("--model", default="all",
                     choices=["all"] + sorted(SMALL_MODELS))
     ap.add_argument("--reassembly", choices=["torch", "kernel"],
                     default="kernel")
     ap.add_argument("--wire", choices=["off", "int8", "fp8"], default="off")
     ap.add_argument("--wire-ef", action="store_true")
-    ap.add_argument("--nodes", default="96,64,32",
-                    help="comma-separated shard sizes")
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--nodes", default=None,
+                    help="sim mode: comma-separated shard sizes (default "
+                         "96,64,32); production mode: the node count "
+                         "(default 4)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 64 (sim), 8 (production)")
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--device", default="cuda")
@@ -127,6 +216,12 @@ def main(argv=None):
                          "a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.mode == "production":
+        args.nodes = int(args.nodes or 4)
+        args.batch = args.batch or 8
+        return profile_production(args, dev)
+    args.nodes = args.nodes or "96,64,32"
+    args.batch = args.batch or 64
     names = sorted(SMALL_MODELS) if args.model == "all" else [args.model]
     for name in names:
         profile_model(SMALL_MODELS[name], args, dev)

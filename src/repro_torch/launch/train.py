@@ -1,30 +1,43 @@
-"""TL training CLI of the port — the protocol simulator (``--mode sim``).
+"""TL training CLI of the port: the production TL step (``--mode
+production``, the default) and the protocol simulator (``--mode sim``).
 
+    python -m repro_torch.launch.train --arch starcoder2-3b --steps 4
     python -m repro_torch.launch.train --mode sim --wire int8 --wire-ef \
         --nodes 3 --epochs 3
 
-Port of the sim mode of ``repro/launch/train.py``: DATRET on the
-``TLOrchestrator`` through :class:`~repro_torch.launch.engine.Engine`, with
-the same synthetic shards (``numpy.random.default_rng(5)``, 64 samples per
-node), batch size 32 and SGD(0.05).  ``--wire {int8,fp8}`` quantizes the
-visit-payload lane (per-row absmax, ``repro_torch.kernels.act_compress``);
-``--wire-ef`` adds the error-feedback accumulator.  It prints the measured
-per-tag raw-vs-wire byte ratio from the transport.  Model parameters never
-quantize.
+Port of ``repro/launch/train.py``.  Production mode wires synthetic corpus
+-> node shards -> ``VirtualBatchLoader`` (Algorithm 1) -> ``Engine`` ->
+checkpoints, with the reference's flags and defaults: reduced configs
+(``--full`` for full width), ``adamw(warmup_cosine(lr, 10, steps),
+clip_norm=1.0)``, the corpus ``synthetic_corpus(nodes * 64, seq, vocab,
+seed=1)`` sharded over ``--nodes``, remat ``--remat {tl,none,dots}`` and
+in-loss reassembly ``--reassembly {torch,kernel}`` (the reference's
+``xla`` / ``pallas``; ``kernel`` is K1).  The port draws its own random
+init (seed 0), so its losses differ from the reference CLI's unless the
+engine is given bridged parameters.
 
-As in the reference, the sim run reassembles virtual batches with the
-orchestrator's default strategy (``"torch"``, the reference's ``"xla"``):
-the reference CLI never forwards its ``--reassembly`` to sim mode, so this
-CLI has no such flag; ``Engine(reassembly="kernel")`` reaches the kernel.
+Fault tolerance as in the reference: ``--ckpt-every N`` writes a
+step-boundary checkpoint (the reference's format and layout) into
+``--ckpt`` every N steps, ``--ckpt-keep N`` keeps the N newest valid ones,
+``--halt-at K`` stops after K global steps of the full ``--steps`` budget
+(a crash drill), and ``--resume`` restores the newest checkpoint and
+replays the loader: the resumed run ends bit-equal to an uninterrupted
+one.  A resume under a different run config is refused.  Meshes
+(``--mesh``, ``--multi-pod``), elastic recovery (``--elastic``,
+``--drill``, ``--watchdog-s``) wait for distribution (ROADMAP.md queue 1,
+item 14) and raise.
 
-``--hierarchy N`` trains two-tier (``N`` subtrees under a merging root,
-``repro_torch.core.hierarchy``) and turns the double-buffered pipeline off,
-as in the reference: the subtree lanes are the overlap.
+Sim mode: DATRET on the ``TLOrchestrator`` through the engine, with the
+reference's synthetic shards (``numpy.random.default_rng(5)``, 64 samples
+per node), batch size 32 and SGD(0.05).  ``--wire {int8,fp8}`` quantizes
+the visit-payload lane (``repro_torch.kernels.act_compress``),
+``--wire-ef`` adds the error-feedback accumulator; the measured per-tag
+raw-vs-wire byte ratio is printed, and model parameters never quantize.
+As in the reference, sim mode reassembles with the orchestrator's default
+(``"torch"``); ``--hierarchy N`` trains two-tier (``N`` subtrees) and
+turns the pipeline off.
 
-``--mode production`` (the default, as in the reference) is not ported yet
-and raises (ROADMAP.md queue 1, item 13); checkpointing (``--ckpt`` and
-its kin, item 1) is not ported, and this CLI has no such flags.  Runs on
-``--device`` (default ``cuda``).
+Runs on ``--device`` (default ``cuda``).
 """
 from __future__ import annotations
 
@@ -64,19 +77,127 @@ def _run_sim(args):
     return losses
 
 
+def _run_production(ap, args):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (VirtualBatchLoader, shard_corpus,
+                                           synthetic_corpus)
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+
+    for flag, given in (("--mesh", args.mesh), ("--multi-pod", args.multi_pod),
+                        ("--elastic", args.elastic), ("--drill", args.drill),
+                        ("--watchdog-s", args.watchdog_s)):
+        if given:
+            raise NotImplementedError(
+                f"{flag} is not ported yet: ROADMAP.md queue 1, item 14 "
+                "(distribution); the port's production engine runs on one "
+                "device")
+    for flag, given in (("--resume", args.resume),
+                        ("--ckpt-every", args.ckpt_every),
+                        ("--ckpt-keep", args.ckpt_keep)):
+        if given and not args.ckpt:
+            ap.error(f"{flag} needs --ckpt")
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    model = build_model(cfg)
+    opt = adamw(warmup_cosine(args.lr, 10, args.steps), clip_norm=1.0)
+    engine = Engine(model, cfg, opt, pipeline=args.pipeline,
+                    remat_mode=args.remat, reassembly=args.reassembly,
+                    log_every=args.log_every, ckpt_dir=args.ckpt,
+                    ckpt_every=args.ckpt_every, ckpt_keep=args.ckpt_keep,
+                    device=args.device)
+    # the run config fixes the LR schedule (--steps, --lr) and the data
+    # order (nodes, batch, seq): a resume under another one is refused
+    engine.ckpt_meta = {"arch": cfg.name, "steps": args.steps,
+                        "lr": args.lr, "seed": 0, "nodes": args.nodes,
+                        "batch": args.batch, "seq": args.seq}
+    if args.resume:
+        at = engine.restore()
+        got = engine.restored_meta or {}
+        for key, want in engine.ckpt_meta.items():
+            if key in got and got[key] != want:
+                ap.error(f"--resume config mismatch: checkpoint was written "
+                         f"by a run with {key}={got[key]!r}, this run has "
+                         f"{key}={want!r} (pass the original flags)")
+        if at >= args.steps:
+            ap.error(f"checkpoint is already at step {at} of the --steps "
+                     f"{args.steps} budget: nothing to resume")
+        print(f"resumed from step {at}")
+    else:
+        at = 0
+        engine.init(0)
+    print(f"arch={cfg.name} params={engine.n_params() / 1e6:.1f}M "
+          f"nodes={args.nodes} pipeline={args.pipeline} "
+          f"reassembly={args.reassembly} remat={args.remat} "
+          f"device={engine.device}")
+
+    docs = synthetic_corpus(args.nodes * 64, args.seq, cfg.vocab_size, seed=1)
+    loader = VirtualBatchLoader(shard_corpus(docs, args.nodes), args.batch,
+                                seed=0)
+    budget = min(args.halt_at, args.steps) if args.halt_at else args.steps
+    result = engine.run(loader, steps=budget)
+    losses = result.losses.tolist()
+    print(f"final loss {np.mean(losses[-5:]):.4f} "
+          f"(start {np.mean(losses[:5]):.4f}) "
+          f"{result.steps_per_s:.2f} steps/s")
+    if args.ckpt:
+        # the engine's resume-able layout, so a --halt-at run's final
+        # checkpoint is --resume-able under the same flags
+        path = engine.save_ckpt(result.params, result.opt_state,
+                                at + result.steps)
+        print("checkpoint:", path)
+    return losses
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="production",
                     choices=["production", "sim"],
-                    help="production: not ported yet (ROADMAP item 13); "
-                         "sim: the protocol simulator (TLOrchestrator)")
+                    help="production: the TL step over a decoder LM; sim: "
+                         "the protocol simulator (TLOrchestrator)")
+    ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--nodes", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--remat", default="tl", choices=["tl", "none", "dots"])
+    ap.add_argument("--reassembly", default="torch",
+                    choices=["torch", "kernel"],
+                    help="in-loss virtual-batch reassembly: a zero-filled "
+                         "index_copy, or one launch of the vb_scatter "
+                         "kernel (K1)")
+    ap.add_argument("--pipeline", action="store_true", default=True,
+                    help="2-deep prefetch on a copy stream (production) or "
+                         "the double-buffered epoch engine (sim); default")
+    ap.add_argument("--no-pipeline", dest="pipeline", action="store_false",
+                    help="strictly batch-serial (the oracle)")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save a step-boundary checkpoint into --ckpt every "
+                         "N steps (0: only the final checkpoint)")
+    ap.add_argument("--ckpt-keep", type=int, default=0,
+                    help="keep only the N newest valid checkpoints (0: all)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest checkpoint in --ckpt")
+    ap.add_argument("--halt-at", type=int, default=0,
+                    help="crash drill: stop after this many global steps of "
+                         "the --steps budget")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--mesh", default=None,
+                    help="not ported (ROADMAP.md queue 1, item 14)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="not ported (item 14)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="not ported (item 14)")
+    ap.add_argument("--drill", default=None, help="not ported (item 14)")
+    ap.add_argument("--watchdog-s", type=float, default=None,
+                    help="not ported (item 14)")
     ap.add_argument("--epochs", type=int, default=3,
                     help="sim mode: orchestrator epochs")
-    ap.add_argument("--pipeline", action="store_true", default=True,
-                    help="double-buffered epoch engine (default)")
-    ap.add_argument("--no-pipeline", dest="pipeline", action="store_false",
-                    help="strictly batch-serial epochs (the oracle)")
     ap.add_argument("--hierarchy", type=int, default=0,
                     help="sim mode: two-tier orchestration fan-out, the "
                          "number of subtrees (0: flat); implies "
@@ -93,11 +214,9 @@ def main(argv=None):
         ap.error("--wire is simulator-only for now: pass --mode sim")
     if args.wire_ef and args.wire == "off":
         ap.error("--wire-ef needs --wire {int8,fp8}")
-    if args.mode != "sim":
-        raise NotImplementedError(
-            "--mode production (the pjit TL step over decoder LMs) is not "
-            "ported yet: ROADMAP.md queue 1, item 13; pass --mode sim")
-    return _run_sim(args)
+    if args.mode == "sim":
+        return _run_sim(args)
+    return _run_production(ap, args)
 
 
 if __name__ == "__main__":

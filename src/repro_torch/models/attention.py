@@ -7,11 +7,13 @@ definition:
 * ``attend_blockwise`` — online softmax over KV blocks (above
   ``DENSE_MAX_SEQ`` keys), a Python loop where the reference scans;
 * ``ops.flash_attention`` (K4) — every causal self-attention over a whole
-  sequence (full forward, prefill into an empty cache): ``attend`` routes
-  it there, and the tensors' device picks the CUDA kernel or its plain
-  version.  The reference computes these with ``attend_dense`` /
-  ``attend_blockwise`` and never calls its own Pallas kernel; the kernel is
-  held to the same function at the reference kernel test's tolerance;
+  sequence (full forward, prefill into an empty cache) that needs no
+  gradient: ``attend`` routes it there, and the tensors' device picks the
+  CUDA kernel or its plain version.  The reference computes these with
+  ``attend_dense`` / ``attend_blockwise`` and never calls its own Pallas
+  kernel; the kernel is held to the same function at the reference kernel
+  test's tolerance.  Under grad (training) ``attend`` keeps to those two,
+  as the reference's loss does: the kernel is forward-only;
 * decode — one query token against the cache (``attend_dense``).
 
 MLA runs in latent form as in the reference: queries are absorbed into the
@@ -119,14 +121,24 @@ def attend_blockwise(q, k, v, q_pos, k_pos, window: int, scale: float,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(v.dtype)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def attend(q, k, v, q_pos, k_pos, window: int, scale: float, *,
            v_width: int = 0):
     """q (B,Sq,H,dh), k (B,Sk,KV,dh), v (B,Sk,KV,dv) or ``v=None`` with
-    ``v_width`` (V = K[..., :v_width], MLA's latent).  A causal
+    ``v_width`` (V = K[..., :v_width], MLA's latent).
+
+    Training (grad enabled and an input that requires it) takes the
+    reference's own path, ``attend_dense`` / ``attend_blockwise`` by the
+    ``DENSE_MAX_SEQ`` rule: K4 is forward-only.  Without grad, a causal
     self-attention over a whole sequence (``Sq == Sk > 1``, ``q_pos ==
-    k_pos``) goes to ``flash_attention``; decode and anything else to the
-    reference's dense or blockwise path."""
-    if q.shape[1] == k.shape[1] > 1 and torch.equal(q_pos, k_pos):
+    k_pos``) goes to ``flash_attention``, and decode and anything else to
+    the dense or blockwise path."""
+    if not _needs_grad(q, k, v) and q.shape[1] == k.shape[1] > 1 \
+            and torch.equal(q_pos, k_pos):
         return flash_attention(q, k, v, scale=scale, causal=True,
                                window=window, v_width=v_width)
     if v is None:

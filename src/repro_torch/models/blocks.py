@@ -2,9 +2,9 @@
 
 Port of ``repro/models/blocks.py`` for decoder stacks.  The ``attn`` mixer
 goes through the attention facade (GQA/MHA or MLA by ``cfg.attention``).
-The MoE FFN's aux loss is dropped: the reference's ``block_apply`` returns
-it for the training loss, which the port has not taken over yet (ROADMAP.md
-queue 1, item 12).  Cross-attention (encoder-decoder) is not ported.
+``block_apply`` returns the MoE FFN's aux loss, as the reference's does,
+for the training loss; the serving paths discard it.  Cross-attention
+(encoder-decoder) is not ported.
 """
 from __future__ import annotations
 
@@ -55,25 +55,28 @@ def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *, device,
 
 def block_apply(params, cfg: ModelConfig, kind: str, ffn: str, h, *,
                 cache=None, cache_len=None):
-    """Returns (h, cache)."""
+    """Returns (h, cache, aux_loss): the MoE FFN's f32 scalar loss, or the
+    float 0.0 for the other FFNs (no device tensor on the serving paths)."""
     _check_kinds(kind, ffn)
     mixed, cache = _MIXERS[kind][1](
         params["mixer"], cfg, rmsnorm(params["norm1"], h, cfg.norm_eps),
         cache=cache, cache_len=cache_len)
-    return ffn_apply(params, cfg, ffn, h + mixed), cache
+    h, aux = ffn_apply(params, cfg, ffn, h + mixed)
+    return h, cache, aux
 
 
 def ffn_apply(params, cfg: ModelConfig, ffn: str, h):
-    """``h`` plus the block's FFN of its normed ``h`` (the MoE aux loss is
-    dropped).  Shared with the paged serving runner."""
-    if ffn == "dense":
-        return h + swiglu(params["ffn"], rmsnorm(params["norm2"], h,
-                                                 cfg.norm_eps))
+    """``(h + FFN(norm2(h)), aux_loss)``: the MoE FFN's load-balance loss
+    (f32 scalar), 0.0 for the others.  Shared with the paged serving
+    runner."""
     if ffn == "moe":
-        out, _ = moe.moe_apply(params["ffn"], cfg,
-                               rmsnorm(params["norm2"], h, cfg.norm_eps))
-        return h + out
-    return h
+        out, aux = moe.moe_apply(params["ffn"], cfg,
+                                 rmsnorm(params["norm2"], h, cfg.norm_eps))
+        return h + out, aux
+    if ffn == "dense":
+        h = h + swiglu(params["ffn"], rmsnorm(params["norm2"], h,
+                                              cfg.norm_eps))
+    return h, 0.0
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, *,

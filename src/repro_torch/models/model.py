@@ -1,23 +1,53 @@
 """Model facade: build once from a ModelConfig, use everywhere.
 
 Port of ``repro/models/model.py`` for decoder LMs, whose blocks mix with
-attention, RG-LRU or Mamba-2 SSD (the training loss comes with the training
-slice):
+attention, RG-LRU or Mamba-2 SSD:
 
   m = build_model(cfg)
   params = m.init(seed=0, device="cuda")
   logits = m.forward(params, tokens)
+  loss, metrics = m.loss(params, batch)
   cache = m.init_cache(batch, max_len, device=...)
   logits, cache = m.prefill(params, cache, tokens)
   logits, cache = m.decode_step(params, cache, token, cache_len)
+  h1 = m.block0(params, m.embed(params, tokens))      # TL split points
+  logits, aux = m.tail(params, h1)
+
+``batch`` is a dict of tensors: ``tokens`` and ``targets`` (B,S) int,
+optionally ``mask`` (B,S).  The frontend ``embeds`` of the VLM / audio
+archs are not ported (ROADMAP.md queue 1, item 17).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+
+MTP_WEIGHT = 0.3
+
+
+def cross_entropy(logits, targets, mask=None):
+    """Mean next-token CE.  logits: (B,S,V); targets: (B,S) int."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def mtp_shift_targets(targets):
+    """MTP scores token t+2: shift targets left by one more step and mask
+    the last two positions, whose t+2 targets fall off the sequence.
+    Returns ``(t2, valid)`` for :func:`cross_entropy`."""
+    t2 = torch.roll(targets, -1, dims=1)
+    valid = torch.ones_like(t2)
+    valid[:, -2:] = 0
+    return t2, valid
 
 
 @dataclass(frozen=True)
@@ -25,9 +55,13 @@ class Model:
     cfg: ModelConfig
     init: Callable           # (*, seed, device, dtype) -> params
     forward: Callable        # (params, tokens) -> logits
+    loss: Callable           # (params, batch) -> (scalar, metrics)
     init_cache: Callable     # (batch, max_len, *, device, dtype) -> caches
     decode_step: Callable    # (params, caches, token, cache_len) -> (logits, caches)
     prefill: Callable        # (params, caches, tokens) -> (logits, caches)
+    embed: Callable          # (params, tokens) -> h0
+    block0: Callable         # (params, h0) -> h1
+    tail: Callable           # (params, h1) -> (logits, aux)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -35,14 +69,34 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError("encoder-decoder models are not ported yet "
                                   "(ROADMAP.md queue 1, item 17: "
                                   "models/encdec.py)")
+
+    def loss_fn(params, batch):
+        tokens, targets = batch["tokens"], batch["targets"]
+        logits, h, aux = transformer.forward_with_hidden(params, cfg, tokens)
+        ce = cross_entropy(logits, targets, batch.get("mask"))
+        total = ce + aux
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp_depth:
+            mtp = transformer.mtp_logits(params, cfg, tokens, h)
+            t2, valid = mtp_shift_targets(targets)
+            mtp_ce = cross_entropy(mtp, t2, valid)
+            total = total + MTP_WEIGHT * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = total
+        return total, metrics
+
     return Model(
         cfg=cfg,
         init=lambda **kw: transformer.init_params(cfg, **kw),
         forward=lambda p, tokens: transformer.forward(p, cfg, tokens),
+        loss=loss_fn,
         init_cache=lambda batch, max_len, **kw:
             transformer.init_cache(cfg, batch, max_len, **kw),
         decode_step=lambda p, caches, token, cache_len:
             transformer.decode_step(p, cfg, caches, token, cache_len),
         prefill=lambda p, caches, tokens:
             transformer.prefill(p, cfg, caches, tokens),
+        embed=lambda p, tokens: transformer.embed_tokens(p, cfg, tokens),
+        block0=lambda p, h: transformer.block0(p, cfg, h)[0],
+        tail=lambda p, h1: transformer.tail(p, cfg, h1),
     )

@@ -7,7 +7,11 @@ list holds one block dict per layer, in layer order, and the stack is a
 Python loop.  ``stack_plan`` is kept because it says how the reference's
 ``prefix``/``cycles``/``suffix`` map onto those layers (see
 ``repro_torch.bridge``): Griffin's 38 layers, for instance, are 12 cycles
-of (rglru, rglru, attn) and a suffix of 2.  Caches are a list of per-layer
+of (rglru, rglru, attn) and a suffix of 2.  A config with ``mtp_depth``
+adds the reference's ``mtp`` subtree (DeepSeek-V3's multi-token head).
+
+The Traversal-Learning split points are the reference's: ``embed_tokens``
+-> ``block0`` (X^(1)) -> ``tail`` (what the orchestrator recomputes).  Caches are a list of per-layer
 dicts of the layer's kind (attention ``{k, v, pos}``, MLA ``{c_kv, k_rope,
 pos}``, RG-LRU ``{conv, h}``, Mamba-2 ``{conv, state}``), updated in place.
 """
@@ -63,17 +67,35 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     p["layers"] = [blocks.block_init(gen, cfg, cfg.pattern[i],
                                      blocks.ffn_kind(cfg, i), **kw)
                    for i in range(cfg.n_layers)]
+    if cfg.mtp_depth:
+        p["mtp"] = {
+            "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, **kw),
+            "norm_h": rmsnorm_init(cfg.d_model, **kw),
+            "norm_e": rmsnorm_init(cfg.d_model, **kw),
+            "block": blocks.block_init(gen, cfg, "attn", _mtp_ffn(cfg), **kw),
+        }
     return p
 
 
-def run_stack(params, cfg: ModelConfig, h, *, caches=None, cache_len=None):
-    """Run every block.  Returns (h, caches)."""
+def _mtp_ffn(cfg: ModelConfig) -> str:
+    return "dense" if cfg.d_ff else "none"
+
+
+def run_stack(params, cfg: ModelConfig, h, *, caches=None, cache_len=None,
+              skip_block0: bool = False):
+    """Run every block (from block 1 with ``skip_block0``, the TL tail).
+    Returns (h, caches, aux): aux sums the MoE blocks' losses in layer
+    order (0.0 without MoE)."""
+    aux = 0.0
     for i, bp in enumerate(params["layers"]):
+        if skip_block0 and i == 0:
+            continue
         c = None if caches is None else caches[i]
-        h, _ = blocks.block_apply(bp, cfg, cfg.pattern[i],
-                                  blocks.ffn_kind(cfg, i), h, cache=c,
-                                  cache_len=cache_len)
-    return h, caches
+        h, _, a = blocks.block_apply(bp, cfg, cfg.pattern[i],
+                                     blocks.ffn_kind(cfg, i), h, cache=c,
+                                     cache_len=cache_len)
+        aux = aux + a
+    return h, caches, aux
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
@@ -90,10 +112,46 @@ def _logits(params, cfg: ModelConfig, h):
     return h @ head
 
 
+def block0(params, cfg: ModelConfig, h):
+    """First block: produces the TL first-layer activations X^(1).
+    Returns (h1, aux)."""
+    h, _, aux = blocks.block_apply(params["layers"][0], cfg, cfg.pattern[0],
+                                   blocks.ffn_kind(cfg, 0), h)
+    return h, aux
+
+
+def tail(params, cfg: ModelConfig, h1, return_hidden: bool = False):
+    """Blocks 1..L-1, final norm and head: what TL's orchestrator
+    recomputes.  Returns (logits, aux), or (logits, h, aux) with
+    ``return_hidden`` (h before the final norm)."""
+    h, _, aux = run_stack(params, cfg, h1, skip_block0=True)
+    if return_hidden:
+        return _logits(params, cfg, h), h, aux
+    return _logits(params, cfg, h), aux
+
+
 def forward(params, cfg: ModelConfig, tokens):
     """Full forward: tokens (B,S) -> logits (B,S,V)."""
-    h, _ = run_stack(params, cfg, embed_tokens(params, cfg, tokens))
+    h, _, _ = run_stack(params, cfg, embed_tokens(params, cfg, tokens))
     return _logits(params, cfg, h)
+
+
+def forward_with_hidden(params, cfg: ModelConfig, tokens):
+    """Full forward: (logits, final hidden state before the norm, aux)."""
+    h, _, aux = run_stack(params, cfg, embed_tokens(params, cfg, tokens))
+    return _logits(params, cfg, h), h, aux
+
+
+def mtp_logits(params, cfg: ModelConfig, tokens, h_final):
+    """DeepSeek-V3 multi-token-prediction head (depth 1): predict t+2 from
+    the final hidden state at t joined with the embedding of token t+1."""
+    m = params["mtp"]
+    emb_next = torch.roll(embed_tokens(params, cfg, tokens), -1, dims=1)
+    z = torch.cat([rmsnorm(m["norm_h"], h_final, cfg.norm_eps),
+                   rmsnorm(m["norm_e"], emb_next, cfg.norm_eps)], dim=-1)
+    z, _, _ = blocks.block_apply(m["block"], cfg, "attn", _mtp_ffn(cfg),
+                                 z @ m["proj"])
+    return _logits(params, cfg, z)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
@@ -107,7 +165,7 @@ def prefill(params, cfg: ModelConfig, caches, tokens):
     """Fill the caches with the whole prompt; return the last position's
     logits (B,V) and the caches."""
     h = embed_tokens(params, cfg, tokens)
-    h, caches = run_stack(params, cfg, h, caches=caches, cache_len=0)
+    h, caches, _ = run_stack(params, cfg, h, caches=caches, cache_len=0)
     return _logits(params, cfg, h[:, -1:])[:, 0], caches
 
 
@@ -115,5 +173,6 @@ def decode_step(params, cfg: ModelConfig, caches, token, cache_len: int):
     """One decode step.  token (B,); cache_len tokens already cached.
     Returns (logits (B,V), caches)."""
     h = embed_tokens(params, cfg, token[:, None])
-    h, caches = run_stack(params, cfg, h, caches=caches, cache_len=cache_len)
+    h, caches, _ = run_stack(params, cfg, h, caches=caches,
+                             cache_len=cache_len)
     return _logits(params, cfg, h)[:, 0], caches

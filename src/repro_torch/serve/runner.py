@@ -102,11 +102,11 @@ def _attn_decode(mp, cfg, page_size, xn, pool, tables, lengths, attn_fn):
 
 def _serve_block(bp, cfg, page_size, ffn, h, pool, tables, lengths, attn_fn):
     """Residual block on the paged path: the math of ``blocks.block_apply``
-    (the MoE aux loss is dropped; decode never uses it)."""
+    (the MoE aux loss is discarded; decode never uses it)."""
     h = h + _attn_decode(bp["mixer"], cfg, page_size,
                          rmsnorm(bp["norm1"], h, cfg.norm_eps), pool, tables,
                          lengths, attn_fn)
-    return blocks.ffn_apply(bp, cfg, ffn, h)
+    return blocks.ffn_apply(bp, cfg, ffn, h)[0]
 
 
 def make_decode_fn(cfg: ModelConfig, *, page_size: int,

@@ -66,7 +66,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.models.moe", "repro_torch.configs.deepseek_v2_236b",
               "repro_torch.core.runtime_model", "repro_torch.core.watchdog",
               "repro_torch.core.async_tl", "repro_torch.core.hierarchy",
-              "repro_torch.core.partial_update"):
+              "repro_torch.core.partial_update", "repro_torch.core.tl_step",
+              "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
+              "repro_torch.configs.shapes", "repro_torch.configs.starcoder2_3b",
+              "repro_torch.configs.qwen2_5_32b",
+              "repro_torch.configs.stablelm_12b",
+              "repro_torch.configs.deepseek_v3_671b"):
         assert m in MODULES, m
 
 
@@ -198,5 +203,7 @@ def test_train_cli_defaults_to_cuda(no_card):
     from repro_torch.launch.train import main
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--mode", "sim", "--epochs", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--mode", "sim", "--epochs", "1", "--hierarchy", "2"])

@@ -341,7 +341,7 @@ def test_engine_sim_mode_trains_and_refuses_what_is_not_ported():
                                                  tree_leaves(orch.params)))
     res = eng.run(shards, epochs=1)
     assert res.params is eng.orchestrator.params is eng.params
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="decoder LM"):
         engine(mode="production")
     with pytest.raises(ValueError, match="pipeline=False"):
         engine(hierarchy=2)
@@ -361,5 +361,5 @@ def test_cli_sim_runs_on_cpu_when_asked(capsys):
     assert len(losses) == 4 and "device=cpu" in out
     assert "wire[activations_grads]" in out and "ratio=3.9" in out
     assert "wire[model]" in out and "ratio=1.00x" in out
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        main(["--device", "cpu", "--mesh", "debug"])
