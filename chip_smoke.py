@@ -16,7 +16,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    2048 / 1000, MLA H 128 d 576 at context 1050; the trash page poisoned
    and a length-0 row at a split shape, bit-identical from call to call);
    ``permute_rows`` in scatter and gather mode and its
-   autograd backward (exact equality); ``quantize_rows`` /
+   autograd backward (exact equality; the edges of its row x chunk grid:
+   the production shape with a ragged wide row, bf16 / int8 / uint8 odd
+   widths over chunks, a base address 4 bytes off, the autograd Function
+   at a wide row; each case prints the wrapper's plan); ``quantize_rows`` /
    ``dequantize_rows`` (bit-equal, constant rows exact, error bound, every
    row mapping and both access widths) and ``ef_round_trip_rows``
    (bit-equal to the four-launch sequence and to its plain version);
@@ -126,7 +129,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``index_copy_`` / ``index_select``; K1 and K2 also at their DATRET
    main-path shapes; the EF
    round trip also beside the four-launch sequence it replaces; K1 also
-   as one ``scatter_rows`` call at N 1, its launch floor), and
+   as one ``scatter_rows`` call at N 1, its launch floor; K1's readings
+   print the row x chunk plan), and
    where a library call is timed, that call's too; prefill
    ms, decode ms a step, tok/s and peak memory of each recurrent family
    and of deepseek-v2.
@@ -439,10 +443,10 @@ def device_time(fn, calls: int = 10):
     Also the name of the kernel that takes the most time.  A reading is
     used only from a session whose kernels account for every kernel launch
     the host made in it (``cudaLaunch*`` / ``cuLaunch*`` calls); a session
-    that misses a kernel (one now and then records none) is run again, up
-    to three sessions.  The sessions each reading took are kept in
-    ``PROFILER_SESSIONS``; a reading that took more, or lost a record, is
-    printed."""
+    that misses a kernel (one now and then records none, once three times
+    in a row) is run again, up to five sessions.  The sessions each
+    reading took are kept in ``PROFILER_SESSIONS``; a reading that took
+    more, or lost a record, is printed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -451,7 +455,7 @@ def device_time(fn, calls: int = 10):
     fn()
     torch.cuda.synchronize()
     seen = []
-    for session in range(1, 4):
+    for session in range(1, 6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -471,7 +475,7 @@ def device_time(fn, calls: int = 10):
             break
     else:
         raise RuntimeError("the profiler's kernels did not account for the "
-                           "host's launches in three sessions: "
+                           "host's launches in five sessions: "
                            + ", ".join(seen))
     top = max(rows, key=_device_us)
     PROFILER_SESSIONS.append(session)
@@ -561,19 +565,43 @@ def _rows(rng, shape, dtype):
     uniform, so every row is distinguishable."""
     import numpy as np
     import torch
-    if dtype in (torch.int32, torch.int8):
-        a = rng.integers(-100, 100, size=shape).astype(np.int32)
+    if not dtype.is_floating_point:
+        low = 0 if dtype == torch.uint8 else -100
+        a = rng.integers(low, 100, size=shape).astype(np.int32)
     else:
         a = rng.normal(size=shape).astype(np.float32)
     return torch.as_tensor(a, device=DEVICE).to(dtype)
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` one element into its storage, so its base
+    address is ``t.element_size()`` bytes off any wider alignment."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def vb_plan(N, ts):
+    """The wrapper's row x chunk plan for a call on ``ts``."""
+    from repro_torch.kernels.vb_scatter import kernel as vb_kernel
+    chunk, n = vb_kernel.plan(ts[0].device, N,
+                              [t.shape[1] * t.element_size() for t in ts])
+    return {"chunk_bytes": chunk, "n_chunks": n, "ctas": N * n}
 
 
 def check_vb_scatter():
     """Phase 2: permute_rows (scatter), take_rows (gather) and the autograd
     Function, each exactly equal to its plain version on the same inputs.
     Covers ragged N, one row, bf16, int32 rows in the same launch, a narrow
-    (N, 2) tensor next to a wide (N, 4096) one, and rows whose byte length
-    forces every vector width (16/8/4/2/1 bytes)."""
+    (N, 2) tensor next to a wide (N, 4096) one, rows whose byte length
+    forces every vector width (16/8/4/2/1 bytes), and the edges of the row
+    x chunk grid: the production shape with a ragged wide row (1,572,867
+    f32) beside the (N, 512) int32 targets, wide rows at N 64, bf16 and
+    int8 / uint8 odd widths split over chunks (vector widths 2 and 1), and
+    a base address 4 bytes off (vector width 4).  The autograd check runs
+    at a small and at a wide-row shape."""
     import numpy as np
     import torch
 
@@ -583,6 +611,7 @@ def check_vb_scatter():
                                                 scatter_rows_ref, take_rows,
                                                 vb_scatter, vb_scatter_ref)
     f32, bf16, i32, i8 = torch.float32, torch.bfloat16, torch.int32, torch.int8
+    u8 = torch.uint8
     cases = [
         ("main path DATRET N=64", 64, [(512, f32), (2, f32), (512, f32)]),
         ("main path ConvNet N=64", 64, [(1024, f32), (10, f32), (1024, f32)]),
@@ -596,11 +625,25 @@ def check_vb_scatter():
         ("narrow (N,2) + wide (N,4096)", 50, [(2, f32), (4096, f32)]),
         ("vector widths 16/8/4/2/1", 33,
          [(4, f32), (2, f32), (3, f32), (5, bf16), (7, i8)]),
+        # the row x chunk grid's edges
+        ("production N=8, ragged wide row + int32 targets", 8,
+         [(1572867, f32), (512, i32)]),
+        ("wide rows at N=64, chunked", 64, [(65536, f32), (3, f32)]),
+        ("one wide row", 1, [(300007, f32)]),
+        ("bf16 odd width, chunked (vector width 2)", 8, [(100001, bf16)]),
+        ("int8 / uint8 odd widths, chunked (vector width 1)", 8,
+         [(300001, i8), (70001, u8)]),
+        ("f32 at a 4-byte offset, chunked (vector width 4)", 8,
+         [(393216, f32), (5, f32)], "offset"),
     ]
     rng = np.random.default_rng(0)
     errs = {"scatter": 0.0, "gather": 0.0}
-    for name, N, cols in cases:
+    for name, N, cols, *how in cases:
         ts = [_rows(rng, (N, d), dt) for d, dt in cols]
+        if how:
+            ts = [_offset(t) for t in ts]
+            assert all(t.data_ptr() % 16 == 4 and t.is_contiguous()
+                       for t in ts)
         perm = torch.as_tensor(rng.permutation(N).astype(np.int32),
                                device=DEVICE)
         for kern, mode in ((permute_rows, "scatter"), (take_rows, "gather")):
@@ -610,45 +653,50 @@ def check_vb_scatter():
             for g, w in zip(got, want):
                 errs[mode] = max(errs[mode], _abs_err(g, w))
                 assert g.dtype == w.dtype and torch.equal(g, w), (name, mode)
-        print(f"  permute_rows {name}: scatter and gather exactly equal")
+        print(f"  permute_rows {name}: scatter and gather exactly equal "
+              f"{vb_plan(N, ts)}")
 
     # the autograd Function: forward and backward exact against the
     # zero-filled plain scatter, with row-dependent weights so a backward
     # with the wrong index cannot pass; int32 rows ride along, no gradient
-    N = 45
-    perm = torch.as_tensor(rng.permutation(N).astype(np.int32),
-                           device=DEVICE)
-    w = torch.arange(1, N + 1, dtype=f32, device=DEVICE)
-    for dt in (f32, bf16):
-        base = [_rows(rng, (N, 4, 6), dt), _rows(rng, (N, 3), dt),
-                _rows(rng, (N, 4, 6), dt)]
-        tok = _rows(rng, (N, 4), i32)
+    for N, wide, narrow in ((45, (4, 6), (3,)), (8, (2, 786433), (3,))):
+        perm = torch.as_tensor(rng.permutation(N).astype(np.int32),
+                               device=DEVICE)
+        w = torch.arange(1, N + 1, dtype=f32, device=DEVICE)
+        for dt in (f32, bf16):
+            base = [_rows(rng, (N, *wide), dt), _rows(rng, (N, *narrow), dt),
+                    _rows(rng, (N, *wide), dt)]
+            tok = _rows(rng, (N, 4), i32)
 
-        def grads(fn):
-            xs = [b.clone().requires_grad_(True) for b in base]
-            a, b, c, t = fn(perm, (*xs, tok))
-            loss = (w[:, None, None] * a.float() ** 2).sum() \
-                + (w[:, None] * b.float()).sum() \
-                + (w[:, None, None] * c.float() ** 3).sum() \
-                + (a.float().sum((1, 2)) * t.float().sum(-1)).sum()
-            loss.backward()
-            return [a, b, c, t], [x.grad for x in xs]
+            def grads(fn):
+                xs = [b.clone().requires_grad_(True) for b in base]
+                a, b, c, t = fn(perm, (*xs, tok))
+                loss = (w[:, None, None] * a.float() ** 2).sum() \
+                    + (w[:, None] * b.float()).sum() \
+                    + (w[:, None, None] * c.float() ** 3).sum() \
+                    + (a.float().sum((1, 2)) * t.float().sum(-1)).sum()
+                loss.backward()
+                return [a, b, c, t], [x.grad for x in xs]
 
-        out_k, g_k = grads(scatter_rows)
-        out_r, g_r = grads(scatter_rows_ref)
-        torch.cuda.synchronize()
-        for a, b in zip(out_k, out_r):
-            errs["scatter"] = max(errs["scatter"], _abs_err(a.detach(), b))
-            assert a.dtype == b.dtype and torch.equal(a.detach(), b.detach())
-        for a, b in zip(g_k, g_r):
-            errs["gather"] = max(errs["gather"], _abs_err(a, b))
-            assert a.dtype == b.dtype and torch.equal(a, b)
-        got = vb_scatter(*base, perm)
-        for a, b in zip(got, vb_scatter_ref(*base, perm)):
-            errs["scatter"] = max(errs["scatter"], _abs_err(a, b))
-            assert torch.equal(a, b)
-    print("  scatter_rows autograd (f32, bf16, int32 rows riding along): "
-          "forward and backward exactly equal; vb_scatter exactly equal")
+            out_k, g_k = grads(scatter_rows)
+            out_r, g_r = grads(scatter_rows_ref)
+            torch.cuda.synchronize()
+            for a, b in zip(out_k, out_r):
+                errs["scatter"] = max(errs["scatter"],
+                                      _abs_err(a.detach(), b))
+                assert a.dtype == b.dtype and torch.equal(a.detach(),
+                                                          b.detach())
+            for a, b in zip(g_k, g_r):
+                errs["gather"] = max(errs["gather"], _abs_err(a, b))
+                assert a.dtype == b.dtype and torch.equal(a, b)
+            got = vb_scatter(*base, perm)
+            for a, b in zip(got, vb_scatter_ref(*base, perm)):
+                errs["scatter"] = max(errs["scatter"], _abs_err(a, b))
+                assert torch.equal(a, b)
+        print(f"  scatter_rows autograd at N={N}, rows {wide} + {narrow} "
+              f"(f32, bf16, int32 rows riding along): forward and backward "
+              f"exactly equal; vb_scatter exactly equal "
+              f"{vb_plan(N, [base[0].reshape(N, -1)])}")
     return errs
 
 
@@ -2186,7 +2234,8 @@ def time_vb_production(prod):
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
             "shape": f"N={N} " + " + ".join(
                 f"({x.shape[0]}, {x.shape[1]}) {str(x.dtype)[6:]}"
-                for x in ts)}
+                for x in ts),
+            "plan": vb_plan(N, ts)}
     return res
 
 
@@ -2234,7 +2283,8 @@ def time_vb_scatter(N, widths):
                 lambda: permute_rows_ref(perm, *ts, mode=mode)),
             "library_ms": cuda_ms(lib),
             "library_device_ms": device_time(lib)[0],
-            "bound_ms": bound, "bound_by": "bytes", "shape": shape}
+            "bound_ms": bound, "bound_by": "bytes", "shape": shape,
+            "plan": vb_plan(N, ts)}
     return res
 
 
@@ -2255,7 +2305,8 @@ def time_scatter_rows(N):
         return scatter_rows(perm, ts)
 
     return {"ms": cuda_ms(call), "device_ms": device_time(call)[0],
-            "shape": f"N={N} widths=[512, 2, 512] f32"}
+            "shape": f"N={N} widths=[512, 2, 512] f32",
+            "plan": vb_plan(N, ts)}
 
 
 def time_act_compress(R, D):
