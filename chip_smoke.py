@@ -80,7 +80,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    times.  Kernel reassembly must be bit-equal to torch reassembly, fused
    within 1e-6 (loss) of eager, the TL gradient within 2e-5 of the
    centralized one, eq. 12 within 1e-5, and the wire bytes, raw bytes and
-   clock of both wire runs equal to a CPU run's.
+   clock of both wire runs equal to a CPU run's.  Then a kill + resume:
+   DATRET through ``Engine(mode="sim", reassembly="kernel", ckpt_dir=...)``
+   for 2 epochs, a fresh engine ``restore()``d from the epoch-boundary
+   checkpoint for 1 more: params and losses bit-equal to 3 uninterrupted
+   epochs, ``permute_rows`` once a virtual batch on both runs, and
+   ``evaluate`` on a held-out split equal to the uninterrupted run's.
 4b. Main path 5, hierarchical and async TL: benchmarks/bench_tl_step.py's
    hierarchy column (DATRET, 2 samples a node, one virtual batch of 2n
    rows, a 1e9 B/s link with rtt 0, compute 1e-4 s and BP 5e-4 s per
@@ -99,25 +104,39 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    0.05, SL / SL+ / SFL above 0.3.  Each epoch's wall time is printed.
 4c. Main path 6, the production TL step: (a) starcoder2-3b at full width
    (d_model 3072, 24 heads on 2 KV heads, d_ff 12288, vocab 49152, QKV
-   bias, window 4096), depth cut to 12 layers (1.906 B parameters; 30
-   would need ~121 GB for the functional Adam update), random weights from
-   seed 0, through ``Engine(mode="production", reassembly="kernel",
-   remat_mode="tl")`` on ``VirtualBatchLoader(shard_corpus(
-   synthetic_corpus(64, 512, 49152), 4), 8)`` for 4 steps: losses finite,
-   ``permute_rows`` and ``take_rows`` once a step each, ms a step (synced
-   host clock, median of steps 2-4) and peak memory printed.  Then, with
-   deterministic algorithms: (b) on the first batch, from the trained
-   parameters, TL loss and grads with kernel reassembly bit-equal to torch
-   reassembly, and the TL loss within 1e-5 relative of ``model.loss`` on
-   the batch in shuffled order, the grads within 1e-4 of the largest
-   grad; (c) reduced deepseek-v3 (MoE, MLA, MTP) one step, K1 routing
-   X^(1), the targets and the int32 MTP tokens in one launch, bit-equal to
-   torch reassembly; (d) reduced deepseek-7b through ``launch.train.main``
-   with ``--halt-at 3 --ckpt-every 2`` and then ``--resume`` to step 6:
-   losses and final checkpoint (SHA-256 of every array) equal to an
-   uninterrupted run's and to ``--no-pipeline``'s.  (e) K4, K5, K6 and K3
-   raise on a CUDA input that requires grad, launching nothing, and
-   launch without grad.
+   bias, window 4096), depth cut from the published 30 layers to 23 (3.377
+   B parameters; the deepest that leaves 3 GB of the card: the whole
+   tail's recompute keeps ~1.1 GB of activations a layer live), random
+   weights from seed 0, through ``Engine(mode="production",
+   reassembly="kernel", remat_mode="tl", donate=True)`` (the in-place AdamW
+   update) on ``VirtualBatchLoader(shard_corpus(synthetic_corpus(64, 512,
+   49152), 4), 8)`` for 4 steps: losses finite, ``permute_rows`` and
+   ``take_rows`` once a step each, ms a step (synced host clock, median of
+   steps 2-4), peak memory, and at least 3 GB of the card left.  Then at
+   12 layers, with deterministic algorithms: (a2) ``donate=True`` against
+   ``donate=False`` over 3 steps, losses and params bit-equal, each run's
+   peak; (b) on the first batch, from (a2)'s parameters, TL loss and grads
+   with kernel reassembly bit-equal to torch reassembly, and the TL loss
+   within 1e-5 relative of ``model.loss`` on the batch in shuffled order,
+   the grads within 1e-4 of the largest grad; (c) reduced deepseek-v3
+   (MoE, MLA, MTP) one step, K1 routing X^(1), the targets and the int32
+   MTP tokens in one launch, bit-equal to torch reassembly; (d) reduced
+   deepseek-7b through ``launch.train.main`` with ``--halt-at 3
+   --ckpt-every 2`` and then ``--resume`` to step 6: losses and final
+   checkpoint (SHA-256 of every array) equal to an uninterrupted run's and
+   to ``--no-pipeline``'s.  (a2)-(b) stay at 12 layers: they hold two
+   parameter or gradient trees at once.  (e) K4, K5, K6 and K3 raise on a
+   CUDA input that requires grad, launching nothing, and launch without
+   grad; reduced mamba2 and Griffin launch no K5 / K6 under grad.
+4d. Main path 7, recurrent training: the production step of (a) for
+   mamba2-780m at full width and depth (48 layers) and recurrentgemma-9b
+   at full width cut to 6 layers (two (rglru, rglru, attn) cycles), one
+   model at a time, 3 steps each: losses finite, K1 once a step each way,
+   no ``ssd_bh`` / ``rglru_scan_b`` launch (the models' own
+   differentiable scans run under grad), at least 3 GB of the card left;
+   on the first batch phase 4c (b)'s TL-vs-CL gates; then one forward
+   without grad launches the scan kernel once per recurrent layer (and K4
+   once per Griffin attention layer).  ms a step and peak printed.
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
    where one computes the same function, and the card's bound (for the
@@ -1506,12 +1525,16 @@ def tl_shards(cfg):
     return paper_model_shards(cfg, TL_SIZES)
 
 
-def tl_engine(cfg, shards, *, device=None, epochs=TL_EPOCHS, **kw):
+def sim_engine(cfg, *, device=None, **kw):
     from repro_torch.launch.engine import Engine
     from repro_torch.models.small import SmallModel
     from repro_torch.optim import sgd
-    eng = Engine(SmallModel(cfg), cfg, sgd(0.05), mode="sim",
-                 batch_size=TL_BATCH, seed=0, device=device or DEVICE, **kw)
+    return Engine(SmallModel(cfg), cfg, sgd(0.05), mode="sim",
+                  batch_size=TL_BATCH, seed=0, device=device or DEVICE, **kw)
+
+
+def tl_engine(cfg, shards, *, epochs=TL_EPOCHS, **kw):
+    eng = sim_engine(cfg, **kw)
     return eng, eng.run(shards, epochs=epochs)
 
 
@@ -1578,6 +1601,64 @@ def tl_vs_cl(cfg, shards):
     assert err < 2e-5, f"{cfg.name}: TL gradient deviates from CL by {err}"
     assert cons < 1e-5, f"{cfg.name}: eq. 12 consistency {cons}"
     return err, cons
+
+
+HELD_OUT = 128                  # samples of the kill + resume's test split
+
+
+def sim_kill_resume(card: str):
+    """Phase 4, kill + resume: DATRET on 3 nodes (96/64/32) through
+    ``Engine(mode="sim", reassembly="kernel", ckpt_dir=...)`` for 2 epochs
+    (a checkpoint after each), then a fresh engine ``restore()``d from it
+    runs 1 more: params and losses bit-equal to 3 uninterrupted epochs,
+    ``permute_rows`` once a virtual batch on both runs; ``evaluate`` on a
+    held-out split of 128 samples of the same dataset, equal to the
+    uninterrupted run's.  Returns the two runs' K1 launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_models import SMALL_MODELS
+    from repro_torch.data.shards import paper_model_shards
+    from repro_torch.kernels.vb_scatter import permute_rows
+
+    cfg = SMALL_MODELS["datret"]
+    *shards, held = paper_model_shards(cfg, TL_SIZES + (HELD_OUT,))
+    per_epoch = sum(TL_SIZES) // TL_BATCH
+    full, res_full = tl_engine(cfg, shards, epochs=3, reassembly="kernel")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        permute_rows.launches = 0
+        _, res_part = tl_engine(cfg, shards, epochs=2, reassembly="kernel",
+                                ckpt_dir=tmp)
+        torch.cuda.synchronize()
+        k_part = permute_rows.launches
+        saved = sorted(os.listdir(tmp))
+        resumed = sim_engine(cfg, reassembly="kernel", ckpt_dir=tmp)
+        at = resumed.restore()
+        permute_rows.launches = 0
+        res_res = resumed.run(shards, epochs=1)
+        torch.cuda.synchronize()
+        k_res = permute_rows.launches
+    assert saved == [f"step_{per_epoch:08d}", f"step_{2 * per_epoch:08d}"], \
+        saved
+    assert at == 2 * per_epoch and res_res.steps == per_epoch
+    assert (k_part, k_res) == (2 * per_epoch, per_epoch), (k_part, k_res)
+    assert res_part.losses.tobytes() == res_full.losses[:2 * per_epoch] \
+        .tobytes()
+    assert res_res.losses.tobytes() == res_full.losses[2 * per_epoch:] \
+        .tobytes()
+    assert _leaves_equal(res_res.params, res_full.params)
+    acc = resumed.orchestrator.evaluate(held.x, held.y)
+    assert acc == full.orchestrator.evaluate(held.x, held.y)
+    assert np.all(np.isfinite(res_full.losses))
+    print(f"  datret kill + resume: 2 epochs ({k_part} permute_rows "
+          f"launches, checkpoints {saved}), restored at step {at}, 1 more "
+          f"epoch ({k_res} launches): params and losses bit-equal to 3 "
+          f"uninterrupted epochs; evaluate on {HELD_OUT} held-out samples "
+          f"{acc:.6f} (the uninterrupted run's too) [{card}]")
+    return {"killed": k_part, "resumed": k_res, "held_out_acc": acc}
 
 
 def tl_training(card: str):
@@ -1694,8 +1775,9 @@ def tl_training(card: str):
           f"{tr.bytes_sent[tag]} ({ratio:.2f}x), model "
           f"{tr.bytes_sent['model']} (1.00x); bytes and clock equal to the "
           f"CPU run's; loss {ef_res.losses[0]:.4f} -> {ef_res.losses[-1]:.4f}")
+    resume = sim_kill_resume(card)
     return launches, {"tl_steps": n_batches, "wall_s": wall,
-                      "wire_ratio": ratio}
+                      "wire_ratio": ratio, "kill_resume": resume}
 
 
 # ------------------------------------------------- hierarchical and async TL
@@ -1961,12 +2043,15 @@ def baselines(card: str):
 # ------------------------------------------------- production TL step
 
 PROD_ARCH = "starcoder2-3b"
-PROD_LAYERS = 12            # 30 layers' Adam update would need ~121 GB
+PROD_LAYERS = 23            # of 30: the deepest that leaves 3 GB of the card
+PROD_CHECK_LAYERS = 12      # (a2)-(b): two parameter or gradient trees live
 PROD_SEQ = 512
 PROD_BATCH = 8
 PROD_NODES = 4
 PROD_DOCS = 64
 PROD_STEPS = 4
+DONATE_STEPS = 3
+HEADROOM_GB = 3.0           # a training cell's depth must leave this free
 
 
 def production_loader(vocab: int, seq: int = PROD_SEQ):
@@ -1981,72 +2066,75 @@ def production_opt(steps: int):
     return adamw(warmup_cosine(3e-4, 10, steps), clip_norm=1.0)
 
 
-def production_step(card: str):
-    """Phase 4c (a) and (b): starcoder2-3b at full width, 12 layers,
-    through ``Engine(mode="production", reassembly="kernel",
-    remat_mode="tl")`` for 4 steps; then on the first batch, from the
-    trained parameters, the TL loss and grads with kernel reassembly
-    against torch reassembly (bit-equal) and against ``model.loss`` on the
-    batch in shuffled order (loss 1e-5 relative, grads 1e-4 of the largest
-    grad).  (b) runs with deterministic algorithms, which it turns on."""
+def production_run(cfg, steps: int, counters: dict, *, donate: bool = True):
+    """``steps`` production TL steps of ``cfg`` from seed 0 through
+    ``Engine(mode="production", reassembly="kernel", remat_mode="tl",
+    donate=donate)`` on batch 8 x 512 from ``synthetic_corpus`` on 4 nodes;
+    ``counters`` (name -> kernel wrapper) are set to 0 just before the run
+    and read just after.  Returns the engine, its result and the readings:
+    ms a step (synced host clock, median of steps 2..), the peak memory
+    this run added to what was allocated before it, and the card's memory
+    left under the peak reserved, which must be at least 3 GB."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.core.tl_step import tl_loss_fn, value_and_grad
-    from repro_torch.core.tree import tree_leaves
-    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
     from repro_torch.launch.engine import Engine
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(PROD_ARCH), n_layers=PROD_LAYERS)
-    model = build_model(cfg)
-    eng = Engine(model, cfg, production_opt(PROD_STEPS), mode="production",
-                 reassembly="kernel", remat_mode="tl", log_every=1,
-                 device=DEVICE).init(0)
-    n_params = eng.n_params()
-    loader = production_loader(cfg.vocab_size)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    # the main path: K1's counts from 0 just before, read just after
-    permute_rows.launches = take_rows.launches = 0
-    res = eng.run(loader, steps=PROD_STEPS)
-    launches = {"permute_rows": permute_rows.launches,
-                "take_rows": take_rows.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    assert res.steps == PROD_STEPS and np.all(np.isfinite(res.losses)), \
+    eng = Engine(build_model(cfg), cfg, production_opt(steps),
+                 mode="production", reassembly="kernel", remat_mode="tl",
+                 donate=donate, log_every=1, device=DEVICE).init(0)
+    loader = production_loader(cfg.vocab_size)
+    for c in counters.values():
+        c.launches = 0
+    res = eng.run(loader, steps=steps)
+    launches = {name: c.launches for name, c in counters.items()}
+    total = torch.cuda.get_device_properties(0).total_memory
+    info = {"arch": cfg.name, "layers": cfg.n_layers,
+            "n_params": eng.n_params(), "batch": PROD_BATCH, "seq": PROD_SEQ,
+            "donate": donate, "losses": [float(x) for x in res.losses],
+            "step_ms": statistics.median(1e3 * t for t in res.step_s[1:]),
+            "step_s": [round(t, 6) for t in res.step_s],
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "headroom_gb": (total - torch.cuda.max_memory_reserved()) / 1e9,
+            "launches": launches}
+    assert res.steps == steps and np.all(np.isfinite(res.losses)), \
         res.losses
-    assert launches == {"permute_rows": PROD_STEPS, "take_rows": PROD_STEPS}, \
-        launches
-    step_ms = statistics.median(1e3 * t for t in res.step_s[1:])
-    print(f"  (a) {cfg.name} at full width, {PROD_LAYERS} layers "
-          f"({n_params / 1e9:.3f} B params), batch {PROD_BATCH} x "
-          f"{PROD_SEQ}, {PROD_NODES} nodes: losses "
-          f"{[round(float(x), 6) for x in res.losses]}, "
-          f"{step_ms:.3f} ms a step (synced host clock, median of steps "
-          f"2-{PROD_STEPS}: {[round(1e3 * t, 3) for t in res.step_s]}), "
-          f"peak {peak_gb:.2f} GB, permute_rows {launches['permute_rows']} "
-          f"/ take_rows {launches['take_rows']} launches [{card}]")
+    assert info["headroom_gb"] >= HEADROOM_GB, info["headroom_gb"]
+    return eng, res, info
 
-    params = eng.params
-    eng.params = eng.opt_state = None
-    del res
+
+def print_run(tag: str, info: dict, card: str):
+    print(f"  {tag} {info['arch']} at full width, {info['layers']} layers "
+          f"({info['n_params'] / 1e9:.3f} B params), batch {PROD_BATCH} x "
+          f"{PROD_SEQ}, {PROD_NODES} nodes, donate={info['donate']}: losses "
+          f"{[round(x, 6) for x in info['losses']]}, {info['step_ms']:.3f} "
+          f"ms a step (synced host clock, median of steps 2-"
+          f"{len(info['step_s'])}: {[round(1e3 * t, 3) for t in info['step_s']]}"
+          f"), peak {info['peak_gb']:.2f} GB, {info['headroom_gb']:.2f} GB of "
+          f"the card left, launches {info['launches']} [{card}]")
+
+
+def free_cuda():
+    import torch
     gc.collect()
     torch.cuda.empty_cache()
-    # bit-equality from here on (main turns this off after phase 4c (d)):
-    # the embedding's backward accumulates rows, by atomics otherwise
-    torch.use_deterministic_algorithms(True)
-    batch = {k: v.to(DEVICE) for k, v in
-             eng._host_batch(next(iter(loader))).items()}
-    t0 = time.perf_counter()
+
+
+def prod_tl_vs_cl(model, cfg, params, batch):
+    """On one batch: the TL loss and grads with kernel reassembly against
+    ``model.loss`` on the batch in shuffled order: ``(TL loss, TL grads,
+    relative loss gap, largest grad gap over the largest grad)``, gated at
+    1e-5 and 1e-4."""
+    import torch
+
+    from repro_torch.core.tl_step import tl_loss_fn, value_and_grad
+    from repro_torch.core.tree import tree_leaves
     k_loss, k_grads = value_and_grad(tl_loss_fn(model, cfg, "tl", "kernel"),
                                      params, batch)
-    t_loss, t_grads = value_and_grad(tl_loss_fn(model, cfg, "tl", "torch"),
-                                     params, batch)
-    assert torch.equal(k_loss, t_loss), (float(k_loss), float(t_loss))
-    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(k_grads),
-                                                 tree_leaves(t_grads)))
-    del t_grads
     perm = batch["perm"].long()
     shuffled = {k: torch.empty_like(batch[k]).index_copy_(0, perm, batch[k])
                 for k in ("tokens", "targets")}
@@ -2058,18 +2146,165 @@ def production_step(card: str):
               for a, b in zip(tree_leaves(k_grads), tree_leaves(cl_grads)))
     assert rel <= 1e-5, f"TL loss {float(k_loss)} vs CL {float(cl_loss)}"
     assert gap <= 1e-4 * gmax, f"TL grads {gap} from CL (max {gmax})"
+    return k_loss, k_grads, rel, gap / gmax, shuffled
+
+
+def production_step(card: str):
+    """Phase 4c (a), (a2) and (b).  (a) starcoder2-3b at full width, 23 of
+    its published 30 layers (3.377 B parameters), random weights from seed
+    0, through ``Engine(mode="production", reassembly="kernel",
+    remat_mode="tl", donate=True)`` for 4 steps: losses finite,
+    ``permute_rows`` and ``take_rows`` once a step each, ms a step, peak
+    memory, and at least 3 GB of the card left.  (a2) at 12 layers,
+    ``donate=True`` against ``donate=False`` over 3 steps: losses and
+    parameters bit-equal, each run's peak.  (b) on the first batch, from
+    (a2)'s parameters, the TL loss and grads with kernel reassembly against
+    torch reassembly (bit-equal) and against ``model.loss`` on the batch in
+    shuffled order (loss 1e-5 relative, grads 1e-4 of the largest grad).
+    (a2) and (b) run with deterministic algorithms, which they turn on, and
+    stay at 12 layers, as (c)-(d) do: they hold two parameter or gradient
+    trees at once, and the shallower model keeps the script well inside its
+    time limit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tl_step import tl_loss_fn, value_and_grad
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+
+    k1 = {"permute_rows": permute_rows, "take_rows": take_rows}
+    want = {"permute_rows": PROD_STEPS, "take_rows": PROD_STEPS}
+    # the main path: K1's counts from 0 just before, read just after
+    cfg = dataclasses.replace(get_config(PROD_ARCH), n_layers=PROD_LAYERS)
+    eng, res, deep = production_run(cfg, PROD_STEPS, k1)
+    assert deep["launches"] == want, deep["launches"]
+    print_run("(a)", deep, card)
+    del eng, res
+    free_cuda()
+
+    # bit-equality from here on (main turns this off after phase 4c (d)):
+    # the embedding's backward accumulates rows, by atomics otherwise
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(get_config(PROD_ARCH),
+                              n_layers=PROD_CHECK_LAYERS)
+    runs = {}
+    for donate in (False, True):
+        eng, res, info = production_run(cfg, DONATE_STEPS, k1,
+                                        donate=donate)
+        print_run("(a2)", info, card)
+        # keep the parameters and the losses, free the optimizer state
+        runs[donate] = (eng, res.losses, info)
+        eng.opt_state = res.opt_state = None
+        del res
+        if not donate:
+            params_fun = eng.params
+        free_cuda()
+    eng, donate_losses, donate_info = runs[True]
+    fun_losses, fun_info = runs[False][1:]
+    params = eng.params
+    assert donate_losses.tobytes() == fun_losses.tobytes()
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                 tree_leaves(params_fun)))
+    print(f"  (a2) donate=True == donate=False over {DONATE_STEPS} steps "
+          f"(losses and params bit-equal); peak {donate_info['peak_gb']:.2f}"
+          f" GB in place against {fun_info['peak_gb']:.2f} GB functional "
+          f"[{card}]")
+    del runs, params_fun
+    free_cuda()
+
+    model = eng.model
+    batch = {k: v.to(DEVICE) for k, v in
+             eng._host_batch(next(iter(production_loader(
+                 cfg.vocab_size)))).items()}
+    t0 = time.perf_counter()
+    k_loss, k_grads, rel, gap, _ = prod_tl_vs_cl(model, cfg, params, batch)
+    t_loss, t_grads = value_and_grad(tl_loss_fn(model, cfg, "tl", "torch"),
+                                     params, batch)
+    assert torch.equal(k_loss, t_loss), (float(k_loss), float(t_loss))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(k_grads),
+                                                 tree_leaves(t_grads)))
     print(f"  (b) first batch: TL loss kernel == torch reassembly, grads "
-          f"bit-equal; TL {float(k_loss):.6f} vs CL {float(cl_loss):.6f} "
-          f"(rel {rel:.3e}); max grad gap {gap:.3e} = "
-          f"{gap / gmax:.3e} of the largest grad {gmax:.3e}; "
+          f"bit-equal; TL {float(k_loss):.6f} vs CL (rel {rel:.3e}); max "
+          f"grad gap {gap:.3e} of the largest grad; "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
-    del params, k_grads, cl_grads, batch, eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"arch": cfg.name, "layers": PROD_LAYERS, "n_params": n_params,
-            "batch": PROD_BATCH, "seq": PROD_SEQ, "step_ms": step_ms,
-            "peak_gb": peak_gb, "launches": launches,
-            "tl_cl_rel": rel, "grad_gap_rel": gap / gmax}
+    del params, k_grads, t_grads, batch, eng
+    free_cuda()
+    return dict(deep, check={"layers": PROD_CHECK_LAYERS,
+                             "donate_peak_gb": donate_info["peak_gb"],
+                             "functional_peak_gb": fun_info["peak_gb"],
+                             "donate_step_ms": donate_info["step_ms"],
+                             "functional_step_ms": fun_info["step_ms"],
+                             "tl_cl_rel": rel, "grad_gap_rel": gap})
+
+
+# ------------------------------------------------ recurrent production TL
+
+# arch -> (depth: 0 keeps the config's, the recurrent layer kind, its
+# forward-only scan kernel's module and name); Griffin's 6 of 38 layers are
+# the deepest multiple of its 3-layer pattern that leaves 3 GB of the card
+RECURRENT_TRAIN = {"mamba2-780m": (0, "ssm", "ssd", "ssd_bh"),
+                   "recurrentgemma-9b": (6, "rglru", "rglru",
+                                         "rglru_scan_b")}
+RECURRENT_STEPS = 3
+
+
+def recurrent_training(card: str, arch: str):
+    """Phase 4d: the production TL step of a recurrent family at full width
+    (``production_run``, 3 steps): losses finite, ``permute_rows`` and
+    ``take_rows`` once a step, no launch of the family's scan kernel (the
+    models take their own differentiable scans under grad), at least 3 GB
+    of the card left; on the first batch the TL loss and grads against
+    ``model.loss`` on the shuffled batch (1e-5 / 1e-4, phase 4c's gates),
+    still without a scan-kernel launch; then one forward without grad,
+    which launches the scan kernel once per recurrent layer (and Griffin's
+    attention K4 once per attention layer)."""
+    import importlib
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+
+    layers, kind, package, name = RECURRENT_TRAIN[arch]
+    scan = getattr(importlib.import_module(f"repro_torch.kernels.{package}"),
+                   name)
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    counters = {"permute_rows": permute_rows, "take_rows": take_rows,
+                name: scan}
+    eng, res, info = production_run(cfg, RECURRENT_STEPS, counters)
+    assert info["launches"] == {"permute_rows": RECURRENT_STEPS,
+                                "take_rows": RECURRENT_STEPS, name: 0}, \
+        info["launches"]
+    print_run("", info, card)
+    params, model = eng.params, eng.model
+    eng.opt_state = res.opt_state = None
+    del res
+    free_cuda()
+    batch = {k: v.to(DEVICE) for k, v in
+             eng._host_batch(next(iter(production_loader(
+                 cfg.vocab_size)))).items()}
+    k_loss, k_grads, rel, gap, shuffled = prod_tl_vs_cl(model, cfg, params,
+                                                        batch)
+    assert scan.launches == 0, scan.launches
+    del k_grads
+    free_cuda()
+    n_rec, n_attn = cfg.pattern.count(kind), cfg.pattern.count("attn")
+    scan.launches = flash_attention_bh.launches = 0
+    with torch.no_grad():
+        model.loss(params, shuffled)
+    torch.cuda.synchronize()
+    fwd = {name: scan.launches, "flash_attention_bh":
+           flash_attention_bh.launches}
+    assert fwd == {name: n_rec, "flash_attention_bh": n_attn}, fwd
+    print(f"  first batch: TL {float(k_loss):.6f} vs CL (rel {rel:.3e}); "
+          f"max grad gap {gap:.3e} of the largest grad; {name} launches 0 "
+          f"under grad; a forward without grad launches {fwd} [{card}]")
+    del params, model, batch, shuffled, eng
+    free_cuda()
+    return dict(info, tl_cl_rel=rel, grad_gap_rel=gap, forward_launches=fwd)
 
 
 def production_mtp(card: str):
@@ -2138,7 +2373,9 @@ def production_resume(card: str):
 
 def forward_only_guards(card: str):
     """Phase 4c (e): K4, K5, K6 and K3 raise on CUDA inputs that require
-    grad (they would return a detached output), launching nothing."""
+    grad (they would return a detached output), launching nothing; and the
+    recurrent models, reduced, launch no K5 / K6 under grad and one a
+    recurrent layer without it."""
     import numpy as np
     import torch
 
@@ -2185,6 +2422,29 @@ def forward_only_guards(card: str):
         assert kern.launches == before + 1, name
     print(f"  (e) {', '.join(cases)} raise on a CUDA input that requires "
           f"grad and launch without it [{card}]")
+    # the recurrent models take their own scans under grad (reduced here;
+    # phase 4d at full width)
+    from repro_torch.configs import get_config
+    from repro_torch.core.tl_step import tl_loss_fn, value_and_grad
+    from repro_torch.models import build_model
+    for arch, (_, kind, _, name) in RECURRENT_TRAIN.items():
+        kern = cases[name][0]
+        cfg = get_config(arch, reduced=True)
+        model = build_model(cfg)
+        params = model.init(seed=0, device=DEVICE)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 64)),
+                               device=DEVICE)
+        batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+        kern.launches = 0
+        loss, _ = value_and_grad(tl_loss_fn(model, cfg, "tl"), params, batch)
+        assert kern.launches == 0 and torch.isfinite(loss), kern.launches
+        with torch.no_grad():
+            model.loss(params, batch)
+        assert kern.launches == cfg.pattern.count(kind), kern.launches
+    print(f"  (e) reduced {' and '.join(RECURRENT_TRAIN)}: a TL loss and "
+          f"its grads launch no ssd_bh / rglru_scan_b (the models' own "
+          f"scans); a forward without grad launches one a recurrent layer "
+          f"[{card}]")
 
 
 def time_vb_production(prod):
@@ -2510,14 +2770,21 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     print(f"== phase 4c: main path 6, the production TL step: {PROD_ARCH} at "
-          f"full width, {PROD_LAYERS} layers, K1 reassembling X^(1)")
-    prod = production_step(card)        # deterministic from its (b) on
+          f"full width, {PROD_LAYERS} layers, in place, K1 reassembling "
+          f"X^(1)")
+    prod = production_step(card)        # deterministic from its (a2) on
     production_mtp(card)
     production_resume(card)
     torch.use_deterministic_algorithms(False)
     forward_only_guards(card)
     gc.collect()
     torch.cuda.empty_cache()
+
+    print("== phase 4d: main path 7, the production TL step of the recurrent "
+          "families at full width (one model at a time)")
+    rec_train = {}
+    for arch in RECURRENT_TRAIN:
+        rec_train[arch] = recurrent_training(card, arch)
 
     print("== phase 5: timing")
     served = time_paged_decode(paged_decode_attention,
@@ -2609,8 +2876,13 @@ def main() -> None:
             extra = {}
         extra.update({f"production_{k}": v
                       for k, v in vb_prod[mode].items()})
-        extra["launches_production"] = prod["launches"][
-            "permute_rows" if mode == "scatter" else "take_rows"]
+        key = "permute_rows" if mode == "scatter" else "take_rows"
+        extra["launches_production"] = prod["launches"][key]
+        extra["launches_production_recurrent"] = sum(
+            r["launches"][key] for r in rec_train.values())
+        if mode == "scatter":
+            extra["launches_sim_kill_resume"] = (
+                tl["kill_resume"]["killed"] + tl["kill_resume"]["resumed"])
         return dict(extra, device_ms=vb_large[mode]["device_ms"],
                     library_device_ms=vb_large[mode]["library_device_ms"],
                     main_path_ms=vb_main[mode]["ms"],
@@ -2690,11 +2962,19 @@ def main() -> None:
               "src/repro/kernels/ssd/kernel.py:73",
               recurrent["mamba2-780m"]["launches"], ssd_err, ssd_t,
               device_ms=ssd_t["device_ms"],
-              bound_f32_ms=ssd_t["bound_f32_ms"]),
+              bound_f32_ms=ssd_t["bound_f32_ms"],
+              launches_training=rec_train["mamba2-780m"]["launches"][
+                  "ssd_bh"],
+              launches_training_forward=rec_train["mamba2-780m"][
+                  "forward_launches"]["ssd_bh"]),
         entry("rglru_scan_b", rglru_kernel.SOURCE,
               "src/repro/kernels/rglru/kernel.py:47",
               recurrent["recurrentgemma-9b"]["launches"], rglru_err,
-              rglru_t, device_ms=rglru_t["device_ms"]),
+              rglru_t, device_ms=rglru_t["device_ms"],
+              launches_training=rec_train["recurrentgemma-9b"]["launches"][
+                  "rglru_scan_b"],
+              launches_training_forward=rec_train["recurrentgemma-9b"][
+                  "forward_launches"]["rglru_scan_b"]),
         entry("flash_attention_bh", flash_kernel.SOURCE,
               "src/repro/kernels/flash_attention/kernel.py:75",
               mla["launches"]["flash_attention_bh"], flash_err,
@@ -2724,6 +3004,7 @@ def main() -> None:
     print(f"  tl: {json.dumps({**tl, 'step_ms': tl_ms})} [{card}]")
     print(f"  hierarchy: {json.dumps(hier)} [{card}]")
     print(f"  production: {json.dumps(prod)} [{card}]")
+    print(f"  recurrent training: {json.dumps(rec_train)} [{card}]")
     print(f"  baselines: {json.dumps(accs)} [{card}]")
     print(f"  chip_smoke total {time.perf_counter() - T_START:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))

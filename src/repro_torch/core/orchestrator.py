@@ -63,7 +63,7 @@ from repro_torch.core.node import (TLNode, add_first_layer_grads,
                                    first_layer_grad_leaves, tail_vjp)
 from repro_torch.core.plan import Planner, PlanSpec, TraversalPlan
 from repro_torch.core.transport import Transport
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.core.virtual_batch import assert_covers_traversal
 from repro_torch.device import resolve_device
 
@@ -511,13 +511,40 @@ class TLOrchestrator:
         return int(meta["batch_in_epoch"])
 
     def save(self, ckpt_dir: str) -> str:
-        raise NotImplementedError(
-            "TLOrchestrator.save needs the reference checkpoint format, "
-            "which the port does not read or write yet (ROADMAP.md queue 1, "
-            "item 1); use state_dict()")
+        """Step-boundary checkpoint of :meth:`state_dict` in the reference's
+        format (``repro_torch.checkpoint``, atomic): the paper models' and
+        the optimizers' trees have the reference's structure, so the leaf
+        names are the reference's, and the cursor goes in ``extra``."""
+        from repro_torch.checkpoint import save_checkpoint
+        st = self.state_dict()
+        return save_checkpoint(ckpt_dir, self._step, st["arrays"],
+                               extra=st["meta"])
 
     def restore(self, ckpt_dir: str, step: Optional[int] = None) -> int:
-        raise NotImplementedError(
-            "TLOrchestrator.restore needs the reference checkpoint format, "
-            "which the port does not read or write yet (ROADMAP.md queue 1, "
-            "item 1); use load_state_dict()")
+        """Load the newest (or ``step``'s) checkpoint, written by either
+        package, onto the orchestrator's device; returns the batch-in-epoch
+        resume cursor.  The current parameters and state (a fresh
+        ``initialize(0)`` when there are none) are the template of names,
+        dtypes and devices."""
+        from repro_torch.checkpoint import load_checkpoint
+        if self.params is None:
+            self.initialize(0)                 # structure template
+        tree = {"params": self.params, "opt_state": self.opt_state}
+        arrays, meta = load_checkpoint(ckpt_dir, tree, step)
+        arrays = tree_map(
+            lambda t, a: torch.as_tensor(a).to(device=t.device,
+                                               dtype=t.dtype, copy=True),
+            tree, arrays)
+        return self.load_state_dict({"arrays": arrays,
+                                     "meta": meta["extra"]})
+
+    # ----------------------------------------------------------- evaluation
+    @torch.no_grad()
+    def evaluate(self, x, y) -> float:
+        """Accuracy of ``argmax(model.forward(params, x))`` against ``y``
+        (the float32 mean, as the reference computes it)."""
+        logits = self.model.forward(self.params,
+                                    torch.as_tensor(x, device=self.device))
+        pred = torch.argmax(logits, -1)
+        return float(torch.mean(
+            (pred == torch.as_tensor(y, device=self.device)).float()))

@@ -147,22 +147,27 @@ def value_and_grad(loss_fn: Callable, params, batch):
 
 def make_train_step(model: Model, cfg: ModelConfig, optimizer, *,
                     remat_mode: str = "tl", microbatch: int = 1,
-                    reassembly: str = "none") -> Callable:
+                    reassembly: str = "none",
+                    donate: bool = False) -> Callable:
     """``(params, opt_state, batch) -> (params, opt_state, loss)``.
 
     ``microbatch > 1`` splits the virtual batch into that many sequential
     micro-batches and applies the mean of their gradients, accumulated in
     f32 in order as the reference does.  ``reassembly`` needs
     ``microbatch == 1``: the perm is defined over the full virtual batch.
+    ``donate=True`` updates ``params`` and ``opt_state`` in place
+    (``optimizer.update_``, bit-equal to ``update``) and returns them: the
+    caller's trees are the new state, and no second copy is allocated.
     """
     if reassembly != "none" and microbatch > 1:
         raise ValueError("reassembly requires microbatch == 1")
     loss_fn = tl_loss_fn(model, cfg, remat_mode, reassembly=reassembly)
+    update = optimizer.update_ if donate else optimizer.update
 
     if microbatch <= 1:
         def step(params, opt_state, batch):
             loss, grads = value_and_grad(loss_fn, params, batch)
-            params, opt_state = optimizer.update(params, grads, opt_state)
+            params, opt_state = update(params, grads, opt_state)
             return params, opt_state, loss
         return step
 
@@ -179,7 +184,7 @@ def make_train_step(model: Model, cfg: ModelConfig, optimizer, *,
             loss_sum = loss_sum + loss
         grads = tree_map(lambda g, p: (g / microbatch).to(p.dtype), acc,
                          params)
-        params, opt_state = optimizer.update(params, grads, opt_state)
+        params, opt_state = update(params, grads, opt_state)
         return params, opt_state, loss_sum / microbatch
 
     return step

@@ -23,6 +23,13 @@ step of ``repro_torch.core.tl_step`` over a decoder LM:
   boundaries and all of them at the end.  ``EngineResult.step_s`` holds
   each step's host seconds (from the previous step's end; synced in the
   serial mode and at log boundaries, dispatch time otherwise);
+* ``donate=True`` (the default, as the reference's) updates the parameters
+  and the optimizer state in place (``Optimizer.update_``, bit-equal to the
+  functional update), so the step holds one copy of the state; the
+  checkpoint writer copies to the host before the next step writes, and
+  ``EngineResult.params`` / ``opt_state`` are the engine's live trees, which
+  a later ``run`` updates in place.  ``microbatch > 1`` accumulates that
+  many sequential micro-batches' gradients (not with reassembly);
 * ``ckpt_dir`` + ``ckpt_every`` write a step-boundary checkpoint of
   ``{params, opt_state}`` in the reference's format and layout
   (``repro_torch.checkpoint``, ``bridge.params_to_jax``), ``ckpt_keep``
@@ -38,9 +45,12 @@ Meshes, elastic recovery and device-fault drills wait for distribution
 wire), and runs epochs, serially or through the double-buffered epoch
 engine (``pipeline=True``).  ``hierarchy=s > 0`` builds a two-tier
 ``HierarchicalOrchestrator`` with ``s`` subtrees instead (only with
-``pipeline=False``, as in the reference).  Its ``ckpt_dir`` (the
-orchestrator's resume state in the reference format) is not ported and
-raises (ROADMAP.md queue 1, item 1).
+``pipeline=False``, as in the reference).  It always uses the functional
+update (``donate`` is ignored): nodes alias the parameters after a model
+send.  ``ckpt_dir`` saves the orchestrator's resume state
+(``TLOrchestrator.save``, the reference's format) after every epoch;
+:meth:`Engine.restore` arms a resume that the next ``run`` applies before
+its first epoch, from the checkpoint's mid-epoch cursor.
 
 Runs on ``device`` (default ``"cuda"``; raises without a card unless the
 caller passes ``device="cpu"``).
@@ -67,8 +77,8 @@ class EngineResult:
     losses: np.ndarray
     steps: int
     wall_s: float
-    params: Any
-    opt_state: Any = None
+    params: Any                 # the engine's live trees, not a copy: with
+    opt_state: Any = None       # donate=True the next run updates them
     stats: Optional[List] = None          # sim mode: flat StepStats list
     epoch_stats: Optional[List[List]] = None
     step_s: List[float] = field(default_factory=list)   # production mode
@@ -83,9 +93,10 @@ class Engine:
 
     Production-mode knobs: ``pipeline`` (2-deep prefetch on a copy stream
     vs strictly batch-serial), ``remat_mode`` ("tl" | "none" | "dots"),
-    ``log_every``, ``reassembly`` ("none" | "torch" |
-    "kernel"), ``ckpt_dir`` / ``ckpt_every`` / ``ckpt_keep``, ``seed``
-    (the parameters' init when ``run`` finds none).
+    ``donate`` (in-place update), ``microbatch``, ``log_every``,
+    ``reassembly`` ("none" | "torch" | "kernel"), ``ckpt_dir`` /
+    ``ckpt_every`` / ``ckpt_keep``, ``seed`` (the parameters' init when
+    ``run`` finds none).
 
     Sim-mode knobs, forwarded to ``TLOrchestrator``: ``batch_size``,
     ``transport``, ``fused``, ``cache_model_per_epoch``, ``seed``;
@@ -95,13 +106,14 @@ class Engine:
     two-tier ``HierarchicalOrchestrator`` (0: flat).  ``wire`` ("off" |
     "int8" | "fp8") + ``wire_ef`` build a visit-payload ``WirePolicy``
     transport (model parameters never quantize; mutually exclusive with
-    ``transport``).
+    ``transport``); ``ckpt_dir`` an epoch-boundary checkpoint.
     """
 
     PREFETCH_DEPTH = 2          # double buffer: consumed batch + in-flight
 
     def __init__(self, model, cfg, opt, *, mode: str = "production",
                  pipeline: bool = True, remat_mode: str = "tl",
+                 donate: bool = True, microbatch: int = 1,
                  log_every: int = 0,
                  reassembly: str = "none", ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 0, ckpt_keep: int = 0, mesh=None,
@@ -144,23 +156,21 @@ class Engine:
                 raise ValueError(
                     "production mode trains a decoder LM (a ModelConfig); "
                     "the paper models train in mode='sim'")
-        elif ckpt_dir:
-            raise NotImplementedError(
-                "sim-mode ckpt_dir= (the orchestrator's resume state in the "
-                "reference checkpoint format) is not ported yet: ROADMAP.md "
-                "queue 1, item 1; use TLOrchestrator.state_dict()")
         self.model = model
         self.cfg = cfg
         self.opt = opt
         self.mode = mode
         self.pipeline = pipeline
         self.remat_mode = remat_mode
+        self.donate = donate
+        self.microbatch = microbatch
         self.log_every = log_every
         self.reassembly = reassembly
         self.device = resolve_device(device)
-        # step-boundary checkpoints (production mode): {params, opt_state}
-        # every ckpt_every steps; ckpt_keep > 0 keeps the newest valid ones
-        # (never a step a live resume depends on)
+        # step-boundary checkpoints: production mode saves {params,
+        # opt_state} every ckpt_every steps, ckpt_keep > 0 keeping the newest
+        # valid ones (never a step a live resume depends on); sim mode saves
+        # the orchestrator's resume state after every epoch
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.ckpt_keep = ckpt_keep
@@ -171,6 +181,7 @@ class Engine:
         self.restored_meta: Optional[dict] = None
         self._protect_steps = set()
         self._start_step = 0
+        self._sim_resume = None       # (ckpt_dir, step) for the next run
         self._step_fn = None
         self._copy_stream = None
         self.batch_size = batch_size
@@ -227,19 +238,24 @@ class Engine:
     def restore(self, ckpt_dir: Optional[str] = None,
                 step: Optional[int] = None) -> int:
         """Load a step-boundary checkpoint (the newest valid one unless
-        ``step`` is given) and arm the next ``run`` to resume from it: it
-        skips the loader batches already consumed.  Returns the step."""
-        if self.mode != "production":
-            raise NotImplementedError(
-                "sim-mode restore is not ported yet: ROADMAP.md queue 1, "
-                "item 1; use TLOrchestrator.load_state_dict()")
-        from repro_torch.bridge import (opt_state_from_jax, opt_state_to_jax,
-                                        params_from_jax, params_to_jax)
-        from repro_torch.checkpoint import load_checkpoint
-        from repro_torch.models.transformer import init_params
+        ``step`` is given) and arm the next ``run`` to resume from it.
+        Production mode: the state loads now and ``run`` skips the loader
+        batches already consumed.  Sim mode: the orchestrator's resume state
+        (with the mid-epoch traversal cursor) loads at the next ``run``,
+        before its first epoch.  Returns the step."""
+        from repro_torch.checkpoint import latest_step, load_checkpoint
         ckpt_dir = ckpt_dir or self.ckpt_dir
         if ckpt_dir is None:
             raise ValueError("no ckpt_dir configured or given")
+        if self.mode == "sim":
+            got = step if step is not None else latest_step(ckpt_dir)
+            if got is None:
+                raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+            self._sim_resume = (ckpt_dir, step)
+            return int(got)
+        from repro_torch.bridge import (opt_state_from_jax, opt_state_to_jax,
+                                        params_from_jax, params_to_jax)
+        from repro_torch.models.transformer import init_params
         # the names of the tree come from shapes alone: a meta-device
         # template, so restoring allocates the parameters once
         meta_params = init_params(self.cfg, device="meta")
@@ -264,7 +280,8 @@ class Engine:
             from repro_torch.core.tl_step import make_train_step
             self._step_fn = make_train_step(
                 self.model, self.cfg, self.opt, remat_mode=self.remat_mode,
-                reassembly=self.reassembly)
+                microbatch=self.microbatch, reassembly=self.reassembly,
+                donate=self.donate)
         return self._step_fn
 
     @staticmethod
@@ -472,9 +489,20 @@ class Engine:
                 self.orchestrator.initialize(self.seed)
         orch = self.orchestrator
 
+        start_batch = 0
+        if self._sim_resume is not None:
+            ckpt_dir, step = self._sim_resume
+            self._sim_resume = None
+            start_batch = orch.restore(ckpt_dir, step)
+
         epoch_stats, t0 = [], time.perf_counter()
-        for _ in range(epochs):
-            epoch_stats.append(orch.train_epoch())
+        for e in range(epochs):
+            # the first (possibly partial) epoch resumes at the checkpoint's
+            # mid-epoch cursor; later epochs run in full
+            epoch_stats.append(orch.train_epoch(
+                start_batch=start_batch if e == 0 else 0))
+            if self.ckpt_dir:
+                orch.save(self.ckpt_dir)     # epoch-boundary checkpoint
         wall = time.perf_counter() - t0
         flat = [s for ep in epoch_stats for s in ep]
         self.params = orch.params

@@ -5,14 +5,18 @@
 ``--layers``) over ``VirtualBatchLoader(shard_corpus(synthetic_corpus(
 --docs, --seq, vocab), --nodes), --batch)``, warms up one step, then prints
 the host-clock ms of each of ``--steps`` steps (synced), the peak device
-memory (``torch.cuda.max_memory_allocated``), and, over ``--steps`` more
+memory (``torch.cuda.max_memory_allocated``) with what the peak reserved
+leaves of the card, and, over ``--steps`` more
 steps under ``torch.profiler``, the device time per step by kernel, the
 device's busy share of the unprofiled step and K1's (``permute_rows`` /
-``take_rows``) device time:
+``take_rows``) device time.  The engine updates in place (``donate``):
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        --mode production --arch starcoder2-3b --layers 12 --seq 512 \
+        --mode production --arch starcoder2-3b --layers 23 --seq 512 \
         --batch 8
+    # the recurrent families train through the models' own scans
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --mode production --arch mamba2-780m --layers 0
 
 ``--mode sim`` (the default), for each paper model: builds the sim-mode
 engine (3 nodes, batch 64 by default), warms up one epoch, then
@@ -151,6 +155,13 @@ def profile_production(args, dev):
     del res                     # it holds the previous parameters and state
     step_ms = statistics.median(1e3 * t for t in step_s)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    left_gb = (torch.cuda.get_device_properties(dev).total_memory
+               - torch.cuda.max_memory_reserved(dev)) / 1e9
+    print(f"  step: {step_ms:.3f} ms wall unprofiled (median of "
+          f"{args.steps}: {', '.join(f'{1e3 * t:.3f}' for t in step_s)}); "
+          f"peak memory {peak_gb:.2f} GB ({left_gb:.2f} GB of the card left "
+          f"under the peak reserved); losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -165,12 +176,9 @@ def profile_production(args, dev):
                            "step with CUDA events instead")
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.steps
     k1 = [e for e in kernels if "permute_rows" in e.key]
-    print(f"  step: {step_ms:.3f} ms wall unprofiled (median of "
-          f"{args.steps}: {', '.join(f'{1e3 * t:.3f}' for t in step_s)}),"
-          f" {wall_ms:.3f} ms profiled; device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / step_ms:.1f}% of the unprofiled step); peak "
-          f"memory {peak_gb:.2f} GB; losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"  profiled: {wall_ms:.3f} ms a step; device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / step_ms:.1f}% of the "
+          f"unprofiled step)")
     for e in k1:       # permute_rows and its backward take_rows: one kernel
         print(f"  K1 (permute_rows + take_rows) {e.key[:48]}: "
               f"{e.count / args.steps:.1f} launches a step, "

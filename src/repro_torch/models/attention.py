@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (apply_rope, dense_init, needs_grad,
+                                       rmsnorm, rmsnorm_init)
 
 NEG_INF = -1e30
 DENSE_MAX_SEQ = 2048        # use the blockwise path above this length
@@ -121,11 +122,6 @@ def attend_blockwise(q, k, v, q_pos, k_pos, window: int, scale: float,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(v.dtype)
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
 def attend(q, k, v, q_pos, k_pos, window: int, scale: float, *,
            v_width: int = 0):
     """q (B,Sq,H,dh), k (B,Sk,KV,dh), v (B,Sk,KV,dv) or ``v=None`` with
@@ -137,7 +133,7 @@ def attend(q, k, v, q_pos, k_pos, window: int, scale: float, *,
     self-attention over a whole sequence (``Sq == Sk > 1``, ``q_pos ==
     k_pos``) goes to ``flash_attention``, and decode and anything else to
     the dense or blockwise path."""
-    if not _needs_grad(q, k, v) and q.shape[1] == k.shape[1] > 1 \
+    if not needs_grad(q, k, v) and q.shape[1] == k.shape[1] > 1 \
             and torch.equal(q_pos, k_pos):
         return flash_attention(q, k, v, scale=scale, causal=True,
                                window=window, v_width=v_width)

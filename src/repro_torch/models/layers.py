@@ -103,3 +103,10 @@ def causal_conv1d_step(params, state, x_t):
     window = torch.cat([state, x_t[:, None, :]], dim=1)           # (B, k, C)
     out = torch.einsum("bkc,kc->bc", window, params["w"]) + params["b"]
     return window[:, 1:, :], out
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd tracks one of ``tensors``: the models then take
+    their differentiable paths, since the kernels are forward-only."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

@@ -8,10 +8,13 @@
 
 Port of ``repro/models/rglru.py``.  The reference evaluates the recurrence
 with ``jax.lax.associative_scan`` and keeps ``repro.kernels.rglru`` (the
-Pallas TPU kernel for the same scan) beside it; here :func:`rglru_scan`
-goes through ``repro_torch.kernels.rglru.ops.rglru_scan``, so the tensors'
-device picks the path: the hand-written CUDA kernel on the card, its plain
-version on the CPU.  The full Griffin block is: linear in -> temporal conv
+Pallas TPU kernel for the same scan) beside it.  Here :func:`rglru_scan` is
+the reference's associative scan, which training differentiates (grad
+enabled and an input that requires it, on the CPU and the card alike);
+without grad the scan goes through ``repro_torch.kernels.rglru.ops
+.rglru_scan``, so the tensors' device picks the path: the hand-written
+forward-only CUDA kernel (K6) on the card, its plain version on the CPU.
+The full Griffin block is: linear in -> temporal conv
 -> RG-LRU, gated by a parallel GeLU branch (tanh approximation, as
 ``jax.nn.gelu``'s default), linear out.  Caches are dicts ``{conv, h}``
 updated in place.
@@ -22,20 +25,26 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rglru.ops import rglru_scan as _rglru_scan
+from repro_torch.kernels.rglru.ops import rglru_scan as rglru_scan_kernel
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
                                        causal_conv1d_step, dense_init,
-                                       softplus)
+                                       needs_grad, softplus)
+from repro_torch.scan import associative_scan
 
 C_FACTOR = 8.0
 
 
 def rglru_scan(a, bx):
-    """Diagonal linear recurrence h_t = a_t h_{t-1} + bx_t.
+    """Diagonal linear recurrence h_t = a_t h_{t-1} + bx_t via associative
+    scan over S (the reference model's, differentiable).
 
     a, bx: (B, S, W) with a in (0, 1).  Returns h: (B, S, W).
     """
-    return _rglru_scan(a, bx)[0]
+    def combine(p, q):
+        (a1, b1), (a2, b2) = p, q
+        return [a1 * a2, a2 * b1 + b2]
+
+    return associative_scan(combine, [a, bx], 1)[1]
 
 
 def rglru_init(gen, cfg: ModelConfig, *, device, dtype=torch.float32):
@@ -79,7 +88,8 @@ def rglru_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
         xc = causal_conv1d(params["conv"], xw)
         a, beta, i = _gates(params, xc)
         bx = beta * i * xc.float()
-        h = rglru_scan(a, bx)
+        h = (rglru_scan(a, bx) if needs_grad(a, bx)
+             else rglru_scan_kernel(a, bx)[0])
         if cache is not None:
             # the last k-1 conv inputs (behind the empty cache's zeros when
             # the prompt is shorter) and the final state h[:, -1]

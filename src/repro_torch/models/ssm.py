@@ -2,10 +2,13 @@
 
 Port of ``repro/models/ssm.py``.  The reference computes the chunked SSD
 scan in jnp and keeps ``repro.kernels.ssd`` (the Pallas TPU kernel for the
-same computation) beside it; here :func:`ssd_chunked` goes through
-``repro_torch.kernels.ssd.ops.ssd``, so the tensors' device picks the path:
-the hand-written CUDA kernel on the card, its plain chunked version on the
-CPU.  Caches are dicts ``{conv, state}`` updated in place.
+same computation) beside it.  Here :func:`ssd_chunked` is the reference's
+chunked scan, which training differentiates (grad enabled and an input
+that requires it, on the CPU and the card alike); without grad the scan
+goes through ``repro_torch.kernels.ssd.ops.ssd``, so the tensors' device
+picks the path: the hand-written forward-only CUDA kernel (K5) on the card,
+its plain chunked version on the CPU.  Caches are dicts ``{conv, state}``
+updated in place.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
                                        causal_conv1d_step, dense_init,
-                                       rmsnorm, rmsnorm_init, softplus)
+                                       needs_grad, rmsnorm, rmsnorm_init,
+                                       softplus)
 
 
 def ssd_chunked(x, dt, A_log, Bmat, Cmat, chunk: int):
@@ -27,8 +31,54 @@ def ssd_chunked(x, dt, A_log, Bmat, Cmat, chunk: int):
     A_log: (H,)        state decay log (A = -exp(A_log))
     Bmat, Cmat: (B, S, N)  shared across heads (ngroups=1)
     Returns y (B, S, H, P) and final state (B, H, P, N).
+
+    Within a chunk attention-like (quadratic in the chunk), across chunks a
+    sequential carry of the (H, P, N) state; differentiable.
     """
-    return ssd(x, dt, A_log, Bmat, Cmat, chunk=chunk)
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    nc = S // chunk
+    if nc * chunk != S:
+        raise ValueError(f"sequence {S} must be divisible by chunk {chunk}")
+
+    A = -torch.exp(A_log.float())                               # (H,)
+    dA = dt.float() * A                                         # (B,S,H)
+    xdt = x.float() * dt[..., None]                             # dt-scaled
+
+    def c(t):                                                   # chunks
+        return t.reshape(B, nc, chunk, *t.shape[2:])
+    xc, dAc = c(xdt), c(dA)
+    Bc, Cc = c(Bmat.float()), c(Cmat.float())
+
+    seg = torch.cumsum(dAc, dim=2)                              # (B,nc,ck,H)
+    # intra-chunk: decay(t,s) = exp(seg_t - seg_s), s <= t; masked before
+    # the exp (exp(rel) overflows for s > t, and inf * 0 NaNs the backward)
+    rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]         # (B,nc,t,s,H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], rel, -1e9))
+    scores = torch.einsum("bctn,bcsn->bcts", Cc, Bc)            # (B,nc,t,s)
+    y_intra = torch.einsum("bcts,bctsh,bcshp->bcthp", scores, decay, xc)
+
+    # chunk summary states: sum_s exp(seg_end - seg_s) * x_s B_s^T
+    decay_end = torch.exp(seg[:, :, -1:, :] - seg)              # (B,nc,ck,H)
+    states = torch.einsum("bcsh,bcshp,bcsn->bchpn", decay_end, xc, Bc)
+
+    # inter-chunk recurrence over the chunks, emitting the state before each
+    chunk_decay = torch.exp(seg[:, :, -1, :])                   # (B,nc,H)
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    before = []
+    for i in range(nc):
+        before.append(h)
+        h = h * chunk_decay[:, i, :, None, None] + states[:, i]
+    h_before = torch.stack(before, dim=1)                       # (B,nc,H,P,N)
+
+    # inter-chunk contribution: y_t += C_t . (decay(t, start) * h_before)
+    decay_in = torch.exp(seg)                                   # (B,nc,ck,H)
+    y_inter = torch.einsum("bctn,bcth,bchpn->bcthp", Cc, decay_in, h_before)
+
+    y = (y_intra + y_inter).reshape(B, S, H, P)
+    return y.to(x.dtype), h
 
 
 def ssd_ref(x, dt, A_log, Bmat, Cmat):
@@ -102,7 +152,11 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
             dt = F.pad(dt, (0, 0, 0, pad))
             Bm = F.pad(Bm, (0, 0, 0, pad))
             Cm = F.pad(Cm, (0, 0, 0, pad))
-        y, hT = ssd_chunked(xh, dt, params["A_log"], Bm, Cm, s.chunk_size)
+        if needs_grad(xh, dt, params["A_log"], Bm, Cm):
+            y, hT = ssd_chunked(xh, dt, params["A_log"], Bm, Cm,
+                                s.chunk_size)
+        else:
+            y, hT = ssd(xh, dt, params["A_log"], Bm, Cm, chunk=s.chunk_size)
         y = y[:, :S]
         y = y + params["D"][None, None, :, None] * xh[:, :S]
         if cache is not None:

@@ -7,9 +7,23 @@ tree is the reference's (``{"step", "mu"}``, ``{"step", "m", "v"}``,
 ``{"step", "slots"}``; ``step`` an int32 scalar), so a bridged reference
 state drops in.
 
-Updates return **new** tensors and never write into their inputs: TL nodes
-hold aliases of the orchestrator's parameters after a model send, and under
-``cache_model_per_epoch=True`` they must keep the epoch-start values.
+``update`` returns **new** tensors and never writes into its inputs: TL
+nodes hold aliases of the orchestrator's parameters after a model send, and
+under ``cache_model_per_epoch=True`` they must keep the epoch-start values,
+so the simulator uses it.
+
+``update_(params, grads, state) -> (params, state)`` is the in-place
+counterpart the production step uses with ``donate=True`` (the reference
+donates the state's buffers to its jitted step).  It walks the leaves one
+at a time: each leaf's new values come from the same per-leaf expression
+``update`` evaluates, are copied into the old parameter and state tensors,
+and die before the next leaf, so no second copy of the state exists and the
+result is bit-equal to ``update``'s.  SGD and Adam(W), whose update is
+elementwise, also split a leaf into pieces of ``PIECE`` elements, so the
+temporaries stay small however large the leaf (a 256000 x 4096 embedding
+would otherwise need several 4 GB ones); each element's arithmetic is the
+same either way.  The global-norm clip factor is computed once over all
+leaves and applied per piece.  It returns its input trees.
 """
 from __future__ import annotations
 
@@ -25,19 +39,50 @@ from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 class Optimizer:
     init: Callable
     update: Callable                # (params, grads, state) -> (params, state)
+    update_: Callable               # the same, written into params and state
 
 
 def _schedule(lr):
     return lr if callable(lr) else (lambda step: lr)
 
 
-def _clip_by_global_norm(grads, max_norm):
+def _clip_scale(leaves, max_norm):
+    """The global-norm clip factor over the gradient ``leaves`` (``None``
+    when ``max_norm`` is)."""
     if max_norm is None:
-        return grads
-    leaves = tree_flatten(grads)[0]
+        return None
     norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _clip(g, scale):
+    return g if scale is None else g * scale.to(g.dtype)
+
+
+def _clip_by_global_norm(grads, max_norm):
+    scale = _clip_scale(tree_flatten(grads)[0], max_norm)
+    if scale is None:
+        return grads
+    return tree_map(lambda g: _clip(g, scale), grads)
+
+
+def _copy_into(olds, news):
+    for old, new in zip(olds, news):
+        old.copy_(new)
+
+
+PIECE = 1 << 25     # elements an elementwise in-place update takes at a time
+
+
+def _pieces(outs, ins):
+    """``(outs, ins)`` pieces of ``PIECE`` elements: flat views of the
+    tensors to write (which must be views, so the writes land) and of those
+    only read, all of one shape."""
+    outs = [t.view(-1) for t in outs]
+    ins = [t.reshape(-1) for t in ins]
+    for i in range(0, outs[0].numel(), PIECE):
+        yield ([t[i:i + PIECE] for t in outs],
+               [t[i:i + PIECE] for t in ins])
 
 
 def _step0(params):
@@ -68,7 +113,25 @@ def sgd(lr, momentum: float = 0.0, clip_norm: Optional[float] = None):
         new = tree_map(lambda p, g: p - eta * g, params, grads)
         return new, {"step": step}
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_(params, grads, state):
+        flat_g = tree_flatten(grads)[0]
+        scale = _clip_scale(flat_g, clip_norm)
+        step = state["step"] + 1
+        eta = lr_fn(step)
+        mus = tree_flatten(state["mu"])[0] if momentum else flat_g
+        for p, g, m in zip(tree_flatten(params)[0], flat_g, mus):
+            if momentum:
+                for (p_, m_), (g_,) in _pieces((p, m), (g,)):
+                    mu = momentum * m_ + _clip(g_, scale)
+                    _copy_into((p_, m_), (p_ - eta * mu, mu))
+            else:
+                for (p_,), (g_,) in _pieces((p,), (g,)):
+                    p_.copy_(p_ - eta * _clip(g_, scale))
+        state["step"].copy_(step)
+        return params, state
+
+    return Optimizer(init, update, update_)
 
 
 # --------------------------------------------------------------------- Adam
@@ -82,32 +145,46 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return {"step": _step0(params), "m": tree_map(zeros, params),
                 "v": tree_map(zeros, params)}
 
+    def coeffs(state):
+        step = state["step"] + 1
+        return step, (lr_fn(step), 1 - b1 ** step.float(),
+                      1 - b2 ** step.float())
+
+    def upd(p, g, m, v, eta, bc1, bc2):
+        g32 = g.float()
+        m = b1 * m + (1 - b1) * g32
+        v = b2 * v + (1 - b2) * torch.square(g32)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        if weight_decay:
+            u = u + weight_decay * p.float()
+        return (p.float() - eta * u).to(p.dtype), m, v
+
+    def leaves(params, grads, state):
+        return zip(tree_flatten(params)[0], tree_flatten(grads)[0],
+                   tree_flatten(state["m"])[0], tree_flatten(state["v"])[0])
+
     @torch.no_grad()
     def update(params, grads, state):
         grads = _clip_by_global_norm(grads, clip_norm)
-        step = state["step"] + 1
-        eta = lr_fn(step)
-        bc1 = 1 - b1 ** step.float()
-        bc2 = 1 - b2 ** step.float()
-
-        def upd(p, g, m, v):
-            g32 = g.float()
-            m = b1 * m + (1 - b1) * g32
-            v = b2 * v + (1 - b2) * torch.square(g32)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            if weight_decay:
-                u = u + weight_decay * p.float()
-            return (p.float() - eta * u).to(p.dtype), m, v
-
-        flat_p, tdef = tree_flatten(params)
-        out = [upd(p, g, m, v) for p, g, m, v in zip(
-            flat_p, tree_flatten(grads)[0], tree_flatten(state["m"])[0],
-            tree_flatten(state["v"])[0])]
+        step, c = coeffs(state)
+        out = [upd(*leaf, *c) for leaf in leaves(params, grads, state)]
+        tdef = tree_flatten(params)[1]
         return (tree_unflatten(tdef, [o[0] for o in out]),
                 {"step": step, "m": tree_unflatten(tdef, [o[1] for o in out]),
                  "v": tree_unflatten(tdef, [o[2] for o in out])})
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_(params, grads, state):
+        scale = _clip_scale(tree_flatten(grads)[0], clip_norm)
+        step, c = coeffs(state)
+        for p, g, m, v in leaves(params, grads, state):
+            for (p_, m_, v_), (g_,) in _pieces((p, m, v), (g,)):
+                _copy_into((p_, m_, v_), upd(p_, _clip(g_, scale), m_, v_,
+                                              *c))
+        state["step"].copy_(step)
+        return params, state
+
+    return Optimizer(init, update, update_)
 
 
 def adamw(lr, weight_decay: float = 0.01, **kw):
@@ -136,42 +213,56 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
         return {"step": _step0(params),
                 "slots": tree_map(leaf_state, params)}
 
-    @torch.no_grad()
-    def update(params, grads, state):
+    def coeffs(state):
         step = state["step"] + 1
-        eta = lr_fn(step)
-        beta = 1.0 - step.float() ** (-decay)
+        return step, (lr_fn(step), 1.0 - step.float() ** (-decay))
 
-        def upd(p, g, s):
-            g32 = g.float()
-            g2 = torch.square(g32) + eps
-            if _factored(p.shape):
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
-                rfac = torch.rsqrt(
-                    vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps))
-                cfac = torch.rsqrt(vc)
-                u = g32 * rfac[..., None] * cfac[..., None, :]
-                new_s = {"vr": vr, "vc": vc}
-            else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = g32 * torch.rsqrt(v)
-                new_s = {"v": v}
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            return (p.float() - eta * u).to(p.dtype), new_s
+    def upd(p, g, s, eta, beta):
+        g32 = g.float()
+        g2 = torch.square(g32) + eps
+        if _factored(p.shape):
+            vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
+            vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+            rfac = torch.rsqrt(
+                vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps))
+            cfac = torch.rsqrt(vc)
+            u = g32 * rfac[..., None] * cfac[..., None, :]
+            new_s = {"vr": vr, "vc": vc}
+        else:
+            v = beta * s["v"] + (1 - beta) * g2
+            u = g32 * torch.rsqrt(v)
+            new_s = {"v": v}
+        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        return (p.float() - eta * u).to(p.dtype), new_s
 
-        flat_p, tdef = tree_flatten(params)
+    def leaves(params, grads, state):
         # the slots tree holds one dict per parameter leaf: flatten it up to
         # the parameters' structure by walking the params' leaf order
-        slots = _flatten_up_to(state["slots"], params)
-        out = [upd(p, g, s) for p, g, s in zip(
-            flat_p, tree_flatten(grads)[0], slots)]
+        return zip(tree_flatten(params)[0], tree_flatten(grads)[0],
+                   _flatten_up_to(state["slots"], params))
+
+    @torch.no_grad()
+    def update(params, grads, state):
+        step, c = coeffs(state)
+        out = [upd(*leaf, *c) for leaf in leaves(params, grads, state)]
+        tdef = tree_flatten(params)[1]
         return (tree_unflatten(tdef, [o[0] for o in out]),
                 {"step": step,
                  "slots": tree_unflatten(tdef, [o[1] for o in out])})
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_(params, grads, state):
+        step, c = coeffs(state)
+        for p, g, s in leaves(params, grads, state):
+            new_p, new_s = upd(p, g, s, *c)
+            keys = sorted(s)
+            _copy_into((p, *(s[k] for k in keys)),
+                       (new_p, *(new_s[k] for k in keys)))
+        state["step"].copy_(step)
+        return params, state
+
+    return Optimizer(init, update, update_)
 
 
 def _flatten_up_to(tree, prefix):

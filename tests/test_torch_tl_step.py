@@ -12,6 +12,7 @@ orchestrator.
   ``raw_bytes``, ``clock_s``) exactly equal, wire off and int8-EF.
 * The engine and CLI surface: sim mode runs, the rest refuses loudly.
 """
+import os
 import warnings
 
 import numpy as np
@@ -195,7 +196,7 @@ def test_model_cache_keeps_epoch_start_parameters_on_the_nodes():
                    for a, b in zip(start, tree_leaves(orch.params)))
 
 
-def test_orchestrator_argument_checks():
+def test_orchestrator_argument_checks(tmp_path):
     with pytest.raises(ValueError, match="donate"):
         _orch(DATRET, [8], donate=True, cache_model_per_epoch=True)
     with pytest.raises(ValueError, match="reassembly"):
@@ -209,10 +210,21 @@ def test_orchestrator_argument_checks():
         warnings.simplefilter("ignore")
         TLOrchestrator(model, [], sgd(0.05), plan=PlanSpec(seed=1), seed=2,
                        device=CPU)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        orch.save("somewhere")
-    with pytest.raises(NotImplementedError, match="item 1"):
-        orch.restore("somewhere")
+    # save / restore: the reference's checkpoint layout, refused under
+    # another traversal plan, and nothing to restore from an empty dir
+    orch.initialize(4)
+    assert orch.save(str(tmp_path)).endswith("step_00000000")
+    back = TLOrchestrator(model, [], sgd(0.05), plan=PlanSpec(seed=4),
+                          device=CPU)
+    assert back.restore(str(tmp_path)) == 0
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((orch.params, orch.opt_state)),
+        tree_leaves((back.params, back.opt_state))))
+    with pytest.raises(ValueError, match="traversal plan"):
+        TLOrchestrator(model, [], sgd(0.05), plan=PlanSpec(seed=5),
+                       device=CPU).restore(str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        back.restore(str(tmp_path / "empty"))
 
 
 def test_state_dict_resumes_mid_epoch_bit_equal():
@@ -313,7 +325,7 @@ def test_measured_bytes_and_clock_match_the_reference_eq19(compressed):
 
 # ---------------------------------------------------- engine and CLI
 
-def test_engine_sim_mode_trains_and_refuses_what_is_not_ported():
+def test_engine_sim_mode_trains_and_refuses_what_is_not_ported(tmp_path):
     from repro_torch.core.baselines import ShardData
     from repro_torch.launch.engine import Engine
     shards = [ShardData(x, y) for x, y in _data(DATRET, [24, 16], 1)]
@@ -345,8 +357,12 @@ def test_engine_sim_mode_trains_and_refuses_what_is_not_ported():
         engine(mode="production")
     with pytest.raises(ValueError, match="pipeline=False"):
         engine(hierarchy=2)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        engine(ckpt_dir="ckpt")
+    # ckpt_dir: a checkpoint after every epoch, which restore() resumes
+    eng = engine(ckpt_dir=str(tmp_path), pipeline=False)
+    eng.run(shards, epochs=2)
+    assert sorted(os.listdir(tmp_path)) == ["step_00000002",
+                                            "step_00000004"]
+    assert engine(ckpt_dir=str(tmp_path)).restore() == 4
     with pytest.raises(ValueError, match="reassembly"):
         engine(reassembly="pallas")
     with pytest.raises(ValueError, match="epochs"):
