@@ -44,6 +44,23 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    launch once per layer and decode step and ``flash_attention_bh`` once
    per layer and prefill, and the greedy streams must equal the dense
    path's and the static ``generate``'s.
+3d. Serving under fire, on phase 3's deepseek-7b (nothing reloads): a
+   preempt / restore at a page boundary (32 tokens re-prefilled) and one
+   token before a stream's end; overcommit with 10 pages for requests that
+   reach 14 (at least one preemption); a priority-5 arrival into a full
+   pool (it preempts, never waits); a FakeClock deadline abort whose
+   partial prefix equals the static ``generate``; a supervised crash
+   (step 4) and hang (step 8, ``watchdog_s`` 5) drill; an unsupervised
+   crash that raises ``ServeFault``.  Every stream equals phase 3's, and
+   every run's counts are exact: ``paged_decode`` = layers x decode
+   dispatches that ran, ``flash_attention_bh`` = layers x (admissions +
+   restores + recovery re-prefills).  Temperature 0.8 streams are the same
+   alone and co-batched and equal the static ``generate``'s on the card;
+   the card's threefry bits equal the CPU path's and its Gumbel noise is
+   within 1e-6.  Prints each recovery's costs, ms a decode step greedy /
+   sampled / under the watchdog, and runs the CLI drill at the reduced
+   width on the card (exit 0, 2 with ``--no-supervise``, 3 against an
+   oracle it cannot match).
 3b. Main path 3, recurrent serving: mamba2-780m, then recurrentgemma-9b,
    each at full width (random weights from a seed, freed before the next
    model loads), serve 4 prompts of 1024 tokens, 16 greedy tokens each,
@@ -417,7 +434,7 @@ def engine_paths(model, cfg, params, card):
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB")
     return launches, {"tok_per_s": n_tok / wall, "decode_step_ms": step_ms,
-                      "decode_steps": steps}
+                      "decode_steps": steps}, (prompts, static)
 
 
 def load_model(cfg):
@@ -439,11 +456,312 @@ def load_model(cfg):
 
 
 def serve_full_width(card: str):
-    """Phase 3: deepseek-7b at full width through the paged engine."""
+    """Phases 3 and 3d: deepseek-7b at full width through the paged engine,
+    then under fire on the same weights."""
     from repro_torch.configs import get_config
     cfg = get_config("deepseek-7b", reduced=False)
     model, params = load_model(cfg)
-    return engine_paths(model, cfg, params, card)
+    launches, serve, (prompts, static) = engine_paths(model, cfg, params,
+                                                      card)
+    print("== phase 3d: serving under fire, the same deepseek-7b: preempt / "
+          "restore, overcommit, priorities, deadlines, supervised faults, "
+          "sampled streams")
+    fire = serve_under_fire(model, cfg, params, prompts, static, card)
+    return launches, serve, fire
+
+
+# ------------------------------------------------------ serving under fire
+
+FIRE_WATCHDOG_S = 5.0
+
+
+class FakeClock:
+    """A clock the caller sets: the deadline gate's engine time."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def fire_run(model, cfg, params, prompts, *, reqs=None, arrivals=None,
+             preempt_at=(), **kw):
+    """One engine run of phase 3's requests (or ``reqs``) with kernel counts
+    from 0 just before and read just after.  K3 must have launched once per
+    layer and decode dispatch that ran, K4 once per layer and prefill:
+    admissions, scheduler restores and recovery re-prefills."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.serve import Request, ServeEngine
+
+    n = len(prompts)
+    if reqs is None:
+        reqs = [dict(rid=i, prompt=prompts[i], max_new_tokens=ENGINE_GEN)
+                for i in range(n)]
+    kw.setdefault("num_pages", 64)
+    kw.setdefault("max_slots", n)
+    eng = ServeEngine(model, cfg, params, page_size=16,
+                      max_len=max(SERVE_LENS) + ENGINE_GEN, device=DEVICE,
+                      **kw)
+    paged_decode_attention.launches = flash_attention_bh.launches = 0
+    t0 = time.perf_counter()
+    res = eng.serve([Request(**r) for r in reqs],
+                    arrival_steps=arrivals or SERVE_ARRIVALS[:len(reqs)],
+                    preempt_at=preempt_at)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.check_invariants()
+    assert eng.alloc.live_pages == 0 and eng._reserved == 0
+    admitted = sum(1 for r in res.values() if r.finish_reason != "shed")
+    reprefills = sum(rep.n_survivors for rep in eng.recoveries)
+    launches = {"paged_decode": paged_decode_attention.launches,
+                "flash_attention_bh": flash_attention_bh.launches}
+    L = cfg.n_layers
+    assert launches["paged_decode"] == L * eng.n_decode_steps, \
+        (launches, eng.n_decode_steps)
+    assert launches["flash_attention_bh"] == L * (
+        admitted + eng.n_restored + reprefills), \
+        (launches, admitted, eng.n_restored, reprefills)
+    return res, eng, launches, wall
+
+
+def serve_under_fire(model, cfg, params, prompts, static, card):
+    """Phase 3d on phase 3's full-width deepseek-7b (nothing reloads): every
+    stream equals phase 3's greedy (static ``generate``) or the static
+    sampled one, with exact K3 / K4 counts on every run."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    import repro_torch.launch.serve as launch_serve
+    from repro_torch.launch.serve import generate
+    from repro_torch.serve import (CRASH, HANG, Request, ServeDrill,
+                                   ServeEngine, ServeFault, ServeFaultSpec)
+    from repro_torch.serve import prng
+
+    t_phase = time.perf_counter()
+    n, L = len(prompts), cfg.n_layers
+    out = {"launches_restore": {"paged_decode": 0, "flash_attention_bh": 0},
+           "launches_recovery": {"paged_decode": 0, "flash_attention_bh": 0},
+           "launches_sampled": {"paged_decode": 0, "flash_attention_bh": 0}}
+
+    def add(key, launches):
+        for k, v in launches.items():
+            out[key][k] += v
+
+    def same(res, want, what):
+        for i, toks in enumerate(want):
+            assert res[i].tokens == toks, (what, i, res[i].tokens, toks)
+
+    # preempt / restore: rid 0 (prompt 5, admitted at step 0) at step 11
+    # re-prefills 16 tokens, one full page; rid 2 (prompt 33, admitted at
+    # step 5) at step 19 re-prefills 47, one token before its end
+    res, eng, launches, _ = fire_run(model, cfg, params, prompts,
+                                     preempt_at=[(11, 0), (19, 2)])
+    same(res, static, "preempt/restore")
+    assert eng.n_preempted == eng.n_restored == 2
+    assert [res[i].preemptions for i in range(n)] == [1, 0, 1, 0]
+    add("launches_restore", launches)
+    print(f"  preempt/restore at a page boundary (16 tokens) and 15 tokens "
+          f"into decode: streams == phase 3's; K3 {launches['paged_decode']}"
+          f", K4 {launches['flash_attention_bh']} (= {L} x (4 admissions "
+          f"+ 2 restores))")
+
+    # overcommit: 10 usable pages for requests that reach 14 together
+    res, eng, launches, _ = fire_run(model, cfg, params, prompts,
+                                     num_pages=11, overcommit=True)
+    same(res, static, "overcommit")
+    assert eng.n_preempted >= 1 and eng.n_restored == eng.n_preempted
+    add("launches_restore", launches)
+    print(f"  overcommit (10 pages for 14): {eng.n_preempted} preemptions, "
+          f"streams == phase 3's; K3 {launches['paged_decode']}, K4 "
+          f"{launches['flash_attention_bh']}")
+
+    # priority: a priority-5 copy of request 2 arrives at step 12 into a pool
+    # whose reservations are full; it preempts and never waits
+    reqs = [dict(rid=i, prompt=prompts[i], max_new_tokens=ENGINE_GEN)
+            for i in range(n)]
+    reqs.append(dict(rid=n, prompt=prompts[2], max_new_tokens=ENGINE_GEN,
+                     priority=5))
+    res, eng, launches, _ = fire_run(
+        model, cfg, params, prompts, reqs=reqs,
+        arrivals=SERVE_ARRIVALS + [12], num_pages=15, max_slots=n)
+    same(res, static + [static[2]], "priority")
+    assert res[n].preemptions == 0 and eng.n_preempted >= 1
+    add("launches_restore", launches)
+    print(f"  priority preemption: {eng.n_preempted} lower-priority victims, "
+          f"streams == phase 3's; K3 {launches['paged_decode']}, K4 "
+          f"{launches['flash_attention_bh']}")
+
+    # deadline: a FakeClock blows request 0's SLO after 3 steps
+    clk = FakeClock()
+    eng = ServeEngine(model, cfg, params, num_pages=64, page_size=16,
+                      max_slots=n, max_len=max(SERVE_LENS) + ENGINE_GEN,
+                      clock=clk, device=DEVICE)
+    eng.submit(Request(rid=0, prompt=prompts[0], max_new_tokens=ENGINE_GEN,
+                       deadline=5.0))
+    for _ in range(3):
+        eng.step()
+    emitted = len(eng.results[0].tokens)
+    clk.t = 10.0
+    eng.step()
+    r = eng.results[0]
+    assert eng.idle and r.finish_reason == "deadline" and r.partial
+    assert 0 < emitted < ENGINE_GEN and r.tokens == static[0][:emitted]
+    assert eng.alloc.live_pages == 0 and eng.n_deadline_aborts == 1
+    print(f"  deadline abort: partial prefix of {emitted} tokens == phase 3's "
+          f"static generate")
+
+    # supervised drills: a crash at step 4 and a hang at step 8 (watchdog)
+    spec = ServeFaultSpec(drills=(ServeDrill(CRASH, 4), ServeDrill(HANG, 8)))
+    res, eng, launches, _ = fire_run(model, cfg, params, prompts,
+                                     faults=spec,
+                                     watchdog_s=FIRE_WATCHDOG_S)
+    same(res, static, "drill")
+    assert eng.n_rebuilds == 2 and eng.n_restored == 0
+    assert [rep.cause for rep in eng.recoveries] == [CRASH, HANG]
+    assert eng.recoveries[1].detect_s >= FIRE_WATCHDOG_S
+    add("launches_recovery", launches)
+    out["recoveries"] = [rep.as_dict() for rep in eng.recoveries]
+    for rep in out["recoveries"]:
+        print(f"  recovery {json.dumps(rep)} [{card}]")
+    print(f"  supervised crash + hang drill: streams == fault-free; K3 "
+          f"{launches['paged_decode']} ({L} x {eng.n_decode_steps} decode "
+          f"dispatches that ran), K4 {launches['flash_attention_bh']} (= {L} "
+          f"x (4 admissions + "
+          f"{sum(r['n_survivors'] for r in out['recoveries'])} "
+          f"re-prefills))")
+
+    # unsupervised: the same crash raises with a state dump
+    eng = ServeEngine(model, cfg, params, num_pages=64, page_size=16,
+                      max_slots=n, max_len=max(SERVE_LENS) + ENGINE_GEN,
+                      supervise=False, device=DEVICE,
+                      faults=ServeFaultSpec(drills=(ServeDrill(CRASH, 2),)))
+    eng.submit(Request(rid=0, prompt=prompts[0], max_new_tokens=ENGINE_GEN))
+    try:
+        eng.run()
+    except ServeFault as e:
+        assert "engine state at fault" in str(e)
+    else:
+        raise AssertionError("an unsupervised crash did not raise")
+    print("  unsupervised crash: ServeFault with the engine-state dump")
+
+    # sampled streams: alone == co-batched == the static generate's
+    temp = 0.8
+    sampled = [generate(model, cfg, params, prompts[i][None], ENGINE_GEN,
+                        temperature=temp, seed=0, seeds=[i],
+                        device=DEVICE)[0].tolist() for i in range(n)]
+    reqs = [dict(rid=i, prompt=prompts[i], max_new_tokens=ENGINE_GEN,
+                 temperature=temp, seed=i) for i in range(n)]
+    res, eng, launches, _ = fire_run(model, cfg, params, prompts, reqs=reqs)
+    same(res, sampled, "sampled")
+    add("launches_sampled", launches)
+    alone, _, _, _ = fire_run(model, cfg, params, prompts, reqs=reqs[2:3],
+                              arrivals=[0])
+    assert alone[2].tokens == sampled[2]
+    assert sampled != static
+    print(f"  temperature {temp}: streams alone == co-batched == static "
+          f"generate's; K3 {launches['paged_decode']}")
+
+    # the card's bits == the CPU path's, its noise within 1e-6
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(0), np.arange(8)),
+                        np.arange(8) * 7)
+    V = cfg.vocab_size
+    for part in (True, False):
+        bits = prng.random_bits(keys, V, partitionable=part, device=DEVICE)
+        assert torch.equal(bits.cpu(), prng.random_bits(
+            keys, V, partitionable=part)), part
+    g_card = prng.gumbel(keys, V, device=DEVICE).cpu()
+    g_cpu = prng.gumbel(keys, V)
+    gerr = float((g_card - g_cpu).abs().max())
+    assert gerr <= 1e-6, gerr
+    out["gumbel_card_vs_cpu_max_abs"] = gerr
+    print(f"  random_bits on the card == CPU (8 keys x {V}, both layouts); "
+          f"gumbel max |card - cpu| {gerr:.3g} (<= 1e-6)")
+
+    # decode ms a step: greedy, sampled and under the watchdog, in turns
+    ms = {"greedy": [], "sampled": [], "watchdog": []}
+    for name in ("greedy", "sampled", "watchdog", "watchdog", "sampled",
+                 "greedy"):
+        t = temp if name == "sampled" else 0.0
+        kw = {"watchdog_s": 30.0} if name == "watchdog" else {}
+        reqs = [dict(rid=i, prompt=prompts[i], max_new_tokens=ENGINE_GEN,
+                     temperature=t, seed=i) for i in range(n)]
+        _, eng, _, _ = fire_run(model, cfg, params, prompts, reqs=reqs, **kw)
+        ms[name].append(1e3 * eng.decode_s / eng.n_decode_steps)
+    out["decode_step_ms"] = ms
+    print(f"  decode ms a step (synced host clock over the engine's "
+          f"dispatches, 4 requests x {ENGINE_GEN} tokens, runs in turns): "
+          f"{json.dumps(ms)} [{card}]")
+
+    # the sampler alone at the decode batch's shape: 4 sampled rows against
+    # 4 greedy rows (the argmax only), CUDA events around each call
+    from repro_torch.serve.sampling import sample_tokens
+    logits = torch.randn((n, cfg.vocab_size), device=DEVICE)
+    skeys = prng.fold_in(prng.PRNGKey(0), np.arange(n))
+    steps = np.arange(n, dtype=np.int32)
+    out["sample_tokens_ms"] = {
+        "sampled": cuda_ms(lambda: sample_tokens(
+            logits, skeys, steps, np.full(n, temp, np.float32))),
+        "greedy": cuda_ms(lambda: sample_tokens(
+            logits, skeys, steps, np.zeros(n, np.float32)))}
+    print(f"  sample_tokens at ({n}, {cfg.vocab_size}) f32: "
+          f"{json.dumps(out['sample_tokens_ms'])} ms (CUDA events) [{card}]")
+
+    # a prefill's cost, the unit of a restore and of a recovery re-prefill
+    eng = ServeEngine(model, cfg, params, num_pages=64, page_size=16,
+                      max_slots=n, max_len=max(SERVE_LENS) + ENGINE_GEN,
+                      device=DEVICE)
+    pre = {}
+    for p in prompts:
+        pages = eng.alloc.alloc(eng.alloc.pages_for(len(p)))
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng._prefill_into(p, pages)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        pre[len(p)] = statistics.median(times)
+    out["prefill_ms"] = pre
+    print(f"  prefill ms by prompt length (synced host clock, median of 3): "
+          f"{json.dumps(pre)} [{card}]")
+
+    # the CLI's drill in-process at the reduced width on the card
+    cli = ["--device", DEVICE, "--engine", "continuous", "--requests", "4",
+           "--prompt-len", "8",
+           "--gen", "8", "--page-size", "4", "--num-pages", "64"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_serve.main(cli + ["--chaos", "hang:3,crash:6",
+                                 "--watchdog-s", "3"])
+    assert "SERVE_DRILL token_identical=true rebuilds=2" in buf.getvalue(), \
+        buf.getvalue()
+    codes = {}
+    for name, extra in (("unsupervised", ["--chaos", "crash:1",
+                                          "--no-supervise"]),
+                        ("diverged", ["--chaos", "crash:2"])):
+        real = launch_serve.generate
+        if name == "diverged":      # an oracle the engine cannot match
+            launch_serve.generate = lambda *a, **k: real(*a, **k) + 1
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                launch_serve.main(cli + extra)
+        except SystemExit as e:
+            codes[name] = e.code
+        finally:
+            launch_serve.generate = real
+    assert codes == {"unsupervised": 2, "diverged": 3}, codes
+    print("  CLI drill on the card (reduced): SERVE_DRILL token_identical="
+          "true, exit 0; --no-supervise exit 2; a diverged oracle exit 3")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 3d {out['seconds']:.1f} s [{card}]")
+    return out
 
 
 # ------------------------------------------------------------ kernel timing
@@ -1226,7 +1544,7 @@ def serve_mla(card: str):
     cfg = dataclasses.replace(get_config("deepseek-v2-236b", reduced=False),
                               n_layers=MLA_LAYERS)
     model, params = load_model(cfg)
-    launches, serve = engine_paths(model, cfg, params, card)
+    launches, serve, _ = engine_paths(model, cfg, params, card)
     tied_router_check(cfg, params)
 
     rng = np.random.default_rng(1)
@@ -2743,7 +3061,7 @@ def main() -> None:
 
     print("== phase 3: main path 1, deepseek-7b at full width through the "
           "paged engine")
-    launches, serve = serve_full_width(card)
+    launches, serve, fire = serve_full_width(card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2915,7 +3233,11 @@ def main() -> None:
               mla_plain_ms=mla_t["plain_ms"],
               mla_library_ms=mla_t["library_ms"],
               mla_library_device_ms=mla_t["library_device_ms"],
-              mla_n_splits=mla_t["n_splits"], mla_shape=mla_t["shape"]),
+              mla_n_splits=mla_t["n_splits"], mla_shape=mla_t["shape"],
+              launches_restore=fire["launches_restore"]["paged_decode"],
+              launches_recovery=fire["launches_recovery"]["paged_decode"],
+              launches_sampled=fire["launches_sampled"]["paged_decode"],
+              decode_step_ms_3d=fire["decode_step_ms"]),
         entry("permute_rows", vb_kernel.SOURCE,
               "src/repro/kernels/vb_scatter/kernel.py:57",
               tl_launches[permute_rows], vb_err["scatter"],
@@ -2986,6 +3308,9 @@ def main() -> None:
               bound_f32_ms=flash_t["mla"]["bound_f32_ms"],
               library_kernel=flash_t["mla"]["library_kernel"],
               launches_deepseek_7b=launches["flash_attention_bh"],
+              launches_restore=fire["launches_restore"]["flash_attention_bh"],
+              launches_recovery=fire["launches_recovery"][
+                  "flash_attention_bh"],
               launches_griffin=recurrent["recurrentgemma-9b"][
                   "flash_launches"],
               **{f"{pre}_{key}": flash_t[name][key]
@@ -2999,6 +3324,7 @@ def main() -> None:
     print(f"  profiler sessions each device-time reading took (its kernels "
           f"accounting for every launch): {PROFILER_SESSIONS}")
     print(f"  serve: {json.dumps(serve)} [{card}]")
+    print(f"  serve under fire: {json.dumps(fire)} [{card}]")
     print(f"  recurrent: {json.dumps(recurrent)} [{card}]")
     print(f"  mla: {json.dumps(mla)} [{card}]")
     print(f"  tl: {json.dumps({**tl, 'step_ms': tl_ms})} [{card}]")

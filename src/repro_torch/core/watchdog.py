@@ -1,7 +1,8 @@
 """Port of ``repro/core/watchdog.py`` (threading only, verbatim apart from
 this paragraph): the deadline watchdog the reference's elastic trainer and
-serving engine share.  The port's supervision loops that will call it are
-ROADMAP.md queue 1, items 14 (elastic training) and 15b (serving faults).
+serving engine share.  The port's serving engine (``serve/engine.py``,
+``_dispatch_decode``) calls it; elastic training, which would be its second
+caller, is ROADMAP.md queue 1, item 14.
 
 A hung device call — a collective that never completes on the production
 mesh, a decode step that stalls in the serving engine — is invisible to

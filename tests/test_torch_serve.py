@@ -7,7 +7,9 @@
   equal the port's own static ``generate``.
 * :class:`PageAllocator` keeps the reference's properties (trash page never
   handed out, atomic free/share, conservation under any interleaving).
-* Greedy only: temperature > 0 raises, naming the ROADMAP item.
+* ``sample_tokens`` keeps the first index on a tie at temperature 0 and
+  samples above it (the sampled streams against JAX's are
+  ``tests/test_torch_sampling.py`` and ``tests/test_torch_serve_fire.py``).
 """
 import dataclasses
 
@@ -31,7 +33,8 @@ from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import (OutOfPages, PageAllocator, Request,  # noqa: E402
                                ServeEngine, TRASH_PAGE, check_servable,
-                               sample_tokens)
+                               request_key, sample_tokens)
+from repro_torch.serve.prng import PRNGKey  # noqa: E402
 
 PAGE = 4
 POOL = 32
@@ -169,14 +172,23 @@ def test_engine_rejects_bad_requests(setup):
         eng.submit(Request(rid=2, prompt=prompts[0], max_new_tokens=40))
 
 
-def test_greedy_only(setup):
+def test_sample_tokens_ties_and_temperature(setup):
+    """temperature 0 takes the first index on a tie; temperature > 0
+    samples: flat logits spread over the vocabulary across seeds, and the
+    static ``generate`` returns in-vocabulary tokens."""
     cfg, model, params, prompts, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample_tokens(torch.zeros(1, 4), temperature=0.7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate(model, cfg, params, prompts[0][None], 2, temperature=0.7,
-                 device="cpu")
     assert sample_tokens(torch.tensor([[1.0, 3.0, 3.0]])).tolist() == [1]
+    assert sample_tokens(torch.tensor([[1.0, 3.0, 3.0]]), np.zeros((1, 2)),
+                         [0], [0.0]).tolist() == [1]
+    keys = request_key(PRNGKey(0), np.arange(32))
+    drawn = sample_tokens(torch.zeros(32, 4), keys, np.zeros(32, np.int32),
+                          np.full(32, 0.7, np.float32))
+    assert drawn.dtype == torch.int32
+    assert set(drawn.tolist()) == {0, 1, 2, 3}
+    toks = generate(model, cfg, params, prompts[0][None], 2, temperature=0.7,
+                    device="cpu")
+    assert toks.shape == (1, 2)
+    assert all(0 <= t < cfg.vocab_size for t in toks[0].tolist())
 
 
 @pytest.mark.parametrize("change", [
