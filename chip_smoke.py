@@ -154,6 +154,23 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    on the first batch phase 4c (b)'s TL-vs-CL gates; then one forward
    without grad launches the scan kernel once per recurrent layer (and K4
    once per Griffin attention layer).  ms a step and peak printed.
+4e. Distribution, main path 8 (run after phase 5, whose profiler sessions
+   lost kernel records when it ran first), on a one-rank NCCL mesh (one
+   card is one
+   rank, so ``resolve_mesh("debug")`` is the (1, 1) mesh): (a) starcoder2-3b
+   at full width, 12 layers, through ``Engine(mesh=..., reassembly=
+   "kernel")`` for 3 steps against the mesh-less engine on the same
+   batches: losses and parameters bit-equal (the reference's gates are
+   loss 1e-4 and params 5e-3), K1 ``permute_rows`` and ``take_rows`` once
+   a step each, ms a step, peak and the ms over the mesh-less step; (b) one
+   deepseek-v2-236b MoE layer at full width (160 routed experts + 2
+   shared, top-6, d 5120, 15.1 GB of routed f32 weights) through
+   ``moe_apply_ep`` against ``moe_apply`` at B 1, S 256: rel < 2e-3,
+   finite grads, a nonzero ``w_gate`` grad; (c) the CLI drills at the
+   reduced width in subprocesses: ``--drill hang-device:1 --watchdog-s 3``
+   without ``--elastic`` exits 2 with ``lost at step 1 (hang)``, and
+   ``--elastic --drill kill-device:1`` on one rank fails with
+   ``ReshrinkError`` ("no surviving devices").
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
    where one computes the same function, and the card's bound (for the
@@ -2384,7 +2401,8 @@ def production_opt(steps: int):
     return adamw(warmup_cosine(3e-4, 10, steps), clip_norm=1.0)
 
 
-def production_run(cfg, steps: int, counters: dict, *, donate: bool = True):
+def production_run(cfg, steps: int, counters: dict, *, donate: bool = True,
+                   mesh=None):
     """``steps`` production TL steps of ``cfg`` from seed 0 through
     ``Engine(mode="production", reassembly="kernel", remat_mode="tl",
     donate=donate)`` on batch 8 x 512 from ``synthetic_corpus`` on 4 nodes;
@@ -2404,7 +2422,8 @@ def production_run(cfg, steps: int, counters: dict, *, donate: bool = True):
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(build_model(cfg), cfg, production_opt(steps),
                  mode="production", reassembly="kernel", remat_mode="tl",
-                 donate=donate, log_every=1, device=DEVICE).init(0)
+                 donate=donate, log_every=1, mesh=mesh,
+                 device=DEVICE).init(0)
     loader = production_loader(cfg.vocab_size)
     for c in counters.values():
         c.launches = 0
@@ -2553,6 +2572,198 @@ def production_step(card: str):
                              "donate_step_ms": donate_info["step_ms"],
                              "functional_step_ms": fun_info["step_ms"],
                              "tl_cl_rel": rel, "grad_gap_rel": gap})
+
+
+# ------------------------------------------------------ distribution (4e)
+
+DIST_STEPS = 3
+EP_B, EP_S = 1, 256         # one batch row: one group of the same capacity
+DRILL_ARGS = ["--mesh", "debug", "--steps", "3", "--nodes", "2", "--batch",
+              "4", "--seq", "32", "--log-every", "0"]
+
+
+def sharded_step(card: str):
+    """Phase 4e (a): starcoder2-3b at full width, 12 layers, 3 steps from
+    seed 0 on the one-rank (1, 1) NCCL mesh against the mesh-less engine
+    on the same batches (the mesh-less run first, its parameters kept on
+    the host): losses and parameters bit-equal, K1 once a step each way in
+    the sharded run, ms a step, peak, and the ms over the mesh-less step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist.tensor import full_tree
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.launch.mesh import resolve_mesh
+
+    k1 = {"permute_rows": permute_rows, "take_rows": take_rows}
+    cfg = dataclasses.replace(get_config(PROD_ARCH),
+                              n_layers=PROD_CHECK_LAYERS)
+    eng, res, plain = production_run(cfg, DIST_STEPS, k1)
+    host = [t.detach().cpu() for t in tree_leaves(res.params)]
+    del eng, res
+    free_cuda()
+    mesh = resolve_mesh("debug", device=DEVICE)
+    assert mesh.shape == (1, 1), mesh.shape
+    # the main path: K1's counts from 0 just before, read just after
+    eng, res, info = production_run(cfg, DIST_STEPS, k1, mesh=mesh)
+    want = {"permute_rows": DIST_STEPS, "take_rows": DIST_STEPS}
+    assert info["launches"] == want, info["launches"]
+    loss_gap = max(abs(a - b) for a, b in zip(info["losses"],
+                                              plain["losses"]))
+    param_gap = max(float((t.detach().cpu() - h).abs().max())
+                    for t, h in zip(tree_leaves(full_tree(res.params)), host))
+    print(f"  (a) mesh {mesh.shape} {mesh.axis_names}, NCCL on one rank; "
+          f"sharded vs mesh-less over {DIST_STEPS} steps: largest loss gap "
+          f"{loss_gap:.3e}, largest param gap {param_gap:.3e} (gates 1e-4 "
+          f"/ 5e-3; bit-equality expected)")
+    assert loss_gap == 0.0 and param_gap == 0.0, (loss_gap, param_gap)
+    nccl, kernels = nccl_kernels(eng, cfg)
+    print(f"  (a) one more sharded step under the profiler: {kernels} "
+          f"kernels on the card, {nccl} of them NCCL's")
+    print_run("(a) sharded", info, card)
+    print_run("(a) mesh-less", plain, card)
+    extra = info["step_ms"] - plain["step_ms"]
+    print(f"  (a) sharded {info['step_ms']:.3f} ms a step against "
+          f"{plain['step_ms']:.3f} mesh-less ({extra:+.3f} ms, "
+          f"{100 * extra / plain['step_ms']:+.2f}%); peak "
+          f"{info['peak_gb']:.2f} GB against {plain['peak_gb']:.2f} GB "
+          f"[{card}]")
+    del eng, res, host
+    free_cuda()
+    return mesh, {"layers": PROD_CHECK_LAYERS, "steps": DIST_STEPS,
+                  "launches": info["launches"], "step_ms": info["step_ms"],
+                  "nccl_kernels": nccl, "profiled_kernels": kernels,
+                  "plain_step_ms": plain["step_ms"], "extra_ms": extra,
+                  "peak_gb": info["peak_gb"], "plain_peak_gb": plain["peak_gb"],
+                  "loss_gap": loss_gap, "param_gap": param_gap}
+
+
+def nccl_kernels(eng, cfg):
+    """``(NCCL kernels, all kernels)`` on the card over one more step of
+    ``eng`` (sharded, in place) under the torch profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step = eng._build_step()
+    batch = {k: v.to(eng.device) for k, v in eng._host_batch(
+        next(iter(production_loader(cfg.vocab_size)))).items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.params, eng.opt_state, _ = step(eng.params, eng.opt_state, batch)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum("nccl" in n.lower() for n in names), len(names)
+
+
+def expert_parallel(card: str, mesh):
+    """Phase 4e (b): one deepseek-v2-236b MoE layer at full width through
+    ``moe_apply_ep`` on the one-rank mesh against ``moe_apply`` at B 1,
+    S 256 (one group, the same capacity): rel < 2e-3, and the EP path's
+    grads finite with a nonzero ``w_gate`` grad."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models.moe_ep import moe_apply_ep
+
+    cfg = get_config("deepseek-v2-236b")
+    m = cfg.moe
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    p = M.moe_init(gen, cfg, device=DEVICE)
+    routed_gb = sum(p[k].numel() * 4 for k in ("w_gate", "w_up",
+                                               "w_down")) / 1e9
+    x = torch.randn((EP_B, EP_S, cfg.d_model), generator=gen,
+                    device=DEVICE) * 0.1
+    with torch.no_grad():
+        ref, ref_aux = M.moe_apply(p, cfg, x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y, aux = moe_apply_ep(p, cfg, x, mesh)
+        torch.cuda.synchronize()
+        ep_s = time.perf_counter() - t1
+    rel = float((y - ref).abs().max() / (ref.abs().max() + 1e-9))
+    assert torch.isfinite(y).all() and rel < 2e-3, rel
+    leaves = {k: p[k].requires_grad_(True) for k in ("router", "w_gate")}
+    out, aux_g = moe_apply_ep(p, cfg, x, mesh)
+    grads = torch.autograd.grad(out.pow(2).sum() + aux_g,
+                                list(leaves.values()))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    gate_max = float(grads[1].abs().max())
+    assert finite and gate_max > 0, (finite, gate_max)
+    print(f"  (b) deepseek-v2-236b MoE layer at full width ({m.n_routed_experts}"
+          f" routed + {m.n_shared_experts} shared experts, top-{m.top_k}, d "
+          f"{cfg.d_model}, d_ff_expert {m.d_ff_expert}; {routed_gb:.2f} GB "
+          f"routed f32), B {EP_B} S {EP_S}: moe_apply_ep vs moe_apply rel "
+          f"{rel:.3e} (gate 2e-3), aux {float(aux):.6e} vs "
+          f"{float(ref_aux):.6e}; grads finite, max |w_gate grad| "
+          f"{gate_max:.3e}; EP forward {1e3 * ep_s:.3f} ms, phase "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del p, x, y, ref, out, grads, leaves
+    free_cuda()
+    return {"rel": rel, "routed_gb": routed_gb, "w_gate_grad_max": gate_max,
+            "ep_forward_ms": 1e3 * ep_s}
+
+
+def drills(card: str):
+    """Phase 4e (c), the train CLI at the reduced width, two subprocesses
+    started together: an unsupervised hang exits 2 with the diagnostic
+    within its 3 s deadline (plus the process's start-up), and an elastic
+    kill on one rank fails loudly with ``ReshrinkError``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cases = {"hang": ["--drill", "hang-device:1", "--watchdog-s", "3"],
+             "kill": ["--elastic", "--drill", "kill-device:1"]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train"] + DRILL_ARGS
+        + args, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, args in cases.items()}
+    got = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=180)
+        finally:
+            proc.kill()
+        got[name] = (proc.returncode, err, time.perf_counter() - t0)
+    rc, err, hang_s = got["hang"]
+    assert rc == 2 and "lost at step 1 (hang)" in err and "FATAL" in err, \
+        (rc, err[-2000:])
+    rc2, err2, kill_s = got["kill"]
+    assert rc2 not in (0, 2) and "ReshrinkError" in err2 \
+        and "no surviving devices" in err2, (rc2, err2[-2000:])
+    print(f"  (c) hang-device:1 without --elastic: exit {rc} after "
+          f"{hang_s:.1f} s (process start-up included), "
+          f"{[ln for ln in err.splitlines() if 'FATAL' in ln][0]!r}; "
+          f"--elastic kill-device:1 on one rank: exit {rc2} after "
+          f"{kill_s:.1f} s, "
+          f"{[ln for ln in err2.splitlines() if 'ReshrinkError' in ln][-1]!r}"
+          f" (the two ran together) [{card}]")
+    return {"hang_exit": rc, "hang_s": hang_s, "kill_exit": rc2,
+            "kill_s": kill_s}
+
+
+def distribution(card: str):
+    """Phase 4e: (a), (b) and (c) above; the process group is destroyed
+    at the end."""
+    import torch
+
+    from repro_torch.launch.mesh import shutdown_distributed
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh, step = sharded_step(card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    try:
+        ep = expert_parallel(card, mesh)
+    finally:
+        shutdown_distributed()
+    out = {"sharded": step, "ep": ep, "drills": drills(card),
+           "seconds": time.perf_counter() - t0}
+    print(f"  phase 4e {out['seconds']:.1f} s [{card}]")
+    return out
 
 
 # ------------------------------------------------ recurrent production TL
@@ -3169,6 +3380,16 @@ def main() -> None:
               f"over the static generate of {SERVE_GEN} tokens, peak "
               f"{r['peak_gb']:.2f} GB [{card}]")
 
+    # phase 4e runs after phase 5's timing: run before it (a NCCL process
+    # group and a profiled step in this process), it left phase 5's
+    # profiler sessions losing kernel records (35 lossy readings against
+    # 6-8, and one that lost all of them five sessions in a row)
+    print("== phase 4e: main path 8, distribution: the sharded production "
+          "step on a one-rank NCCL mesh, expert parallelism, the drills")
+    dist = distribution(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, n, err, t, **extra):
         return {"name": name, "route": "cuda",
                 "source": str(source.relative_to(ROOT)),
@@ -3196,6 +3417,7 @@ def main() -> None:
                       for k, v in vb_prod[mode].items()})
         key = "permute_rows" if mode == "scatter" else "take_rows"
         extra["launches_production"] = prod["launches"][key]
+        extra["launches_distributed"] = dist["sharded"]["launches"][key]
         extra["launches_production_recurrent"] = sum(
             r["launches"][key] for r in rec_train.values())
         if mode == "scatter":
@@ -3330,6 +3552,7 @@ def main() -> None:
     print(f"  tl: {json.dumps({**tl, 'step_ms': tl_ms})} [{card}]")
     print(f"  hierarchy: {json.dumps(hier)} [{card}]")
     print(f"  production: {json.dumps(prod)} [{card}]")
+    print(f"  distribution: {json.dumps(dist)} [{card}]")
     print(f"  recurrent training: {json.dumps(rec_train)} [{card}]")
     print(f"  baselines: {json.dumps(accs)} [{card}]")
     print(f"  chip_smoke total {time.perf_counter() - T_START:.1f} s [{card}]")

@@ -20,6 +20,11 @@ before the atomic rename publishes the step; every array's SHA-256 is
 checked on restore; :func:`latest_step` skips a corrupt or truncated step
 with a warning; :func:`gc_checkpoints` keeps the newest valid steps and
 never a protected one.
+
+Sharded (``DTensor``) trees are written whole: the caller gathers them and
+one rank writes (``launch.engine.Engine.save_ckpt``); a restore loads the
+whole arrays and the caller keeps each rank's shards.  A ``DTensor`` leaf
+reaching the writer raises rather than saving one rank's shard.
 """
 from __future__ import annotations
 
@@ -57,6 +62,10 @@ def _names(tree, prefix: str = ""):
 def _to_savable(leaf):
     """``(array, dtype name)``: a raw ``uint8`` view (trailing itemsize
     axis) for the dtypes numpy lacks, else the array itself."""
+    if type(leaf).__name__ == "DTensor":
+        raise TypeError("a checkpoint holds whole arrays: gather sharded "
+                        "leaves first (dist.tensor.full_tree), as "
+                        "Engine.save_ckpt does")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         name = str(t.dtype).removeprefix("torch.")

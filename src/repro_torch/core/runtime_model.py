@@ -230,8 +230,8 @@ def recovery_cost(step_time_s: float, rollback_depth: int, rejit_s: float,
                   replay_s: float = 0.0) -> float:
     """Wall-clock cost of one elastic device-loss recovery.
 
-    The reference's elastic engine (``repro/launch/engine.py``; the
-    port's waits for ROADMAP.md queue 1, item 14) pays, per recovery:
+    The elastic engine (``repro/launch/engine.py`` and the port's
+    ``repro_torch/launch/engine.py``) pays, per recovery:
     re-running the ``rollback_depth`` steps lost since the newest
     checkpoint (at the steady-state ``step_time_s`` clock), re-jitting the
     step for the reshrunk mesh (``rejit_s``, the dominant fixed cost), and

@@ -1,8 +1,8 @@
 """Port of ``repro/core/watchdog.py`` (threading only, verbatim apart from
-this paragraph): the deadline watchdog the reference's elastic trainer and
-serving engine share.  The port's serving engine (``serve/engine.py``,
-``_dispatch_decode``) calls it; elastic training, which would be its second
-caller, is ROADMAP.md queue 1, item 14.
+this paragraph): the deadline watchdog the elastic trainer and the serving
+engine share.  The port's serving engine (``serve/engine.py``,
+``_dispatch_decode``) and its elastic production engine
+(``launch/engine.py``, through ``launch/elastic.py``) call it.
 
 A hung device call — a collective that never completes on the production
 mesh, a decode step that stalls in the serving engine — is invisible to

@@ -37,7 +37,12 @@ import torch
 def use_kernel(*tensors) -> bool:
     """True when the tensors lie on a CUDA device (launch the kernel), False
     when they all lie on the CPU (run the plain version).  ``None`` entries
-    are ignored; any other mix of devices raises."""
+    are ignored; any other mix of devices raises, and so does a ``DTensor``:
+    a kernel reads ``data_ptr()``, so it takes a rank's local tensors
+    (``to_local()``), never a distributed one."""
+    if any(type(t).__name__ == "DTensor" for t in tensors):
+        raise TypeError("a kernel takes local tensors: pass DTensor."
+                        "to_local(), as core.tl_step's row permuter does")
     devs = {t.device for t in tensors if t is not None}
     kinds = {d.type for d in devs}
     if kinds == {"cpu"}:

@@ -22,10 +22,24 @@ step-boundary checkpoint (the reference's format and layout) into
 ``--halt-at K`` stops after K global steps of the full ``--steps`` budget
 (a crash drill), and ``--resume`` restores the newest checkpoint and
 replays the loader: the resumed run ends bit-equal to an uninterrupted
-one.  A resume under a different run config is refused.  Meshes
-(``--mesh``, ``--multi-pod``), elastic recovery (``--elastic``,
-``--drill``, ``--watchdog-s``) wait for distribution (ROADMAP.md queue 1,
-item 14) and raise.
+one.  A resume under a different run config is refused.
+
+Distribution: ``--mesh {debug,host,production}`` (``--multi-pod`` for
+the (pod, data, model) production mesh) shards the step over a
+``torch.distributed`` mesh (``launch.mesh.resolve_mesh``): NCCL on
+``cuda``, gloo on ``cpu``.  Under ``torchrun`` the world is its ranks
+(``env://``); alone, the CLI is one rank and ``debug`` is the (1, 1) mesh.
+Without ``--mesh`` the step runs on one device with no process group.
+``--elastic`` arms device-loss recovery (reshrink + rollback + replay; a
+temporary ``--ckpt`` when none is given), ``--drill kill-device:STEP[:DEV]``
+/ ``hang-device:STEP[:DEV]`` injects a scripted fault, and
+``--watchdog-s`` is the per-step deadline.  With ``--elastic`` and a drill
+the CLI verifies the recovery: a fresh engine on the shrunken mesh,
+restored from the rollback checkpoint, runs the same loader and must end
+bit-equal, printing ``RECOVERY_DRILL bit_equal=... rollback_step=...
+mesh=(...)`` (exit 3 if not).  An unrecovered ``DeviceLost`` prints
+``FATAL: ...`` and the ``--elastic`` hint to stderr and exits 2.  Output
+lines come from the mesh's first rank.
 
 Sim mode: DATRET on the ``TLOrchestrator`` through the engine, with the
 reference's synthetic shards (``numpy.random.default_rng(5)``, 64 samples
@@ -42,6 +56,7 @@ Runs on ``--device`` (default ``cuda``).
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
 
@@ -85,28 +100,57 @@ def _run_production(ap, args):
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, warmup_cosine
 
-    for flag, given in (("--mesh", args.mesh), ("--multi-pod", args.multi_pod),
-                        ("--elastic", args.elastic), ("--drill", args.drill),
-                        ("--watchdog-s", args.watchdog_s)):
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP.md queue 1, item 14 "
-                "(distribution); the port's production engine runs on one "
-                "device")
     for flag, given in (("--resume", args.resume),
                         ("--ckpt-every", args.ckpt_every),
                         ("--ckpt-keep", args.ckpt_keep)):
         if given and not args.ckpt:
             ap.error(f"{flag} needs --ckpt")
+    if args.multi_pod and args.mesh != "production":
+        ap.error("--multi-pod needs --mesh production")
+    if args.elastic and not args.mesh:
+        ap.error("--elastic reshrinks a mesh: pass --mesh")
+    drill = None
+    if args.drill:
+        from repro_torch.launch.elastic import DeviceFaultSpec, parse_drill
+        try:
+            drill = DeviceFaultSpec(drills=(parse_drill(args.drill),))
+        except ValueError as e:
+            ap.error(str(e))
+
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import resolve_mesh
+        mesh = resolve_mesh(args.mesh, multi_pod=args.multi_pod,
+                            device=args.device)
+    if args.elastic and not args.ckpt:
+        # recovery needs a rollback anchor; the first rank names the
+        # temporary directory for all
+        import tempfile
+
+        import torch.distributed as dist
+        box = [tempfile.mkdtemp(prefix="tl_elastic_ckpt_")
+               if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        args.ckpt = box[0]
+        if dist.get_rank() == 0:
+            print(f"--elastic without --ckpt: rollback anchors in "
+                  f"{args.ckpt}")
 
     cfg = get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg)
     opt = adamw(warmup_cosine(args.lr, 10, args.steps), clip_norm=1.0)
-    engine = Engine(model, cfg, opt, pipeline=args.pipeline,
-                    remat_mode=args.remat, reassembly=args.reassembly,
-                    log_every=args.log_every, ckpt_dir=args.ckpt,
-                    ckpt_every=args.ckpt_every, ckpt_keep=args.ckpt_keep,
-                    device=args.device)
+    common = dict(pipeline=args.pipeline, remat_mode=args.remat,
+                  reassembly=args.reassembly, device=args.device)
+    engine = Engine(model, cfg, opt, log_every=args.log_every,
+                    ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every,
+                    ckpt_keep=args.ckpt_keep, mesh=mesh,
+                    elastic=args.elastic, device_faults=drill,
+                    watchdog_s=args.watchdog_s, **common)
+
+    def say(*parts):
+        if engine.lead():        # the mesh's first rank (it can change)
+            print(*parts)
+
     # the run config fixes the LR schedule (--steps, --lr) and the data
     # order (nodes, batch, seq): a resume under another one is refused
     engine.ckpt_meta = {"arch": cfg.name, "steps": args.steps,
@@ -123,31 +167,75 @@ def _run_production(ap, args):
         if at >= args.steps:
             ap.error(f"checkpoint is already at step {at} of the --steps "
                      f"{args.steps} budget: nothing to resume")
-        print(f"resumed from step {at}")
+        say(f"resumed from step {at}")
     else:
         at = 0
         engine.init(0)
-    print(f"arch={cfg.name} params={engine.n_params() / 1e6:.1f}M "
-          f"nodes={args.nodes} pipeline={args.pipeline} "
-          f"reassembly={args.reassembly} remat={args.remat} "
-          f"device={engine.device}")
+    say(f"arch={cfg.name} params={engine.n_params() / 1e6:.1f}M "
+        f"nodes={args.nodes} mesh="
+        f"{args.mesh + str(mesh.shape) if mesh else None} "
+        f"pipeline={args.pipeline} reassembly={args.reassembly} "
+        f"remat={args.remat} device={engine.device}")
 
     docs = synthetic_corpus(args.nodes * 64, args.seq, cfg.vocab_size, seed=1)
     loader = VirtualBatchLoader(shard_corpus(docs, args.nodes), args.batch,
                                 seed=0)
     budget = min(args.halt_at, args.steps) if args.halt_at else args.steps
-    result = engine.run(loader, steps=budget)
+    from repro_torch.launch.elastic import DeviceLost
+    try:
+        result = engine.run(loader, steps=budget)
+    except DeviceLost as e:
+        # an unrecovered device loss: fail loudly with the diagnostic
+        print(f"FATAL: {e}\n       rerun with --elastic to recover "
+              "(reshrink + rollback + replay)", file=sys.stderr)
+        raise SystemExit(2)
+    for rec in result.recovery or ():
+        say("recovery:", rec.as_dict())
     losses = result.losses.tolist()
-    print(f"final loss {np.mean(losses[-5:]):.4f} "
-          f"(start {np.mean(losses[:5]):.4f}) "
-          f"{result.steps_per_s:.2f} steps/s")
-    if args.ckpt:
+    if engine.member():
+        say(f"final loss {np.mean(losses[-5:]):.4f} "
+            f"(start {np.mean(losses[:5]):.4f}) "
+            f"{result.steps_per_s:.2f} steps/s")
+    if args.ckpt and engine.member():
         # the engine's resume-able layout, so a --halt-at run's final
         # checkpoint is --resume-able under the same flags
         path = engine.save_ckpt(result.params, result.opt_state,
                                 at + result.steps)
-        print("checkpoint:", path)
+        say("checkpoint:", path)
+    if args.elastic and args.drill and result.recovery and engine.member():
+        _verify_recovery(engine, result, model, cfg, opt, common, loader,
+                         budget, args, say)
     return losses
+
+
+def _verify_recovery(engine, result, model, cfg, opt, common, loader, budget,
+                     args, say):
+    """A fresh engine on the shrunken mesh, restored from the rollback
+    checkpoint and run over the same loader, must end bit-equal to the
+    recovered run (every member compares its shards; exit 3 if not)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.engine import Engine
+    rollback = result.recovery[-1].rollback_step
+    oracle = Engine(model, cfg, opt, ckpt_dir=args.ckpt, mesh=engine.mesh,
+                    **common)
+    oracle.restore(step=rollback)
+    fresh = oracle.run(loader, steps=budget)
+    same = all(torch.equal(a.to_local(), b.to_local())
+               for a, b in zip(tree_leaves(result.params),
+                               tree_leaves(fresh.params)))
+    flag = torch.tensor([int(same)], device=engine.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=engine.mesh.group())
+    bit_equal = bool(flag.item())
+    say(f"RECOVERY_DRILL bit_equal={str(bit_equal).lower()} "
+        f"rollback_step={rollback} mesh={engine.mesh.shape}")
+    if not bit_equal:
+        print("FATAL: post-recovery parameters diverge from a fresh run off "
+              "the rollback checkpoint: the recovery guarantee is broken",
+              file=sys.stderr)
+        raise SystemExit(3)
 
 
 def main(argv=None):
@@ -188,14 +276,25 @@ def main(argv=None):
                          "the --steps budget")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--mesh", default=None,
-                    help="not ported (ROADMAP.md queue 1, item 14)")
+                    choices=["debug", "host", "production"],
+                    help="shard the step over a torch.distributed mesh "
+                         "(under torchrun: its ranks; alone: one rank); "
+                         "default: one device, no process group")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported (item 14)")
+                    help="with --mesh production: the 2x16x16 (pod, data, "
+                         "model) mesh")
     ap.add_argument("--elastic", action="store_true",
-                    help="not ported (item 14)")
-    ap.add_argument("--drill", default=None, help="not ported (item 14)")
-    ap.add_argument("--watchdog-s", type=float, default=None,
-                    help="not ported (item 14)")
+                    help="device-loss supervision: watchdog detection, mesh "
+                         "reshrink over the survivors, checkpoint rollback, "
+                         "deterministic replay")
+    ap.add_argument("--drill", default=None,
+                    help="scripted fault: kill-device:STEP[:DEV] or "
+                         "hang-device:STEP[:DEV]; with --elastic the CLI "
+                         "verifies bit-equality against a fresh run from "
+                         "the rollback checkpoint")
+    ap.add_argument("--watchdog-s", type=float, default=60.0,
+                    help="per-step watchdog deadline (seconds): a step that "
+                         "exceeds it is classified as a lost device")
     ap.add_argument("--epochs", type=int, default=3,
                     help="sim mode: orchestrator epochs")
     ap.add_argument("--hierarchy", type=int, default=0,
@@ -216,7 +315,17 @@ def main(argv=None):
         ap.error("--wire-ef needs --wire {int8,fp8}")
     if args.mode == "sim":
         return _run_sim(args)
-    return _run_production(ap, args)
+    import torch.distributed as dist
+    started = not dist.is_initialized()
+    try:
+        losses = _run_production(ap, args)
+        if dist.is_initialized():
+            dist.barrier()    # every rank, in the final mesh or not, meets
+        return losses
+    finally:
+        if started and dist.is_initialized():
+            from repro_torch.launch.mesh import shutdown_distributed
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -190,6 +190,10 @@ def gqa_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
             cache["v"][:, idx] = v[:, -W:].to(cache["v"].dtype)
             cache["pos"][idx] = q_pos[-W:]
         else:
+            # single-token decode: the new k / v keep the batch layout (a
+            # no-op without an activation mesh), as in the reference
+            from repro_torch.dist.constraints import constrain_batch
+            k, v = constrain_batch(k), constrain_batch(v)
             idx = (q_pos % max_len).long()     # ring buffer for sliding windows
             cache["k"][:, idx] = k.to(cache["k"].dtype)
             cache["v"][:, idx] = v.to(cache["v"].dtype)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.constraints import constrain_batch
 from repro_torch.models import attention, moe, rglru, ssm
 from repro_torch.models.layers import rmsnorm, rmsnorm_init, swiglu, swiglu_init
 
@@ -56,13 +57,16 @@ def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *, device,
 def block_apply(params, cfg: ModelConfig, kind: str, ffn: str, h, *,
                 cache=None, cache_len=None):
     """Returns (h, cache, aux_loss): the MoE FFN's f32 scalar loss, or the
-    float 0.0 for the other FFNs (no device tensor on the serving paths)."""
+    float 0.0 for the other FFNs (no device tensor on the serving paths).
+    The block's input and output pass ``dist.constraints.constrain_batch``
+    (the identity without an activation mesh)."""
     _check_kinds(kind, ffn)
+    h = constrain_batch(h)
     mixed, cache = _MIXERS[kind][1](
         params["mixer"], cfg, rmsnorm(params["norm1"], h, cfg.norm_eps),
         cache=cache, cache_len=cache_len)
     h, aux = ffn_apply(params, cfg, ffn, h + mixed)
-    return h, cache, aux
+    return constrain_batch(h), cache, aux
 
 
 def ffn_apply(params, cfg: ModelConfig, ffn: str, h):

@@ -7,9 +7,10 @@ the number of earlier (token, choice) pairs in the group that chose the same
 expert.  Choices past ``capacity`` are dropped (their combine weight is 0).
 The expert FFN then runs as one batched SwiGLU over ``(groups, experts,
 capacity, d)``.  The expert products are plain ``torch`` matmuls, as the
-reference leaves them to XLA.  The reference's expert-parallel path
-(``set_expert_parallel_mesh`` / ``moe_ep``) is not ported (ROADMAP.md queue
-1, item 14).
+reference leaves them to XLA.  ``set_expert_parallel_mesh(mesh)`` makes
+``moe_apply`` delegate to the expert-parallel path
+(``repro_torch.models.moe_ep``, two ``all_to_all`` s a layer), as the
+reference's does; ``None`` switches it off.
 """
 from __future__ import annotations
 
@@ -44,6 +45,16 @@ def _capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
     cap = int(math.ceil(tokens_per_group * m.top_k * m.capacity_factor
                         / m.n_routed_experts))
     return max(cap, m.top_k if tokens_per_group == 1 else 1)
+
+
+# When set (set_expert_parallel_mesh), moe_apply delegates to the
+# expert-parallel path (models/moe_ep.py)
+_EP_MESH = None
+
+
+def set_expert_parallel_mesh(mesh):
+    global _EP_MESH
+    _EP_MESH = mesh
 
 
 def route(params, cfg: ModelConfig, x):
@@ -82,6 +93,11 @@ def route(params, cfg: ModelConfig, x):
 
 def moe_apply(params, cfg: ModelConfig, x):
     """x (B,S,d) -> (out (B,S,d), aux_loss).  Groups are batch rows."""
+    if _EP_MESH is not None:
+        from repro_torch.dist.sharding import batch_axes
+        from repro_torch.models.moe_ep import moe_apply_ep
+        return moe_apply_ep(params, cfg, x, _EP_MESH,
+                            data_axis=tuple(batch_axes(_EP_MESH)))
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.n_routed_experts, m.top_k

@@ -24,6 +24,15 @@ temporaries stay small however large the leaf (a 256000 x 4096 embedding
 would otherwise need several 4 GB ones); each element's arithmetic is the
 same either way.  The global-norm clip factor is computed once over all
 leaves and applied per piece.  It returns its input trees.
+
+Sharded trees (``DTensor`` leaves, the sharded TL step's) are updated on
+each rank's local shards, since the update is elementwise: ``update``
+unwraps them, computes on the local tensors and rewraps the results with
+the same placements; ``update_`` writes into the local shards.  Only the
+clip's squared norm is not local: each leaf's local sum of squares is
+all-reduced over the mesh dims that shard it before the leaves' sums are
+added, in leaf order, as on one device.  Adafactor's factored moments
+reduce over whole rows and columns, so it refuses sharded leaves.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.dist.tensor import is_dtensor
 
 
 @dataclass(frozen=True)
@@ -46,12 +56,56 @@ def _schedule(lr):
     return lr if callable(lr) else (lambda step: lr)
 
 
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _unwrap(tree):
+    return tree_map(_local, tree)
+
+
+def _rewrap(new, like):
+    """``new``'s local tensors as ``DTensor`` s placed as ``like``'s."""
+    def wrap(n, ref):
+        if not is_dtensor(ref):
+            return n
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(n, ref.device_mesh, ref.placements,
+                                  run_check=False, shape=ref.shape,
+                                  stride=ref.stride())
+    return tree_map(wrap, new, like)
+
+
+def _sq_norms(leaves):
+    """Each leaf's whole sum of squares (f32): local sums, all-reduced
+    over the mesh dims a ``DTensor`` leaf is sharded on (one collective
+    per set of such dims)."""
+    parts = [torch.sum(torch.square(_local(g).float())) for g in leaves]
+    sets = {}
+    for i, g in enumerate(leaves):
+        if is_dtensor(g):
+            dims = tuple(k for k, pl in enumerate(g.placements)
+                         if pl.is_shard())
+            if dims:
+                sets.setdefault((id(g.device_mesh), dims),
+                                (g.device_mesh, []))[1].append(i)
+    if sets:
+        import torch.distributed as dist
+        for (_, dims), (mesh, idx) in sets.items():
+            stacked = torch.stack([parts[i] for i in idx])
+            for k in dims:
+                dist.all_reduce(stacked, group=mesh.get_group(k))
+            for j, i in enumerate(idx):
+                parts[i] = stacked[j]
+    return parts
+
+
 def _clip_scale(leaves, max_norm):
     """The global-norm clip factor over the gradient ``leaves`` (``None``
     when ``max_norm`` is)."""
     if max_norm is None:
         return None
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    norm = torch.sqrt(sum(_sq_norms(leaves)))
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
@@ -60,7 +114,9 @@ def _clip(g, scale):
 
 
 def _clip_by_global_norm(grads, max_norm):
+    """The clipped gradients as local tensors."""
     scale = _clip_scale(tree_flatten(grads)[0], max_norm)
+    grads = _unwrap(grads)
     if scale is None:
         return grads
     return tree_map(lambda g: _clip(g, scale), grads)
@@ -78,8 +134,8 @@ def _pieces(outs, ins):
     """``(outs, ins)`` pieces of ``PIECE`` elements: flat views of the
     tensors to write (which must be views, so the writes land) and of those
     only read, all of one shape."""
-    outs = [t.view(-1) for t in outs]
-    ins = [t.reshape(-1) for t in ins]
+    outs = [_local(t).view(-1) for t in outs]
+    ins = [_local(t).reshape(-1) for t in ins]
     for i in range(0, outs[0].numel(), PIECE):
         yield ([t[i:i + PIECE] for t in outs],
                [t[i:i + PIECE] for t in ins])
@@ -107,11 +163,13 @@ def sgd(lr, momentum: float = 0.0, clip_norm: Optional[float] = None):
         step = state["step"] + 1
         eta = lr_fn(step)
         if momentum:
-            mu = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
-            new = tree_map(lambda p, m: p - eta * m, params, mu)
-            return new, {"step": step, "mu": mu}
-        new = tree_map(lambda p, g: p - eta * g, params, grads)
-        return new, {"step": step}
+            mu = tree_map(lambda m, g: momentum * m + g,
+                          _unwrap(state["mu"]), grads)
+            new = tree_map(lambda p, m: p - eta * m, _unwrap(params), mu)
+            return (_rewrap(new, params),
+                    {"step": step, "mu": _rewrap(mu, state["mu"])})
+        new = tree_map(lambda p, g: p - eta * g, _unwrap(params), grads)
+        return _rewrap(new, params), {"step": step}
 
     @torch.no_grad()
     def update_(params, grads, state):
@@ -167,11 +225,15 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     def update(params, grads, state):
         grads = _clip_by_global_norm(grads, clip_norm)
         step, c = coeffs(state)
-        out = [upd(*leaf, *c) for leaf in leaves(params, grads, state)]
+        out = [upd(*leaf, *c)
+               for leaf in leaves(_unwrap(params), grads, _unwrap(state))]
         tdef = tree_flatten(params)[1]
-        return (tree_unflatten(tdef, [o[0] for o in out]),
-                {"step": step, "m": tree_unflatten(tdef, [o[1] for o in out]),
-                 "v": tree_unflatten(tdef, [o[2] for o in out])})
+        return (_rewrap(tree_unflatten(tdef, [o[0] for o in out]), params),
+                {"step": step,
+                 "m": _rewrap(tree_unflatten(tdef, [o[1] for o in out]),
+                              state["m"]),
+                 "v": _rewrap(tree_unflatten(tdef, [o[2] for o in out]),
+                              state["v"])})
 
     @torch.no_grad()
     def update_(params, grads, state):
@@ -242,8 +304,16 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
         return zip(tree_flatten(params)[0], tree_flatten(grads)[0],
                    _flatten_up_to(state["slots"], params))
 
+    def refuse_sharded(params):
+        if any(is_dtensor(p) and any(pl.is_shard() for pl in p.placements)
+               for p in tree_flatten(params)[0]):
+            raise NotImplementedError(
+                "adafactor's factored moments average over whole rows and "
+                "columns; it does not update sharded (DTensor) leaves")
+
     @torch.no_grad()
     def update(params, grads, state):
+        refuse_sharded(params)
         step, c = coeffs(state)
         out = [upd(*leaf, *c) for leaf in leaves(params, grads, state)]
         tdef = tree_flatten(params)[1]
@@ -253,6 +323,7 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
 
     @torch.no_grad()
     def update_(params, grads, state):
+        refuse_sharded(params)
         step, c = coeffs(state)
         for p, g, s in leaves(params, grads, state):
             new_p, new_s = upd(p, g, s, *c)

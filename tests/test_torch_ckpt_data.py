@@ -204,5 +204,9 @@ def test_cli_kill_resume_is_bit_equal(tmp_path, capsys):
     with pytest.raises(SystemExit):
         main(args[:-6] + ["--steps", "12", "--reassembly", "kernel",
                           "--log-every", "0", "--ckpt", d_part, "--resume"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main(args + ["--mesh", "debug"])
+    # the (1, 1) debug mesh on one CPU rank: the same losses and the same
+    # checkpoint bytes as the mesh-less run
+    d_mesh = str(tmp_path / "mesh")
+    assert main(args + ["--mesh", "debug", "--ckpt", d_mesh]) == full
+    c = _meta(os.path.join(d_mesh, "step_00000006"))
+    assert c["names"] == a["names"] and c["checksums"] == a["checksums"]

@@ -71,7 +71,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.configs.shapes", "repro_torch.configs.starcoder2_3b",
               "repro_torch.configs.qwen2_5_32b",
               "repro_torch.configs.stablelm_12b",
-              "repro_torch.configs.deepseek_v3_671b"):
+              "repro_torch.configs.deepseek_v3_671b",
+              "repro_torch.dist", "repro_torch.dist.sharding",
+              "repro_torch.dist.constraints", "repro_torch.dist.tensor",
+              "repro_torch.launch.mesh", "repro_torch.launch.elastic",
+              "repro_torch.models.moe_ep"):
         assert m in MODULES, m
 
 

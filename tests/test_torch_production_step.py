@@ -236,9 +236,17 @@ def test_engine_refuses_what_is_not_ported():
     from repro_torch.launch.engine import Engine
     from repro_torch.optim import sgd
     cfg, m, _ = _port("deepseek-7b")
-    for kw in ({"mesh": object()}, {"elastic": True}):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            Engine(m, cfg, sgd(0.1), device=CPU, **kw)
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(1, 1, device="cpu")
+    with pytest.raises(ValueError, match="reshrinks a mesh"):
+        Engine(m, cfg, sgd(0.1), device=CPU, elastic=True)
+    with pytest.raises(ValueError, match="ckpt_dir"):
+        Engine(m, cfg, sgd(0.1), device=CPU, elastic=True, mesh=mesh)
+    with pytest.raises(ValueError, match="production-only"):
+        Engine(m, cfg, sgd(0.1), device=CPU, mode="sim", mesh=mesh)
+    with pytest.raises(ValueError, match="a cuda mesh"):
+        Engine(m, cfg, sgd(0.1), device=CPU,
+               mesh=make_debug_mesh(1, 1, device="cuda"))
     with pytest.raises(ValueError, match="wire"):
         Engine(m, cfg, sgd(0.1), wire="int8", device=CPU)
     eng = Engine(m, cfg, sgd(0.1), device=CPU)

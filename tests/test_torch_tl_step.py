@@ -377,5 +377,8 @@ def test_cli_sim_runs_on_cpu_when_asked(capsys):
     assert len(losses) == 4 and "device=cpu" in out
     assert "wire[activations_grads]" in out and "ratio=3.9" in out
     assert "wire[model]" in out and "ratio=1.00x" in out
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main(["--device", "cpu", "--mesh", "debug"])
+    # the distribution flags are checked before anything runs
+    for bad in (["--elastic"], ["--multi-pod"], ["--drill", "kill:1"],
+                ["--mesh", "debug", "--drill", "hang-device:x"]):
+        with pytest.raises(SystemExit):
+            main(["--device", "cpu"] + bad)
