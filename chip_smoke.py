@@ -37,7 +37,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ragged S, head counts that do not fill the kernel's 64-row packing
    (80 MLA heads, 12 heads on one KV head) and bf16; at the MLA shape the
    kernel also within 5e-6 of a float64 softmax and no further from it
-   than the plain version, and a D the kernel does not take refused.
+   than the plain version, and a D the kernel does not take refused; the
+   prefill shapes of qwen2-vl (GQA 8:1, D 128) and seamless (D 64: the
+   encoder's bidirectional and the cross-attention's Sq 64 x Sk 1024,
+   non-causal, and the decoder's causal self-attention), ragged Sq != Sk
+   (37 x 1000, 130 x 77 with GQA) and a bf16 cross case.
 3. Main path 1, serving: deepseek-7b at full width (30 layers, d_model
    4096, random weights from a seed) serves 4 ragged requests through
    ``ServeEngine(attention="paged")``; over that run ``paged_decode`` must
@@ -85,6 +89,24 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``jax.lax.top_k``).  No token-by-token oracle: capacity routing drops
    overflow choices in a prefill but never in a decode step, so a prompt fed
    token by token is a different computation (as in the reference).
+3e. Main path 9, the encoder-decoder and the VLM through the static
+   ``generate`` (the paged engine refuses both, as the reference's):
+   seamless-m4t-medium at its published 12 + 12 layers (977.8 M
+   parameters, 3.91 GB f32) at B 4, prompt 64, 16 greedy tokens,
+   prefilling with zero frames (1024 of them) as the reference's
+   ``generate`` does: ``flash_attention_bh`` exactly 36 times (12 encoder
+   layers bidirectional, 12 causal self- and 12 cross-attentions) in the
+   prefill and never in a decode step.  With seeded random frames (std
+   0.02; zero frames make the encoder output zero): layer 0's encoder and
+   cross tensors through K4 against the plain version (1e-5), and the
+   prompt token by token through ``decode_step`` into the encoded frames
+   against the full forward (rel 2e-3).  Then qwen2-vl-72b at full width,
+   depth cut from 80 layers to 19 (the deepest that leaves 3 GB of the
+   card; 76.7 GB f32) at B 4, prompt 1024, 16 tokens, text only:
+   ``flash_attention_bh`` once a layer in the prefill, never in a decode
+   step; layer 0's M-RoPE'd q, k, v through K4 against the plain version;
+   a 320-token prompt token by token against the full forward (rel 2e-3).
+   Prefill ms and decode ms a step of each.
 4. Main path 2, TL training: the three paper models at their configured
    widths (DATRET MLP, ConvNet, tiny Transformer), 3 nodes of 96/64/32
    samples, batch 64, 2 epochs, through ``Engine(mode="sim")`` with kernel
@@ -154,6 +176,24 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    on the first batch phase 4c (b)'s TL-vs-CL gates; then one forward
    without grad launches the scan kernel once per recurrent layer (and K4
    once per Griffin attention layer).  ms a step and peak printed.
+4f. Main path 10, the production TL step of the encoder-decoder and the
+   VLM at full width, with deterministic algorithms.  seamless-m4t-medium
+   at 12 + 12 layers, batch 8 x 512 on the engine's zero frames,
+   reassembly "none" (its loss is ``model.loss``, as the reference's):
+   on the first batch the TL loss and grads against ``model.loss`` (1e-5
+   / 1e-4); 3 in-place steps (a checkpoint at step 2): losses finite, no
+   K4 and no K1 launch, 3 GB of the card left; 3 functional steps
+   bit-equal to them; a fresh engine restored from the step-2 checkpoint
+   runs step 3 bit-equal (kill + resume).  qwen2-vl-72b at full width, 2
+   layers (block 0 and a one-layer tail), batch 4 x 512 behind 256 zero
+   patch rows, kernel reassembly of X^(1) (4 rows of 25.2 MB): 3 in-place
+   steps, ``permute_rows`` and ``take_rows`` once a step, no K4, 3 GB of
+   the card left; the in-place update bit-equal to the functional one
+   leaf by leaf on every leaf but the embedding and the head (a second
+   copy of a 1.25 B-element leaf's update does not fit beside the 68 GB
+   of state and gradients); on the first batch the TL loss and grads with
+   kernel reassembly bit-equal to torch reassembly and within 1e-5 / 1e-4
+   of ``model.loss`` on the shuffled batch.
 4e. Distribution, main path 8 (run after phase 5, whose profiler sessions
    lost kernel records when it ran first), on a one-rank NCCL mesh (one
    card is one
@@ -184,9 +224,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    round trip also beside the four-launch sequence it replaces; K1 also
    as one ``scatter_rows`` call at N 1, its launch floor; K1's readings
    print the row x chunk plan), and
-   where a library call is timed, that call's too; prefill
-   ms, decode ms a step, tok/s and peak memory of each recurrent family
-   and of deepseek-v2.
+   where a library call is timed, that call's too; K4 also at the
+   qwen2-vl, seamless-encoder and seamless-cross prefill shapes, K1 also
+   at qwen2-vl's X^(1); prefill ms, decode ms a step, tok/s and peak
+   memory of each recurrent family, of deepseek-v2, seamless and
+   qwen2-vl.
 6. One JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1364,46 +1406,68 @@ def check_rglru():
 # ------------------------------------------------------- flash attention
 
 MLA_SCALE = 1 / math.sqrt(128 + 64)          # 1/sqrt(nope + rope)
-# name, (B, S, H, KV, D), window, v_width (0: a V tensor), scale, causal,
-# dtype; the first three are the main paths' prefill shapes
+# name, (B, Sq, Sk, H, KV, D), window, v_width (0: a V tensor), scale,
+# causal, dtype; the first three are the main paths' prefill shapes, the
+# qwen2-vl and seamless ones those of phase 3e's prefills
 FLASH_CASES = [
-    ("deepseek-7b", (1, 1024, 32, 32, 128), 0, 0, None, True, "float32"),
-    ("griffin window 2048", (1, 4096, 16, 1, 256), 2048, 0, None, True,
+    ("deepseek-7b", (1, 1024, 1024, 32, 32, 128), 0, 0, None, True,
      "float32"),
-    ("mla v=k[:512]", (4, 1024, 128, 1, 576), 0, 512, MLA_SCALE, True,
+    ("griffin window 2048", (1, 4096, 4096, 16, 1, 256), 2048, 0, None, True,
      "float32"),
-    ("ragged S1000 gqa", (2, 1000, 8, 2, 128), 0, 0, None, True, "float32"),
-    ("ragged S1000 non-causal", (1, 1000, 8, 2, 128), 0, 0, None, False,
+    ("mla v=k[:512]", (4, 1024, 1024, 128, 1, 576), 0, 512, MLA_SCALE, True,
      "float32"),
-    ("bf16 deepseek-7b", (1, 1024, 32, 32, 128), 0, 0, None, True,
+    ("qwen2-vl gqa 8:1", (4, 1024, 1024, 64, 8, 128), 0, 0, None, True,
+     "float32"),
+    ("seamless encoder non-causal", (4, 1024, 1024, 16, 16, 64), 0, 0, None,
+     False, "float32"),
+    ("seamless decoder self", (4, 64, 64, 16, 16, 64), 0, 0, None, True,
+     "float32"),
+    ("seamless cross Sq 64 Sk 1024", (4, 64, 1024, 16, 16, 64), 0, 0, None,
+     False, "float32"),
+    # cross-attention's Sq != Sk at ragged edges: queries and keys that
+    # fill no tile, GQA and the key count past the last full tile
+    ("ragged cross Sq 37 Sk 1000", (3, 37, 1000, 16, 16, 64), 0, 0, None,
+     False, "float32"),
+    ("ragged cross gqa Sq 130 Sk 77", (2, 130, 77, 8, 2, 128), 0, 0, None,
+     False, "float32"),
+    ("ragged S1000 gqa", (2, 1000, 1000, 8, 2, 128), 0, 0, None, True,
+     "float32"),
+    ("ragged S1000 non-causal", (1, 1000, 1000, 8, 2, 128), 0, 0, None, False,
+     "float32"),
+    ("bf16 deepseek-7b", (1, 1024, 1024, 32, 32, 128), 0, 0, None, True,
      "bfloat16"),
-    ("bf16 mla", (1, 1000, 128, 1, 576), 0, 512, MLA_SCALE, True,
+    ("bf16 seamless cross", (2, 64, 1024, 16, 16, 64), 0, 0, None, False,
+     "bfloat16"),
+    ("bf16 mla", (1, 1000, 1000, 128, 1, 576), 0, 512, MLA_SCALE, True,
      "bfloat16"),
     # head counts that do not fill the kernel's 64-row packing: 80 MLA
     # heads (tiles of 64 + 16), 12 heads on one KV head (5 positions x 12)
-    ("mla ragged S777 H80", (1, 777, 80, 1, 576), 0, 512, MLA_SCALE, True,
-     "float32"),
-    ("ragged S333 H12/KV1", (2, 333, 12, 1, 128), 0, 0, None, True,
+    ("mla ragged S777 H80", (1, 777, 777, 80, 1, 576), 0, 512, MLA_SCALE,
+     True, "float32"),
+    ("ragged S333 H12/KV1", (2, 333, 333, 12, 1, 128), 0, 0, None, True,
      "float32"),
 ]
 
 
-def flash_case(B, S, H, KV, D, v_width, *, seed, dtype):
-    """q (B,S,H,D), k (B,S,KV,D) and v (B,S,KV,D) or None, N(0, 1) from a
-    numpy seed, on the card."""
+def flash_case(B, Sq, Sk, H, KV, D, v_width, *, seed, dtype):
+    """q (B,Sq,H,D), k (B,Sk,KV,D) and v (B,Sk,KV,D) or None, N(0, 1) from
+    a numpy seed, on the card."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a.astype(np.float32), device=DEVICE).to(  # noqa: E731
         getattr(torch, dtype))
-    q, k = t(rng.normal(size=(B, S, H, D))), t(rng.normal(size=(B, S, KV, D)))
-    v = None if v_width else t(rng.normal(size=(B, S, KV, D)))
+    q, k = t(rng.normal(size=(B, Sq, H, D))), t(rng.normal(size=(B, Sk, KV,
+                                                                 D)))
+    v = None if v_width else t(rng.normal(size=(B, Sk, KV, D)))
     return q, k, v
 
 
 def check_flash_attention():
     """Phase 2: flash_attention_bh against its plain version at the main
-    paths' prefill shapes, a ragged S (causal and not) and bf16."""
+    paths' prefill shapes (the seamless encoder's and cross-attention's
+    non-causal, Sq != Sk), ragged S and Sq != Sk (causal and not) and
+    bf16."""
     import torch
 
     from repro_torch.kernels.flash_attention import (flash_attention_bh,
@@ -1412,7 +1476,7 @@ def check_flash_attention():
     for i, (name, shape, window, v_width, scale, causal, dtype) in \
             enumerate(FLASH_CASES):
         q, k, v = flash_case(*shape, v_width, seed=40 + i, dtype=dtype)
-        kw = dict(scale=scale or shape[4] ** -0.5, causal=causal,
+        kw = dict(scale=scale or shape[5] ** -0.5, causal=causal,
                   window=window, v_width=v_width)
         out = flash_attention_bh(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1423,7 +1487,7 @@ def check_flash_attention():
                                    rtol=tol)
         if dtype == "float32":
             worst = max(worst, err)
-        print(f"  flash_attention_bh {name} B,S,H,KV,D={shape} {dtype}: "
+        print(f"  flash_attention_bh {name} B,Sq,Sk,H,KV,D={shape} {dtype}: "
               f"max_abs_err={err:.3e} (tol {tol})")
         if name == "mla v=k[:512]":
             truth = attention_f64(q, k, v, **kw)
@@ -1438,7 +1502,7 @@ def check_flash_attention():
         del q, k, v, out, want
     # a shape outside the kernel's tiles is refused, and launches nothing
     n0 = flash_attention_bh.launches
-    q, k, v = flash_case(1, 16, 2, 2, 12, 0, seed=49, dtype="float32")
+    q, k, v = flash_case(1, 16, 16, 2, 2, 12, 0, seed=49, dtype="float32")
     try:
         flash_attention_bh(q, k, v, scale=12 ** -0.5)
     except ValueError as e:
@@ -1474,29 +1538,38 @@ def attention_f64(q, k, v, *, scale, causal, window, v_width):
     return torch.stack(rows)
 
 
-def time_flash(name, B, S, H, KV, D, window, v_width, scale):
+def time_flash(name, B, Sq, Sk, H, KV, D, window, v_width, scale,
+               causal=True):
     """flash_attention_bh against its plain version at one prefill shape,
-    by CUDA-event pairs and by device time, with its bound: the causal (and
-    windowed) pairs' QK and PV products against q, k (and v) read once and
-    the output written once, the products at the faster of the f32 CUDA
-    cores and 3xTF32 on the tensor cores (``bound_f32_ms``: the CUDA
-    cores').  One ``scaled_dot_product_attention`` call on the same inputs
-    (K/V broadcast over the heads as an expanded view, V = K[...,
-    :v_width], a window as a boolean mask) is the yardstick, with the
-    kernel SDPA ran."""
+    by CUDA-event pairs and by device time, with its bound: the visible
+    (causal, windowed, or all Sq x Sk) pairs' QK and PV products against
+    q, k (and v) read once and the output written once, the products at
+    the faster of the f32 CUDA cores and 3xTF32 on the tensor cores
+    (``bound_f32_ms``: the CUDA cores').  One
+    ``scaled_dot_product_attention`` call on the same inputs (K/V
+    broadcast over the heads as an expanded view, V = K[..., :v_width], a
+    window as a boolean mask; grouped K/V heads repeated to the query
+    heads before the timed call, so that f32 runs SDPA's fused kernel, as
+    at the other shapes, and not the math path that its ``enable_gqa``
+    falls to) is the yardstick, with the kernel SDPA ran."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention_bh,
                                                      flash_attention_ref)
-    q, k, v = flash_case(B, S, H, KV, D, v_width, seed=50, dtype="float32")
+    q, k, v = flash_case(B, Sq, Sk, H, KV, D, v_width, seed=50,
+                         dtype="float32")
     dv = v_width or D
     scale = scale or D ** -0.5
-    kw = dict(scale=scale, window=window, v_width=v_width)
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    kw = dict(scale=scale, causal=causal, window=window, v_width=v_width)
+    if causal:
+        pairs = sum(min(i + 1, window) if window else i + 1
+                    for i in range(Sq))
+    else:
+        pairs = Sq * Sk
     flops = B * H * pairs * 2 * (D + dv)
-    nbytes = 4 * (B * S * H * D + B * S * KV * D
-                  + (0 if v_width else B * S * KV * dv) + B * S * H * dv)
+    nbytes = 4 * (B * Sq * H * D + B * Sk * KV * D
+                  + (0 if v_width else B * Sk * KV * dv) + B * Sq * H * dv)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = products_ms(flops)
 
@@ -1509,20 +1582,29 @@ def time_flash(name, B, S, H, KV, D, window, v_width, scale):
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bound_f32_ms": max(t_bytes, 1e3 * flops / F32_FLOPS),
-           "shape": f"{name}: B={B} S={S} H={H} KV={KV} D={D} dv={dv} "
-                    f"window={window} f32",
+           "shape": f"{name}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
+                    f"dv={dv} window={window} causal={causal} f32",
            "gflop": flops / 1e9, "bytes": nbytes}
     qh = q.transpose(1, 2)
-    kh = k.transpose(1, 2).expand(B, H, S, D)
-    vh = kh[..., :dv] if v_width else v.transpose(1, 2).expand(B, H, S, dv)
+    # K/V broadcast over the heads: an expanded view for one KV head or
+    # one a query head, each KV head repeated to its group of query heads
+    # between (query head h reads KV head h // (H // KV), as in K4)
+    def heads(t):
+        t = t.transpose(1, 2)
+        if 1 < KV < H:
+            return t.repeat_interleave(H // KV, dim=1)
+        return t.expand(B, H, Sk, t.shape[-1])
+    kh = heads(k)
+    vh = kh[..., :dv] if v_width else heads(v)
     mask = None
     if window:
-        i = torch.arange(S, device=DEVICE)
+        i = torch.arange(Sq, device=DEVICE)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
     def sdpa():
         if mask is None:
-            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal,
                                                   scale=scale)
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                               scale=scale)
@@ -1758,18 +1840,23 @@ def static_generate(model, cfg, params, prompts, counts):
 
 
 def prefill_decode_ms(model, params, prompts):
-    """Host-clock ms of one prefill of ``prompts`` into a fresh cache and
-    the median of SERVE_GEN decode steps after it, each synced."""
+    """Host-clock ms of one prefill of ``prompts`` (with ``generate``'s
+    ``prefill_frames``) into a fresh cache and the median of SERVE_GEN
+    decode steps after it, each synced."""
     import statistics as st
 
     import torch
+
+    from repro_torch.launch.serve import prefill_frames
     B, P = prompts.shape
     cache = model.init_cache(B, P + SERVE_GEN, device=DEVICE,
                              dtype=params["embed"].dtype)
     pt = torch.as_tensor(prompts, device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, cache, pt)
+    logits, cache = model.prefill(
+        params, cache, pt,
+        *prefill_frames(model.cfg, B, params["embed"].dtype, DEVICE))
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     tok = logits.argmax(-1).to(torch.int32)
@@ -1780,6 +1867,205 @@ def prefill_decode_ms(model, params, prompts):
         torch.cuda.synchronize()
         steps.append(1e3 * (time.perf_counter() - t0))
     return prefill_ms, st.median(steps)
+
+
+# ------------------------------------------- encoder-decoder and VLM (3e)
+
+SEAMLESS_P = 64             # seamless's prompt; its encoder sees 1024 frames
+QWEN_VL_LAYERS = 19         # of 80: the deepest that leaves 3 GB of the card
+
+
+def hold_flash(name, q, k, v, *, causal):
+    """One K4 launch on a model's own tensors against the plain version
+    (f32 1e-5); the launch is a comparison's, not the main path's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bh,
+                                                     flash_attention_ref)
+    kw = dict(scale=q.shape[-1] ** -0.5, causal=causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    got = flash_attention_bh(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    err = _abs_err(got, want)
+    print(f"  {name}: K4 on the model's tensors q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} causal={causal} against its plain version: "
+          f"max_abs_err {err:.3e} (tol {TOL['float32']})")
+    return err
+
+
+def serve_frontends(card: str):
+    """Phase 3e: the encoder-decoder and the VLM through the static
+    ``generate`` at full width (random weights from seed 0)."""
+    return {"seamless-m4t-medium": serve_seamless(card),
+            "qwen2-vl-72b": serve_qwen_vl(card)}
+
+
+def serve_seamless(card: str):
+    """seamless-m4t-medium at its published 12 + 12 layers: ``generate``
+    at B 4, prompt 64, 16 greedy tokens, prefilling with zero frames as
+    the reference does; ``flash_attention_bh`` once per encoder layer
+    (bidirectional, 1024 frames), decoder self-attention (causal) and
+    cross-attention (Sq 64, Sk 1024) in the prefill, never in a decode
+    step.  With seeded random frames (std 0.02; zero frames make the
+    encoder output and the cross K/V zero): layer 0's encoder and cross
+    tensors through K4 against the plain version, and the oracle: the
+    prompt token by token through ``decode_step`` into the encoded frames
+    against the full forward, rel 2e-3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import embed_tokens
+
+    cfg = get_config("seamless-m4t-medium")
+    E, L, F = cfg.n_encoder_layers, cfg.n_layers, cfg.frontend_tokens
+    model, params = load_model(cfg)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_B, SEAMLESS_P)).astype(np.int32)
+    _, wall, peak = static_generate(model, cfg, params, prompts,
+                                    (flash_attention_bh,))   # the main path
+    launches = flash_attention_bh.launches
+    assert launches == E + 2 * L, (launches, E + 2 * L)   # one prefill
+    print(f"  main path: static generate B={SERVE_B} prompt {SEAMLESS_P} "
+          f"(zero frames, {F} of them) gen {SERVE_GEN} in {wall:.3f}s "
+          f"({SERVE_B * SERVE_GEN / wall:.2f} tok/s); flash_attention_bh "
+          f"launches {launches} ({E} encoder + {L} self + {L} cross x 1 "
+          f"prefill, 0 in {SERVE_GEN - 1} decode steps); peak {peak:.2f} GB "
+          f"[{card}]")
+
+    frames = torch.as_tensor((rng.normal(size=(SERVE_B, F, cfg.d_model))
+                              * 0.02).astype(np.float32), device=DEVICE)
+    pt = torch.as_tensor(prompts, device=DEVICE)
+    B, H, KV, hd = SERVE_B, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    errs = {}
+    with torch.no_grad():
+        enc0 = params["encoder"][0]
+        xn = rmsnorm(enc0["norm1"], frames, cfg.norm_eps)
+        a = enc0["attn"]
+        errs["encoder"] = hold_flash(
+            "encoder layer 0 (bidirectional)",
+            (xn @ a["w_q"]).reshape(B, F, H, hd),
+            (xn @ a["w_k"]).reshape(B, F, KV, hd),
+            (xn @ a["w_v"]).reshape(B, F, KV, hd), causal=False)
+        enc_out = encdec.encode(params, cfg, frames)
+        dec0 = params["decoder"][0]
+        hn = rmsnorm(dec0["cross_norm"], embed_tokens(params, cfg, pt),
+                     cfg.norm_eps)
+        c = dec0["cross"]
+        errs["cross"] = hold_flash(
+            "decoder layer 0 cross-attention",
+            (hn @ c["w_q"]).reshape(B, SEAMLESS_P, H, hd),
+            (enc_out @ c["w_k"]).reshape(B, F, KV, hd),
+            (enc_out @ c["w_v"]).reshape(B, F, KV, hd), causal=False)
+        assert float(enc_out.abs().max()) > 0
+        # oracle: two rows, the prompt token by token into the encoded
+        # frames (dense attention throughout) against the full forward
+        # (K4 in the encoder, the self- and the cross-attention)
+        cache = model.init_cache(2, SEAMLESS_P, device=DEVICE)
+        cache["enc_out"] = enc_out[:2]
+        outs = []
+        for t in range(SEAMLESS_P):
+            lg, cache = model.decode_step(params, cache, pt[:2, t], t)
+            outs.append(lg)
+        dec = torch.stack(outs, dim=1)
+        ref = model.forward(params, pt[:2], frames[:2])
+        rel = float((dec - ref).abs().max() / ref.abs().max())
+        assert rel < 2e-3, ("seamless oracle", rel)
+    print(f"  oracle: the {SEAMLESS_P}-token prompt token by token through "
+          f"decode_step into the encoded random frames vs the full "
+          f"forward: logits rel {rel:.2e} (< 2e-3) [{card}]")
+    del cache, dec, ref, outs, enc_out, frames
+    prefill_ms, decode_ms = prefill_decode_ms(model, params, prompts)
+    res = {"arch": cfg.name, "layers": [E, L], "launches": launches,
+           "tok_per_s": SERVE_B * SERVE_GEN / wall, "generate_s": wall,
+           "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "peak_gb": peak, "oracle_logits_rel": rel, "k4_errs": errs}
+    print(f"  seamless-m4t-medium B={SERVE_B} prompt {SEAMLESS_P}: prefill "
+          f"{prefill_ms:.3f} ms, decode {decode_ms:.3f} ms/step (median of "
+          f"{SERVE_GEN}) [{card}]")
+    del params, model
+    free_cuda()
+    return res
+
+
+def serve_qwen_vl(card: str):
+    """qwen2-vl-72b at full width, depth cut from 80 to QWEN_VL_LAYERS
+    (the deepest that leaves 3 GB of the card): ``generate`` at B 4,
+    prompt 1024, 16 greedy tokens, text only (its three M-RoPE streams
+    coincide, as in the reference); ``flash_attention_bh`` once a layer in
+    the prefill (GQA 8:1, D 128), never in a decode step.  Layer 0's own
+    q, k, v through K4 against the plain version; the oracle: a 320-token
+    prompt token by token against the full forward, rel 2e-3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.models.attention import gqa_project
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import embed_tokens
+
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"),
+                              n_layers=QWEN_VL_LAYERS)
+    model, params = load_model(cfg)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_B, SERVE_P)).astype(np.int32)
+    _, wall, peak = static_generate(model, cfg, params, prompts,
+                                    (flash_attention_bh,))   # the main path
+    launches = flash_attention_bh.launches
+    total = torch.cuda.get_device_properties(0).total_memory
+    headroom = (total - torch.cuda.max_memory_reserved()) / 1e9
+    assert launches == cfg.n_layers, (launches, cfg.n_layers)
+    assert headroom >= HEADROOM_GB, headroom
+    print(f"  main path: static generate B={SERVE_B} prompt {SERVE_P} gen "
+          f"{SERVE_GEN} in {wall:.3f}s ({SERVE_B * SERVE_GEN / wall:.2f} "
+          f"tok/s); flash_attention_bh launches {launches} ({cfg.n_layers} "
+          f"layers x 1 prefill, 0 in {SERVE_GEN - 1} decode steps); peak "
+          f"{peak:.2f} GB, {headroom:.2f} GB of the card left [{card}]")
+    pt = torch.as_tensor(prompts, device=DEVICE)
+    with torch.no_grad():
+        lay0 = params["layers"][0]
+        xn = rmsnorm(lay0["norm1"], embed_tokens(params, cfg, pt),
+                     cfg.norm_eps)
+        pos = torch.arange(SERVE_P, dtype=torch.int32, device=DEVICE)
+        q, k, v = gqa_project(lay0["mixer"], cfg, xn,
+                              pos.expand(SERVE_B, SERVE_P))
+        err = hold_flash("layer 0 (M-RoPE, GQA 8:1)", q, k, v, causal=True)
+        del xn, q, k, v
+        op = pt[:2, :ORACLE_P]
+        cache = model.init_cache(2, ORACLE_P, device=DEVICE)
+        outs = []
+        for t in range(ORACLE_P):
+            lg, cache = model.decode_step(params, cache, op[:, t], t)
+            outs.append(lg)
+        dec = torch.stack(outs, dim=1)
+        ref = model.forward(params, op)
+        rel = float((dec - ref).abs().max() / ref.abs().max())
+        assert rel < 2e-3, ("qwen2-vl oracle", rel)
+    print(f"  oracle: a {ORACLE_P}-token prompt token by token through "
+          f"decode_step vs the full forward: logits rel {rel:.2e} (< 2e-3) "
+          f"[{card}]")
+    del cache, dec, ref, outs
+    free_cuda()
+    prefill_ms, decode_ms = prefill_decode_ms(model, params, prompts)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "launches": launches,
+           "tok_per_s": SERVE_B * SERVE_GEN / wall, "generate_s": wall,
+           "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "peak_gb": peak, "headroom_gb": headroom,
+           "oracle_logits_rel": rel, "k4_err": err}
+    print(f"  qwen2-vl-72b ({cfg.n_layers} layers) B={SERVE_B} prompt "
+          f"{SERVE_P}: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} "
+          f"ms/step (median of {SERVE_GEN}) [{card}]")
+    del params, model
+    free_cuda()
+    return res
 
 
 def time_ssd():
@@ -2389,11 +2675,12 @@ DONATE_STEPS = 3
 HEADROOM_GB = 3.0           # a training cell's depth must leave this free
 
 
-def production_loader(vocab: int, seq: int = PROD_SEQ):
+def production_loader(vocab: int, seq: int = PROD_SEQ,
+                      batch: int = PROD_BATCH):
     from repro_torch.data.pipeline import (VirtualBatchLoader, shard_corpus,
                                            synthetic_corpus)
     return VirtualBatchLoader(shard_corpus(
-        synthetic_corpus(PROD_DOCS, seq, vocab), PROD_NODES), PROD_BATCH)
+        synthetic_corpus(PROD_DOCS, seq, vocab), PROD_NODES), batch)
 
 
 def production_opt(steps: int):
@@ -2402,10 +2689,13 @@ def production_opt(steps: int):
 
 
 def production_run(cfg, steps: int, counters: dict, *, donate: bool = True,
-                   mesh=None):
+                   mesh=None, reassembly: str = "kernel",
+                   batch: int = PROD_BATCH, **engine_kw):
     """``steps`` production TL steps of ``cfg`` from seed 0 through
-    ``Engine(mode="production", reassembly="kernel", remat_mode="tl",
-    donate=donate)`` on batch 8 x 512 from ``synthetic_corpus`` on 4 nodes;
+    ``Engine(mode="production", reassembly=reassembly, remat_mode="tl",
+    donate=donate, **engine_kw)`` on batch ``batch`` (8) x 512 from
+    ``synthetic_corpus`` on 4 nodes (a frontend arch on the engine's zero
+    embeddings);
     ``counters`` (name -> kernel wrapper) are set to 0 just before the run
     and read just after.  Returns the engine, its result and the readings:
     ms a step (synced host clock, median of steps 2..), the peak memory
@@ -2421,17 +2711,17 @@ def production_run(cfg, steps: int, counters: dict, *, donate: bool = True,
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(build_model(cfg), cfg, production_opt(steps),
-                 mode="production", reassembly="kernel", remat_mode="tl",
-                 donate=donate, log_every=1, mesh=mesh,
-                 device=DEVICE).init(0)
-    loader = production_loader(cfg.vocab_size)
+                 mode="production", reassembly=reassembly, remat_mode="tl",
+                 donate=donate, log_every=1, mesh=mesh, device=DEVICE,
+                 **engine_kw).init(0)
+    loader = production_loader(cfg.vocab_size, batch=batch)
     for c in counters.values():
         c.launches = 0
     res = eng.run(loader, steps=steps)
     launches = {name: c.launches for name, c in counters.items()}
     total = torch.cuda.get_device_properties(0).total_memory
     info = {"arch": cfg.name, "layers": cfg.n_layers,
-            "n_params": eng.n_params(), "batch": PROD_BATCH, "seq": PROD_SEQ,
+            "n_params": eng.n_params(), "batch": batch, "seq": PROD_SEQ,
             "donate": donate, "losses": [float(x) for x in res.losses],
             "step_ms": statistics.median(1e3 * t for t in res.step_s[1:]),
             "step_s": [round(t, 6) for t in res.step_s],
@@ -2446,7 +2736,7 @@ def production_run(cfg, steps: int, counters: dict, *, donate: bool = True,
 
 def print_run(tag: str, info: dict, card: str):
     print(f"  {tag} {info['arch']} at full width, {info['layers']} layers "
-          f"({info['n_params'] / 1e9:.3f} B params), batch {PROD_BATCH} x "
+          f"({info['n_params'] / 1e9:.3f} B params), batch {info['batch']} x "
           f"{PROD_SEQ}, {PROD_NODES} nodes, donate={info['donate']}: losses "
           f"{[round(x, 6) for x in info['losses']]}, {info['step_ms']:.3f} "
           f"ms a step (synced host clock, median of steps 2-"
@@ -2474,7 +2764,7 @@ def prod_tl_vs_cl(model, cfg, params, batch):
                                      params, batch)
     perm = batch["perm"].long()
     shuffled = {k: torch.empty_like(batch[k]).index_copy_(0, perm, batch[k])
-                for k in ("tokens", "targets")}
+                for k in ("tokens", "targets", "embeds") if k in batch}
     cl_loss, cl_grads = value_and_grad(lambda p, b: model.loss(p, b)[0],
                                        params, shuffled)
     rel = abs(float(k_loss) - float(cl_loss)) / abs(float(cl_loss))
@@ -2572,6 +2862,203 @@ def production_step(card: str):
                              "donate_step_ms": donate_info["step_ms"],
                              "functional_step_ms": fun_info["step_ms"],
                              "tl_cl_rel": rel, "grad_gap_rel": gap})
+
+
+# ------------------------------------- encoder-decoder and VLM training (4f)
+
+FRONTEND_STEPS = 3
+QWEN_VL_TRAIN_LAYERS = 2    # block0 and a one-layer tail, either side of TL
+QWEN_VL_TRAIN_B = 4         # x 512 text positions behind 256 patch rows
+
+
+def first_batch(eng, cfg, batch: int = PROD_BATCH):
+    """The engine's device batch of the loader's first host batch (perm,
+    and a frontend arch's zero embeddings)."""
+    return eng._with_embeds({k: v.to(DEVICE) for k, v in eng._host_batch(
+        next(iter(production_loader(cfg.vocab_size, batch=batch)))).items()})
+
+
+def check_update_per_leaf(params, grads, state, steps: int, skip=()):
+    """The in-place AdamW update (``update_``) against the functional one
+    (``update``) leaf by leaf, on the cell's own parameters, gradients and
+    Adam state: each leaf's gradient is clipped by the global-norm factor
+    of all of them (clip 1.0, as the engine's optimizer), both updates run
+    on it with the engine's schedule, the functional first (new tensors),
+    then the in-place one into the leaf and its slots; the two must be
+    bit-equal.  Leaves under a top-level key in ``skip`` are left out.
+    Returns the elements compared."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.optim import adamw, warmup_cosine
+    opt = adamw(warmup_cosine(3e-4, 10, steps))        # production_opt's
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads)))
+    scale = torch.clamp(1.0 / torch.clamp(norm, min=1e-9), max=1.0)
+    n = 0
+    for key in params:
+        if key in skip:
+            continue
+        for p, g, m, v in zip(*(tree_leaves(t[key]) for t in (
+                params, grads, state["m"], state["v"]))):
+            gc = g * scale.to(g.dtype)
+            want_p, want_s = opt.update({"x": p}, {"x": gc}, {
+                "step": state["step"], "m": {"x": m}, "v": {"x": v}})
+            opt.update_({"x": p}, {"x": gc}, {
+                "step": state["step"].clone(), "m": {"x": m}, "v": {"x": v}})
+            assert torch.equal(want_p["x"], p), key
+            assert torch.equal(want_s["m"]["x"], m), key
+            assert torch.equal(want_s["v"]["x"], v), key
+            n += p.numel()
+            del want_p, want_s, gc
+    return n
+
+
+def train_frontends(card: str):
+    """Phase 4f: the encoder-decoder and the VLM through the production TL
+    step at full width (random weights from seed 0), one at a time, with
+    deterministic algorithms (on from phase 4c's (a2))."""
+    return {"seamless-m4t-medium": train_seamless(card),
+            "qwen2-vl-72b": train_qwen_vl(card)}
+
+
+def train_seamless(card: str):
+    """seamless-m4t-medium at its published depth (12 + 12 layers), batch
+    8 x 512 on the engine's zero frames (8, 1024, 1024), reassembly "none"
+    (its TL loss is ``model.loss``, as the reference's, so no TL-vs-CL
+    gate can tell them apart here; the CPU tests hold it against the
+    reference's ``tl_loss_fn``): (i) the main path: 3 in-place steps
+    writing a checkpoint at step 2, losses finite, no K4 launch (training
+    attention is dense) and no K1 launch, at least 3 GB of the card left;
+    (ii) 3 functional steps bit-equal to them; (iii) a fresh engine
+    restored from the step-2 checkpoint runs step 3 bit-equal to the
+    uninterrupted run (kill + resume)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import build_model
+
+    cfg = get_config("seamless-m4t-medium")
+    model = build_model(cfg)
+    counters = {"flash_attention_bh": flash_attention_bh,
+                "permute_rows": permute_rows, "take_rows": take_rows}
+    ckpt = tempfile.mkdtemp(prefix="seamless_ckpt_")
+    try:
+        eng, res, info = production_run(cfg, FRONTEND_STEPS, counters,
+                                        reassembly="none", ckpt_dir=ckpt,
+                                        ckpt_every=2)
+        assert info["launches"] == dict.fromkeys(counters, 0), \
+            info["launches"]
+        print_run("(i) main path", info, card)
+        want_losses = res.losses
+        want = [t.cpu() for t in tree_leaves(res.params)]
+        del eng, res
+        free_cuda()
+        _, res, fun = production_run(cfg, FRONTEND_STEPS, counters,
+                                     donate=False, reassembly="none")
+        assert res.losses.tobytes() == want_losses.tobytes()
+        assert all(torch.equal(a.cpu(), b)
+                   for a, b in zip(tree_leaves(res.params), want))
+        print(f"  (ii) donate=True == donate=False over {FRONTEND_STEPS} "
+              f"steps (losses and params bit-equal); peak "
+              f"{info['peak_gb']:.2f} GB in place against "
+              f"{fun['peak_gb']:.2f} GB functional [{card}]")
+        del res
+        free_cuda()
+        t0 = time.perf_counter()
+        eng = Engine(model, cfg, production_opt(FRONTEND_STEPS),
+                     reassembly="none", device=DEVICE, ckpt_dir=ckpt)
+        assert eng.restore() == 2
+        res = eng.run(production_loader(cfg.vocab_size),
+                      steps=FRONTEND_STEPS)
+        assert res.losses.tobytes() == want_losses[2:].tobytes()
+        assert all(torch.equal(a.cpu(), b)
+                   for a, b in zip(tree_leaves(res.params), want))
+        ckpt_gb = sum(f.stat().st_size for f in Path(ckpt).rglob("*")
+                      if f.is_file()) / 1e9
+        resume_s = time.perf_counter() - t0
+        print(f"  (iii) kill + resume: restored from the step-2 checkpoint "
+              f"({ckpt_gb:.2f} GB on disk), step 3 bit-equal to the "
+              f"uninterrupted run (loss and params), {resume_s:.1f} s "
+              f"[{card}]")
+        del eng, res, want
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    free_cuda()
+    return dict(info, functional_peak_gb=fun["peak_gb"],
+                functional_step_ms=fun["step_ms"], ckpt_gb=ckpt_gb,
+                resume_s=resume_s)
+
+
+def train_qwen_vl(card: str):
+    """qwen2-vl-72b at full width, 2 layers, batch 4 x 512 text positions
+    behind the engine's 256 zero patch rows, kernel reassembly of X^(1)
+    (4 rows of 768 x 8192 f32, 25.2 MB each): (i) the main path, 3 in-place
+    steps: losses finite, ``permute_rows`` and ``take_rows`` once a step,
+    no K4 launch, at least 3 GB of the card left; (ii) on the next batch's
+    gradients the in-place update bit-equal to the functional one leaf by
+    leaf, every leaf but ``embed`` and ``head`` (a functional update of a
+    1.25 B-element leaf does not fit beside 68 GB of parameters, Adam state
+    and gradients); (iii) on the first batch the TL loss and grads with
+    kernel reassembly bit-equal to torch reassembly, and within 1e-5 /
+    1e-4 of ``model.loss`` on the shuffled batch."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tl_step import tl_loss_fn, value_and_grad
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"),
+                              n_layers=QWEN_VL_TRAIN_LAYERS)
+    counters = {"permute_rows": permute_rows, "take_rows": take_rows,
+                "flash_attention_bh": flash_attention_bh}
+    eng, res, info = production_run(cfg, FRONTEND_STEPS, counters,
+                                    batch=QWEN_VL_TRAIN_B)
+    assert info["launches"] == {"permute_rows": FRONTEND_STEPS,
+                                "take_rows": FRONTEND_STEPS,
+                                "flash_attention_bh": 0}, info["launches"]
+    info["rows"] = cfg.frontend_tokens + PROD_SEQ
+    print_run("(i) main path", info, card)
+    model, params, state = eng.model, res.params, res.opt_state
+    eng.opt_state = res.opt_state = None
+    del res
+    batch = first_batch(eng, cfg, QWEN_VL_TRAIN_B)
+    t0 = time.perf_counter()
+    _, grads = value_and_grad(tl_loss_fn(model, cfg, "tl", "kernel"), params,
+                              batch)
+    n = check_update_per_leaf(params, grads, state, FRONTEND_STEPS,
+                              skip=("embed", "head"))
+    print(f"  (ii) in-place AdamW == functional, leaf by leaf, on "
+          f"{n / 1e9:.3f} B of {info['n_params'] / 1e9:.3f} B parameters "
+          f"(all but embed and head); {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    del grads, state
+    free_cuda()
+    t0 = time.perf_counter()
+    k_loss, k_grads, rel, gap, _ = prod_tl_vs_cl(model, cfg, params, batch)
+    free_cuda()
+    t_loss, t_grads = value_and_grad(tl_loss_fn(model, cfg, "tl", "torch"),
+                                     params, batch)
+    assert torch.equal(k_loss, t_loss), (float(k_loss), float(t_loss))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(k_grads),
+                                                 tree_leaves(t_grads)))
+    print(f"  (iii) first batch: TL loss kernel == torch reassembly, grads "
+          f"bit-equal; TL {float(k_loss):.6f} vs CL (rel {rel:.3e}); max "
+          f"grad gap {gap:.3e} of the largest grad; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del params, k_grads, t_grads, batch, eng, model
+    free_cuda()
+    return dict(info, tl_cl_rel=rel, grad_gap_rel=gap,
+                inplace_checked_params=n)
 
 
 # ------------------------------------------------------ distribution (4e)
@@ -2977,8 +3464,9 @@ def forward_only_guards(card: str):
 
 
 def time_vb_production(prod):
-    """K1 at the production step's shape: permute_rows over X^(1) (8, 512 x
-    3072) f32 and the targets (8, 512) int32, take_rows over X^(1)'s
+    """K1 at a production step's shape (starcoder2-3b's: permute_rows over
+    X^(1) (8, 512 x 3072) f32 and the targets (8, 512) int32; qwen2-vl's
+    X^(1) has ``rows`` = 256 + 512 positions a row), take_rows over X^(1)'s
     cotangent, by CUDA-event pairs and device time, against the plain
     version and ``index_copy_`` / ``index_select``."""
     import numpy as np
@@ -2989,7 +3477,7 @@ def time_vb_production(prod):
                                                 permute_rows_ref, take_rows)
     cfg = get_config(prod["arch"])
     rng = np.random.default_rng(6)
-    N, W = prod["batch"], prod["seq"] * cfg.d_model
+    N, W = prod["batch"], prod.get("rows", prod["seq"]) * cfg.d_model
     h1 = _rows(rng, (N, W), torch.float32)
     tgt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (N, prod["seq"]),
                                        dtype=np.int32), device=DEVICE)
@@ -3284,6 +3772,11 @@ def main() -> None:
           f"width, {MLA_LAYERS} layers, through the paged engine")
     mla = serve_mla(card)
 
+    print(f"== phase 3e: main path 9, seamless-m4t-medium (encoder-decoder, "
+          f"12 + 12 layers) and qwen2-vl-72b (M-RoPE, {QWEN_VL_LAYERS} "
+          f"layers) at full width through the static generate")
+    frontends = serve_frontends(card)
+
     print("== phase 4: main path 2, TL training of the paper models")
     torch.use_deterministic_algorithms(True)
     tl_launches, tl = tl_training(card)
@@ -3315,6 +3808,13 @@ def main() -> None:
     for arch in RECURRENT_TRAIN:
         rec_train[arch] = recurrent_training(card, arch)
 
+    print(f"== phase 4f: main path 10, the production TL step of "
+          f"seamless-m4t-medium (12 + 12 layers) and qwen2-vl-72b "
+          f"({QWEN_VL_TRAIN_LAYERS} layers) at full width")
+    torch.use_deterministic_algorithms(True)
+    front_train = train_frontends(card)
+    torch.use_deterministic_algorithms(False)
+
     print("== phase 5: timing")
     served = time_paged_decode(paged_decode_attention,
                                paged_decode_attention_ref, 80,
@@ -3335,9 +3835,12 @@ def main() -> None:
         print(f"  permute_rows {mode} at N 16384: "
               f"{json.dumps(vb_large[mode])} [{card}]")
     vb_prod = time_vb_production(prod)
+    vb_vl = time_vb_production(front_train["qwen2-vl-72b"])
     for mode in ("scatter", "gather"):
         print(f"  permute_rows {mode} at the production step's shape: "
               f"{json.dumps(vb_prod[mode])} [{card}]")
+        print(f"  permute_rows {mode} at qwen2-vl's production shape: "
+              f"{json.dumps(vb_vl[mode])} [{card}]")
     k1_floor, k1_main = time_scatter_rows(1), time_scatter_rows(64)
     print(f"  scatter_rows launch floor (N 1): {json.dumps(k1_floor)}; at the "
           f"main-path N 64: {json.dumps(k1_main)}; N 64 / N 1 device time "
@@ -3360,11 +3863,20 @@ def main() -> None:
     print(f"  rglru_scan_b at the main-path shape: {json.dumps(rglru_t)} "
           f"[{card}]")
     flash_t = {
-        "mla": time_flash("mla", 4, 1024, 128, 1, 576, 0, 512, MLA_SCALE),
-        "griffin": time_flash("griffin", SERVE_B, SERVE_P, 16, 1, 256, 2048,
-                              0, None),
-        "deepseek-7b": time_flash("deepseek-7b", 1, 1024, 32, 32, 128, 0, 0,
-                                  None)}
+        "mla": time_flash("mla", 4, 1024, 1024, 128, 1, 576, 0, 512,
+                          MLA_SCALE),
+        "griffin": time_flash("griffin", SERVE_B, SERVE_P, SERVE_P, 16, 1,
+                              256, 2048, 0, None),
+        "deepseek-7b": time_flash("deepseek-7b", 1, 1024, 1024, 32, 32, 128,
+                                  0, 0, None),
+        "qwen2-vl": time_flash("qwen2-vl", SERVE_B, SERVE_P, SERVE_P, 64, 8,
+                               128, 0, 0, None),
+        "seamless-encoder": time_flash(
+            "seamless-encoder", SERVE_B, 1024, 1024, 16, 16, 64, 0, 0, None,
+            causal=False),
+        "seamless-cross": time_flash(
+            "seamless-cross", SERVE_B, SEAMLESS_P, 1024, 16, 16, 64, 0, 0,
+            None, causal=False)}
     for name, r in flash_t.items():
         print(f"  flash_attention_bh at the {name} prefill shape: "
               f"{json.dumps(r)} [{card}]")
@@ -3373,6 +3885,12 @@ def main() -> None:
           f"{mla['decode_step_ms']:.3f} ms/step (median of {SERVE_GEN}), "
           f"{mla['tok_per_s_static']:.2f} tok/s over the static generate of "
           f"{SERVE_GEN} tokens, peak {mla['peak_gb']:.2f} GB [{card}]")
+    for arch, r in frontends.items():
+        print(f"  {arch} ({r['layers']} layers): prefill "
+              f"{r['prefill_ms']:.3f} ms, decode {r['decode_step_ms']:.3f} "
+              f"ms/step (median of {SERVE_GEN}), {r['tok_per_s']:.2f} tok/s "
+              f"over the static generate of {SERVE_GEN} tokens, peak "
+              f"{r['peak_gb']:.2f} GB [{card}]")
     for arch, r in recurrent.items():
         print(f"  {arch} B={SERVE_B} prompt {SERVE_P}: prefill "
               f"{r['prefill_ms']:.3f} ms, decode {r['decode_step_ms']:.3f} "
@@ -3415,8 +3933,12 @@ def main() -> None:
             extra = {}
         extra.update({f"production_{k}": v
                       for k, v in vb_prod[mode].items()})
+        extra.update({f"production_qwen2_vl_{k}": v
+                      for k, v in vb_vl[mode].items()})
         key = "permute_rows" if mode == "scatter" else "take_rows"
         extra["launches_production"] = prod["launches"][key]
+        extra["launches_production_qwen2_vl"] = front_train[
+            "qwen2-vl-72b"]["launches"][key]
         extra["launches_distributed"] = dist["sharded"]["launches"][key]
         extra["launches_production_recurrent"] = sum(
             r["launches"][key] for r in rec_train.values())
@@ -3535,11 +4057,19 @@ def main() -> None:
                   "flash_attention_bh"],
               launches_griffin=recurrent["recurrentgemma-9b"][
                   "flash_launches"],
+              launches_seamless=frontends["seamless-m4t-medium"]["launches"],
+              launches_qwen2_vl=frontends["qwen2-vl-72b"]["launches"],
+              launches_training_frontends=sum(
+                  r["launches"]["flash_attention_bh"]
+                  for r in front_train.values()),
               **{f"{pre}_{key}": flash_t[name][key]
                  for name, pre in (("griffin", "griffin"),
-                                   ("deepseek-7b", "deepseek_7b"))
-                 for key in ("ms", "device_ms", "bound_ms", "bound_f32_ms",
-                             "plain_ms", "library_ms",
+                                   ("deepseek-7b", "deepseek_7b"),
+                                   ("qwen2-vl", "qwen2_vl"),
+                                   ("seamless-encoder", "seamless_encoder"),
+                                   ("seamless-cross", "seamless_cross"))
+                 for key in ("ms", "device_ms", "bound_ms", "bound_by",
+                             "bound_f32_ms", "plain_ms", "library_ms",
                              "library_device_ms")}),
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
@@ -3554,6 +4084,10 @@ def main() -> None:
     print(f"  production: {json.dumps(prod)} [{card}]")
     print(f"  distribution: {json.dumps(dist)} [{card}]")
     print(f"  recurrent training: {json.dumps(rec_train)} [{card}]")
+    print(f"  encoder-decoder and VLM serving: {json.dumps(frontends)} "
+          f"[{card}]")
+    print(f"  encoder-decoder and VLM training: {json.dumps(front_train)} "
+          f"[{card}]")
     print(f"  baselines: {json.dumps(accs)} [{card}]")
     print(f"  chip_smoke total {time.perf_counter() - T_START:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))

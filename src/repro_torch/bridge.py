@@ -17,12 +17,19 @@ unstacks that axis into the port's per-layer ``layers`` list, maps
 ``prefix``/``suffix`` layers to their absolute indices, and raises on any
 missing or extra leaf or any shape that differs from the port's own.
 
+* Encoder-decoders: the reference's ``encoder`` / ``decoder`` stacks
+  (``jax.vmap``-initialised, a leading ``n_encoder_layers`` /
+  ``n_layers`` axis) unstack into the port's per-layer lists of the same
+  names, with the same checks.
+
 * The reverse restacks the port's ``layers`` list into the reference's
   ``prefix`` / ``cycles`` / ``suffix`` (``cycles`` one tuple entry per
   pattern position, leaves stacked on a leading ``n_cycles`` axis; ``()``
-  when there are no cycles).  Leaves come back as numpy arrays, except
-  bfloat16 ones, which numpy cannot hold: those stay CPU tensors (and
-  meta-device leaves stay meta: a template for the checkpoint's names).
+  when there are no cycles), and an encoder-decoder's ``encoder`` /
+  ``decoder`` lists onto their leading axis.  Leaves come back as numpy
+  arrays, except bfloat16 ones, which numpy cannot hold: those stay CPU
+  tensors (and meta-device leaves stay meta: a template for the
+  checkpoint's names).
 
 ``opt_state_from_jax(np_state, template, device, cfg=None)`` converts an
 optimizer state (``{"step", "mu"}``, ``{"step", "m", "v"}``, ...) against
@@ -38,7 +45,10 @@ import torch
 
 from repro_torch.configs.paper_models import SmallModelConfig
 from repro_torch.core.tree import tree_map
+from repro_torch.models import encdec
 from repro_torch.models.transformer import init_params, stack_plan
+
+_ENCDEC_STACKS = ("encoder", "decoder")
 
 
 def _flatten(tree, prefix=""):
@@ -56,12 +66,22 @@ def _flatten(tree, prefix=""):
 
 
 def _port_paths(np_tree, cfg):
-    """Reference leaves keyed by the port's paths (cycles unstacked)."""
-    plan = stack_plan(cfg)
+    """Reference leaves keyed by the port's paths (cycles, or an
+    encoder-decoder's stacks, unstacked)."""
+    plan = None if cfg.is_encdec else stack_plan(cfg)
     out = {}
     for path, leaf in _flatten(np_tree).items():
         head, _, rest = path.partition("/")
-        if head in ("prefix", "suffix"):
+        if cfg.is_encdec and head in _ENCDEC_STACKS:
+            n = cfg.n_encoder_layers if head == "encoder" else cfg.n_layers
+            if leaf.shape[0] != n:
+                raise ValueError(f"{path}: leading axis {leaf.shape[0]} != "
+                                 f"{head} depth {n}")
+            for i in range(n):
+                out[f"{head}/{i}/{rest}"] = leaf[i]
+        elif cfg.is_encdec:
+            out[path] = leaf
+        elif head in ("prefix", "suffix"):
             i, _, sub = rest.partition("/")
             layers = plan.prefix if head == "prefix" else plan.suffix
             out[f"layers/{layers[int(i)]}/{sub}"] = leaf
@@ -114,7 +134,8 @@ def params_from_jax(np_tree, cfg, device):
         template = SmallModel(cfg).init(0, device="meta")
         leaves = _flatten(np_tree)
     else:
-        template = init_params(cfg, device="meta")
+        template = (encdec.init_params if cfg.is_encdec else init_params)(
+            cfg, device="meta")
         leaves = _port_paths(np_tree, cfg)
     _check_paths(leaves, _flatten(template), "parameter")
     return _fill(template, leaves, device)
@@ -160,10 +181,14 @@ def params_to_jax(tree, cfg):
     """The port's parameters (or any tree shaped like them, such as Adam's
     ``m``) in the reference's layout on the host.  Paper models keep their
     structure; a decoder's ``layers`` restack into ``prefix`` / ``cycles``
-    / ``suffix`` by ``stack_plan``."""
+    / ``suffix`` by ``stack_plan``, an encoder-decoder's ``encoder`` /
+    ``decoder`` onto a leading layer axis."""
     host = tree_map(_host, tree)
     if isinstance(cfg, SmallModelConfig):
         return host
+    if cfg.is_encdec:
+        return {k: (tree_map(_stack, *v) if k in _ENCDEC_STACKS else v)
+                for k, v in host.items()}
     plan = stack_plan(cfg)
     layers = host["layers"]
     out = {k: v for k, v in host.items() if k != "layers"}

@@ -33,6 +33,13 @@ backward gathers X^(1)'s cotangent back by the same perm (``take_rows``).
 On one device the reference's row permuter takes its ``n_dp <= 1``
 branch: one global perm.
 
+A frontend decoder LM (the VLM) prepends ``batch["embeds"]`` (B,F,d) in
+the node phase, so X^(1) is (B,F+S,d) and only ``logits[:, F:]`` are
+scored.  An encoder-decoder's loss is ``model.loss`` (the encoder runs in
+the node phase on node-local frames; the reference draws the TL boundary
+at decoder block 0 but computes the loss whole), and any reassembly but
+"none" is refused, as in the reference.
+
 **Sharded** (``make_train_step(..., mesh=...)``, ``launch.mesh.Mesh``):
 the parameters and the optimizer state are ``DTensor`` s placed by
 :func:`train_shardings` (``dist.sharding``'s Megatron/FSDP table), and the
@@ -134,13 +141,20 @@ def tl_loss_fn(model: Model, cfg: ModelConfig, remat_mode: str = "tl",
                reassembly: str = "none", mesh=None) -> Callable:
     """``loss(params, batch) -> scalar`` whose autograd graph is the TL
     protocol (module docstring).  ``batch`` holds ``tokens`` and
-    ``targets`` (B,S) int, optionally ``mask``, and with reassembly the
-    int32 ``perm`` (B,)."""
+    ``targets`` (B,S) int, optionally ``mask``, a frontend's ``embeds``
+    (B,F,d), and with reassembly the int32 ``perm`` (B,)."""
+    F = cfg.frontend_tokens if (cfg.frontend and not cfg.is_encdec) else 0
     if reassembly not in ("none", "torch", "kernel"):
         raise ValueError(f"unknown reassembly strategy: {reassembly!r}")
     if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported yet "
-                                  "(ROADMAP.md queue 1, item 17)")
+        if reassembly != "none":
+            raise ValueError("reassembly applies to the decoder-LM TL "
+                             "split; enc-dec losses take the model.loss "
+                             "path")
+
+        def encdec_loss(params, batch):
+            return model.loss(params, batch)[0]
+        return encdec_loss
     permute_rows = (_make_row_permuter(reassembly, mesh)
                     if reassembly != "none" else None)
 
@@ -163,7 +177,8 @@ def tl_loss_fn(model: Model, cfg: ModelConfig, remat_mode: str = "tl",
         tokens, targets = batch["tokens"], batch["targets"]
         mask = batch.get("mask")
         # ---- node phase: first-layer activations X^(1)
-        h0 = transformer.embed_tokens(params, cfg, tokens)
+        h0 = transformer.embed_tokens(params, cfg, tokens,
+                                      batch.get("embeds"))
         h1, aux0 = transformer.block0(params, cfg, h0)
         if permute_rows is not None:
             # ---- centralized-phase prologue: X^(1) and every row-aligned
@@ -180,9 +195,10 @@ def tl_loss_fn(model: Model, cfg: ModelConfig, remat_mode: str = "tl",
             mask = rows.get("mask", mask)
         # ---- orchestrator phase: recompute-from-X^(1) BP
         logits, h_final, aux = tail_exec(params, h1)
-        total = cross_entropy(logits, targets, mask) + aux + aux0
+        total = cross_entropy(logits[:, F:], targets, mask) + aux + aux0
         if cfg.mtp_depth:
-            mtp = transformer.mtp_logits(params, cfg, tokens, h_final)
+            mtp = transformer.mtp_logits(params, cfg, tokens,
+                                         h_final[:, F:])
             t2, valid = mtp_shift_targets(targets)
             total = total + MTP_WEIGHT * cross_entropy(mtp, t2, valid)
         return total
@@ -324,7 +340,8 @@ def serve_shardings(params, cache, cfg: ModelConfig, mesh,
     "model" (with the batch axes too when the batch cannot shard);
     ``fsdp=False`` serves TP-only weights.  The cache's leaf names follow
     the reference's (``k``, ``v``, ``pos``, ``state``, ``h``, ``conv``,
-    leading stacked-layer axes under ``cycles`` / ``self``)."""
+    ``enc_out``; leading stacked-layer axes under ``cycles`` / ``self``,
+    except the port's per-layer ``self`` list of an encoder-decoder)."""
     from repro_torch.dist.sharding import (P, _map_with_path, _mesh_sizes,
                                            batch_axes, cache_pspec,
                                            param_specs)
@@ -336,7 +353,10 @@ def serve_shardings(params, cache, cfg: ModelConfig, mesh,
         name = "/".join(str(e) for e in path)
         last = name.split("/")[-1]
         nd = len(leaf.shape)
-        lead = 1 if ("cycles" in name or "self" in name) else 0
+        per_layer = len(path) > 1 and path[0] == "self" \
+            and isinstance(path[1], int)
+        lead = 1 if ("cycles" in name or "self" in name) \
+            and not per_layer else 0
         if last == "pos":
             return P(*((None,) * nd))
         kind = "state" if last in ("state", "h", "conv", "enc_out") else "kv"

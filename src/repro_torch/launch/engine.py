@@ -232,6 +232,7 @@ class Engine:
         self._sim_resume = None       # (ckpt_dir, step) for the next run
         self._step_fn = None
         self._copy_stream = None
+        self._zero_embeds = None
         # ----- distribution (module docstring)
         self.mesh = mesh
         self.global_batch = None       # the loader's batch_size, at run
@@ -315,8 +316,7 @@ class Engine:
 
     def _template(self):
         """Meta-device params and optimizer state: names and shapes."""
-        from repro_torch.models.transformer import init_params
-        meta = init_params(self.cfg, device="meta")
+        meta = self.model.init(device="meta")
         return meta, self.opt.init(meta)
 
     def _state_shardings(self):
@@ -482,15 +482,32 @@ class Engine:
         their end; on the CPU the host tensors are the batch."""
         hb = self._host_batch(host_batch)
         if self.device.type != "cuda":
-            return {k: v.to(self.device) for k, v in hb.items()}, None
+            return self._with_embeds({k: v.to(self.device)
+                                      for k, v in hb.items()}), None
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(self._copy_stream):
-            out = {k: v.pin_memory().to(self.device, non_blocking=True)
-                   for k, v in hb.items()}
+            out = self._with_embeds({
+                k: v.pin_memory().to(self.device, non_blocking=True)
+                for k, v in hb.items()})
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
         return out, ready
+
+    def _with_embeds(self, batch) -> dict:
+        """A frontend arch's batch without ``embeds`` gets the stub's
+        constant zero (rows, F, d) embeddings, made once on the device (on
+        the copy stream, before the batch's ready event) and shared by
+        every step, as the reference's engine feeds them."""
+        if not self.cfg.frontend or "embeds" in batch:
+            return batch
+        rows = batch["tokens"].shape[0]
+        z = self._zero_embeds
+        if z is None or z.shape[0] != rows:
+            z = self._zero_embeds = torch.zeros(
+                (rows, self.cfg.frontend_tokens, self.cfg.d_model),
+                device=self.device)
+        return dict(batch, embeds=z)
 
     def _consume(self, item) -> dict:
         """Make the current stream wait for the batch's copies, and tell

@@ -20,6 +20,12 @@ by kernel name and the device's busy share of the unprofiled call.
     # layer and two MoE layers; 60 layers of f32 weights hold 944 GB)
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --no-reduced \\
         --arch deepseek-v2-236b --layers 3 --prompt-len 1024
+    # the encoder-decoder prefills with zero frames, as generate does; the
+    # VLM's depth is cut to 19 of 80 layers (80 hold 281 GB of f32)
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --no-reduced \\
+        --arch seamless-m4t-medium --prompt-len 64
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --no-reduced \\
+        --arch qwen2-vl-72b --layers 19 --prompt-len 1024
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.device import resolve_device
+from repro_torch.launch.serve import prefill_frames
 from repro_torch.models import build_model
 from repro_torch.serve import Request, ServeEngine, check_servable
 
@@ -114,10 +121,12 @@ def main(argv=None):
           f"batch={B} prompt={P} on {card}")
 
     pt = torch.as_tensor(prompts, device=dev)
+    frames = prefill_frames(cfg, B, dtype, dev)
 
     def prefill():
         return model.prefill(params, model.init_cache(B, P + 1, device=dev,
-                                                      dtype=dtype), pt)
+                                                      dtype=dtype), pt,
+                             *frames)
 
     prefill()                                  # warm-up: cuBLAS, the build
     _report(f"prefill (B={B}, P={P})", PREFILL_STEPS,
@@ -147,7 +156,7 @@ def main(argv=None):
     else:
         cache = model.init_cache(B, P + 2 * args.steps + 2, device=dev,
                                  dtype=dtype)
-        logits, cache = model.prefill(params, cache, pt)
+        logits, cache = model.prefill(params, cache, pt, *frames)
         tok = logits.argmax(-1).to(torch.int32)
         pos = [P]
 

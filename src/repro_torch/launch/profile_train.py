@@ -17,6 +17,11 @@ device's busy share of the unprofiled step and K1's (``permute_rows`` /
     # the recurrent families train through the models' own scans
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --mode production --arch mamba2-780m --layers 0
+    # the encoder-decoder (its loss takes no reassembly) and the VLM
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --mode production --arch seamless-m4t-medium --reassembly none
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --mode production --arch qwen2-vl-72b --layers 2 --batch 4
 
 ``--mode sim`` (the default), for each paper model: builds the sim-mode
 engine (3 nodes, batch 64 by default), warms up one epoch, then
@@ -204,8 +209,9 @@ def main(argv=None):
     ap.add_argument("--remat", default="tl", choices=["tl", "none", "dots"])
     ap.add_argument("--model", default="all",
                     choices=["all"] + sorted(SMALL_MODELS))
-    ap.add_argument("--reassembly", choices=["torch", "kernel"],
-                    default="kernel")
+    ap.add_argument("--reassembly", choices=["torch", "kernel", "none"],
+                    default="kernel",
+                    help="none for an encoder-decoder (production mode)")
     ap.add_argument("--wire", choices=["off", "int8", "fp8"], default="off")
     ap.add_argument("--wire-ef", action="store_true")
     ap.add_argument("--nodes", default=None,

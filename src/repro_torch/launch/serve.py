@@ -39,6 +39,14 @@ Port of ``repro/launch/serve.py``.  Runs on the card unless ``--device cpu``:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch deepseek-v2-236b --engine continuous
 
+    # the encoder-decoder and the VLM, static engine only (the continuous
+    # engine refuses both, as the reference's): seamless prefills with zero
+    # frames, qwen2-vl with text only
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch seamless-m4t-medium
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch qwen2-vl-72b
+
 Every prefill's attention runs on ``flash_attention_bh`` (K4) on the card;
 the CLI prints its launches beside the other kernels'.  The continuous
 engine serves all-attention stacks only (full attention or MLA, dense or
@@ -63,6 +71,17 @@ from repro_torch.serve.prng import PRNGKey
 from repro_torch.serve.sampling import request_key, sample_tokens
 
 
+def prefill_frames(cfg, B: int, dtype, device) -> tuple:
+    """The extra arguments of a serving prefill: zero frames (B,
+    frontend_tokens, d_model) for an encoder-decoder, as the reference's
+    ``generate`` passes; none for a decoder LM (the VLM prefills text
+    only)."""
+    if not cfg.is_encdec:
+        return ()
+    return (torch.zeros((B, cfg.frontend_tokens, cfg.d_model), dtype=dtype,
+                        device=device),)
+
+
 def generate(model, cfg, params, prompts, gen_len: int, *,
              temperature: float = 0.0, seed: int = 0, seeds=None,
              device="cuda"):
@@ -73,14 +92,17 @@ def generate(model, cfg, params, prompts, gen_len: int, *,
     Greedy at ``temperature == 0``; otherwise row b samples from the stream
     ``fold_in(fold_in(PRNGKey(seed), seeds[b]), step)`` (``seeds`` defaults
     to ``arange(B)``), the continuous engine's streams, as the reference's
-    ``generate`` with ``key=PRNGKey(seed)``."""
+    ``generate`` with ``key=PRNGKey(seed)``.  The prefill takes
+    ``prefill_frames``."""
     dev = resolve_device(device)
     check_on_device(params["embed"], dev, "params")
     prompts = torch.as_tensor(np.asarray(prompts), device=dev)
     B, P = prompts.shape
     cache = model.init_cache(B, P + gen_len, device=dev,
                              dtype=params["embed"].dtype)
-    logits, cache = model.prefill(params, cache, prompts)
+    logits, cache = model.prefill(
+        params, cache, prompts,
+        *prefill_frames(cfg, B, params["embed"].dtype, dev))
     if temperature > 0:
         seeds = np.arange(B) if seeds is None else np.asarray(seeds)
         keys = request_key(PRNGKey(seed), seeds)

@@ -12,7 +12,11 @@ checkpoints, with the reference's flags and defaults: reduced configs
 clip_norm=1.0)``, the corpus ``synthetic_corpus(nodes * 64, seq, vocab,
 seed=1)`` sharded over ``--nodes``, remat ``--remat {tl,none,dots}`` and
 in-loss reassembly ``--reassembly {torch,kernel}`` (the reference's
-``xla`` / ``pallas``; ``kernel`` is K1).  The port draws its own random
+``xla`` / ``pallas``; ``kernel`` is K1) or ``none``.  The
+encoder-decoder seamless-m4t-medium trains with ``--reassembly none``
+(its loss takes none, and any other raises, as in the reference); it and
+the VLM qwen2-vl-72b train on the engine's constant zero frontend
+embeddings.  The port draws its own random
 init (seed 0), so its losses differ from the reference CLI's unless the
 engine is given bridged parameters.
 
@@ -254,10 +258,11 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--remat", default="tl", choices=["tl", "none", "dots"])
     ap.add_argument("--reassembly", default="torch",
-                    choices=["torch", "kernel"],
+                    choices=["torch", "kernel", "none"],
                     help="in-loss virtual-batch reassembly: a zero-filled "
                          "index_copy, or one launch of the vb_scatter "
-                         "kernel (K1)")
+                         "kernel (K1); none for an encoder-decoder, whose "
+                         "loss takes no reassembly")
     ap.add_argument("--pipeline", action="store_true", default=True,
                     help="2-deep prefetch on a copy stream (production) or "
                          "the double-buffered epoch engine (sim); default")

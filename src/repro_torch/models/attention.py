@@ -7,9 +7,11 @@ definition:
 * ``attend_blockwise`` — online softmax over KV blocks (above
   ``DENSE_MAX_SEQ`` keys), a Python loop where the reference scans;
 * ``ops.flash_attention`` (K4) — every causal self-attention over a whole
-  sequence (full forward, prefill into an empty cache) that needs no
-  gradient: ``attend`` routes it there, and the tensors' device picks the
-  CUDA kernel or its plain version.  The reference computes these with
+  sequence (full forward, prefill into an empty cache), and every
+  attention whose queries see all the keys (the encoder's bidirectional
+  self-attention and cross-attention, non-causal), that needs no
+  gradient: ``attend`` routes them there, and the tensors' device picks
+  the CUDA kernel or its plain version.  The reference computes these with
   ``attend_dense`` / ``attend_blockwise`` and never calls its own Pallas
   kernel; the kernel is held to the same function at the reference kernel
   test's tolerance.  Under grad (training) ``attend`` keeps to those two,
@@ -32,8 +34,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (apply_rope, dense_init, needs_grad,
-                                       rmsnorm, rmsnorm_init)
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
+                                       needs_grad, rmsnorm, rmsnorm_init)
 
 NEG_INF = -1e30
 DENSE_MAX_SEQ = 2048        # use the blockwise path above this length
@@ -123,20 +125,26 @@ def attend_blockwise(q, k, v, q_pos, k_pos, window: int, scale: float,
 
 
 def attend(q, k, v, q_pos, k_pos, window: int, scale: float, *,
-           v_width: int = 0):
+           v_width: int = 0, all_visible: bool = False):
     """q (B,Sq,H,dh), k (B,Sk,KV,dh), v (B,Sk,KV,dv) or ``v=None`` with
-    ``v_width`` (V = K[..., :v_width], MLA's latent).
+    ``v_width`` (V = K[..., :v_width], MLA's latent).  ``all_visible``:
+    the caller built positions under which every query sees every key (the
+    encoder's and cross-attention's pattern).
 
     Training (grad enabled and an input that requires it) takes the
     reference's own path, ``attend_dense`` / ``attend_blockwise`` by the
     ``DENSE_MAX_SEQ`` rule: K4 is forward-only.  Without grad, a causal
     self-attention over a whole sequence (``Sq == Sk > 1``, ``q_pos ==
-    k_pos``) goes to ``flash_attention``, and decode and anything else to
-    the dense or blockwise path."""
-    if not needs_grad(q, k, v) and q.shape[1] == k.shape[1] > 1 \
-            and torch.equal(q_pos, k_pos):
-        return flash_attention(q, k, v, scale=scale, causal=True,
-                               window=window, v_width=v_width)
+    k_pos``) goes to ``flash_attention``, and so does, non-causally, an
+    ``all_visible`` one with ``Sq > 1`` and no window.  Decode and
+    anything else take the dense or blockwise path."""
+    if not needs_grad(q, k, v) and q.shape[1] > 1:
+        if all_visible and window == 0:
+            return flash_attention(q, k, v, scale=scale, causal=False,
+                                   v_width=v_width)
+        if q.shape[1] == k.shape[1] and torch.equal(q_pos, k_pos):
+            return flash_attention(q, k, v, scale=scale, causal=True,
+                                   window=window, v_width=v_width)
     if v is None:
         v = k[..., :v_width]
     if k.shape[1] <= DENSE_MAX_SEQ or q.shape[1] == 1:
@@ -146,9 +154,11 @@ def attend(q, k, v, q_pos, k_pos, window: int, scale: float, *,
 
 # ================================================================= GQA / MHA
 
-def gqa_project(params, cfg: ModelConfig, x, q_pos):
+def gqa_project(params, cfg: ModelConfig, x, q_pos, *, positions=None):
     """Project x (B,S,d) to rope'd (q, k, v); q_pos (B,S) absolute positions.
-    Shared by ``gqa_apply`` and the paged serving runner."""
+    Under ``rope="mrope"`` the three position streams are ``positions``
+    (3,B,S), or ``q_pos`` broadcast to them (text only).  Shared by
+    ``gqa_apply`` and the paged serving runner."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = x @ params["w_q"], x @ params["w_k"], x @ params["w_v"]
@@ -160,20 +170,27 @@ def gqa_project(params, cfg: ModelConfig, x, q_pos):
     if cfg.rope == "rope":
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        p3 = q_pos.expand(3, B, S) if positions is None else positions
+        q = apply_mrope(q, p3, cfg.rope_theta)
+        k = apply_mrope(k, p3, cfg.rope_theta)
     elif cfg.rope != "none":
         raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
     return q, k, v
 
 
-def gqa_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
+def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
+              cache_len=None):
     """Full forward (cache=None), prefill into an empty cache (S > 1) or one
     decode step (S == 1).  x: (B,S,d); ``cache_len`` (int) tokens already in
-    the cache.  Returns (out, cache)."""
+    the cache; ``positions`` (3,B,S) M-RoPE streams (``gqa_project``).
+    Returns (out, cache)."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.resolved_head_dim
     pos0 = 0 if cache_len is None else int(cache_len)
     q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
-    q, k, v = gqa_project(params, cfg, x, q_pos.expand(B, S))
+    q, k, v = gqa_project(params, cfg, x, q_pos.expand(B, S),
+                          positions=positions)
 
     scale = 1.0 / math.sqrt(hd)
     if cache is None:
@@ -249,12 +266,14 @@ def mla_output(params, cfg: ModelConfig, out_lat):
     return out.reshape(B, S, H * m.v_head_dim) @ params["w_o"]
 
 
-def mla_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
+def mla_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
+              cache_len=None):
     """DeepSeek multi-head latent attention in latent (weight-absorbed)
     form: MQA with head dim ``kv_lora + rope`` over ``c_kv ‖ k_rope``, the
     latent ``c_kv`` as values, scale ``1/sqrt(nope + rope)``.  Full forward
     (cache=None), prefill into an empty cache (S > 1) or one decode step.
-    Returns (out, cache)."""
+    ``positions`` is taken and ignored, as in the reference.  Returns (out,
+    cache)."""
     m = cfg.mla
     B, S, _ = x.shape
     pos0 = 0 if cache_len is None else int(cache_len)

@@ -1,12 +1,15 @@
 """Residual block: mixer (attn | rglru | ssm) + FFN (dense | moe | none).
 
-Port of ``repro/models/blocks.py`` for decoder stacks.  The ``attn`` mixer
-goes through the attention facade (GQA/MHA or MLA by ``cfg.attention``).
-``block_apply`` returns the MoE FFN's aux loss, as the reference's does,
-for the training loss; the serving paths discard it.  Cross-attention
-(encoder-decoder) is not ported.
+Port of ``repro/models/blocks.py``.  The ``attn`` mixer goes through the
+attention facade (GQA/MHA or MLA by ``cfg.attention``).  ``block_apply``
+returns the MoE FFN's aux loss, as the reference's does, for the training
+loss; the serving paths discard it.  A block built with ``cross=True`` (the
+encoder-decoder's decoder) carries a cross-attention sublayer into the
+encoder output between the mixer and the FFN.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,12 +42,15 @@ def _check_kinds(kind: str, ffn: str):
         raise ValueError(ffn)
 
 
-def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *, device,
-               dtype=torch.float32):
+def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *,
+               cross: bool = False, device, dtype=torch.float32):
     _check_kinds(kind, ffn)
     kw = dict(device=device, dtype=dtype)
     p = {"norm1": rmsnorm_init(cfg.d_model, **kw),
          "mixer": _MIXERS[kind][0](gen, cfg, **kw)}
+    if cross:
+        p["cross_norm"] = rmsnorm_init(cfg.d_model, **kw)
+        p["cross"] = attention.attn_init(gen, cfg, **kw)
     if ffn == "dense":
         p["norm2"] = rmsnorm_init(cfg.d_model, **kw)
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, **kw)
@@ -54,18 +60,43 @@ def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *, device,
     return p
 
 
+def cross_attend(params, cfg: ModelConfig, h, enc_out):
+    """Cross-attention sublayer: queries from h (B,S,d), keys and values
+    from enc_out (B,Se,d), every encoder position visible to every query
+    (the reference's positions: queries at Se, keys at 0..Se-1)."""
+    B, S, _ = h.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    Se = enc_out.shape[1]
+    q = (h @ params["w_q"]).reshape(B, S, H, hd)
+    k = (enc_out @ params["w_k"]).reshape(B, Se, KV, hd)
+    v = (enc_out @ params["w_v"]).reshape(B, Se, KV, hd)
+    q_pos = torch.full((S,), Se, dtype=torch.int32, device=h.device)
+    k_pos = torch.arange(Se, dtype=torch.int32, device=h.device)
+    out = attention.attend(q, k, v, q_pos, k_pos, 0, 1.0 / math.sqrt(hd),
+                           all_visible=True)
+    return out.reshape(B, S, H * hd) @ params["w_o"]
+
+
 def block_apply(params, cfg: ModelConfig, kind: str, ffn: str, h, *,
-                cache=None, cache_len=None):
+                cache=None, cache_len=None, positions=None, enc_out=None):
     """Returns (h, cache, aux_loss): the MoE FFN's f32 scalar loss, or the
     float 0.0 for the other FFNs (no device tensor on the serving paths).
-    The block's input and output pass ``dist.constraints.constrain_batch``
-    (the identity without an activation mesh)."""
+    ``positions`` goes to the mixer (M-RoPE streams); with ``enc_out`` a
+    ``cross=True`` block attends into it after the mixer.  The block's
+    input and output pass ``dist.constraints.constrain_batch`` (the
+    identity without an activation mesh)."""
     _check_kinds(kind, ffn)
     h = constrain_batch(h)
+    extra = {} if positions is None else {"positions": positions}
     mixed, cache = _MIXERS[kind][1](
         params["mixer"], cfg, rmsnorm(params["norm1"], h, cfg.norm_eps),
-        cache=cache, cache_len=cache_len)
-    h, aux = ffn_apply(params, cfg, ffn, h + mixed)
+        cache=cache, cache_len=cache_len, **extra)
+    h = h + mixed
+    if "cross" in params and enc_out is not None:
+        h = h + cross_attend(params["cross"], cfg,
+                             rmsnorm(params["cross_norm"], h, cfg.norm_eps),
+                             enc_out)
+    h, aux = ffn_apply(params, cfg, ffn, h)
     return constrain_batch(h), cache, aux
 
 

@@ -70,6 +70,37 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def mrope_sections(half: int, sections=(2, 3, 3)):
+    """Which position stream drives each of the ``half`` frequency slots:
+    the slots split into ``len(sections)`` runs in the ratio ``sections``,
+    run i ending at ``half * (s_0 + .. + s_i) // sum(sections)``."""
+    total, acc, sec_id, prev = sum(sections), 0, [], 0
+    for i, s in enumerate(sections):
+        acc += s
+        bound = half * acc // total
+        sec_id += [i] * (bound - prev)
+        prev = bound
+    return sec_id
+
+
+def apply_mrope(x, positions_3d, theta: float = 10000.0, sections=(2, 3, 3)):
+    """Qwen2-VL multimodal rotary embedding [arXiv:2409.12191].
+
+    x: (B, S, H, hd); positions_3d: (3, B, S), the temporal / height /
+    width position ids.  The rotary slots split into three sections, each
+    rotated by its own stream; with text-only inputs the three streams
+    coincide and this is ``apply_rope``.  Angles in f32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                    # (half,)
+    sec_id = torch.tensor(mrope_sections(hd // 2, sections), device=x.device)
+    p_slot = positions_3d.float()[sec_id]                      # (half, B, S)
+    ang = p_slot.movedim(0, -1)[..., None, :] * freqs          # (B,S,1,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def softplus(x):
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` with no cut-off (torch's
     ``F.softplus`` returns ``x`` above 20; in f32 the two agree there to

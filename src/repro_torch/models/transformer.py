@@ -11,8 +11,11 @@ of (rglru, rglru, attn) and a suffix of 2.  A config with ``mtp_depth``
 adds the reference's ``mtp`` subtree (DeepSeek-V3's multi-token head).
 
 The Traversal-Learning split points are the reference's: ``embed_tokens``
--> ``block0`` (X^(1)) -> ``tail`` (what the orchestrator recomputes).  Caches are a list of per-layer
-dicts of the layer's kind (attention ``{k, v, pos}``, MLA ``{c_kv, k_rope,
+-> ``block0`` (X^(1)) -> ``tail`` (what the orchestrator recomputes).  A
+frontend arch (the VLM) prepends ``extra_embeds`` (B,F,d), the stubbed
+patch embeddings, to the token embeddings; its M-RoPE streams come as
+``positions`` (3,B,S) or default to the token positions.  Caches are a
+list of per-layer dicts of the layer's kind (attention ``{k, v, pos}``, MLA ``{c_kv, k_rope,
 pos}``, RG-LRU ``{conv, h}``, Mamba-2 ``{conv, state}``), updated in place.
 """
 from __future__ import annotations
@@ -82,7 +85,7 @@ def _mtp_ffn(cfg: ModelConfig) -> str:
 
 
 def run_stack(params, cfg: ModelConfig, h, *, caches=None, cache_len=None,
-              skip_block0: bool = False):
+              positions=None, skip_block0: bool = False):
     """Run every block (from block 1 with ``skip_block0``, the TL tail).
     Returns (h, caches, aux): aux sums the MoE blocks' losses in layer
     order (0.0 without MoE)."""
@@ -93,17 +96,22 @@ def run_stack(params, cfg: ModelConfig, h, *, caches=None, cache_len=None,
         c = None if caches is None else caches[i]
         h, _, a = blocks.block_apply(bp, cfg, cfg.pattern[i],
                                      blocks.ffn_kind(cfg, i), h, cache=c,
-                                     cache_len=cache_len)
+                                     cache_len=cache_len, positions=positions)
         aux = aux + a
     return h, caches, aux
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
-    """tokens (B,S) -> (B,S,d), scaled by sqrt(d_model) as the reference."""
+def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
+    """tokens (B,S) -> (B,S,d), scaled by sqrt(d_model) as the reference;
+    ``extra_embeds`` (B,F,d), the frontend stub's output, is prepended
+    after the scaling (-> (B,F+S,d))."""
     emb = params["embed"]
     # sqrt(d_model) rounded to the table's dtype, as the reference does
     scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype))
-    return emb[tokens.long()] * scale
+    h = emb[tokens.long()] * scale
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
+    return h
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -130,15 +138,22 @@ def tail(params, cfg: ModelConfig, h1, return_hidden: bool = False):
     return _logits(params, cfg, h), aux
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """Full forward: tokens (B,S) -> logits (B,S,V)."""
-    h, _, _ = run_stack(params, cfg, embed_tokens(params, cfg, tokens))
+def forward(params, cfg: ModelConfig, tokens, extra_embeds=None,
+            positions=None):
+    """Full forward: tokens (B,S) -> logits (B,F+S,V) (F = 0 without
+    ``extra_embeds``)."""
+    h, _, _ = run_stack(params, cfg,
+                        embed_tokens(params, cfg, tokens, extra_embeds),
+                        positions=positions)
     return _logits(params, cfg, h)
 
 
-def forward_with_hidden(params, cfg: ModelConfig, tokens):
+def forward_with_hidden(params, cfg: ModelConfig, tokens, extra_embeds=None,
+                        positions=None):
     """Full forward: (logits, final hidden state before the norm, aux)."""
-    h, _, aux = run_stack(params, cfg, embed_tokens(params, cfg, tokens))
+    h, _, aux = run_stack(params, cfg,
+                          embed_tokens(params, cfg, tokens, extra_embeds),
+                          positions=positions)
     return _logits(params, cfg, h), h, aux
 
 
@@ -161,18 +176,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
             for i in range(cfg.n_layers)]
 
 
-def prefill(params, cfg: ModelConfig, caches, tokens):
-    """Fill the caches with the whole prompt; return the last position's
-    logits (B,V) and the caches."""
-    h = embed_tokens(params, cfg, tokens)
+def prefill(params, cfg: ModelConfig, caches, tokens, extra_embeds=None):
+    """Fill the caches with the whole prompt (after ``extra_embeds``, when
+    given); return the last position's logits (B,V) and the caches."""
+    h = embed_tokens(params, cfg, tokens, extra_embeds)
     h, caches, _ = run_stack(params, cfg, h, caches=caches, cache_len=0)
     return _logits(params, cfg, h[:, -1:])[:, 0], caches
 
 
-def decode_step(params, cfg: ModelConfig, caches, token, cache_len: int):
+def decode_step(params, cfg: ModelConfig, caches, token, cache_len: int,
+                positions=None):
     """One decode step.  token (B,); cache_len tokens already cached.
     Returns (logits (B,V), caches)."""
     h = embed_tokens(params, cfg, token[:, None])
     h, caches, _ = run_stack(params, cfg, h, caches=caches,
-                             cache_len=cache_len)
+                             cache_len=cache_len, positions=positions)
     return _logits(params, cfg, h)[:, 0], caches

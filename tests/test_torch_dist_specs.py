@@ -30,6 +30,7 @@ from repro_torch.dist import sharding as sh  # noqa: E402
 from repro_torch.dist.tensor import local_chunk  # noqa: E402
 from repro_torch.launch import elastic as el  # noqa: E402
 from repro_torch.launch import mesh as pm  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.transformer import init_params, stack_plan  # noqa: E402
 
 SIZES = {"2x2": {"data": 2, "model": 2},
@@ -53,13 +54,30 @@ def _flat(tree, prefix=()):
 
 def _reference_specs(arch, sizes, fsdp):
     """The reference's specs over its own (stacked) tree, keyed by the
-    port's per-layer paths: a ``cycles`` leaf's spec loses its lead axis."""
+    port's per-layer paths: a ``cycles`` leaf's spec loses its lead axis.
+    An encoder-decoder's ``encoder`` / ``decoder`` stacks are not named
+    ``cycles``, so the reference's rule takes their layer axis for a weight
+    dim (ROADMAP.md queue 3); each of the port's layers is held to that
+    rule applied to one layer's leaf instead."""
     jcfg = jax_configs.get_config(arch, reduced=True)
     params = jax.eval_shape(
         lambda: jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
-    flat = [(path, tuple(jsh.param_pspec(path, leaf, jcfg, axis_sizes=sizes,
-                                         fsdp=fsdp)))
-            for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]]
+    flat = []
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        head = str(getattr(path[0], "key", path[0]))
+        if jcfg.is_encdec and head in ("encoder", "decoder"):
+            one = jax.ShapeDtypeStruct(leaf.shape[1:], leaf.dtype)
+            spec = tuple(jsh.param_pspec(path, one, jcfg, axis_sizes=sizes,
+                                         fsdp=fsdp))
+            for i in range(leaf.shape[0]):
+                flat.append(((head, str(i)) + tuple(
+                    str(getattr(e, "key", e)) for e in path[1:]), spec))
+            continue
+        flat.append((path, tuple(jsh.param_pspec(
+            path, leaf, jcfg, axis_sizes=sizes, fsdp=fsdp))))
+    if jcfg.is_encdec:
+        return {tuple(str(getattr(e, "key", e)) for e in names): spec
+                for names, spec in flat}
     plan = stack_plan(get_config(arch, reduced=True))
     out = {}
     for path, spec in flat:
@@ -94,12 +112,10 @@ def _norm(spec):
 @pytest.mark.parametrize("sizes", sorted(SIZES))
 @pytest.mark.parametrize("arch", sorted(jax_configs.ARCHS))
 def test_param_specs_equal_reference(arch, sizes, fsdp):
-    if arch not in ARCHS:
-        pytest.skip(f"{arch} is not registered in the port yet (ROADMAP.md "
-                    "queue 1, item 17)")
+    assert arch in ARCHS
     cfg = get_config(arch, reduced=True)
     ax = SIZES[sizes]
-    port = sh.param_specs(init_params(cfg, device="meta"), cfg, ax,
+    port = sh.param_specs(build_model(cfg).init(device="meta"), cfg, ax,
                           fsdp=fsdp)
     got = {}
     for path, spec in _flat(port).items():

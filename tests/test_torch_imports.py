@@ -75,7 +75,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.dist", "repro_torch.dist.sharding",
               "repro_torch.dist.constraints", "repro_torch.dist.tensor",
               "repro_torch.launch.mesh", "repro_torch.launch.elastic",
-              "repro_torch.models.moe_ep"):
+              "repro_torch.models.moe_ep", "repro_torch.models.encdec",
+              "repro_torch.configs.qwen2_vl_72b",
+              "repro_torch.configs.seamless_m4t_medium"):
         assert m in MODULES, m
 
 

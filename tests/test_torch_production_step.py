@@ -256,6 +256,11 @@ def test_engine_refuses_what_is_not_ported():
         Engine(m, cfg, sgd(0.1), reassembly="torch", device=CPU).init(0).run(
             [{k: v for k, v in b.items() if k != "positions"}
              for _, b in zip(range(1), _loader(cfg))], steps=1)
-    big = dataclasses.replace(cfg, n_encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(big)
+    # an encoder-decoder builds and trains through model.loss; any
+    # reassembly but "none" is refused, as in the reference
+    encdec = dataclasses.replace(cfg, n_encoder_layers=2, frontend="audio",
+                                 frontend_tokens=8)
+    em = build_model(encdec)
+    assert em.block0 is None and callable(tl_loss_fn(em, encdec))
+    with pytest.raises(ValueError, match="model.loss"):
+        tl_loss_fn(em, encdec, reassembly="torch")
