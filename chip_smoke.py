@@ -194,8 +194,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    of state and gradients); on the first batch the TL loss and grads with
    kernel reassembly bit-equal to torch reassembly and within 1e-5 / 1e-4
    of ``model.loss`` on the shuffled batch.
-4e. Distribution, main path 8 (run after phase 5, whose profiler sessions
-   lost kernel records when it ran first), on a one-rank NCCL mesh (one
+4e. Distribution, main path 8 (run after phases 5 and 4g, whose profiler
+   sessions lost kernel records when it ran first), on a one-rank NCCL mesh (one
    card is one
    rank, so ``resolve_mesh("debug")`` is the (1, 1) mesh): (a) starcoder2-3b
    at full width, 12 layers, through ``Engine(mesh=..., reassembly=
@@ -211,6 +211,18 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    without ``--elastic`` exits 2 with ``lost at step 1 (hang)``, and
    ``--elastic --drill kill-device:1`` on one rank fails with
    ``ReshrinkError`` ("no surviving devices").
+4g. Analysis (after phase 5 and before 4e: its whole-step profiles, as
+   4e's, leave later profiler sessions losing records): starcoder2-3b at
+   full width, 12 layers, one production step under
+   ``analysis.dispatch_costs``: no generic scatter with K1 (recorded twice,
+   one launch each), FLOPs equal to the same step traced on ``meta``, the
+   profiler's kernels with no ``index_copy`` beside a torch-reassembly
+   step's, which counts >= 1 generic scatter of >= X^(1)'s bytes; the
+   simulator's fused step (K1: 0 generic scatters; torch: >= 3 of >= 2 x
+   X^(1)'s bytes); the f32 share t_compute / measured ms of the step
+   (<= 1.05); phase 3's deepseek-7b prefill, reloaded (K4 30 records and
+   launches, the FLOPs of its plain version not counted); ``launch.dryrun`` of deepseek-7b ``train_4k`` in a
+   subprocess, ``status: ok``.
 5. Timing (median of CUDA-event-timed calls, or host clock around a synced
    TL step) beside each kernel's plain version, one PyTorch library call
    where one computes the same function, and the card's bound (for the
@@ -237,12 +249,14 @@ result and exits with code 2.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -255,10 +269,8 @@ DEVICE = "cuda"
 T_START = 0.0           # set by main: the script's total time is printed
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core f32 and
-# tensor-core TF32.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-TF32_FLOPS = 495e12          # dense, tensor cores
+# tensor-core TF32; main() takes them from repro_torch.analysis.roofline.
+HBM_BYTES_PER_S = F32_FLOPS = TF32_FLOPS = None
 
 
 def products_ms(flops: float) -> float:
@@ -529,6 +541,54 @@ def serve_full_width(card: str):
     return launches, serve, fire
 
 
+def account_prefill():
+    """Phase 4g (d): phase 3's deepseek-7b (full width, seed 0) and one
+    prefill of phase 3's longest request under the dispatch accounting, on
+    the card and on ``meta`` (where ``attend`` takes ``attend_dense``).  K4
+    is recorded once a layer, as a launch; the counted FLOPs fall short of
+    the meta trace's by exactly the attention products (QKᵀ and PV, 4·H·S²·D
+    a layer), so no op of K4's plain version was counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.dispatch_costs import accounting
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import abstract_params
+
+    cfg = get_config("deepseek-7b", reduced=False)
+    model, params = load_model(cfg)
+    rng = np.random.default_rng(0)          # phase 3's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)
+               for p in SERVE_LENS]
+    tokens = torch.as_tensor(prompts[-1][None], device=DEVICE)
+    S = tokens.shape[1]
+    out = {}
+    for dev, p in ((DEVICE, params), ("meta", abstract_params(
+            model, torch.float32))):
+        cache = model.init_cache(1, S + ENGINE_GEN, device=dev,
+                                 dtype=torch.float32)
+        with torch.no_grad(), accounting() as c:
+            model.prefill(p, cache, tokens.to(dev))
+        torch.cuda.synchronize()
+        out[dev] = c
+    on_card, on_meta = out[DEVICE], out["meta"]
+    k4 = on_card.kernels.get("flash_attention_bh", {})
+    attention = cfg.n_layers * 4 * cfg.n_heads * S * S \
+        * cfg.resolved_head_dim
+    assert k4.get("calls") == k4.get("launches") == cfg.n_layers, k4
+    assert on_meta.kernels == {}, on_meta.kernels
+    assert on_meta.flops - on_card.flops == attention, \
+        (on_meta.flops, on_card.flops)
+    assert on_card.flop_counter_total == on_card.flops
+    del params
+    free_cuda()
+    return {"prompt": S, "k4_calls": k4["calls"],
+            "k4_launches": k4["launches"], "k4_bytes": k4["bytes"],
+            "flops": on_card.flops, "meta_flops": on_meta.flops,
+            "attention_flops": attention, "hbm_bytes": on_card.hbm_bytes,
+            "n_ops": on_card.n_ops, "meta_n_ops": on_meta.n_ops}
+
+
 # ------------------------------------------------------ serving under fire
 
 FIRE_WATCHDOG_S = 5.0
@@ -791,7 +851,8 @@ def serve_under_fire(model, cfg, params, prompts, static, card):
           f"{json.dumps(pre)} [{card}]")
 
     # the CLI's drill in-process at the reduced width on the card
-    cli = ["--device", DEVICE, "--engine", "continuous", "--requests", "4",
+    cli = ["--device", DEVICE, "--arch", "deepseek-7b", "--engine",
+           "continuous", "--requests", "4",
            "--prompt-len", "8",
            "--gen", "8", "--page-size", "4", "--num-pages", "64"]
     buf = io.StringIO()
@@ -3061,6 +3122,326 @@ def train_qwen_vl(card: str):
                 inplace_checked_params=n)
 
 
+# ------------------------------------------------------------ analysis (4g)
+
+ANALYSIS_STEPS = 4          # timed steps before the accounted ones
+K1_REASSEMBLY = ("permute_rows", "take_rows")
+
+
+# the ops that launch index_copy or scatter kernels: a session that lost a
+# launch of theirs cannot show that a step has none
+SCATTER_OP = re.compile("index_copy|index_put|scatter", re.IGNORECASE)
+PROFILED_CALL = "profiled_call"     # the annotation around the read call
+
+
+def session_kernels(events):
+    """``(kernels, lost, ops)`` of the call annotated ``PROFILED_CALL`` in
+    one profiler session's Kineto events: ``kernels`` counts its kernel
+    records by name, ``lost`` counts by the aten op they ran under its
+    launches (``cudaLaunch*`` / ``cuLaunch*`` calls, paired with their
+    kernel by CUPTI correlation id) that have no kernel record, and
+    ``ops`` counts its aten ops, which the host records itself and so
+    never loses."""
+    from torch.autograd import DeviceType
+    events = list(events)
+    (call,) = [e for e in events if e.name() == PROFILED_CALL
+               and e.device_type() == DeviceType.CPU]
+
+    def inside(e):
+        return call.start_ns() <= e.start_ns() <= call.end_ns()
+    ops, launch_op, kernels = {}, {}, {}
+    for e in events:
+        name = e.name()
+        if e.device_type() == DeviceType.CPU and inside(e):
+            if name.startswith(("cudaLaunch", "cuLaunch")):
+                launch_op[e.correlation_id()] = e.linked_correlation_id()
+            elif not name.startswith("cu") and not e.linked_correlation_id() \
+                    and name != PROFILED_CALL:
+                ops[e.correlation_id()] = name
+        elif e.device_type() == DeviceType.CUDA and not name.startswith(
+                ("Memcpy", "Memset")):
+            kernels[e.correlation_id()] = name
+    lost = collections.Counter(ops.get(op, "(no op)")
+                               for corr, op in launch_op.items()
+                               if corr not in kernels)
+    return (collections.Counter(kernels[c] for c in launch_op
+                                if c in kernels),
+            lost, collections.Counter(ops.values()))
+
+
+def profiled_kernels(fn):
+    """``(kernels, lost, ops)`` (``session_kernels``) of one call of
+    ``fn`` under the torch profiler, after a first call in the same
+    session: a session can lose the records of its first few hundred
+    launches.  A session whose kernel records account for every launch of
+    the read call is taken at once; after five that do not, the one that
+    lost the fewest, as long as none of its lost launches came from an op
+    that launches index_copy or scatter kernels (``SCATTER_OP``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    seen, sessions = [], []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function(PROFILED_CALL):
+                fn()
+                torch.cuda.synchronize()
+        got = session_kernels(prof.profiler.kineto_results.events())
+        lost = got[1]
+        seen.append(f"{sum(got[0].values())} records, {sum(lost.values())} "
+                    f"launches lost ({dict(lost)})")
+        if not lost:
+            return got
+        sessions.append(got)
+    clear = [got for got in sessions
+             if not any(SCATTER_OP.search(op) for op in got[1])]
+    if not clear:
+        raise RuntimeError("the profiler lost launches of index_copy or "
+                           "scatter ops in five sessions: " + "; ".join(seen))
+    got = min(clear, key=lambda g: sum(g[1].values()))
+    print(f"    profiler sessions: {'; '.join(seen)}; took the one that "
+          f"lost {sum(got[1].values())}")
+    return got
+
+
+def fused_step_costs(reassembly):
+    """Phase 4g (b): one fused centralized-BP step of the simulator on
+    DATRET (3 uneven shards, a real virtual batch of 64 rows, arguments
+    assembled as ``_train_batch_fused`` does) under the dispatch
+    accounting; and X^(1)'s bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.dispatch_costs import analyze_step
+    from repro_torch.configs.paper_models import DATRET
+
+    eng = sim_engine(DATRET, reassembly=reassembly, pipeline=False)
+    eng.run(tl_shards(DATRET), epochs=1)             # warm: built, placed
+    orch = eng.orchestrator
+    vb = orch.build_plan(1).batches[0]
+    results, order = orch._collect_visits(
+        vb, {n.node_id: n for n in orch.nodes})
+    segs = [results[nid][0] for nid in order]
+    wires = [results[nid][1] for nid in order]
+    leaf_idx = orch._gw1_leaf_indices()
+    perm = torch.as_tensor(np.concatenate(
+        [seg.batch_positions for seg in segs]).astype(np.int32),
+        device=DEVICE)
+    x1 = torch.cat([w["x1"] for w in wires])
+    costs = analyze_step(
+        orch._fused_step, x1, torch.cat([w["delta_L"] for w in wires]),
+        torch.cat([w["dx1"] for w in wires]), perm,
+        tuple(orch._as_leaf_dict(w["gw1"], leaf_idx) for w in wires))
+    torch.cuda.synchronize()
+    return costs, x1.numel() * x1.element_size()
+
+
+def analysis_phase(card: str):
+    """Phase 4g.  (a) starcoder2-3b at full width, 12 layers (phase 4c's
+    (a2)-(d) cell: batch 8 x 512 on 4 nodes, in place, remat "tl"): after
+    ``ANALYSIS_STEPS`` timed steps, one production step with
+    ``reassembly="kernel"`` under ``analysis.dispatch_costs``: no generic
+    scatter, K1 recorded twice (``permute_rows`` and ``take_rows``, one
+    launch each), FLOPs equal to the same step traced on ``meta``; the
+    profiler's kernels of that step beside a ``reassembly="torch"`` step's:
+    the kernel step has no ``index_copy`` kernel and adds none but K1's,
+    the torch step's reassembly adds ``index_copy`` kernels; the torch
+    step counts >= 1 generic scatter of >= X^(1)'s bytes.  (b) the
+    simulator's fused step (the reference's contract at DATRET): K1 0
+    generic scatters, torch >= 3 with >= 2 x X^(1)'s bytes.  (c) the
+    first roofline reading of a real step: (a)'s measured ms (synced host
+    clock, median of steps 2..), ``t_compute`` from its FLOPs at the f32
+    peak, ``t_memory`` from its bytes, and the share t_compute / measured
+    (an f32 MFU), which above 1.05 means the count is wrong.  (d) phase
+    3's deepseek-7b prefill (``account_prefill``).  (e) ``python -m
+    repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k --mesh
+    single`` in a subprocess: exit 0, ``status: ok``."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.analysis import roofline
+    from repro_torch.analysis.dispatch_costs import accounting
+    from repro_torch.configs import get_config
+    from repro_torch.core.tl_step import make_train_step
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(PROD_ARCH),
+                              n_layers=PROD_CHECK_LAYERS)
+    model = build_model(cfg)
+    opt = production_opt(ANALYSIS_STEPS + 4)
+    eng = Engine(model, cfg, opt, mode="production", reassembly="kernel",
+                 remat_mode="tl", donate=True, pipeline=False,
+                 device=DEVICE).init(0)
+    loader = iter(production_loader(cfg.vocab_size))
+    batches = [{k: v.to(DEVICE) for k, v in eng._host_batch(
+        next(loader)).items()} for _ in range(ANALYSIS_STEPS + 2)]
+    step = eng._build_step()
+    params, state = eng.params, eng.opt_state
+    eng.params = eng.opt_state = None
+    step_s = []
+    for b in batches[:ANALYSIS_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    measured_ms = statistics.median(1e3 * t for t in step_s[1:])
+
+    # (a) the accounted step, kernel reassembly, and its kernels
+    for k in (permute_rows, take_rows):
+        k.launches = 0
+    with accounting() as ck:
+        params, state, loss = step(params, state, batches[ANALYSIS_STEPS])
+    torch.cuda.synchronize()
+    assert math.isfinite(float(loss))
+    assert ck.n_scatter == 0 and ck.scatter_bytes == 0, ck
+    for name in K1_REASSEMBLY:
+        assert ck.kernels[name]["calls"] == 1, ck.kernels
+        assert ck.kernels[name]["launches"] == 1, ck.kernels
+    assert permute_rows.launches == take_rows.launches == 1
+    b = batches[ANALYSIS_STEPS + 1]
+
+    def kernel_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, b)
+    k_names, k_lost, k_ops = profiled_kernels(kernel_step)
+    step_torch = make_train_step(model, cfg, opt, remat_mode="tl",
+                                 reassembly="torch", donate=True)
+    with accounting() as ct:
+        params, state, _ = step_torch(params, state, b)
+    torch.cuda.synchronize()
+
+    def torch_step():
+        nonlocal params, state
+        params, state, _ = step_torch(params, state, b)
+    t_names, t_lost, _ = profiled_kernels(torch_step)
+    x1_bytes = PROD_BATCH * PROD_SEQ * cfg.d_model * 4
+    assert ct.n_scatter >= 1 and ct.scatter_bytes >= x1_bytes, ct
+    assert ct.flops == ck.flops and ct.kernels == {}, (ct.flops, ck.flops)
+    only_kernel = k_names - t_names
+    only_torch = t_names - k_names
+    copy_re = re.compile("index_copy", re.IGNORECASE)
+    scatters = {n: c for n, c in k_names.items()
+                if re.search("scatter", n, re.IGNORECASE)}
+    print(f"  (a) {cfg.name} at full width, {cfg.n_layers} layers, batch "
+          f"{PROD_BATCH} x {PROD_SEQ}, one production step, kernel "
+          f"reassembly: {ck.n_scatter:.0f} generic scatters "
+          f"({ck.n_scatter_add:.0f} accumulating: the cross-entropy "
+          f"gather's and the embedding's backward), K1 {ck.kernels}, "
+          f"{ck.flops:.6e} FLOPs, {ck.hbm_bytes:.6e} bytes over "
+          f"{ck.n_ops:.0f} ops; torch reassembly: {ct.n_scatter:.0f} "
+          f"generic scatters of {ct.scatter_bytes:.6e} bytes (X^(1) "
+          f"{x1_bytes:.6e}) [{card}]")
+    print(f"      profiler: kernel step {sum(k_names.values())} records "
+          f"({sum(k_lost.values())} launches lost), only there "
+          f"{dict(only_kernel)}; torch step ({sum(t_lost.values())} lost) "
+          f"only {dict(only_torch)}; scatter-named kernels of the kernel "
+          f"step {scatters} [{card}]")
+    # a kernel only the kernel step recorded is K1's, or one whose record
+    # the torch step lost
+    extra = {n: c for n, c in only_kernel.items() if "permute_rows" not in n}
+    assert sum(extra.values()) <= sum(t_lost.values()), (extra, t_lost)
+    assert not [n for n in k_names if copy_re.search(n)], k_names
+    assert not [op for op in k_ops if copy_re.search(op)], k_ops
+    assert [n for n in only_torch if copy_re.search(n)], only_torch
+    del params, state, eng, batches
+    free_cuda()
+
+    # the same step on meta: the dispatcher's FLOPs must be the card's
+    mparams = model.init(device="meta")
+    mstate = opt.init(mparams)
+    mb = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+          for k, v in b.items()}
+    with accounting() as cm:
+        make_train_step(model, cfg, opt, remat_mode="tl",
+                        reassembly="kernel", donate=True)(mparams, mstate,
+                                                          mb)
+    assert cm.flops == ck.flops, (cm.flops, ck.flops)
+    assert cm.n_scatter == 0 and set(cm.kernels) == set(K1_REASSEMBLY)
+    print(f"  (a) FLOPs on the card == on meta: {cm.flops:.6e} [{card}]")
+
+    # (b) the simulator's fused step
+    fk, x1_sim = fused_step_costs("kernel")
+    ft, _ = fused_step_costs("torch")
+    assert fk.n_scatter == 0 and fk.scatter_bytes == 0, fk
+    assert fk.kernels["permute_rows"]["launches"] == 1, fk.kernels
+    assert ft.n_scatter >= 3 and ft.scatter_bytes >= 2 * x1_sim, ft
+    print(f"  (b) DATRET fused step: kernel {fk.n_scatter:.0f} generic "
+          f"scatters, K1 {fk.kernels['permute_rows']}; torch "
+          f"{ft.n_scatter:.0f} of {ft.scatter_bytes:.0f} bytes (X^(1) "
+          f"{x1_sim} bytes) [{card}]")
+
+    # (c) the first roofline reading of a real step
+    t_compute = 1e3 * ck.flops / roofline.PEAK_FLOPS
+    t_memory = 1e3 * ck.hbm_bytes / roofline.HBM_BW
+    share = t_compute / measured_ms
+    print(f"  (c) roofline of (a)'s step: measured {measured_ms:.3f} ms "
+          f"(median of steps 2-{ANALYSIS_STEPS}: "
+          f"{[round(1e3 * t, 3) for t in step_s]}), t_compute "
+          f"{t_compute:.3f} ms at {roofline.PEAK_FLOPS:.3g} FLOP/s f32, "
+          f"t_memory {t_memory:.3f} ms at {roofline.HBM_BW:.3g} B/s, f32 "
+          f"share t_compute / measured {share:.4f} [{card}]")
+    assert share <= 1.05, f"the FLOP count is wrong: share {share}"
+
+    # (d) phase 3's prefill
+    prefill = account_prefill()
+    print(f"  (d) deepseek-7b prefill of {prefill['prompt']} tokens (phase "
+          f"3's longest request): K4 recorded {prefill['k4_calls']:.0f} "
+          f"times, {prefill['k4_launches']:.0f} launches, "
+          f"{prefill['k4_bytes']:.6e} bytes; counted FLOPs "
+          f"{prefill['flops']:.6e} = meta's {prefill['meta_flops']:.6e} "
+          f"less the attention products {prefill['attention_flops']:.6e} "
+          f"(none of K4's plain ops counted) [{card}]")
+
+    # (e) one dryrun, in a subprocess
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "deepseek-7b", "--shape", "train_4k", "--mesh", "single", "--out",
+         out_dir], env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    dry_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(os.path.join(out_dir,
+                           "deepseek-7b__train_4k__single__baseline.json")) \
+            as f:
+        art = json.load(f)
+    assert art["status"] == "ok", art
+    print(f"  (e) dryrun deepseek-7b train_4k single: exit 0, status ok in "
+          f"{dry_s:.1f} s (trace {art['t_lower_s']:.1f} s): t_compute "
+          f"{art['t_compute']:.4e} s, t_memory {art['t_memory']:.4e} s, "
+          f"t_collective {art['t_collective']:.4e} s, bottleneck "
+          f"{art['bottleneck']} [{card}]")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 4g {seconds:.1f} s [{card}]")
+    return {"layers": cfg.n_layers, "measured_ms": measured_ms,
+            "step_s": step_s, "flops": ck.flops, "hbm_bytes": ck.hbm_bytes,
+            "n_ops": ck.n_ops, "t_compute_ms": t_compute,
+            "t_memory_ms": t_memory, "f32_share": share,
+            "kernel_n_scatter": ck.n_scatter,
+            "kernel_n_scatter_add": ck.n_scatter_add,
+            "torch_n_scatter": ct.n_scatter,
+            "torch_scatter_bytes": ct.scatter_bytes,
+            "k1": ck.kernels, "fused_kernel_n_scatter": fk.n_scatter,
+            "fused_torch_n_scatter": ft.n_scatter,
+            "fused_torch_scatter_bytes": ft.scatter_bytes,
+            "fused_x1_bytes": x1_sim,
+            "profiler_only_kernel_step": dict(only_kernel),
+            "profiler_only_torch_step": dict(only_torch),
+            "prefill": prefill,
+            "dryrun": {k: art[k] for k in (
+                "t_compute", "t_memory", "t_collective", "bottleneck",
+                "t_lower_s", "flops_per_chip", "peak_memory_per_chip")},
+            "dryrun_s": dry_s, "seconds": seconds}
+
+
 # ------------------------------------------------------ distribution (4e)
 
 DIST_STEPS = 3
@@ -3709,6 +4090,10 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32, as the reference
     torch.backends.cudnn.allow_tf32 = False
+    global HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS
+    from repro_torch.analysis import roofline
+    HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = (
+        roofline.HBM_BW, roofline.PEAK_FLOPS, roofline.TF32_FLOPS)
 
     from repro_torch.kernels.act_compress import (dequantize_rows,
                                                   ef_round_trip_rows,
@@ -3898,10 +4283,18 @@ def main() -> None:
               f"over the static generate of {SERVE_GEN} tokens, peak "
               f"{r['peak_gb']:.2f} GB [{card}]")
 
-    # phase 4e runs after phase 5's timing: run before it (a NCCL process
-    # group and a profiled step in this process), it left phase 5's
-    # profiler sessions losing kernel records (35 lossy readings against
-    # 6-8, and one that lost all of them five sessions in a row)
+    # phases 4g and 4e run after phase 5's timing: each profiles a whole
+    # production step (thousands of launches), and run before phase 5 each
+    # left its profiler sessions losing kernel records (4e: 35 lossy
+    # readings against 6-8; 4g: most readings, then all records of an SDPA
+    # reading five sessions in a row)
+    print(f"== phase 4g: analysis: the dispatch accounting of {PROD_ARCH}'s "
+          f"production step ({PROD_CHECK_LAYERS} layers) and the simulator's "
+          f"fused step, the first roofline reading, the dryrun")
+    analysis = analysis_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     print("== phase 4e: main path 8, distribution: the sharded production "
           "step on a one-rank NCCL mesh, expert parallelism, the drills")
     dist = distribution(card)
@@ -3940,6 +4333,7 @@ def main() -> None:
         extra["launches_production_qwen2_vl"] = front_train[
             "qwen2-vl-72b"]["launches"][key]
         extra["launches_distributed"] = dist["sharded"]["launches"][key]
+        extra["launches_analysis"] = analysis["k1"][key]["launches"]
         extra["launches_production_recurrent"] = sum(
             r["launches"][key] for r in rec_train.values())
         if mode == "scatter":
@@ -4052,6 +4446,7 @@ def main() -> None:
               bound_f32_ms=flash_t["mla"]["bound_f32_ms"],
               library_kernel=flash_t["mla"]["library_kernel"],
               launches_deepseek_7b=launches["flash_attention_bh"],
+              launches_analysis_prefill=analysis["prefill"]["k4_launches"],
               launches_restore=fire["launches_restore"]["flash_attention_bh"],
               launches_recovery=fire["launches_recovery"][
                   "flash_attention_bh"],
@@ -4089,6 +4484,7 @@ def main() -> None:
     print(f"  encoder-decoder and VLM training: {json.dumps(front_train)} "
           f"[{card}]")
     print(f"  baselines: {json.dumps(accs)} [{card}]")
+    print(f"  analysis: {json.dumps(analysis)} [{card}]")
     print(f"  chip_smoke total {time.perf_counter() - T_START:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

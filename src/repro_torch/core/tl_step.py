@@ -1,8 +1,8 @@
 """Production TL training step, on one device or sharded over a mesh.
 
 Port of ``repro/core/tl_step.py`` (``tl_loss_fn``, ``make_train_step``,
-``train_shardings``, ``serve_shardings``).  The loss's autograd graph *is*
-the TL protocol:
+``train_shardings``, ``make_serve_step``, ``serve_shardings``).  The
+loss's autograd graph *is* the TL protocol:
 
 * the node phase computes ``embed -> block0``, giving X^(1);
 * the orchestrator phase runs the tail (blocks 1..L-1, final norm, head)
@@ -282,6 +282,16 @@ def make_train_step(model: Model, cfg: ModelConfig, optimizer, *,
         params, opt_state = update(params, grads, opt_state)
         return params, opt_state, loss_sum / microbatch
 
+    return step
+
+
+# ------------------------------------------------------------- serve step
+
+def make_serve_step(model: Model, cfg: ModelConfig) -> Callable:
+    """``(params, cache, token, cache_len) -> (logits, cache)``: one decode
+    step (the step the dryrun traces for a decode shape)."""
+    def step(params, cache, token, cache_len):
+        return model.decode_step(params, cache, token, cache_len)
     return step
 
 

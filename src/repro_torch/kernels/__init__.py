@@ -6,9 +6,19 @@ version of the same function).  What runs is decided by the tensors alone,
 replacing the reference's ``resolve_interpret``:
 
 * every tensor on the CPU  -> the plain version (the CPU tests);
+* every tensor on ``meta`` -> the plain version (shapes only: the dryrun
+  traces a step and runs nothing);
 * every tensor on a CUDA card -> the kernel, or an exception.
 
 There is no switch that puts the plain version on a CUDA tensor.
+
+Every wrapper's ``__call__`` is a :func:`kernel_call`: while a cost
+accounting is active (``repro_torch.analysis.dispatch_costs``), the call is
+recorded once, by name, with its operand and result bytes and its launches,
+and the ops inside it (the plain version's on the CPU or ``meta``) are not
+counted; a launch through ctypes never reaches the dispatcher, so without
+the marker the card's kernels would be invisible to the accounting.  With no
+accounting active the marker does nothing, and it never changes the path.
 
 Packages:
   flash_attention — causal / sliding-window attention over a whole sequence,
@@ -31,12 +41,17 @@ Packages:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+_ACCOUNTANT = None          # the active cost accounting, or None
 
 
 def use_kernel(*tensors) -> bool:
     """True when the tensors lie on a CUDA device (launch the kernel), False
-    when they all lie on the CPU (run the plain version).  ``None`` entries
+    when they all lie on the CPU, or all on ``meta`` (run the plain
+    version).  ``None`` entries
     are ignored; any other mix of devices raises, and so does a ``DTensor``:
     a kernel reads ``data_ptr()``, so it takes a rank's local tensors
     (``to_local()``), never a distributed one."""
@@ -45,13 +60,42 @@ def use_kernel(*tensors) -> bool:
                         "to_local(), as core.tl_step's row permuter does")
     devs = {t.device for t in tensors if t is not None}
     kinds = {d.type for d in devs}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     if kinds == {"cuda"} and len(devs) == 1:
         return True
     raise ValueError(
         f"kernel inputs lie on {sorted(str(d) for d in devs)}: all must lie "
-        "on one CUDA device (kernel) or all on the CPU (plain version)")
+        "on one CUDA device (kernel), or all on the CPU or all on meta "
+        "(plain version)")
+
+
+def set_accountant(acc):
+    """Install ``acc`` (an object with ``enter()``, ``leave()`` and
+    ``record(name, args, out, launches)``) as the active cost accounting,
+    or remove it with None; returns the one it replaces."""
+    global _ACCOUNTANT
+    prev, _ACCOUNTANT = _ACCOUNTANT, acc
+    return prev
+
+
+def kernel_call(call):
+    """Mark a wrapper's ``__call__`` as one kernel call for the cost
+    accounting (module docstring).  The name is the wrapper's ``name``."""
+    @functools.wraps(call)
+    def marked(self, *args, **kwargs):
+        acc = _ACCOUNTANT
+        if acc is None:
+            return call(self, *args, **kwargs)
+        before = self.launches
+        acc.enter()
+        try:
+            out = call(self, *args, **kwargs)
+        finally:
+            acc.leave()
+        acc.record(self.name, (args, kwargs), out, self.launches - before)
+        return out
+    return marked
 
 
 def refuse_grad(name: str, *tensors) -> None:
@@ -69,4 +113,5 @@ def refuse_grad(name: str, *tensors) -> None:
             "path (attention: attend_dense / attend_blockwise)")
 
 
-__all__ = ["refuse_grad", "use_kernel"]
+__all__ = ["kernel_call", "refuse_grad", "set_accountant",
+           "use_kernel"]

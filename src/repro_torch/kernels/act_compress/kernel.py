@@ -24,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import kernel_call, use_kernel
 from repro_torch.kernels.act_compress.ref import (CODECS, check_codec,
                                                   dequantize_rows_ref,
                                                   ef_round_trip_rows_ref,
@@ -69,9 +69,12 @@ class QuantizeRows:
     """``(x, codec="int8") -> (q, scale)``: x (R, D) float32 or bfloat16 ->
     q (R, D) int8 | float8_e4m3fn and scale (R,) float32."""
 
+    name = "quantize_rows"
+
     def __init__(self):
         self.launches = 0
 
+    @kernel_call
     def __call__(self, x, codec: str = "int8"):
         qdtype, _ = check_codec(codec)
         _check_rows(x)
@@ -94,9 +97,12 @@ class QuantizeRows:
 class DequantizeRows:
     """``(q, scale, out_dtype=float32, codec="int8") -> x'`` (R, D)."""
 
+    name = "dequantize_rows"
+
     def __init__(self):
         self.launches = 0
 
+    @kernel_call
     def __call__(self, q, scale, out_dtype=torch.float32,
                  codec: str = "int8"):
         qdtype, _ = check_codec(codec)
@@ -135,9 +141,12 @@ class EfRoundTripRows:
     subtracting (:func:`~repro_torch.kernels.act_compress.ref.
     ef_round_trip_rows_ref`, the plain version)."""
 
+    name = "ef_round_trip_rows"
+
     def __init__(self):
         self.launches = 0
 
+    @kernel_call
     def __call__(self, x, residual=None, codec: str = "int8"):
         qdtype, _ = check_codec(codec)
         _check_rows(x)

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import refuse_grad, use_kernel
+from repro_torch.kernels import kernel_call, refuse_grad, use_kernel
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -91,9 +91,12 @@ class FlashAttentionBh:
     causal keeps j <= i, ``window > 0`` keeps j > i - window.
     """
 
+    name = "flash_attention_bh"
+
     def __init__(self):
         self.launches = 0
 
+    @kernel_call
     def __call__(self, q, k, v=None, *, scale: float, causal: bool = True,
                  window: int = 0, v_width: int = 0):
         dv = _check(q, k, v, v_width)

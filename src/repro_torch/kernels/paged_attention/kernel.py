@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import refuse_grad, use_kernel
+from repro_torch.kernels import kernel_call, refuse_grad, use_kernel
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
 
@@ -118,6 +118,8 @@ class PagedDecodeAttention:
     · lengths (B,) int32 valid keys per row.  float32 or bfloat16.
     """
 
+    name = "paged_decode"
+
     def __init__(self):
         self.launches = 0
         self._lib = None
@@ -162,6 +164,7 @@ class PagedDecodeAttention:
                                                   sms * blocks.value))
         return self._plans[key]
 
+    @kernel_call
     def __call__(self, q, k_pages, v_pages, block_tables, lengths, *,
                  scale: float, window: int = 0, v_width: int = 0):
         dv = _check(q, k_pages, v_pages, block_tables, lengths, v_width)

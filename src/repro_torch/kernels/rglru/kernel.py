@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import refuse_grad, use_kernel
+from repro_torch.kernels import kernel_call, refuse_grad, use_kernel
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.rglru.ref import rglru_ref
 
@@ -45,9 +45,12 @@ class RglruScanB:
     """``(a, b, *, chunk=64) -> (h, h_final)``: a, b (B,S,W) float32 with
     S % chunk == 0; h (B,S,W) float32, h_final (B,W) float32."""
 
+    name = "rglru_scan_b"
+
     def __init__(self):
         self.launches = 0
 
+    @kernel_call
     def __call__(self, a, b, *, chunk: int = 64):
         if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
             raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} "

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import refuse_grad, use_kernel
+from repro_torch.kernels import kernel_call, refuse_grad, use_kernel
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
@@ -69,9 +69,12 @@ class SsdBh:
     heads, all float32; y (B,S,H,P) float32 and the final state hT
     (B,H,P,N) float32."""
 
+    name = "ssd_bh"
+
     def __init__(self):
         self.launches = 0
 
+    @kernel_call
     def __call__(self, dA, x, Bm, Cm, *, chunk: int = 256):
         _check(dA, x, Bm, Cm, chunk)
         if not use_kernel(dA, x, Bm, Cm):

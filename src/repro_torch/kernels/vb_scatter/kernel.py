@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import kernel_call, use_kernel
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.vb_scatter.ref import permute_rows_ref
 
@@ -111,8 +111,10 @@ class PermuteRows:
         if mode not in ("scatter", "gather"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
+        self.name = "permute_rows" if mode == "scatter" else "take_rows"
         self.launches = 0
 
+    @kernel_call
     def __call__(self, idx, *tensors):
         N = _check(idx, tensors)
         if not use_kernel(idx, *tensors):

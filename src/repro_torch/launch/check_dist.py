@@ -26,6 +26,11 @@ exit code is 1 when a gate fails.
   rel < 2e-3 (``tests/test_moe_ep.py``), finite grads, a nonzero
   ``w_gate`` grad, expert grads within 1e-5 of ``moe_apply`` 's, and
   ``set_expert_parallel_mesh`` routing ``moe_apply`` through it;
+* the collective bytes one rank's sharded step dispatches (reduced
+  deepseek-7b, B=4, S=16, sgd, counted by ``analysis.dispatch_costs``)
+  against ``launch.dryrun``'s count from the placements, on the (2, 2)
+  mesh, the (2, 2, 1) (pod, data, model) mesh and a (1, 1) mesh of the
+  first rank (none at all);
 * ``constrain_batch`` (identity without a mesh or on a plain tensor,
   ``Shard(0)`` of a ``DTensor`` with one), the row permuter on
   ``DTensor`` s (shard-local, no collective), K1's refusal of a
@@ -43,6 +48,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import tempfile
@@ -160,6 +166,17 @@ def run_checks(device: str, ckdir: str) -> dict:
                        and _diff(got[1], saved[1]) == 0.0}
 
     out["ep"] = _expert_parallel(mesh, device, lead)
+    out["collectives"] = {
+        "debug22": _collectives(mesh, device),
+        "multipod": _collectives(make_multipod_debug_mesh(2, 2, 1,
+                                                          device=device),
+                                 device)}
+    from repro_torch.launch.mesh import make_debug_mesh
+    one = make_debug_mesh(1, 1, device=device)
+    one.device_mesh()                    # collective: every rank builds it
+    if lead:
+        out["collectives"]["debug11"] = _collectives(one, device)
+    dist.barrier()
 
     # constrain_batch, the DTensor row permuter and K1's refusal
     from repro_torch.core.tl_step import _make_row_permuter
@@ -190,6 +207,47 @@ def run_checks(device: str, ckdir: str) -> dict:
     out["permuter"] = {"placements": [str(p) for p in outs[0].placements],
                        "rows": rows, "kernel_refuses": refused}
     return out if lead else {}
+
+
+def _collectives(mesh, device) -> dict:
+    """One step of the sharded TL step on this rank under the dispatch
+    accounting: the collective result bytes it issued (``measured``)
+    beside ``launch.dryrun``'s count from the placements (``predicted``).
+    sgd is elementwise, so the optimizer issues none."""
+    from repro_torch.analysis.dispatch_costs import accounting
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tl_step import make_train_step, train_shardings
+    from repro_torch.dist.sharding import batch_axes, tokens_pspec
+    from repro_torch.dist.tensor import distribute_tree
+    from repro_torch.launch.dryrun import train_collective_bytes
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+
+    cfg = get_config("deepseek-7b", reduced=True)
+    model = build_model(cfg)
+    B, S = 4, 16
+    whole = model.init(seed=0, device=device)
+    opt = sgd(0.05)
+    in_sh, _ = train_shardings(whole, opt.init(whole), cfg, mesh,
+                               InputShape("collectives", S, B, "train"))
+    rank = dist.get_rank()
+    params = distribute_tree(whole, in_sh[0], rank)
+    state = opt.init(params)
+    sharded = tokens_pspec(mesh, B)[0] is not None
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           dtype=torch.int32)
+    n = math.prod(mesh.sizes[a] for a in batch_axes(mesh)) if sharded else 1
+    i = mesh.index_along(rank, batch_axes(mesh)) if sharded else 0
+    rows = slice(i * B // n, (i + 1) * B // n)
+    batch = {"tokens": tokens[rows].to(device),
+             "targets": torch.roll(tokens, -1, 1)[rows].to(device)}
+    step = make_train_step(model, cfg, opt, mesh=mesh, global_batch=B)
+    with accounting() as costs:
+        step(params, state, batch)
+    return {"measured": costs.coll,
+            "predicted": train_collective_bytes(whole, cfg, mesh, sharded)}
 
 
 def _expert_parallel(mesh, device, lead) -> dict:
@@ -299,6 +357,12 @@ def gates(out: dict) -> dict:
     ep = out["ep"]
     ok["ep"] = (ep["rel"] < 2e-3 and ep["finite"] and ep["w_gate_grad"] > 0
                 and ep["expert_grad_rel"] < 1e-5 and ep["hooked"])
+    coll = out["collectives"]
+    ok["collectives"] = (
+        coll["debug22"]["measured"] == coll["debug22"]["predicted"]
+        and coll["multipod"]["measured"] == coll["multipod"]["predicted"]
+        and coll["debug22"]["measured"].get("all-gather", 0) > 0
+        and coll["debug11"] == {"measured": {}, "predicted": {}})
     c, p = out["constrain"], out["permuter"]
     ok["constrain"] = (c["identity"] and c["plain_identity"] and c["values"]
                        and c["placements"] == ["S(0)", "R"])

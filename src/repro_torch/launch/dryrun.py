@@ -1,0 +1,404 @@
+"""Dry-run of one (arch x shape x mesh): trace one rank's program on
+``meta`` and write its roofline artifact.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
+        --shape train_4k --mesh single [--remat tl] \\
+        [--out experiments/artifacts_torch]
+
+Port of ``repro/launch/dryrun.py``.  The reference lowers and compiles the
+sharded step on 512 forced host devices and reads XLA's cost and memory
+analyses.  The port has no compiler to ask, so it
+
+* builds the full config's parameters, optimizer state (``adafactor``) and
+  inputs on ``meta`` (shapes only, nothing allocated, no card needed);
+* traces the program one rank runs under
+  ``analysis.dispatch_costs.analyze_step`` (FLOPs, bytes, ops);
+* takes the collective bytes and the memory from the placements
+  (``dist.sharding``), leaf by leaf, the way the port's step issues them.
+
+**What a port rank runs.**  *Train*: the sharded TL step
+(``core.tl_step.make_train_step(mesh=...)``) gathers every parameter whole
+at the loss's entry (``dist.tensor.sharded_value_and_grad``), runs the loss
+unsharded on the rank's B / n_dp rows (all B rows when the batch axes do
+not divide B), reduce-scatters the gradients onto the parameters'
+placements and updates the local shards.  So the "model" axis shards
+storage, not compute: a rank's FLOPs are about n_model times the GSPMD
+reference's, and its peak holds every parameter.  The artifact reports
+that; it does not reshape the numbers to look like the reference's.  The
+optimizer runs on the local shards (the port's ``adafactor`` refuses
+``DTensor`` leaves, whose factored row and column means would need
+collectives; it is traced here on the shards, as the reference's is).
+*Prefill / decode*: nothing in the port serves on a mesh yet, so a rank is
+reckoned to run ``model.prefill`` / ``make_serve_step`` the way the train
+step runs its loss: on its own batch rows (the cache's batch axes), with
+every parameter gathered whole (``serve_shardings``' placements) and its
+rows' cache whole (for decode gathered over the other axes; a prefill
+fills it), keeping its shard of the cache after the step.
+
+**Collectives a rank issues** (result bytes, all-reduce x2), modelled on
+what ``DTensor`` dispatches, which ``tests/test_torch_dist_gloo.py`` holds
+equal to a real sharded step's on four ranks: an all-gather per sharded
+mesh dim of each parameter at entry (mesh dims in order, a nested shard
+innermost first: the results grow to the whole leaf); per gradient, over
+each batch mesh dim of size > 1, a reduce-scatter (result: the leaf
+divided over the batch dims so far) where the parameter is sharded there,
+an all-reduce where it is replicated; the loss's mean, an all-reduce of a
+scalar over each batch mesh dim.  With a one-rank mesh there are none.
+
+**Peak per rank** is reckoned, not measured: the local shards of the
+parameters and optimizer state, the gathered whole parameters (and
+cache), the inputs, and the traced step's high-water mark of live
+tensors.  The artifact says so (``extra_tags.peak_source``) and names the
+constants' device.  There is no compile: ``t_lower_s`` is the trace's
+seconds, ``t_compile_s`` 0, ``hlo_lines`` the count of dispatched ops and
+``xla_cost_analysis`` ``FlopCounterMode``'s total (the unscaled
+cross-check; it also counts the ops inside kernel calls).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+import traceback
+
+import torch
+
+from repro_torch.analysis.dispatch_costs import accounting, nbytes
+from repro_torch.analysis.roofline import (DEVICE, Roofline, leaf_specs,
+                                           model_flops, summarize)
+from repro_torch.configs import get_config, get_shape
+from repro_torch.configs.base import InputShape
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.launch.specs import abstract_cache, abstract_params, \
+    input_specs
+
+OUT_DIR = "experiments/artifacts_torch"
+LOSS_BYTES = 4                       # the f32 loss the mean all-reduces
+
+
+# ------------------------------------------------------------ placements
+
+def _placement_steps(spec, mesh):
+    """``[(mesh dim, tensor dim), ...]`` of the ``Shard`` placements of
+    ``spec`` on ``mesh`` (axes of size 1 do not shard)."""
+    from repro_torch.dist.sharding import spec_placements
+    return [(i, p.dim) for i, p in enumerate(spec_placements(spec, mesh))
+            if p.is_shard()]
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    sizes = mesh.shape
+    out = list(shape)
+    for i, d in _placement_steps(spec, mesh):
+        out[d] //= sizes[i]
+    return tuple(out)
+
+
+def gather_bytes(shape, itemsize, spec, mesh, keep=()) -> int:
+    """Result bytes of the all-gathers that rebuild a leaf whole from its
+    shard, as ``DTensor`` orders them: mesh dims in order, except that a
+    tensor dim sharded over several mesh dims is gathered innermost first.
+    Mesh dims in ``keep`` stay sharded (a rank's own batch rows)."""
+    sizes = mesh.shape
+    steps = [s for s in _placement_steps(spec, mesh) if s[0] not in keep]
+    cur = list(local_shape(shape, spec, mesh))
+    total = 0
+    while steps:
+        i, d = next(s for s in steps
+                    if not any(t[1] == s[1] and t[0] > s[0] for t in steps))
+        steps.remove((i, d))
+        cur[d] *= sizes[i]
+        total += math.prod(cur) * itemsize
+    return total
+
+
+def grad_reduce_bytes(shape, itemsize, spec, mesh, batch_dims):
+    """``(reduce-scatter, all-reduce)`` result bytes of a whole gradient,
+    ``Partial`` over ``batch_dims`` (mesh dims), redistributed onto the
+    parameter's placements mesh dim by mesh dim; the all-reduce counted
+    x2."""
+    from repro_torch.dist.sharding import spec_placements
+    sizes = mesh.shape
+    cur = list(shape)
+    rs = ar = 0
+    for i, p in enumerate(spec_placements(spec, mesh)):
+        if i in batch_dims:
+            if p.is_shard():
+                cur[p.dim] //= sizes[i]
+                rs += math.prod(cur) * itemsize
+            else:
+                ar += 2 * math.prod(cur) * itemsize
+        elif p.is_shard():
+            cur[p.dim] //= sizes[i]
+    return rs, ar
+
+
+def _batch_dims(mesh, batch_sharded: bool):
+    from repro_torch.dist.sharding import batch_axes
+    if not batch_sharded:
+        return ()
+    return tuple(i for i, a in enumerate(mesh.axis_names)
+                 if a in batch_axes(mesh) and mesh.shape[i] > 1)
+
+
+def train_collective_bytes(params, cfg, mesh, batch_sharded: bool):
+    """Per-rank collective result bytes of the port's sharded TL step
+    (module docstring) from the parameters' placements."""
+    from repro_torch.dist.sharding import param_specs
+    bdims = _batch_dims(mesh, batch_sharded)
+    coll = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+    for leaf, spec in leaf_specs(params, param_specs(params, cfg, mesh)):
+        shape, item = tuple(leaf.shape), leaf.element_size()
+        coll["all-gather"] += gather_bytes(shape, item, spec, mesh)
+        rs, ar = grad_reduce_bytes(shape, item, spec, mesh, bdims)
+        coll["reduce-scatter"] += rs
+        coll["all-reduce"] += ar
+    coll["all-reduce"] += 2 * LOSS_BYTES * len(bdims)
+    return {k: v for k, v in coll.items() if v}
+
+
+# ------------------------------------------------------------ one rank
+
+def _local(tree, specs, mesh):
+    """Each leaf's local shard (a view) on the mesh's first rank."""
+    from repro_torch.dist.tensor import local_chunk
+    coord = mesh.coordinate(mesh.ranks()[0])
+    if isinstance(tree, dict):
+        return {k: _local(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_local(t, s, mesh) for t, s in zip(tree, specs))
+    return local_chunk(tree, specs, mesh, coord)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(nbytes(t) for t in tree_leaves(tree))
+
+
+class _LocalUpdate:
+    """An optimizer whose ``update`` takes whole parameters and gradients
+    and updates their local shards (the sharded step's update)."""
+
+    def __init__(self, opt, shard):
+        self.opt, self.shard = opt, shard
+
+    def update(self, params, grads, state):
+        return self.opt.update(self.shard(params), self.shard(grads), state)
+
+
+def _rows(mesh, batch: int) -> int:
+    from repro_torch.dist.sharding import batch_axes
+    n_dp = math.prod(mesh.sizes[a] for a in batch_axes(mesh))
+    return batch // n_dp if batch % n_dp == 0 and batch >= n_dp else batch
+
+
+def _trace_train(model, cfg, shape, mesh, params, remat, microbatch):
+    from repro_torch.core.tl_step import make_train_step
+    from repro_torch.dist.sharding import param_specs, tokens_pspec
+    from repro_torch.optim import adafactor
+
+    pspecs = param_specs(params, cfg, mesh)
+    local = _local(params, pspecs, mesh)
+    opt = adafactor(1e-3)
+    opt_state = opt.init(local)
+    batch_sharded = tokens_pspec(mesh, shape.global_batch)[0] is not None
+    rows = _rows(mesh, shape.global_batch) if batch_sharded \
+        else shape.global_batch
+    batch = input_specs(cfg, InputShape(shape.name, shape.seq_len, rows,
+                                        "train"), params["embed"].dtype)
+    step = make_train_step(
+        model, cfg, _LocalUpdate(opt, lambda t: _local(t, pspecs, mesh)),
+        remat_mode=remat, microbatch=microbatch)
+    with accounting() as costs:
+        step(params, opt_state, batch)
+    coll = train_collective_bytes(params, cfg, mesh, batch_sharded)
+    memory = {"param_shard_bytes": _tree_bytes(local),
+              "opt_state_shard_bytes": _tree_bytes(opt_state),
+              "gathered_param_bytes": _tree_bytes(params),
+              "input_bytes": _tree_bytes(batch),
+              "traced_live_peak_bytes": int(costs.peak_live_bytes)}
+    program = (f"the sharded TL step on {rows} of {shape.global_batch} rows "
+               "with every parameter gathered whole; adafactor on the "
+               "local shards")
+    return costs, coll, memory, program
+
+
+def _trace_serve(model, cfg, shape, mesh, params, cache_seq_shard,
+                 serve_fsdp):
+    from repro_torch.core.tl_step import make_serve_step, serve_shardings
+    from repro_torch.dist.sharding import batch_axes
+
+    rows = _rows(mesh, shape.global_batch)
+    cache = abstract_cache(model, rows, shape.seq_len,
+                           params["embed"].dtype)
+    full_cache = abstract_cache(model, shape.global_batch, shape.seq_len,
+                                params["embed"].dtype)
+    in_sh, _ = serve_shardings(params, full_cache, cfg, mesh, shape,
+                               cache_seq_shard=cache_seq_shard,
+                               fsdp=serve_fsdp)
+    pspecs = tree_map(lambda s: s.spec, in_sh[0])
+    cspecs = tree_map(lambda s: s.spec, in_sh[1])
+    local = _local(params, pspecs, mesh)
+    local_cache = _local(full_cache, cspecs, mesh)
+    keep = {i for i, a in enumerate(mesh.axis_names)
+            if a in batch_axes(mesh)} if rows < shape.global_batch else set()
+    gathers = sum(gather_bytes(tuple(p.shape), p.element_size(), s, mesh)
+                  for p, s in leaf_specs(params, pspecs))
+    specs = input_specs(cfg, InputShape(shape.name, shape.seq_len, rows,
+                                        shape.kind), params["embed"].dtype)
+    if shape.kind == "prefill":
+        def run():
+            return model.prefill(params, cache, specs["tokens"],
+                                 specs.get("embeds"))
+        gathered_cache = 0
+    else:
+        step = make_serve_step(model, cfg)
+
+        def run():
+            return step(params, cache, specs["token"], shape.seq_len - 1)
+        # the rank's rows' cache, whole over the axes that are not its rows
+        gathered_cache = sum(
+            gather_bytes(tuple(c.shape), c.element_size(), s, mesh, keep)
+            for c, s in leaf_specs(full_cache, cspecs))
+        gathers += gathered_cache
+    with accounting() as costs, torch.no_grad():
+        run()
+    coll = {"all-gather": gathers} if gathers else {}
+    memory = {"param_shard_bytes": _tree_bytes(local),
+              "cache_shard_bytes": _tree_bytes(local_cache),
+              "gathered_param_bytes": _tree_bytes(params),
+              "rank_cache_bytes": _tree_bytes(cache),
+              "input_bytes": _tree_bytes(specs),
+              "traced_live_peak_bytes": int(costs.peak_live_bytes)}
+    what = "model.prefill" if shape.kind == "prefill" else "make_serve_step"
+    program = (f"{what} on {rows} of {shape.global_batch} rows with every "
+               "parameter gathered whole (serving on a mesh is not ported; "
+               "reckoned as the train step runs its loss)")
+    return costs, coll, memory, program
+
+
+def lower_one(arch: str, shape_name: str, mesh_kind: str, remat: str = "tl",
+              dtype=torch.bfloat16, extra_tags=None, microbatch: int = 1,
+              cache_seq_shard: bool = False,
+              activation_constraints: bool = False, serve_fsdp=None,
+              moe_ep: bool = False):
+    from repro_torch.dist.constraints import activation_sharding
+    from repro_torch.dist.sharding import batch_axes
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    shape = get_shape(shape_name)
+    if shape.kind == "decode" and shape.seq_len > 40_000 \
+            and not cfg.supports_long_context:
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+                "status": "skipped",
+                "reason": "full-attention arch: long-context decode is "
+                          "quadratic by design (DESIGN.md §4)"}
+    if moe_ep:
+        raise NotImplementedError(
+            "--moe-ep: expert parallelism dispatches all_to_all over a "
+            "process group, and the dryrun traces one rank without one; "
+            "the port's sharded TL step routes each rank's rows with "
+            "moe_apply in any case")
+
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    model = build_model(cfg)
+    params = abstract_params(model, dtype)
+    t0 = time.time()
+    axes = batch_axes(mesh) if activation_constraints else None
+    with activation_sharding(axes):
+        if shape.kind == "train":
+            costs, coll, memory, program = _trace_train(
+                model, cfg, shape, mesh, params, remat, microbatch)
+        else:
+            costs, coll, memory, program = _trace_serve(
+                model, cfg, shape, mesh, params, cache_seq_shard,
+                serve_fsdp)
+    t_lower = time.time() - t0
+
+    peak = sum(v for k, v in memory.items())
+    r = Roofline(
+        arch=arch, shape=shape_name, mesh=mesh_kind, chips=mesh.size,
+        flops_per_chip=float(costs.flops),
+        bytes_per_chip=float(costs.hbm_bytes),
+        coll_bytes_per_chip=float(sum(coll.values())),
+        coll_breakdown={k: int(v) for k, v in coll.items()},
+        model_flops_global=model_flops(cfg, shape),
+        peak_memory_per_chip=float(peak))
+    out = r.to_dict()
+    tags = {"device": DEVICE,
+            "peak_source": "reckoned: parameter (and cache) shards + "
+                           "optimizer-state shards + gathered whole "
+                           "parameters (and cache) + inputs + traced live "
+                           "high-water",
+            "rank_program": program,
+            "counts": "dispatch (analysis.dispatch_costs) on meta; "
+                      "collectives from the placements",
+            "kernels": costs.kernels,
+            "n_scatter": costs.n_scatter,
+            "n_scatter_add": costs.n_scatter_add}
+    tags.update(extra_tags or {})
+    out.update(status="ok", remat=remat, microbatch=microbatch,
+               cache_seq_shard=cache_seq_shard,
+               activation_constraints=activation_constraints,
+               memory_analysis=memory,
+               t_lower_s=t_lower, t_compile_s=0.0,
+               hlo_lines=int(costs.n_ops),
+               xla_cost_analysis={"flops": costs.flop_counter_total,
+                                  "bytes_accessed": float(costs.hbm_bytes)},
+               extra_tags=tags)
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True)
+    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
+    ap.add_argument("--remat", default="tl", choices=["tl", "none", "dots"])
+    ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--tag", default="baseline")
+    ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--cache-seq-shard", action="store_true")
+    ap.add_argument("--act-constraints", action="store_true")
+    ap.add_argument("--no-serve-fsdp", action="store_true")
+    ap.add_argument("--moe-ep", action="store_true")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    try:
+        art = lower_one(args.arch, args.shape, args.mesh, args.remat,
+                        microbatch=args.microbatch,
+                        cache_seq_shard=args.cache_seq_shard,
+                        activation_constraints=args.act_constraints,
+                        serve_fsdp=False if args.no_serve_fsdp else None,
+                        moe_ep=args.moe_ep)
+    except Exception as e:  # noqa: BLE001 -- report trace failures as data
+        art = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,
+               "status": "error", "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()[-4000:]}
+
+    os.makedirs(args.out, exist_ok=True)
+    name = f"{args.arch}__{args.shape}__{args.mesh}__{args.tag}.json"
+    path = os.path.join(args.out, name)
+    with open(path, "w") as f:
+        json.dump(art, f, indent=1)
+
+    if art["status"] == "ok":
+        print("memory (reckoned):", art["memory_analysis"])
+        print("costs: flops=%.3e bytes=%.3e collectives=%.3e traced in "
+              "%.1fs" % (art["flops_per_chip"], art["bytes_per_chip"],
+                         art["coll_bytes_per_chip"], art["t_lower_s"]))
+        print(summarize(art))
+    else:
+        print(art["status"], art.get("reason", art.get("error", "")))
+    print("artifact:", path)
+    return 0 if art["status"] in ("ok", "skipped") else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

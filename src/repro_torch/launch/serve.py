@@ -1,31 +1,36 @@
 """Serving CLI of the port: static-batch oracle + continuous-batching engine.
 
-Port of ``repro/launch/serve.py``.  Runs on the card unless ``--device cpu``:
+Port of ``repro/launch/serve.py``.  Runs on the card unless ``--device cpu``.
+``--arch`` defaults to starcoder2-3b, as the reference's; its sliding
+window keeps it on the static engine, so the continuous engine's examples
+name a full-attention arch:
 
     # full-width deepseek-7b on one H100, paged decode through the CUDA kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
-        --engine continuous --attention paged --requests 4 --gen 16
+        --arch deepseek-7b --engine continuous --attention paged \\
+        --requests 4 --gen 16
 
     # the 2-layer variant on the CPU (plain attention everywhere); sampled
     # streams with --temperature, static or continuous
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-        --engine continuous --requests 4 --gen 8 --temperature 0.8
+        --arch deepseek-7b --engine continuous --requests 4 --gen 8 \\
+        --temperature 0.8
 
     # serve-under-fire drills: a decode hang + crash under supervision must
     # print "SERVE_DRILL token_identical=true ..." and exit 0 (3 when a
     # stream diverges from the oracle); unsupervised, a fault exits 2 with
     # an engine-state dump
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-        --engine continuous --requests 4 --gen 8 --chaos hang:3,crash:6 \\
-        --watchdog-s 2
+        --arch deepseek-7b --engine continuous --requests 4 --gen 8 \\
+        --chaos hang:3,crash:6 --watchdog-s 2
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-        --engine continuous --requests 2 --gen 8 --chaos crash:1 \\
-        --no-supervise
+        --arch deepseek-7b --engine continuous --requests 2 --gen 8 \\
+        --chaos crash:1 --no-supervise
 
     # SLO shedding: every rid lands in the results, shed ones explicitly
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-        --engine continuous --requests 6 --gen 8 --max-slots 2 \\
-        --num-pages 16 --page-size 4 --deadline-ms 4000
+        --arch deepseek-7b --engine continuous --requests 6 --gen 8 \\
+        --max-slots 2 --num-pages 16 --page-size 4 --deadline-ms 4000
 
     # full-width mamba2-780m / recurrentgemma-9b on one H100: the static
     # engine, prefill scans through the ssd_bh / rglru_scan_b CUDA kernels
@@ -123,7 +128,7 @@ def generate(model, cfg, params, prompts, gen_len: int, *,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="deepseek-7b", choices=list_archs())
+    ap.add_argument("--arch", default="starcoder2-3b", choices=list_archs())
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True, help="2-layer variant (--no-reduced: full "
                                        "width)")

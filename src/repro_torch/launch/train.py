@@ -33,8 +33,12 @@ the (pod, data, model) production mesh) shards the step over a
 ``torch.distributed`` mesh (``launch.mesh.resolve_mesh``): NCCL on
 ``cuda``, gloo on ``cpu``.  Under ``torchrun`` the world is its ranks
 (``env://``); alone, the CLI is one rank and ``debug`` is the (1, 1) mesh.
-Without ``--mesh`` the step runs on one device with no process group.
-``--elastic`` arms device-loss recovery (reshrink + rollback + replay; a
+Without ``--mesh`` one process runs the step on one device with no process
+group (the reference's ``--mesh`` defaults to ``debug``; its (1, 1) mesh is
+bit-equal to the mesh-less step), while ``--elastic`` or ``torchrun``
+(``WORLD_SIZE`` > 1) take ``debug`` (:func:`mesh_kind`); ``--multi-pod``
+off ``--mesh production`` is ignored, as in the reference.  ``--elastic``
+arms device-loss recovery (reshrink + rollback + replay; a
 temporary ``--ckpt`` when none is given), ``--drill kill-device:STEP[:DEV]``
 / ``hang-device:STEP[:DEV]`` injects a scripted fault, and
 ``--watchdog-s`` is the per-step deadline.  With ``--elastic`` and a drill
@@ -60,6 +64,7 @@ Runs on ``--device`` (default ``cuda``).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -96,6 +101,21 @@ def _run_sim(args):
     return losses
 
 
+def mesh_kind(args):
+    """The mesh the production run shards over: ``--mesh``; else ``debug``
+    under ``--elastic`` (it reshrinks a mesh) or under ``torchrun``
+    (``WORLD_SIZE`` > 1: the ranks share one sharded step, as the
+    reference's ``--mesh`` default of ``debug`` makes them); else None,
+    one device with no process group.  ``--multi-pod`` matters only with
+    ``production`` and is ignored with any other mesh, as in the
+    reference."""
+    if args.mesh:
+        return args.mesh
+    if args.elastic or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return "debug"
+    return None
+
+
 def _run_production(ap, args):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import (VirtualBatchLoader, shard_corpus,
@@ -109,10 +129,6 @@ def _run_production(ap, args):
                         ("--ckpt-keep", args.ckpt_keep)):
         if given and not args.ckpt:
             ap.error(f"{flag} needs --ckpt")
-    if args.multi_pod and args.mesh != "production":
-        ap.error("--multi-pod needs --mesh production")
-    if args.elastic and not args.mesh:
-        ap.error("--elastic reshrinks a mesh: pass --mesh")
     drill = None
     if args.drill:
         from repro_torch.launch.elastic import DeviceFaultSpec, parse_drill
@@ -121,10 +137,11 @@ def _run_production(ap, args):
         except ValueError as e:
             ap.error(str(e))
 
+    kind = mesh_kind(args)
     mesh = None
-    if args.mesh:
+    if kind:
         from repro_torch.launch.mesh import resolve_mesh
-        mesh = resolve_mesh(args.mesh, multi_pod=args.multi_pod,
+        mesh = resolve_mesh(kind, multi_pod=args.multi_pod,
                             device=args.device)
     if args.elastic and not args.ckpt:
         # recovery needs a rollback anchor; the first rank names the
@@ -177,7 +194,7 @@ def _run_production(ap, args):
         engine.init(0)
     say(f"arch={cfg.name} params={engine.n_params() / 1e6:.1f}M "
         f"nodes={args.nodes} mesh="
-        f"{args.mesh + str(mesh.shape) if mesh else None} "
+        f"{kind + str(mesh.shape) if mesh else None} "
         f"pipeline={args.pipeline} reassembly={args.reassembly} "
         f"remat={args.remat} device={engine.device}")
 
@@ -242,7 +259,7 @@ def _verify_recovery(engine, result, model, cfg, opt, common, loader, budget,
         raise SystemExit(3)
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="production",
                     choices=["production", "sim"],
@@ -284,7 +301,8 @@ def main(argv=None):
                     choices=["debug", "host", "production"],
                     help="shard the step over a torch.distributed mesh "
                          "(under torchrun: its ranks; alone: one rank); "
-                         "default: one device, no process group")
+                         "default: debug under --elastic or torchrun, else "
+                         "one device with no process group")
     ap.add_argument("--multi-pod", action="store_true",
                     help="with --mesh production: the 2x16x16 (pod, data, "
                          "model) mesh")
@@ -313,6 +331,11 @@ def main(argv=None):
                     help="error-feedback accumulator on the wire lane")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only when asked)")
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
     args = ap.parse_args(argv)
     if args.wire != "off" and args.mode != "sim":
         ap.error("--wire is simulator-only for now: pass --mode sim")

@@ -35,7 +35,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
-                                       needs_grad, rmsnorm, rmsnorm_init)
+                                       reference_path, rmsnorm,
+                                       rmsnorm_init)
 
 NEG_INF = -1e30
 DENSE_MAX_SEQ = 2048        # use the blockwise path above this length
@@ -133,12 +134,14 @@ def attend(q, k, v, q_pos, k_pos, window: int, scale: float, *,
 
     Training (grad enabled and an input that requires it) takes the
     reference's own path, ``attend_dense`` / ``attend_blockwise`` by the
-    ``DENSE_MAX_SEQ`` rule: K4 is forward-only.  Without grad, a causal
+    ``DENSE_MAX_SEQ`` rule: K4 is forward-only.  So does a trace on
+    ``meta`` (``layers.reference_path``), which never reaches the kernel's
+    routing (``torch.equal`` has no meta kernel).  Without grad, a causal
     self-attention over a whole sequence (``Sq == Sk > 1``, ``q_pos ==
     k_pos``) goes to ``flash_attention``, and so does, non-causally, an
     ``all_visible`` one with ``Sq > 1`` and no window.  Decode and
     anything else take the dense or blockwise path."""
-    if not needs_grad(q, k, v) and q.shape[1] > 1:
+    if not reference_path(q, k, v) and q.shape[1] > 1:
         if all_visible and window == 0:
             return flash_attention(q, k, v, scale=scale, causal=False,
                                    v_width=v_width)

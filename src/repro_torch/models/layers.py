@@ -141,3 +141,15 @@ def needs_grad(*tensors) -> bool:
     their differentiable paths, since the kernels are forward-only."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+
+def reference_path(*tensors) -> bool:
+    """True when the models take the reference's own differentiable paths
+    (``attend_dense`` / ``attend_blockwise``, ``ssd_chunked``, the
+    associative ``rglru_scan``) instead of the forward-only kernels: under
+    grad (:func:`needs_grad`), and on ``meta``, where a step is traced for
+    its shapes and costs as the reference's dryrun traces its models, which
+    never call a Pallas kernel."""
+    return needs_grad(*tensors) or any(
+        t is not None and t.is_meta for t in tensors)

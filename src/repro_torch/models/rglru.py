@@ -28,7 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru.ops import rglru_scan as rglru_scan_kernel
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
                                        causal_conv1d_step, dense_init,
-                                       needs_grad, softplus)
+                                       reference_path, softplus)
 from repro_torch.scan import associative_scan
 
 C_FACTOR = 8.0
@@ -88,7 +88,7 @@ def rglru_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
         xc = causal_conv1d(params["conv"], xw)
         a, beta, i = _gates(params, xc)
         bx = beta * i * xc.float()
-        h = (rglru_scan(a, bx) if needs_grad(a, bx)
+        h = (rglru_scan(a, bx) if reference_path(a, bx)
              else rglru_scan_kernel(a, bx)[0])
         if cache is not None:
             # the last k-1 conv inputs (behind the empty cache's zeros when

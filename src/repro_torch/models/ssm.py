@@ -19,8 +19,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
                                        causal_conv1d_step, dense_init,
-                                       needs_grad, rmsnorm, rmsnorm_init,
-                                       softplus)
+                                       reference_path, rmsnorm,
+                                       rmsnorm_init, softplus)
 
 
 def ssd_chunked(x, dt, A_log, Bmat, Cmat, chunk: int):
@@ -152,7 +152,7 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
             dt = F.pad(dt, (0, 0, 0, pad))
             Bm = F.pad(Bm, (0, 0, 0, pad))
             Cm = F.pad(Cm, (0, 0, 0, pad))
-        if needs_grad(xh, dt, params["A_log"], Bm, Cm):
+        if reference_path(xh, dt, params["A_log"], Bm, Cm):
             y, hT = ssd_chunked(xh, dt, params["A_log"], Bm, Cm,
                                 s.chunk_size)
         else:

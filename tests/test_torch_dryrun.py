@@ -1,0 +1,217 @@
+"""The port's dryrun and its inputs against the reference's, on the CPU.
+
+* ``launch.specs``: ``input_specs`` / ``text_len`` / ``abstract_params`` /
+  ``abstract_cache`` give the reference's shapes and dtypes for all ten
+  archs x the four ``SHAPES``; the port's per-layer lists are stacked into
+  the reference's layout (``bridge.params_to_jax``) before comparing.
+* ``launch.dryrun.lower_one`` at full width (deepseek-7b, mamba2-780m,
+  seamless-m4t-medium at ``train_4k`` on the single-pod mesh) returns
+  ``status: ok`` with every key of the reference's artifact, and its FLOPs
+  are those of one rank's loss and gradient counted directly.
+* The ``skipped`` verdicts equal the reference's for every arch at
+  ``decode_32k`` and ``long_500k`` (the reference's in a subprocess: its
+  module forces 512 host devices on import).
+* The meta repairs: ``use_kernel`` takes the plain version on ``meta``
+  and refuses a mix, and every arch prefills and decodes on ``meta`` at
+  full width.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.configs import get_shape as jax_shape  # noqa: E402
+from repro.launch import specs as jspecs  # noqa: E402
+from repro.models import build_model as jax_build  # noqa: E402
+from repro_torch.analysis import analyze_step  # noqa: E402
+from repro_torch.bridge import _flatten, params_to_jax  # noqa: E402
+from repro_torch.configs import SHAPES, get_config, get_shape  # noqa: E402
+from repro_torch.configs import list_archs  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.core.tl_step import tl_loss_fn, value_and_grad  # noqa: E402
+from repro_torch.kernels import use_kernel  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as port_mesh  # noqa: E402
+from repro_torch.launch.specs import (abstract_cache,  # noqa: E402
+                                      abstract_params, input_specs,
+                                      text_len)
+from repro_torch.models import build_model  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = list_archs()
+
+# every key of the reference's ``lower_one`` artifact
+REFERENCE_KEYS = {
+    "arch", "shape", "mesh", "chips", "flops_per_chip", "bytes_per_chip",
+    "coll_bytes_per_chip", "coll_breakdown", "model_flops_global",
+    "peak_memory_per_chip", "t_compute", "t_memory", "t_collective",
+    "bottleneck", "useful_flops_ratio", "status", "remat", "microbatch",
+    "cache_seq_shard", "activation_constraints", "memory_analysis",
+    "t_lower_s", "t_compile_s", "hlo_lines", "xla_cost_analysis",
+    "extra_tags"}
+
+
+def _dtype(d) -> str:
+    return str(d).replace("torch.", "")
+
+
+def _shapes(tree) -> dict:
+    return {k: (tuple(v.shape), _dtype(v.dtype))
+            for k, v in _flatten(tree).items()}
+
+
+def _jax_shapes(tree) -> dict:
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(getattr(e, "key", getattr(e, "idx", e)))
+                       for e in path)
+        out[key] = (tuple(leaf.shape), _dtype(leaf.dtype))
+    return out
+
+
+def _cache_to_reference(cache, cfg):
+    """The port's per-layer cache in the reference's stacked layout."""
+    if cfg.is_encdec:
+        return {"enc_out": cache["enc_out"],
+                "self": params_to_jax({"encoder": cache["self"]},
+                                      cfg)["encoder"]}
+    return params_to_jax({"layers": cache}, cfg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_specs_equal_the_reference(arch):
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    model, jmodel = build_model(cfg), jax_build(jcfg)
+    assert _shapes(params_to_jax(abstract_params(model), cfg)) \
+        == _jax_shapes(jspecs.abstract_params(jmodel))
+    for name in SHAPES:
+        shape, jshape = get_shape(name), jax_shape(name)
+        assert text_len(cfg, shape) == jspecs.text_len(jcfg, jshape)
+        got = {k: (tuple(v.shape), _dtype(v.dtype))
+               for k, v in input_specs(cfg, shape).items()}
+        want = {k: (tuple(v.shape), _dtype(v.dtype))
+                for k, v in jspecs.input_specs(jcfg, jshape).items()}
+        assert got == want, name
+        if shape.kind != "train":
+            B, L = shape.global_batch, shape.seq_len
+            assert _shapes(_cache_to_reference(
+                abstract_cache(model, B, L), cfg)) \
+                == _jax_shapes(jspecs.abstract_cache(jmodel, B, L)), name
+    assert _dtype(abstract_params(model, torch.float32)["embed"].dtype) \
+        == "float32"
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-780m",
+                                  "seamless-m4t-medium"])
+def test_lower_one_traces_a_full_width_train_step(arch):
+    art = dryrun.lower_one(arch, "train_4k", "single")
+    assert art["status"] == "ok", art
+    assert REFERENCE_KEYS <= set(art)
+    assert art["chips"] == 256 and art["t_compile_s"] == 0.0
+    assert "reckoned" in art["extra_tags"]["peak_source"]
+    assert "H100" in art["extra_tags"]["device"]
+    # one rank: B / 16 rows, every parameter whole (bf16, as the reference)
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = abstract_params(model)
+    rows = get_shape("train_4k").global_batch // 16
+    batch = input_specs(cfg, InputShape("train_4k", 4096, rows, "train"))
+    direct = analyze_step(value_and_grad, tl_loss_fn(model, cfg, "tl"),
+                          params, batch)
+    assert art["flops_per_chip"] == direct.flops
+    assert art["hlo_lines"] > 0 and art["bytes_per_chip"] > 0
+    mem = art["memory_analysis"]
+    assert art["peak_memory_per_chip"] == sum(mem.values())
+    assert mem["gathered_param_bytes"] == sum(
+        t.numel() * t.element_size() for t in _flatten(params).values())
+    coll = art["coll_breakdown"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+
+
+_REFERENCE_VERDICTS = """
+import json, sys
+import repro.launch.dryrun as d
+from repro.configs import list_archs
+
+class Traced(Exception):
+    pass
+
+def stop(*a, **k):
+    raise Traced()
+
+d.make_production_mesh = stop
+out = {}
+for arch in list_archs():
+    for shape in ("decode_32k", "long_500k"):
+        try:
+            r = d.lower_one(arch, shape, "single")
+            out[arch + "/" + shape] = [r["status"], r.get("reason")]
+        except Traced:
+            out[arch + "/" + shape] = ["traced", None]
+print("VERDICTS", json.dumps(out))
+"""
+
+
+def test_skip_verdicts_equal_the_reference(monkeypatch):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _REFERENCE_VERDICTS],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("VERDICTS ")][0]
+    want = json.loads(line.split(" ", 1)[1])
+
+    class Traced(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Traced()
+    monkeypatch.setattr(port_mesh, "make_production_mesh", stop)
+    got = {}
+    for arch in ARCHS:
+        for shape in ("decode_32k", "long_500k"):
+            try:
+                r = dryrun.lower_one(arch, shape, "single")
+                got[f"{arch}/{shape}"] = [r["status"], r.get("reason")]
+            except Traced:
+                got[f"{arch}/{shape}"] = ["traced", None]
+    assert got == want
+    assert sum(v[0] == "skipped" for v in got.values()) >= 1
+
+
+def test_use_kernel_takes_the_plain_version_on_meta():
+    meta = torch.zeros(2, device="meta")
+    assert use_kernel(meta, None, meta) is False
+    with pytest.raises(ValueError, match="one CUDA device"):
+        use_kernel(torch.zeros(2), meta)
+    with pytest.raises(TypeError):          # a DTensor, by its type name
+        use_kernel(type("DTensor", (), {})())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_run_on_meta_at_full_width(arch):
+    """``attend`` and the recurrent mixers take the reference's paths on
+    ``meta`` (no ``torch.equal``, no kernel), so every arch traces."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = abstract_params(model)
+    shape = InputShape("small", 320, 2, "prefill")
+    specs = input_specs(cfg, shape)
+    cache = abstract_cache(model, 2, 320)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, cache, specs["tokens"],
+                                      specs.get("embeds"))
+        step_logits, _ = model.decode_step(params, cache,
+                                           specs["tokens"][:, 0], 319)
+    assert logits.is_meta and tuple(logits.shape) == (2, cfg.vocab_size)
+    assert tuple(step_logits.shape) == (2, cfg.vocab_size)

@@ -77,7 +77,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.launch.mesh", "repro_torch.launch.elastic",
               "repro_torch.models.moe_ep", "repro_torch.models.encdec",
               "repro_torch.configs.qwen2_vl_72b",
-              "repro_torch.configs.seamless_m4t_medium"):
+              "repro_torch.configs.seamless_m4t_medium",
+              "repro_torch.analysis", "repro_torch.analysis.roofline",
+              "repro_torch.analysis.dispatch_costs",
+              "repro_torch.analysis.report", "repro_torch.launch.specs",
+              "repro_torch.launch.dryrun", "repro_torch.launch.run_dryruns",
+              "repro_torch.bench", "repro_torch.bench.roofline_report"):
         assert m in MODULES, m
 
 
@@ -157,7 +162,8 @@ def test_cpu_params_are_refused_by_a_cuda_engine(monkeypatch):
 
 def test_cli_runs_on_cpu_when_asked(capsys):
     from repro_torch.launch.serve import main
-    main(["--device", "cpu", "--engine", "continuous", "--requests", "2",
+    main(["--device", "cpu", "--arch", "deepseek-7b", "--engine",
+          "continuous", "--requests", "2",
           "--prompt-len", "4", "--gen", "3", "--page-size", "4"])
     out = capsys.readouterr().out
     assert "served 2 requests / 6 tokens" in out

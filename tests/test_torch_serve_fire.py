@@ -551,7 +551,8 @@ def test_schedule_equals_jax_engine(name):
 
 # ================================================================ the CLI
 
-CLI = ["--device", "cpu", "--engine", "continuous", "--prompt-len", "8",
+CLI = ["--device", "cpu", "--arch", "deepseek-7b", "--engine", "continuous",
+       "--prompt-len", "8",
        "--gen", "8", "--page-size", "4", "--num-pages", "64"]
 
 
@@ -591,7 +592,8 @@ def test_cli_diverged_drill_exits_3(monkeypatch, capsys):
 
 
 def test_cli_sampled_static_equals_continuous(capsys):
-    args = ["--device", "cpu", "--requests", "3", "--prompt-len", "6",
+    args = ["--device", "cpu", "--arch", "deepseek-7b", "--requests", "3",
+            "--prompt-len", "6",
             "--gen", "5", "--temperature", "0.8", "--seed", "2"]
     static = launch_serve.main(args)
     cont = launch_serve.main(args + ["--engine", "continuous"])

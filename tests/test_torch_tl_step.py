@@ -369,8 +369,8 @@ def test_engine_sim_mode_trains_and_refuses_what_is_not_ported(tmp_path):
         engine().run(shards, steps=3)
 
 
-def test_cli_sim_runs_on_cpu_when_asked(capsys):
-    from repro_torch.launch.train import main
+def test_cli_sim_runs_on_cpu_when_asked(capsys, monkeypatch):
+    from repro_torch.launch.train import build_parser, main, mesh_kind
     losses = main(["--mode", "sim", "--wire", "int8", "--wire-ef",
                    "--nodes", "2", "--epochs", "1", "--device", "cpu"])
     out = capsys.readouterr().out
@@ -378,7 +378,20 @@ def test_cli_sim_runs_on_cpu_when_asked(capsys):
     assert "wire[activations_grads]" in out and "ratio=3.9" in out
     assert "wire[model]" in out and "ratio=1.00x" in out
     # the distribution flags are checked before anything runs
-    for bad in (["--elastic"], ["--multi-pod"], ["--drill", "kill:1"],
+    for bad in (["--drill", "kill:1"],
                 ["--mesh", "debug", "--drill", "hang-device:x"]):
         with pytest.raises(SystemExit):
             main(["--device", "cpu"] + bad)
+    # as the reference: --elastic alone takes the debug mesh, --multi-pod
+    # off --mesh production is ignored, and under torchrun (WORLD_SIZE > 1)
+    # no --mesh means debug; one process with no --mesh has no mesh
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+
+    def kind(*argv):
+        return mesh_kind(build_parser().parse_args(list(argv)))
+    assert kind("--elastic") == "debug"
+    assert kind("--multi-pod") is None
+    assert kind("--mesh", "host", "--multi-pod") == "host"
+    assert kind() is None
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    assert kind() == "debug" and kind("--mesh", "host") == "host"
