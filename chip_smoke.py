@@ -14,7 +14,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``paged_decode`` (GQA, window, MLA ``v_width``, bf16, and shapes whose
    pages split over several CTAs: context 2048 with ragged lengths 1 / 16 /
    2048 / 1000, MLA H 128 d 576 at context 1050; the trash page poisoned
-   and a length-0 row at a split shape, bit-identical from call to call);
+   and a length-0 row at a split shape, bit-identical from call to call;
+   phase 4h's reduced d 64 and MLA d 48 / v 32 at pages of 8);
    ``permute_rows`` in scatter and gather mode and its
    autograd backward (exact equality; the edges of its row x chunk grid:
    the production shape with a ragged wide row, bf16 / int8 / uint8 odd
@@ -35,7 +36,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    prefill shapes of deepseek-7b, Griffin (window 2048) and MLA (H 128 on
    one latent of D 576, V = its first 512 lanes, scale 1/sqrt(192)), a
    ragged S, head counts that do not fill the kernel's 64-row packing
-   (80 MLA heads, 12 heads on one KV head) and bf16; at the MLA shape the
+   (80 MLA heads, 12 heads on one KV head), phase 4h's reduced prefills
+   (D 64; the MLA latent D 48 / v 32, the one-column-warp build) and
+   bf16; at the MLA shape the
    kernel also within 5e-6 of a float64 softmax and no further from it
    than the plain version, and a D the kernel does not take refused; the
    prefill shapes of qwen2-vl (GQA 8:1, D 128) and seamless (D 64: the
@@ -194,6 +197,31 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    of state and gradients); on the first batch the TL loss and grads with
    kernel reassembly bit-equal to torch reassembly and within 1e-5 / 1e-4
    of ``model.loss`` on the shuffled batch.
+4h. Main path 11, the paper's experiments and the examples through their
+   own ``main`` on the card (before phase 5, with no profiler session),
+   each against its CPU run: (a) ``bench.table2_runtime``: the analytic
+   rows equal the CPU's (FL 1.330 ... TL+compress 0.663 s) and every
+   simulated clock and byte count bit-equal (TL 16,572,392 B,
+   TL+compress 8,778,332 B); ``quantize_rows`` and ``dequantize_rows``
+   each launch int8 visits x 5 float leaves on the TL+compress round (its
+   transport's wire log) and 0 on the other nine rounds; (b)
+   ``bench.fig3_scaling``: curves and simulated TL clocks and bytes
+   bit-equal; (c) ``bench.table1_quality`` at its own size (4 families x
+   6 methods x 3 seeds) printed, the IID row 1.0 throughout, and each
+   family's seed 0 from that run within 2 / n_test of the CPU's; (d)
+   ``examples.quickstart`` and ``compare_methods``: bytes, messages and
+   simulated clock bit-equal, accuracies within 2 / n_test, eq. 12 <=
+   1e-5 every epoch; (e) ``examples.serve_batched`` (reduced, as the
+   reference) with deepseek-7b, then deepseek-v2-236b: ``paged_decode``
+   == layers x decode steps, ``flash_attention_bh`` == layers x
+   prefills, each of those launches against the plain version on its own
+   inputs (f32 1e-5), streams equal to ``--attention dense``'s, tok/s
+   and TTFT printed; (f) ``examples.train_tl_100m`` at its full config
+   (81.6 M parameters, 200 steps, batch 4 x 64, 8 nodes) in a subprocess
+   on the (1, 1) NCCL mesh: exit 0 (its loss assert), n_params == the
+   ``meta`` count, no K1 launch, steps/s and tok/s, the checkpoint (a
+   temporary directory) verified and loaded back bit-equal; (g) the
+   phase's seconds.
 4e. Distribution, main path 8 (run after phases 5 and 4g, whose profiler
    sessions lost kernel records when it ran first), on a one-rank NCCL mesh (one
    card is one
@@ -371,6 +399,10 @@ def check_paged_decode(kern, ref):
          {"lengths": [1, 16, 2048, 1000], "window": 300}, (f32,)),
         ("mla H128 d576 v512 context 1050, split", (4, 128, 1, 576, 16, 66),
          {"lengths": [1050, 3, 700, 1050], "v_width": 512}, (f32, bf16)),
+        # phase 4h's serve_batched decode (reduced configs, pages of 8)
+        ("reduced gqa H4/KV4 d64 page 8", (4, 4, 4, 64, 8, 5), {}, (f32,)),
+        ("reduced mla fused pool d48 v32 page 8", (4, 4, 1, 48, 8, 5),
+         {"v_width": 32}, (f32,)),
     ]
     worst = 0.0
     for i, (name, shape, extra, dtypes) in enumerate(cases):
@@ -1506,6 +1538,14 @@ FLASH_CASES = [
     ("mla ragged S777 H80", (1, 777, 777, 80, 1, 576), 0, 512, MLA_SCALE,
      True, "float32"),
     ("ragged S333 H12/KV1", (2, 333, 333, 12, 1, 128), 0, 0, None, True,
+     "float32"),
+    # phase 4h's serve_batched prefills (reduced configs, prompts of 8-22):
+    # the MLA latent (D 32 + 16, v 32) takes the one-column-warp build
+    ("reduced mla S22 D48 v32", (1, 22, 22, 4, 1, 48), 0, 32, 48 ** -0.5,
+     True, "float32"),
+    ("reduced mla ragged S333 D48 v32", (2, 333, 333, 4, 1, 48), 0, 32,
+     48 ** -0.5, True, "float32"),
+    ("reduced gqa S22 H4/KV4 D64", (1, 22, 22, 4, 4, 64), 0, 0, None, True,
      "float32"),
 ]
 
@@ -3844,6 +3884,373 @@ def forward_only_guards(card: str):
           f"[{card}]")
 
 
+# ------------------------------------- the paper's experiments and examples
+
+# DATRET's visit payload holds five float tensors (x1, delta_L, dx1 and the
+# two first-layer weight grads); the int8 wire quantizes each with one
+# quantize_rows and one dequantize_rows launch
+DATRET_FLOAT_LEAVES = 5
+SERVE_BATCHED_ARCHS = ("deepseek-7b", "deepseek-v2-236b")
+TRAIN_100M_STEPS = 200      # the example's own --steps default
+
+
+def logged_transports(module):
+    """Patch ``module.Transport`` with a subclass that records each
+    instance with the K2 counts at its birth; returns ``(made, restore)``.
+    A method's K2 launches are the counts between its transport's birth and
+    the next one's."""
+    from repro_torch.kernels.act_compress import (dequantize_rows,
+                                                  quantize_rows)
+    made, real = [], module.Transport
+
+    class Logged(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append((self, quantize_rows.launches,
+                         dequantize_rows.launches))
+
+    module.Transport = Logged
+    return made, lambda: setattr(module, "Transport", real)
+
+
+def paper_table2(card: str):
+    """Phase 4h (a): Table 2 on the card against the CPU run; K2 exactly
+    on the TL+compress round, once a float leaf of each int8 visit."""
+    from repro_torch.bench import table2_runtime as t2
+    from repro_torch.kernels.act_compress import (dequantize_rows,
+                                                  ef_round_trip_rows,
+                                                  quantize_rows)
+    ana_cpu = t2.analytic_rows()
+    sim_cpu = t2.simulated_rows(device="cpu")
+    sim_cpu.update(t2.simulated_rows(compress=True, device="cpu"))
+    made, restore = logged_transports(t2)
+    for c in (quantize_rows, dequantize_rows, ef_round_trip_rows):
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = t2.main(["--device", DEVICE])
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    final = (quantize_rows.launches, dequantize_rows.launches)
+    assert ef_round_trip_rows.launches == 0
+    assert out["analytic"] == ana_cpu
+    assert {m: f"{v:.3f}" for m, v in ana_cpu.items()} == {
+        "FL": "1.330", "SL": "19.646", "SL+": "21.266", "SFL": "1.249",
+        "TL": "0.964", "TL+compress": "0.663"}, ana_cpu
+    assert out["simulated"] == sim_cpu, (out["simulated"], sim_cpu)
+    assert out["simulated"]["TL"] == (sim_cpu["TL"][0], 16572392)
+    assert out["simulated"]["TL+compress"][1] == 8778332
+    # two calls of simulated_rows: FL, SL, SL+, SFL, TL, then the same four
+    # and TL+compress, each on its own transport
+    assert len(made) == 10, len(made)
+    births = [(q, d) for _, q, d in made[1:]] + [final]
+    per_row = [(q1 - q0, d1 - d0) for (_, q0, d0), (q1, d1)
+               in zip(made, births)]
+    assert all(n == (0, 0) for n in per_row[:9]), per_row
+    wire = made[9][0]
+    visits = wire_visits(wire)
+    want = visits * DATRET_FLOAT_LEAVES
+    assert per_row[9] == (want, want) and want > 0, (per_row[9], visits)
+    print(f"  (a) table2: analytic rows and every simulated clock and byte "
+          f"count equal to the CPU run's; TL {out['simulated']['TL']}, "
+          f"TL+compress {out['simulated']['TL+compress']}; quantize_rows "
+          f"and dequantize_rows {want} each on the TL+compress round "
+          f"({visits} int8 visits x {DATRET_FLOAT_LEAVES} float leaves), 0 "
+          f"on the other 9 rounds; {wall:.2f} s wall (host-bound) [{card}]")
+    return {"wall_s": wall, "quantize_rows": want, "dequantize_rows": want,
+            "int8_visits": visits}
+
+
+def paper_fig3(card: str):
+    """Phase 4h (b): Fig. 3's curves on the card equal the CPU run's."""
+    from repro_torch.bench import fig3_scaling as f3
+    cpu = f3.simulated_tl_curve(device="cpu")
+    t0 = time.perf_counter()
+    out = f3.main(["--device", DEVICE])
+    wall = time.perf_counter() - t0
+    assert out["analytic"] == f3.analytic_curves()
+    assert out["simulated_tl"] == cpu, (out["simulated_tl"], cpu)
+    assert out["simulated_tl"][-1][2] == 11791360
+    print(f"  (b) fig3: analytic curves and the simulated TL clocks and "
+          f"bytes equal to the CPU run's ({out['simulated_tl']}); "
+          f"{wall:.2f} s wall (host-bound) [{card}]")
+    return {"wall_s": wall}
+
+
+def paper_table1(card: str):
+    """Phase 4h (c): Table 1 at the script's own size (4 families x 6
+    methods x 3 seeds) on the card, printed, with each method's seed-0
+    metric kept from that run (``B.evaluate`` logged in the script's
+    namespace); then seed 0 of each family on the CPU (``seeds=1``): each
+    card value within 2 / n_test of the CPU's.  A 3-seed CPU twin took
+    40-75 s on the H100 machine's host, which put 4h at its ~240 s budget,
+    so the twin runs seed 0 only."""
+    import types
+
+    from repro_torch.bench import table1_quality as t1
+    real = t1.B
+    seen = []
+
+    def evaluate(*a, **kw):
+        seen.append(real.evaluate(*a, **kw))
+        return seen[-1]
+
+    t1.B = types.SimpleNamespace(**vars(real))
+    t1.B.evaluate = evaluate
+    t0 = time.perf_counter()
+    try:
+        card_rows = t1.main(argv=["--device", DEVICE])
+    finally:
+        t1.B = real
+    wall = time.perf_counter() - t0
+    fams = t1.families()
+    methods = list(card_rows[fams[0][0]])
+    assert len(seen) == len(fams) * len(methods) * t1.SEEDS, len(seen)
+    t0 = time.perf_counter()
+    worst = 0.0
+    for f, (name, mk, sh, cfg, metric) in enumerate(fams):
+        cpu0 = t1.run_family(name, mk, sh, cfg, metric, seeds=1,
+                             device="cpu")
+        n_test = len(mk(0).split(0.8, seed=0)[1].y)
+        for m, method in enumerate(methods):
+            got = seen[(f * len(methods) + m) * t1.SEEDS]   # seed 0
+            got = got.get(metric, got["acc"])
+            d = abs(got - cpu0[method][0])
+            assert d <= 2 / n_test, (name, method, got, cpu0[method])
+            worst = max(worst, d * n_test)
+    twin_wall = time.perf_counter() - t0
+    iid = card_rows["iid_tabular/acc"]
+    assert all(m == 1.0 for m, _ in iid.values()), iid
+    print(f"  (c) table1: {len(card_rows)} families x {len(methods)} "
+          f"methods x {t1.SEEDS} seeds in {wall:.2f} s on the card "
+          f"(host-bound); seed 0 on the CPU in {twin_wall:.2f} s, every "
+          f"card seed-0 value within {worst:.2f} / n_test of the CPU's "
+          f"(gate 2) [{card}]")
+    return {"wall_s": wall, "seed0_cpu_wall_s": twin_wall,
+            "max_diff_test_rows": worst,
+            "rows": {k: {m: v[0] for m, v in r.items()}
+                     for k, r in card_rows.items()}}
+
+
+def same_transport_numbers(got, cpu, keys):
+    for k in keys:
+        assert got[k] == cpu[k], (k, got[k], cpu[k])
+
+
+def paper_examples(card: str):
+    """Phase 4h (d): quickstart and compare_methods on the card against
+    their CPU runs."""
+    from repro_torch.examples import compare_methods, quickstart
+    t0 = time.perf_counter()
+    qs = quickstart.main(["--device", DEVICE])
+    qs_wall = time.perf_counter() - t0
+    qs_cpu = quickstart.main(["--device", "cpu"])
+    same_transport_numbers(qs, qs_cpu, ("bytes", "messages", "clock_s"))
+    tol = 2 / qs["n_test"]
+    assert abs(qs["acc_tl"] - qs_cpu["acc_tl"]) <= tol
+    assert abs(qs["acc_cl"] - qs_cpu["acc_cl"]) <= tol
+    assert all(e["consistency"] <= 1e-5 for e in qs["epochs"]), qs["epochs"]
+    t0 = time.perf_counter()
+    cm = compare_methods.main(["--device", DEVICE])
+    cm_wall = time.perf_counter() - t0
+    cm_cpu = compare_methods.main(["--device", "cpu"])
+    tol = 2 / cm["n_test"]
+    for name, row in cm["rows"].items():
+        same_transport_numbers(row, cm_cpu["rows"][name],
+                               ("bytes", "messages", "clock_s"))
+        for k in ("acc", "macro_f1"):
+            assert abs(row[k] - cm_cpu["rows"][name][k]) <= tol, (name, k)
+    epoch_s = qs["wall_s"] / len(qs["epochs"])
+    print(f"  (d) quickstart: bytes, messages, clock equal to the CPU "
+          f"run's, eq. 12 max {max(e['consistency'] for e in qs['epochs']):.2e}"
+          f", TL acc {qs['acc_tl']:.3f} CL {qs['acc_cl']:.3f}; "
+          f"{epoch_s * 1e3:.1f} ms a TL epoch, {qs_wall:.2f} s the script "
+          f"(host-bound); compare_methods: every row's bytes, messages and "
+          f"clock equal to the CPU run's, metrics within 2 / n_test, "
+          f"{cm_wall:.2f} s [{card}]")
+    return {"quickstart_wall_s": qs_wall, "quickstart_epoch_s": epoch_s,
+            "compare_methods_wall_s": cm_wall,
+            "quickstart_bytes": qs["bytes"]}
+
+
+def recorded_launches(kern):
+    """Patch ``type(kern).__call__`` to keep a copy of each call's
+    arguments and its output; returns ``(calls, restore)``.  The copies
+    are made on the card after the call, so the main path's kernels see
+    its own tensors."""
+    calls, cls = [], type(kern)
+    real = cls.__call__
+
+    def keep(x):
+        return x.clone() if hasattr(x, "clone") else x
+
+    def call(self, *a, **kw):
+        out = real(self, *a, **kw)
+        calls.append(([keep(x) for x in a], kw, out.clone()))
+        return out
+
+    cls.__call__ = call
+    return calls, lambda: setattr(cls, "__call__", real)
+
+
+def hold_recorded(name, calls, ref):
+    """Every recorded call's output against the plain version on that
+    call's own inputs (f32 1e-5); returns the largest error."""
+    import torch
+    worst = 0.0
+    for args, kw, out in calls:
+        want = ref(*args, **kw)
+        shapes = [tuple(x.shape) for x in args if x is not None]
+        torch.testing.assert_close(
+            out, want, atol=TOL["float32"], rtol=TOL["float32"],
+            msg=lambda m: f"{name} {shapes} {kw}: {m}")
+        worst = max(worst, _abs_err(out, want))
+    return worst
+
+
+def paper_serve_batched(card: str, arch: str):
+    """Phase 4h (e): serve_batched's Poisson arrivals on the card: K3 once
+    a layer and decode step, K4 once a layer and prefill, every one of
+    those launches held against the plain version on its own inputs, and
+    streams equal to the ``--attention dense`` run's.  (Keeping a copy of
+    each launch's tensors costs the timed run a few device copies a
+    step.)"""
+    from repro_torch.examples import serve_batched
+    from repro_torch.kernels.flash_attention import (flash_attention_bh,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_decode_attention_ref)
+    argv = ["--arch", arch, "--device", DEVICE]
+    paged_decode_attention.launches = flash_attention_bh.launches = 0
+    k3_calls, restore_k3 = recorded_launches(paged_decode_attention)
+    k4_calls, restore_k4 = recorded_launches(flash_attention_bh)
+    try:
+        paged = serve_batched.main(argv)
+    finally:
+        restore_k3()
+        restore_k4()
+    launches = {"paged_decode": paged_decode_attention.launches,
+                "flash_attention_bh": flash_attention_bh.launches}
+    assert (len(k3_calls), len(k4_calls)) == (
+        launches["paged_decode"], launches["flash_attention_bh"]), launches
+    k3_err = hold_recorded("paged_decode", k3_calls,
+                           paged_decode_attention_ref)
+    k4_err = hold_recorded("flash_attention_bh", k4_calls,
+                           flash_attention_ref)
+    k4_shapes = sorted({(tuple(a[0].shape), tuple(a[1].shape),
+                         kw.get("v_width", 0)) for a, kw, _ in k4_calls})
+    del k3_calls, k4_calls
+    steps, layers = paged["engine"]["n_decode_steps"], paged["layers"]
+    n_req = len(paged["streams"])
+    assert paged["engine"]["n_preempted"] == 0
+    assert launches["paged_decode"] == layers * steps > 0, (launches, steps)
+    assert launches["flash_attention_bh"] == layers * n_req, launches
+    dense = serve_batched.main(argv + ["--attention", "dense"])
+    assert paged["streams"] == dense["streams"], (paged["streams"],
+                                                  dense["streams"])
+    ttft = {r: round(float(v), 3) for r, v in paged["ttft_ms"].items()}
+    print(f"  (e) serve_batched {arch} (reduced, {layers} layers): "
+          f"{paged['tok_s']:.1f} tok/s ({paged['n_tokens']} tokens in "
+          f"{paged['makespan_s']:.3f} s of Poisson arrivals at 8 req/s), "
+          f"TTFT ms {ttft}; paged_decode {launches['paged_decode']} "
+          f"({layers} x {steps} decode steps), flash_attention_bh "
+          f"{launches['flash_attention_bh']} ({layers} x {n_req} prefills);"
+          f" each launch against the plain version on its own inputs: K3 "
+          f"max_abs_err {k3_err:.3e}, K4 {k4_err:.3e} (tol "
+          f"{TOL['float32']}; K4 q, k, v_width {k4_shapes[0]} .. "
+          f"{k4_shapes[-1]}); streams == dense [{card}]")
+    return {"launches": launches, "decode_steps": steps,
+            "k3_max_abs_err": k3_err, "k4_max_abs_err": k4_err,
+            "tok_s": paged["tok_s"], "ttft_ms": paged["ttft_ms"],
+            "makespan_s": paged["makespan_s"]}
+
+
+TRAIN_100M_SCRIPT = """
+import json, sys
+import torch
+from repro_torch.bridge import params_from_jax, params_to_jax
+from repro_torch.checkpoint import load_checkpoint, verify_checkpoint
+from repro_torch.checkpoint.ckpt import _step_path
+from repro_torch.core.tree import tree_leaves
+from repro_torch.examples import train_tl_100m
+from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+ckpt, steps = sys.argv[1], int(sys.argv[2])
+permute_rows.launches = take_rows.launches = 0
+out = train_tl_100m.main(["--ckpt", ckpt])
+k1 = permute_rows.launches + take_rows.launches
+cfg = train_tl_100m.config_100m()
+like = {"params": params_to_jax(out["params"], cfg)}
+tree, _ = load_checkpoint(ckpt, like, step=steps)
+back = params_from_jax(tree["params"], cfg, "cpu")
+bit_equal = all(torch.equal(a.cpu(), b) for a, b in
+                zip(tree_leaves(out["params"]), tree_leaves(back)))
+print("TRAIN_100M " + json.dumps({
+    "n_params": out["n_params"], "steps": out["steps"],
+    "steps_per_s": out["steps_per_s"], "tok_s": out["tok_s"],
+    "loss_first10": float(out["losses"][:10].mean()),
+    "loss_last10": float(out["losses"][-10:].mean()),
+    "verified": verify_checkpoint(_step_path(ckpt, steps)),
+    "bit_equal": bit_equal, "k1_launches": k1}))
+"""
+
+
+def paper_train_100m(card: str):
+    """Phase 4h (f): train_tl_100m at its full config (8 layers, d 640,
+    200 steps, batch 4 x 64, 8 nodes) in a subprocess on the one-rank
+    (1, 1) NCCL mesh: exit 0 (its own loss assert holds), n_params equal
+    to the ``meta`` count of ``config_100m()``, no K1 launch, and the
+    checkpoint (in a temporary directory) verified and loaded back
+    bit-equal to the final parameters."""
+    import tempfile
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.examples.train_tl_100m import config_100m
+    from repro_torch.models import build_model
+    want = sum(t.numel() for t in tree_leaves(
+        build_model(config_100m()).init(device="meta")))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory(prefix="tl_100m_ckpt_") as ckpt:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", TRAIN_100M_SCRIPT, ckpt,
+             str(TRAIN_100M_STEPS)], env=env, cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    assert proc.returncode == 0, (proc.returncode, proc.stdout[-2000:],
+                                  proc.stderr[-4000:])
+    lines = proc.stdout.splitlines()
+    (line,) = [ln for ln in lines if ln.startswith("TRAIN_100M ")]
+    got = json.loads(line.removeprefix("TRAIN_100M "))
+    assert lines[0].endswith("mesh debug(1, 1)"), lines[0]
+    assert got["n_params"] == want, (got["n_params"], want)
+    assert got["steps"] == TRAIN_100M_STEPS
+    assert got["loss_last10"] < got["loss_first10"], got
+    assert got["verified"] and got["bit_equal"], got
+    assert got["k1_launches"] == 0, got
+    print(f"  (f) train_tl_100m: {got['n_params'] / 1e6:.1f}M params, "
+          f"{got['steps']} steps on the (1, 1) NCCL mesh, loss "
+          f"{got['loss_first10']:.4f} -> {got['loss_last10']:.4f}, "
+          f"{got['steps_per_s']:.2f} steps/s, {got['tok_s']:.0f} tok/s; "
+          f"checkpoint verified and "
+          f"loaded back bit-equal; K1 0; "
+          f"{wall:.1f} s the subprocess [{card}]")
+    return dict(got, wall_s=wall)
+
+
+def paper_experiments(card: str):
+    """Phase 4h: the paper's experiments and the examples on the card."""
+    t0 = time.perf_counter()
+    out = {"table2": paper_table2(card), "fig3": paper_fig3(card),
+           "table1": paper_table1(card), "examples": paper_examples(card),
+           "serve_batched": {arch: paper_serve_batched(card, arch)
+                             for arch in SERVE_BATCHED_ARCHS},
+           "train_tl_100m": paper_train_100m(card)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 4h: {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def time_vb_production(prod):
     """K1 at a production step's shape (starcoder2-3b's: permute_rows over
     X^(1) (8, 512 x 3072) f32 and the targets (8, 512) int32; qwen2-vl's
@@ -4199,6 +4606,15 @@ def main() -> None:
     torch.use_deterministic_algorithms(True)
     front_train = train_frontends(card)
     torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("== phase 4h: the paper's experiments and the examples (Table 1, "
+          "Table 2, Fig. 3, quickstart, compare_methods, serve_batched, "
+          "train_tl_100m)")
+    paper = paper_experiments(card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     print("== phase 5: timing")
     served = time_paged_decode(paged_decode_attention,
@@ -4349,7 +4765,8 @@ def main() -> None:
                         "library_device_ms"])
 
     def ac_extra(name):
-        return dict(device_ms=ac[(name, "int8")]["device_ms"],
+        return dict(launches_table2=paper["table2"][name],
+                    device_ms=ac[(name, "int8")]["device_ms"],
                     fp8_ms=ac[(name, "fp8")]["ms"],
                     main_path_ms=ac_main[(name, "int8")]["ms"],
                     main_path_device_ms=ac_main[(name, "int8")]["device_ms"],
@@ -4375,6 +4792,9 @@ def main() -> None:
               launches_restore=fire["launches_restore"]["paged_decode"],
               launches_recovery=fire["launches_recovery"]["paged_decode"],
               launches_sampled=fire["launches_sampled"]["paged_decode"],
+              launches_serve_batched={
+                  arch: r["launches"]["paged_decode"]
+                  for arch, r in paper["serve_batched"].items()},
               decode_step_ms_3d=fire["decode_step_ms"]),
         entry("permute_rows", vb_kernel.SOURCE,
               "src/repro/kernels/vb_scatter/kernel.py:57",
@@ -4454,6 +4874,9 @@ def main() -> None:
                   "flash_launches"],
               launches_seamless=frontends["seamless-m4t-medium"]["launches"],
               launches_qwen2_vl=frontends["qwen2-vl-72b"]["launches"],
+              launches_serve_batched={
+                  arch: r["launches"]["flash_attention_bh"]
+                  for arch, r in paper["serve_batched"].items()},
               launches_training_frontends=sum(
                   r["launches"]["flash_attention_bh"]
                   for r in front_train.values()),
@@ -4485,6 +4908,7 @@ def main() -> None:
           f"[{card}]")
     print(f"  baselines: {json.dumps(accs)} [{card}]")
     print(f"  analysis: {json.dumps(analysis)} [{card}]")
+    print(f"  paper experiments and examples: {json.dumps(paper)} [{card}]")
     print(f"  chip_smoke total {time.perf_counter() - T_START:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

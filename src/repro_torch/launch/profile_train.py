@@ -22,6 +22,11 @@ device's busy share of the unprofiled step and K1's (``permute_rows`` /
         --mode production --arch seamless-m4t-medium --reassembly none
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --mode production --arch qwen2-vl-72b --layers 2 --batch 4
+    # train_tl_100m's step (its config, batch, nodes and reassembly), with
+    # no mesh
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --mode production --arch deepseek-100m --layers 0 --seq 64 \
+        --docs 1024 --nodes 8 --batch 4 --reassembly none --steps 20
 
 ``--mode sim`` (the default), for each paper model: builds the sim-mode
 engine (3 nodes, batch 64 by default), warms up one epoch, then
@@ -138,7 +143,11 @@ def profile_production(args, dev):
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, warmup_cosine
 
-    cfg = get_config(args.arch)
+    if args.arch == "deepseek-100m":
+        from repro_torch.examples.train_tl_100m import config_100m
+        cfg = config_100m()
+    else:
+        cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     total = 1 + 2 * args.steps
@@ -198,7 +207,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="sim", choices=["sim", "production"])
     ap.add_argument("--arch", default="starcoder2-3b",
-                    help="production mode: the decoder LM (full width)")
+                    help="production mode: the decoder LM (full width); "
+                    "deepseek-100m is train_tl_100m's config")
     ap.add_argument("--layers", type=int, default=12,
                     help="production mode: depth cut (0: the config's)")
     ap.add_argument("--seq", type=int, default=512)
