@@ -228,7 +228,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    rank, so ``resolve_mesh("debug")`` is the (1, 1) mesh): (a) starcoder2-3b
    at full width, 12 layers, through ``Engine(mesh=..., reassembly=
    "kernel")`` for 3 steps against the mesh-less engine on the same
-   batches: losses and parameters bit-equal (the reference's gates are
+   batches, the tensor-parallel path (``dist.tp``, whose arch this is) in
+   place and, over a model axis of size 1, unset: losses and parameters
+   bit-equal (the reference's gates are
    loss 1e-4 and params 5e-3), K1 ``permute_rows`` and ``take_rows`` once
    a step each, ms a step, peak and the ms over the mesh-less step; (b) one
    deepseek-v2-236b MoE layer at full width (160 routed experts + 2
@@ -279,6 +281,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3458,7 +3461,10 @@ def analysis_phase(card: str):
           f"{dry_s:.1f} s (trace {art['t_lower_s']:.1f} s): t_compute "
           f"{art['t_compute']:.4e} s, t_memory {art['t_memory']:.4e} s, "
           f"t_collective {art['t_collective']:.4e} s, bottleneck "
-          f"{art['bottleneck']} [{card}]")
+          f"{art['bottleneck']}; a tensor-parallel rank "
+          f"({'tensor-parallel' in art['extra_tags']['rank_program']}), "
+          f"reckoned peak {art['peak_memory_per_chip'] / 1e9:.2f} GB "
+          f"[{card}]")
     seconds = time.perf_counter() - t_phase
     print(f"  phase 4g {seconds:.1f} s [{card}]")
     return {"layers": cfg.n_layers, "measured_ms": measured_ms,
@@ -3495,11 +3501,15 @@ def sharded_step(card: str):
     seed 0 on the one-rank (1, 1) NCCL mesh against the mesh-less engine
     on the same batches (the mesh-less run first, its parameters kept on
     the host): losses and parameters bit-equal, K1 once a step each way in
-    the sharded run, ms a step, peak, and the ms over the mesh-less step."""
+    the sharded run, ms a step, peak, and the ms over the mesh-less step.
+    starcoder2-3b is one of ``dist.tp`` 's archs; on the (1, 1) mesh its
+    tensor-parallel path keeps every leaf whole and its context unset."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core.tl_step import tensor_parallel
     from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist import tp
     from repro_torch.dist.tensor import full_tree
     from repro_torch.kernels.vb_scatter import permute_rows, take_rows
     from repro_torch.launch.mesh import resolve_mesh
@@ -3513,6 +3523,11 @@ def sharded_step(card: str):
     free_cuda()
     mesh = resolve_mesh("debug", device=DEVICE)
     assert mesh.shape == (1, 1), mesh.shape
+    # the tensor-parallel path is in place for this arch (dist.tp), and
+    # on a model axis of size 1 its context stays unset: the step must
+    # stay bit-equal
+    assert tp.supported(cfg)
+    assert tensor_parallel(cfg, mesh, None)[1] is contextlib.nullcontext
     # the main path: K1's counts from 0 just before, read just after
     eng, res, info = production_run(cfg, DIST_STEPS, k1, mesh=mesh)
     want = {"permute_rows": DIST_STEPS, "take_rows": DIST_STEPS}
@@ -3521,7 +3536,8 @@ def sharded_step(card: str):
                                               plain["losses"]))
     param_gap = max(float((t.detach().cpu() - h).abs().max())
                     for t, h in zip(tree_leaves(full_tree(res.params)), host))
-    print(f"  (a) mesh {mesh.shape} {mesh.axis_names}, NCCL on one rank; "
+    print(f"  (a) mesh {mesh.shape} {mesh.axis_names}, NCCL on one rank, "
+          f"the tensor-parallel path in place (model axis 1: unset); "
           f"sharded vs mesh-less over {DIST_STEPS} steps: largest loss gap "
           f"{loss_gap:.3e}, largest param gap {param_gap:.3e} (gates 1e-4 "
           f"/ 5e-3; bit-equality expected)")

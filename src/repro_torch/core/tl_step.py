@@ -44,17 +44,29 @@ at decoder block 0 but computes the loss whole), and any reassembly but
 the parameters and the optimizer state are ``DTensor`` s placed by
 :func:`train_shardings` (``dist.sharding``'s Megatron/FSDP table), and the
 virtual batch is split node-major, each data shard taking its contiguous
-block of rows (``tokens_pspec``).  The loss runs on each rank as the
-reference's ``shard_map`` body runs on each device: on the rank's own rows,
-with every parameter gathered whole at its entry
+block of rows (``tokens_pspec``).  The loss runs on each rank's own rows,
+the parameters gathered over the batch axes at its entry
 (``dist.tensor.sharded_value_and_grad``); the backward pass reduces the
 gradients onto the parameters' placements (a reduce-scatter over the batch
-axes) and the loss is the mean over the batch shards.  The perm is
-shard-local (each block holds a permutation of its own rows, see
-``launch.engine``), so the reassembly permutes local rows with no
-collective, K1 seeing only local tensors.  No model op sees a
-``DTensor``; the "model" axis shards the stored weights and replicates the
-compute.
+axes) and the loss is the mean over the batch shards.
+
+For the dense GQA archs (``dist.tp.supported``) on a "model" axis of size
+m > 1 the compute is partitioned over it as the reference's GSPMD step
+partitions it (:func:`tensor_parallel`): a leaf keeps its ``Shard`` on
+"model" (``dist.tp.entry_spec``), and inside the tensor-parallel context
+the vocab-parallel embedding, the column-parallel q / k / v, w_gate /
+w_up and head, the row-parallel w_o / w_down and the vocab-parallel CE run
+on local shards with explicit all-reduces over "model" (``dist.tp``): two
+in the forward pass of a block and two in its backward pass, and the
+tail's recompute under ``remat_mode="tl"`` issues its forward ones again,
+on every rank in the same order.  X^(1) leaves block 0 replicated over
+"model" and sharded over the batch, so the perm stays shard-local (each
+block holds a permutation of its own rows, see ``launch.engine``) and the
+reassembly permutes local rows with no collective, K1 seeing only local
+tensors and launching once a step each way.  The other archs (MoE and
+MLA, the recurrent mixers, the encoder-decoder) gather every leaf whole:
+their "model" axis shards the stored weights and replicates the compute.
+No model op sees a ``DTensor``.
 """
 from __future__ import annotations
 
@@ -67,6 +79,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.dist import tp
 from repro_torch.models import transformer
 from repro_torch.models.model import (MTP_WEIGHT, Model, cross_entropy,
                                       mtp_shift_targets)
@@ -195,7 +208,8 @@ def tl_loss_fn(model: Model, cfg: ModelConfig, remat_mode: str = "tl",
             mask = rows.get("mask", mask)
         # ---- orchestrator phase: recompute-from-X^(1) BP
         logits, h_final, aux = tail_exec(params, h1)
-        total = cross_entropy(logits[:, F:], targets, mask) + aux + aux0
+        total = tp.cross_entropy(logits[:, F:], targets, mask,
+                                 vocab=cfg.vocab_size) + aux + aux0
         if cfg.mtp_depth:
             mtp = transformer.mtp_logits(params, cfg, tokens,
                                          h_final[:, F:])
@@ -204,6 +218,25 @@ def tl_loss_fn(model: Model, cfg: ModelConfig, remat_mode: str = "tl",
         return total
 
     return loss
+
+
+def tensor_parallel(cfg: ModelConfig, mesh, params):
+    """``(entry, scope)`` of the sharded step on ``mesh``: the leaves'
+    shardings at the loss's entry (``dist.tp.entry_specs``; every leaf
+    whole for an arch ``dist.tp`` does not partition or a model axis of
+    size 1) and a context factory that sets the tensor-parallel context
+    over the mesh's "model" axis for the forward pass, the backward pass
+    and the tail's recompute inside it (``nullcontext`` where no leaf
+    keeps a model shard)."""
+    import contextlib
+
+    entry = _named(mesh, tp.entry_specs(params, cfg, mesh))
+    if not tp.partitions(cfg, mesh):
+        return entry, contextlib.nullcontext
+    import torch.distributed as dist
+    group = mesh.device_mesh().get_group("model")
+    r = mesh.coordinate(dist.get_rank())[mesh.axis_names.index("model")]
+    return entry, lambda: tp.model_parallel(group, mesh.sizes["model"], r)
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
@@ -249,6 +282,7 @@ def make_train_step(model: Model, cfg: ModelConfig, optimizer, *,
         if global_batch is None:
             raise ValueError("a sharded step needs the global batch size")
         sharded = tokens_pspec(mesh, global_batch)[0] is not None
+        layout = []                   # (entry, scope), from the first call
 
         def grad_fn(fn, params, batch):
             if sharded and "mask" in batch:
@@ -256,8 +290,13 @@ def make_train_step(model: Model, cfg: ModelConfig, optimizer, *,
                     "a masked batch over several batch shards: the sharded "
                     "loss is the mean of the shards' losses, which equals "
                     "the batch's only when every shard masks as many tokens")
-            return sharded_value_and_grad(fn, params, batch, mesh,
-                                          batch_sharded=sharded)
+            if not layout:
+                layout.extend(tensor_parallel(cfg, mesh, params))
+            entry, scope = layout
+            with scope():
+                return sharded_value_and_grad(fn, params, batch, mesh,
+                                              batch_sharded=sharded,
+                                              entry=entry)
 
     if microbatch <= 1:
         def step(params, opt_state, batch):

@@ -23,6 +23,11 @@ keeps the same decisions as plain specs and realises them with
     Local shards exactly as GSPMD lays them out, ``DTensor`` trees built
     from whole arrays and gathered back, and the shard-local parameter
     gather of the sharded TL step.
+
+``repro_torch.dist.tp``
+    Tensor parallelism over "model" on local tensors: the all-reduces of
+    Megatron's column / row split, the vocab-parallel embedding and CE,
+    and which leaves keep their model shard at the sharded loss's entry.
 """
 from repro_torch.dist import constraints, sharding
 

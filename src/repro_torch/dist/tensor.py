@@ -8,11 +8,14 @@
 * :func:`full_tree` -- ``DTensor`` leaves gathered back to whole tensors
   (collective over the mesh);
 * :func:`sharded_value_and_grad` -- the loss and parameter gradients of a
-  shard-local loss: every parameter is gathered whole at the loss's entry
-  (FSDP's all-gather) with gradient placements ``Partial`` over the
-  batch axes and ``Replicate`` over the others, so the backward pass
-  reduce-scatters the gradients onto the parameters' placements, and the
-  loss is the mean over the batch shards.
+  shard-local loss: every parameter is gathered over the batch axes at
+  the loss's entry (FSDP's all-gather), and over "model" too unless the
+  step runs tensor-parallel and the leaf keeps its model shard
+  (``dist.tp``), with gradient placements ``Partial`` over the batch axes
+  and the entry's own on "model" (``Replicate`` or its ``Shard``), so the
+  backward pass reduce-scatters the gradients onto the parameters'
+  placements (a bias taken by columns is gathered back over "model"), and
+  the loss is the mean over the batch shards.
 """
 from __future__ import annotations
 
@@ -110,16 +113,23 @@ def global_mean(local: torch.Tensor, mesh, batch_sharded: bool):
 
 
 def sharded_value_and_grad(loss_fn, params, batch, mesh, *,
-                           batch_sharded: bool):
-    """``(loss, grads)`` of ``loss_fn(whole params, this rank's rows)``
-    over a tree of ``DTensor`` parameters (module docstring).  ``grads``
-    are ``DTensor`` s with the parameters' placements; ``loss`` is the
-    global batch's, the same on every rank."""
+                           batch_sharded: bool, entry):
+    """``(loss, grads)`` of ``loss_fn(params at the entry, this rank's
+    rows)`` over a tree of ``DTensor`` parameters (module docstring).
+    ``entry`` (a tree of ``NamedSharding`` s of ``dist.tp.entry_specs``)
+    keeps a leaf's shard on "model" where its spec names it and gathers
+    the rest whole.  ``grads`` are ``DTensor`` s with the parameters'
+    placements; ``loss`` is the global batch's, the same on every rank."""
     leaves, treedef = tree_flatten(params)
     xs = [t.detach().requires_grad_(True) for t in leaves]
     grad_pl = _grad_placements(mesh, batch_sharded)
-    whole = [x.full_tensor(grad_placements=grad_pl) for x in xs]
-    local = loss_fn(tree_unflatten(treedef, whole), batch)
+    dm = mesh.device_mesh()
+    held = []
+    for x, sharding in zip(xs, tree_flatten(entry)[0]):
+        keep = sharding.placements
+        grads = tuple(k if k.is_shard() else g for k, g in zip(keep, grad_pl))
+        held.append(x.redistribute(dm, keep).to_local(grad_placements=grads))
+    local = loss_fn(tree_unflatten(treedef, held), batch)
     n = batch_width(mesh, batch_sharded)
     grads = torch.autograd.grad(local / n if n > 1 else local, xs)
     loss = global_mean(local.detach(), mesh, batch_sharded)

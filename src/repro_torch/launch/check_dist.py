@@ -26,11 +26,25 @@ exit code is 1 when a gate fails.
   rel < 2e-3 (``tests/test_moe_ep.py``), finite grads, a nonzero
   ``w_gate`` grad, expert grads within 1e-5 of ``moe_apply`` 's, and
   ``set_expert_parallel_mesh`` routing ``moe_apply`` through it;
-* the collective bytes one rank's sharded step dispatches (reduced
-  deepseek-7b, B=4, S=16, sgd, counted by ``analysis.dispatch_costs``)
-  against ``launch.dryrun``'s count from the placements, on the (2, 2)
-  mesh, the (2, 2, 1) (pod, data, model) mesh and a (1, 1) mesh of the
-  first rank (none at all);
+* tensor parallelism over "model" (``dist.tp``): the sharded step on the
+  (2, 2) mesh and on a (1, 4) mesh for reduced deepseek-7b (4 KV heads,
+  reassembly "torch" and "kernel"), starcoder2-3b (one KV head: each
+  rank projects it whole; qkv biases) and qwen2-vl-72b (M-RoPE, the
+  frontend's embeds), against the one-device engine at the gates above;
+  the primitives on a 2-rank group (the vocab-parallel CE
+  within 1e-6 of ``cross_entropy`` with and without a mask, the
+  embedding exact, ``copy_to_model`` / ``reduce_from_model`` forward and
+  backward, the identity when unset);
+* one rank's sharded step (reduced deepseek-7b, B=4, S=16, sgd, counted
+  by ``analysis.dispatch_costs``) against ``launch.dryrun.trace_train``'s
+  trace of that rank on ``meta``, on the (2, 2) mesh, the (1, 4) mesh
+  (also starcoder2-3b and qwen2-vl-72b), the (2, 2, 1) (pod, data, model)
+  mesh and a (1, 1) mesh of the first rank (no collective at all): the
+  collective bytes equal, the FLOPs equal, on (1, 4) a quarter of the
+  one-device step's, the memory the rank holds (parameter and optimizer
+  shards, the parameters the loss receives, the inputs) equal to the
+  reckoned, and no op inside the loss's forward pass handed a
+  ``DTensor``;
 * ``constrain_batch`` (identity without a mesh or on a plain tensor,
   ``Shard(0)`` of a ``DTensor`` with one), the row permuter on
   ``DTensor`` s (shard-local, no collective), K1's refusal of a
@@ -41,7 +55,11 @@ backward accumulates by atomics otherwise).  ``--production`` adds the
 production cell on the cards: starcoder2-3b at full width, 12 layers,
 batch 8 x 512 on 4 nodes, 3 steps through the sharded engine (K1 counted)
 against the one-device engine on the first rank's card, with each run's
-ms a step (synced host clock, median of steps 2..) and peak memory.
+ms a step (synced host clock, median of steps 2..) and peak memory, and
+one more sharded step under the torch profiler for the first rank's
+device ms by kind (NCCL, matrix products, the rest) and busy share.
+starcoder2-3b is one of ``dist.tp`` 's archs: on (2, 2) its 24 heads, 2
+KV heads, FFN and vocab split over the two model ranks.
 """
 from __future__ import annotations
 
@@ -58,6 +76,10 @@ import torch.distributed as dist
 
 ARCHS = ("deepseek-7b", "deepseek-v3-671b", "mamba2-780m",
          "recurrentgemma-9b")
+# the tensor-parallel step (dist.tp): 4 KV heads on 4 heads, and one KV
+# head (replicated KV) with qkv biases, M-RoPE and the frontend's embeds
+TP_CASES = (("deepseek-7b", "torch"), ("deepseek-7b", "kernel"),
+            ("starcoder2-3b", "kernel"), ("qwen2-vl-72b", "kernel"))
 STEPS = 3
 
 
@@ -166,17 +188,33 @@ def run_checks(device: str, ckdir: str) -> dict:
                        and _diff(got[1], saved[1]) == 0.0}
 
     out["ep"] = _expert_parallel(mesh, device, lead)
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh_compat
+    row = make_mesh_compat((1, 4), ("data", "model"), device=device)
+    # tensor parallelism: the dense GQA archs on (2, 2) and (1, 4)
+    for name, m in (("debug22", mesh), ("model4", row)):
+        for arch, reas in TP_CASES:
+            if m is mesh and arch in ARCHS:      # run above, every rank
+                if lead:
+                    out[f"tp/{name}/{arch}/{reas}"] = \
+                        out[f"step/{arch}/{reas}"]
+                continue
+            against_one_device(f"tp/{name}/{arch}/{reas}",
+                               get_config(arch, reduced=True), m,
+                               reassembly=reas)
     out["collectives"] = {
-        "debug22": _collectives(mesh, device),
-        "multipod": _collectives(make_multipod_debug_mesh(2, 2, 1,
-                                                          device=device),
-                                 device)}
-    from repro_torch.launch.mesh import make_debug_mesh
+        "debug22": _rank_step(mesh, device),
+        "model4": _rank_step(row, device),
+        "multipod": _rank_step(make_multipod_debug_mesh(2, 2, 1,
+                                                        device=device),
+                               device)}
+    out["rank_model4"] = {arch: _rank_step(row, device, arch)
+                          for arch in ("starcoder2-3b", "qwen2-vl-72b")}
     one = make_debug_mesh(1, 1, device=device)
     one.device_mesh()                    # collective: every rank builds it
     if lead:
-        out["collectives"]["debug11"] = _collectives(one, device)
+        out["collectives"]["debug11"] = _rank_step(one, device)
     dist.barrier()
+    out["tp_primitives"] = _tp_primitives(device)
 
     # constrain_batch, the DTensor row permuter and K1's refusal
     from repro_torch.core.tl_step import _make_row_permuter
@@ -209,45 +247,211 @@ def run_checks(device: str, ckdir: str) -> dict:
     return out if lead else {}
 
 
-def _collectives(mesh, device) -> dict:
-    """One step of the sharded TL step on this rank under the dispatch
-    accounting: the collective result bytes it issued (``measured``)
-    beside ``launch.dryrun``'s count from the placements (``predicted``).
-    sgd is elementwise, so the optimizer issues none."""
-    from repro_torch.analysis.dispatch_costs import accounting
+class _RefuseDTensor(torch.overrides.TorchFunctionMode):
+    """Counts the ops it sees and records any that receives a
+    ``DTensor``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.dtensor_ops = 0, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_leaves
+
+        from repro_torch.dist.tensor import is_dtensor
+        self.ops += 1
+        if any(is_dtensor(t) for t in tree_leaves((args, kwargs or {}))):
+            self.dtensor_ops.append(getattr(func, "__name__", str(func)))
+        return func(*args, **(kwargs or {}))
+
+
+def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
+    """One step of the sharded TL step of reduced ``arch`` (B 4, S 16, sgd)
+    on this rank under the dispatch accounting, beside
+    ``launch.dryrun.trace_train``'s trace of the same rank on ``meta``
+    (with the same optimizer): the collective result bytes issued
+    (``measured``) and predicted (``predicted``); the matrix-product
+    FLOPs of the step, of its trace and of the one-device loss and
+    gradient on the same rows; the reckoned memory beside what the rank
+    holds (parameter and optimizer shards, the parameters the loss
+    receives, the inputs); and whether any op inside the loss's forward
+    pass received a ``DTensor``.  sgd is elementwise, so the optimizer
+    issues no collective."""
+    from repro_torch.analysis.dispatch_costs import accounting, analyze_step
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
-    from repro_torch.core.tl_step import make_train_step, train_shardings
-    from repro_torch.dist.sharding import batch_axes, tokens_pspec
-    from repro_torch.dist.tensor import distribute_tree
-    from repro_torch.launch.dryrun import train_collective_bytes
+    from repro_torch.core.tl_step import (make_train_step, tensor_parallel,
+                                          tl_loss_fn, train_shardings,
+                                          value_and_grad)
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist.tensor import distribute_tree, \
+        sharded_value_and_grad
+    from repro_torch.launch.dryrun import trace_train
+    from repro_torch.launch.specs import abstract_params, text_len
     from repro_torch.models import build_model
     from repro_torch.optim import sgd
 
-    cfg = get_config("deepseek-7b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
     B, S = 4, 16
+    shape = InputShape("rank", S, B, "train")
     whole = model.init(seed=0, device=device)
     opt = sgd(0.05)
-    in_sh, _ = train_shardings(whole, opt.init(whole), cfg, mesh,
-                               InputShape("collectives", S, B, "train"))
+    in_sh, _ = train_shardings(whole, opt.init(whole), cfg, mesh, shape)
     rank = dist.get_rank()
     params = distribute_tree(whole, in_sh[0], rank)
     state = opt.init(params)
-    sharded = tokens_pspec(mesh, B)[0] is not None
+    sharded, rows = _rank_rows(mesh, B)
     g = torch.Generator().manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
-                           dtype=torch.int32)
-    n = math.prod(mesh.sizes[a] for a in batch_axes(mesh)) if sharded else 1
-    i = mesh.index_along(rank, batch_axes(mesh)) if sharded else 0
-    rows = slice(i * B // n, (i + 1) * B // n)
+    tokens = torch.randint(0, cfg.vocab_size, (B, text_len(cfg, shape)),
+                           generator=g, dtype=torch.int32)
     batch = {"tokens": tokens[rows].to(device),
              "targets": torch.roll(tokens, -1, 1)[rows].to(device)}
+    if cfg.frontend:            # S positions in all, as launch.specs makes
+        batch["embeds"] = 0.02 * torch.randn(
+            B, cfg.frontend_tokens, cfg.d_model, generator=g)[rows].to(device)
     step = make_train_step(model, cfg, opt, mesh=mesh, global_batch=B)
     with accounting() as costs:
         step(params, state, batch)
-    return {"measured": costs.coll,
-            "predicted": train_collective_bytes(whole, cfg, mesh, sharded)}
+    one = analyze_step(value_and_grad, tl_loss_fn(model, cfg, "tl"), whole,
+                       batch)
+    # what the loss receives, and whether a model op sees a DTensor
+    entry, scope = tensor_parallel(cfg, mesh, params)
+    seen = {}
+    watch = _RefuseDTensor()
+    loss_fn = tl_loss_fn(model, cfg, "tl")
+
+    def watched(p, b):
+        seen["bytes"] = sum(t.numel() * t.element_size()
+                            for t in tree_leaves(p))
+        with watch:
+            return loss_fn(p, b)
+    with scope():
+        sharded_value_and_grad(watched, params, batch, mesh,
+                               batch_sharded=sharded, entry=entry)
+    pred, coll, memory, _ = trace_train(
+        model, cfg, shape, mesh, abstract_params(model, torch.float32),
+        opt=opt)
+    held = {"param_shard_bytes": sum(
+                t._local_tensor.numel() * t.element_size()
+                for t in tree_leaves(params)),
+            "opt_state_shard_bytes": sum(
+                getattr(t, "_local_tensor", t).numel() * t.element_size()
+                for t in tree_leaves(state)),
+            "gathered_param_bytes": seen["bytes"],
+            "input_bytes": sum(t.numel() * t.element_size()
+                               for t in batch.values())}
+    return {"measured": costs.coll, "predicted": coll,
+            "flops": {"step": costs.flops, "dryrun": pred.flops,
+                      "one_device": one.flops},
+            "memory": {"held": held,
+                       "reckoned": {k: memory[k] for k in held}},
+            "model_ops": watch.ops, "dtensor_ops": watch.dtensor_ops}
+
+
+def tp_value_and_grad(arch: str, whole, batch, mesh, reassembly: str):
+    """``(loss, grads)`` of reduced ``arch``'s production TL loss (remat
+    "tl", ``reassembly``) at the parameters ``whole`` on ``batch`` (every
+    row, plain tensors), through the sharded step's gradient on ``mesh``
+    (every rank; collective): the parameters placed by
+    ``train_shardings``, each rank's rows, the tensor-parallel context
+    where ``dist.tp`` partitions the arch.  The loss is the global
+    batch's; the gradients are gathered whole.  A ``perm`` in ``batch``
+    is taken as it is, so it must be shard-local where the batch axes
+    split the rows (on (1, 4) they do not)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tl_step import (tensor_parallel, tl_loss_fn,
+                                          train_shardings)
+    from repro_torch.dist.tensor import (distribute_tree, full_tree,
+                                         sharded_value_and_grad)
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    B, S = batch["tokens"].shape
+    shape = InputShape("tp", S, B, "train")
+    in_sh, _ = train_shardings(whole, sgd(0.0).init(whole), cfg, mesh, shape)
+    params = distribute_tree(whole, in_sh[0], dist.get_rank())
+    sharded, rows = _rank_rows(mesh, B)
+    entry, scope = tensor_parallel(cfg, mesh, params)
+    with scope():
+        loss, grads = sharded_value_and_grad(
+            tl_loss_fn(model, cfg, "tl", reassembly=reassembly, mesh=mesh),
+            params, {k: v[rows] for k, v in batch.items()}, mesh,
+            batch_sharded=sharded, entry=entry)
+    return float(loss), full_tree(grads)
+
+
+def _rank_rows(mesh, B: int):
+    """``(batch_sharded, rows)``: whether the batch axes split ``B`` rows,
+    and this rank's block of them."""
+    from repro_torch.dist.sharding import batch_axes, tokens_pspec
+    if tokens_pspec(mesh, B)[0] is None:
+        return False, slice(0, B)
+    n = math.prod(mesh.sizes[a] for a in batch_axes(mesh))
+    i = mesh.index_along(dist.get_rank(), batch_axes(mesh))
+    return True, slice(i * B // n, (i + 1) * B // n)
+
+
+def _tp_primitives(device) -> dict:
+    """``dist.tp`` 's functions on a 2-rank model group (the world's first
+    two ranks) against their one-rank definitions: the vocab-parallel CE
+    against ``models.model.cross_entropy`` with and without a mask, the
+    vocab-parallel embedding against ``table[ids]``, and the forward and
+    backward passes of ``copy_to_model`` / ``reduce_from_model``.  The
+    first rank's readings; an empty dict elsewhere."""
+    from repro_torch.dist import tp
+    from repro_torch.models.model import cross_entropy
+    group = dist.new_group(ranks=[0, 1])       # collective: every rank
+    rank = dist.get_rank()
+    if rank > 1:
+        return {}
+    g = torch.Generator().manual_seed(0)
+    V = 64
+    logits = torch.randn(2, 5, V, generator=g, dtype=torch.float64) * 3
+    logits = logits.float()
+    targets = torch.randint(0, V, (2, 5), generator=g)
+    mask = (torch.rand(2, 5, generator=g) > 0.3).float()
+    table = torch.randn(V, 8, generator=g)
+    ids = torch.randint(0, V, (2, 5), generator=g)
+    x = torch.randn(3, 4, generator=g)
+    cols = slice(rank * V // 2, (rank + 1) * V // 2)
+    out = {}
+    with tp.model_parallel(group, 2, rank):
+        for name, m in (("ce", None), ("ce_mask", mask)):
+            want_l = logits.clone().requires_grad_(True)
+            want = cross_entropy(want_l, targets, m)
+            want.backward()
+            mine = logits[..., cols].clone().requires_grad_(True)
+            got = tp.cross_entropy(mine.to(device), targets.to(device),
+                                   None if m is None else m.to(device),
+                                   vocab=V)
+            got.backward()
+            out[name] = {"loss": abs(got.item() - want.item()),
+                         "grad": float((mine.grad.cpu()
+                                        - want_l.grad[..., cols]).abs()
+                                       .max())}
+        emb = tp.embedding(table[cols].to(device), ids.to(device), V)
+        out["embedding_exact"] = bool(torch.equal(emb.cpu(), table[ids]))
+        xs = x.to(device).detach().requires_grad_(True)
+        y = tp.copy_to_model(xs)
+        (y * (rank + 1)).sum().backward()      # grads 1 and 2: summed 3
+        out["copy_to_model"] = {
+            "forward": bool(torch.equal(y.detach().cpu(), x)),
+            "backward": bool(torch.equal(xs.grad.cpu(),
+                                         torch.full_like(x, 3.0)))}
+        xr = (x * (rank + 1)).to(device).detach().requires_grad_(True)
+        z = tp.reduce_from_model(xr)
+        (z * 2).sum().backward()
+        out["reduce_from_model"] = {
+            "forward": bool(torch.equal(z.detach().cpu(), 3 * x)),
+            "backward": bool(torch.equal(xr.grad.cpu(),
+                                         torch.full_like(x, 2.0)))}
+    out["identity_unset"] = tp.copy_to_model(x) is x \
+        and tp.reduce_from_model(x) is x
+    return out if rank == 0 else {}
 
 
 def _expert_parallel(mesh, device, lead) -> dict:
@@ -286,6 +490,55 @@ def _expert_parallel(mesh, device, lead) -> dict:
             "hooked": bool(torch.equal(hooked, y))}
 
 
+def _kernel_breakdown(prof, wall_ms: float) -> dict:
+    """Device ms of one profiled step by kind (NCCL's collectives, matrix
+    products, the rest), the device's busy ms (the union of the kernels'
+    intervals, NCCL's overlapping the compute stream's counted once) and
+    busy share of the step's wall ``wall_ms``."""
+    spans, kinds = [], {"nccl": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        r = e.time_range
+        spans.append((r.start, r.end))
+        name = e.name.lower()
+        kind = ("nccl" if "nccl" in name else
+                "gemm" if any(k in name for k in ("gemm", "cutlass",
+                                                  "xmma", "cublas"))
+                else "other")
+        kinds[kind] += r.elapsed_us() / 1e3
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"kernels": len(spans), "ms": kinds, "busy_ms": busy / 1e3,
+            "wall_ms": wall_ms, "busy_share": busy / 1e3 / wall_ms}
+
+
+def _profile_step(eng, loader) -> dict:
+    """One more step of ``eng`` (every rank; collective) under the torch
+    profiler: :func:`_kernel_breakdown` of this rank's card."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+    step = eng._build_step()
+    batch = {k: v.to(eng.device) for k, v in
+             eng._host_batch(next(iter(loader))).items()}
+    torch.cuda.synchronize()
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.params, eng.opt_state, _ = step(eng.params, eng.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    return _kernel_breakdown(prof, wall_ms)
+
+
 def production(device: str) -> dict:
     """The ``--production`` cell (module docstring); the first rank's
     readings, an empty dict on the others."""
@@ -315,7 +568,7 @@ def production(device: str) -> dict:
             k.launches = 0
         res = eng.run(VirtualBatchLoader(shard_corpus(docs, 4), 8),
                       steps=STEPS)
-        return res, {
+        return eng, res, {
             "losses": [float(x) for x in res.losses],
             "step_ms": statistics.median(1e3 * t for t in res.step_s[1:]),
             "step_s": res.step_s,
@@ -324,14 +577,17 @@ def production(device: str) -> dict:
                          "take_rows": take_rows.launches}}
 
     mesh = resolve_mesh("debug", device=device)
-    res, sharded = run(mesh)
+    eng, res, sharded = run(mesh)
     whole = [t.cpu() if lead else None          # full_tree is collective
              for t in tree_leaves(full_tree(res.params))]
-    del res
+    # after the gather: the profiled step updates eng
+    sharded["profile"] = _profile_step(
+        eng, VirtualBatchLoader(shard_corpus(docs, 4), 8))
+    del eng, res
     torch.cuda.empty_cache()
     out = {}
     if lead:
-        res1, one = run(None)
+        _, res1, one = run(None)
         gap = max(float((a - b.cpu()).abs().max())
                   for a, b in zip(whole, tree_leaves(res1.params)))
         out = {"mesh": list(mesh.shape), "layers": cfg.n_layers,
@@ -349,7 +605,7 @@ def gates(out: dict) -> dict:
     """Each check's verdict, by name."""
     ok = {}
     for key, got in out.items():
-        if key.startswith("step/"):
+        if key.startswith(("step/", "tp/")):
             ok[key] = got["loss"] < 1e-4 and got["params"] < 5e-3
     ok["pipeline"] = out["pipeline"] == {"losses": True, "params": True}
     ok["donate"] = out["donate"] == {"losses": True, "params": True}
@@ -358,11 +614,23 @@ def gates(out: dict) -> dict:
     ok["ep"] = (ep["rel"] < 2e-3 and ep["finite"] and ep["w_gate_grad"] > 0
                 and ep["expert_grad_rel"] < 1e-5 and ep["hooked"])
     coll = out["collectives"]
+    ranks = list(coll.values()) + list(out["rank_model4"].values())
     ok["collectives"] = (
-        coll["debug22"]["measured"] == coll["debug22"]["predicted"]
-        and coll["multipod"]["measured"] == coll["multipod"]["predicted"]
+        all(r["measured"] == r["predicted"] for r in ranks)
         and coll["debug22"]["measured"].get("all-gather", 0) > 0
-        and coll["debug11"] == {"measured": {}, "predicted": {}})
+        and coll["debug11"]["measured"] == {})
+    ok["rank_program"] = all(
+        r["flops"]["step"] == r["flops"]["dryrun"]
+        and r["memory"]["held"] == r["memory"]["reckoned"]
+        and r["model_ops"] > 0 and not r["dtensor_ops"] for r in ranks)
+    four = coll["model4"]["flops"]
+    ok["tp_flops"] = abs(four["step"] / four["one_device"] - 0.25) < 0.0125
+    pr = out["tp_primitives"]
+    ok["tp_primitives"] = (
+        max(pr["ce"].values()) < 1e-6 and max(pr["ce_mask"].values()) < 1e-6
+        and pr["embedding_exact"] and pr["identity_unset"]
+        and all(pr["copy_to_model"].values())
+        and all(pr["reduce_from_model"].values()))
     c, p = out["constrain"], out["permuter"]
     ok["constrain"] = (c["identity"] and c["plain_identity"] and c["values"]
                        and c["placements"] == ["S(0)", "R"])

@@ -17,17 +17,28 @@ analyses.  The port has no compiler to ask, so it
   (``dist.sharding``), leaf by leaf, the way the port's step issues them.
 
 **What a port rank runs.**  *Train*: the sharded TL step
-(``core.tl_step.make_train_step(mesh=...)``) gathers every parameter whole
-at the loss's entry (``dist.tensor.sharded_value_and_grad``), runs the loss
-unsharded on the rank's B / n_dp rows (all B rows when the batch axes do
-not divide B), reduce-scatters the gradients onto the parameters'
-placements and updates the local shards.  So the "model" axis shards
-storage, not compute: a rank's FLOPs are about n_model times the GSPMD
-reference's, and its peak holds every parameter.  The artifact reports
-that; it does not reshape the numbers to look like the reference's.  The
-optimizer runs on the local shards (the port's ``adafactor`` refuses
-``DTensor`` leaves, whose factored row and column means would need
-collectives; it is traced here on the shards, as the reference's is).
+(``core.tl_step.make_train_step(mesh=...)``) runs the loss on the rank's
+B / n_dp rows (all B rows when the batch axes do not divide B),
+reduce-scatters the gradients onto the parameters' placements and
+updates the local shards.  For the dense GQA archs on a "model"
+axis of size > 1 (``dist.tp.partitions``) it is tensor-parallel, as the
+reference's GSPMD step partitions it: each parameter is gathered over the
+batch axes only and keeps its shard on "model" (``dist.tp.entry_spec``),
+and the model computes on those shards with all-reduces over "model".
+:func:`trace_train` traces that local program on ``meta`` with the
+``dist.tp`` context over :func:`model_axis_group` (a fake process group
+when none runs), so the matrix products are the rank's share (about
+1 / n_model of them where the heads, the FFN width and the vocab split)
+and its all-reduces reach the dispatch accounting.  The other archs
+(MoE and MLA, the recurrent mixers, the encoder-decoder) gather every
+parameter whole at the loss's entry and run the loss unsharded: their
+"model" axis shards storage, not compute, so a rank's FLOPs are about
+n_model times the GSPMD reference's and its peak holds every parameter.
+The artifact reports what the port runs; it does not reshape the
+numbers to look like the reference's.  The optimizer runs on the local
+shards (the port's ``adafactor`` refuses ``DTensor`` leaves, whose
+factored row and column means would need collectives; it is traced here
+on the shards, as the reference's is).
 *Prefill / decode*: nothing in the port serves on a mesh yet, so a rank is
 reckoned to run ``model.prefill`` / ``make_serve_step`` the way the train
 step runs its loss: on its own batch rows (the cache's batch axes), with
@@ -39,17 +50,21 @@ fills it), keeping its shard of the cache after the step.
 what ``DTensor`` dispatches, which ``tests/test_torch_dist_gloo.py`` holds
 equal to a real sharded step's on four ranks: an all-gather per sharded
 mesh dim of each parameter at entry (mesh dims in order, a nested shard
-innermost first: the results grow to the whole leaf); per gradient, over
-each batch mesh dim of size > 1, a reduce-scatter (result: the leaf
-divided over the batch dims so far) where the parameter is sharded there,
-an all-reduce where it is replicated; the loss's mean, an all-reduce of a
-scalar over each batch mesh dim.  With a one-rank mesh there are none.
+innermost first: the results grow to the whole leaf, or to the leaf's
+model shard where it keeps it); per gradient, over each batch mesh dim of
+size > 1, a reduce-scatter (result: the leaf divided over the batch dims
+so far) where the parameter is sharded there, an all-reduce where it is
+replicated, and over "model" an all-gather of a bias taken by columns;
+the loss's mean, an all-reduce of a scalar over each batch mesh dim; and
+a tensor-parallel rank's activation all-reduces over "model", counted
+off its trace.  With a one-rank mesh there are none.
 
 **Peak per rank** is reckoned, not measured: the local shards of the
-parameters and optimizer state, the gathered whole parameters (and
-cache), the inputs, and the traced step's high-water mark of live
-tensors.  The artifact says so (``extra_tags.peak_source``) and names the
-constants' device.  There is no compile: ``t_lower_s`` is the trace's
+parameters and optimizer state, the parameters as the loss receives them
+(whole, or a tensor-parallel rank's model shards; and the cache), the
+inputs, and the traced step's high-water mark of live tensors.  The
+artifact says so (``extra_tags.peak_source``) and names the constants'
+device.  There is no compile: ``t_lower_s`` is the trace's
 seconds, ``t_compile_s`` 0, ``hlo_lines`` the count of dispatched ops and
 ``xla_cost_analysis`` ``FlopCounterMode``'s total (the unscaled
 cross-check; it also counts the ops inside kernel calls).
@@ -57,6 +72,7 @@ cross-check; it also counts the ops inside kernel calls).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -114,25 +130,32 @@ def gather_bytes(shape, itemsize, spec, mesh, keep=()) -> int:
     return total
 
 
-def grad_reduce_bytes(shape, itemsize, spec, mesh, batch_dims):
-    """``(reduce-scatter, all-reduce)`` result bytes of a whole gradient,
-    ``Partial`` over ``batch_dims`` (mesh dims), redistributed onto the
-    parameter's placements mesh dim by mesh dim; the all-reduce counted
-    x2."""
+def grad_reduce_bytes(shape, itemsize, spec, mesh, batch_dims, entry):
+    """``(reduce-scatter, all-reduce, all-gather)`` result bytes of a
+    gradient with the placements of its leaf at the loss's entry
+    (``entry``, a spec; all ``None``: whole), ``Partial`` over
+    ``batch_dims`` (mesh dims), redistributed onto the parameter's
+    placements mesh dim by mesh dim; the all-reduce counted x2.  A dim
+    sharded at the entry and not in storage (a bias taken by columns) is
+    gathered back."""
     from repro_torch.dist.sharding import spec_placements
     sizes = mesh.shape
-    cur = list(shape)
-    rs = ar = 0
-    for i, p in enumerate(spec_placements(spec, mesh)):
+    cur = list(local_shape(shape, entry, mesh))
+    rs = ar = ag = 0
+    for i, (p, e) in enumerate(zip(spec_placements(spec, mesh),
+                                   spec_placements(entry, mesh))):
         if i in batch_dims:
             if p.is_shard():
                 cur[p.dim] //= sizes[i]
                 rs += math.prod(cur) * itemsize
             else:
                 ar += 2 * math.prod(cur) * itemsize
-        elif p.is_shard():
+        elif p.is_shard() and not e.is_shard():
             cur[p.dim] //= sizes[i]
-    return rs, ar
+        elif e.is_shard() and not p.is_shard():
+            cur[e.dim] *= sizes[i]
+            ag += math.prod(cur) * itemsize
+    return rs, ar, ag
 
 
 def _batch_dims(mesh, batch_sharded: bool):
@@ -145,16 +168,26 @@ def _batch_dims(mesh, batch_sharded: bool):
 
 def train_collective_bytes(params, cfg, mesh, batch_sharded: bool):
     """Per-rank collective result bytes of the port's sharded TL step
-    (module docstring) from the parameters' placements."""
+    (module docstring) from the parameters' placements and, for a
+    tensor-parallel step, their placements at the loss's entry
+    (``dist.tp.entry_specs``; the activations' all-reduces over "model"
+    are not in it: :func:`trace_train` counts them off the trace)."""
+    from repro_torch.dist import tp
     from repro_torch.dist.sharding import param_specs
     bdims = _batch_dims(mesh, batch_sharded)
+    specs = param_specs(params, cfg, mesh)
+    entry = tp.entry_specs(params, cfg, mesh)
+    model = {i for i, a in enumerate(mesh.axis_names) if a == "model"}
     coll = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
-    for leaf, spec in leaf_specs(params, param_specs(params, cfg, mesh)):
+    for (leaf, spec), (_, e) in zip(leaf_specs(params, specs),
+                                    leaf_specs(params, entry)):
         shape, item = tuple(leaf.shape), leaf.element_size()
-        coll["all-gather"] += gather_bytes(shape, item, spec, mesh)
-        rs, ar = grad_reduce_bytes(shape, item, spec, mesh, bdims)
+        keep = model if any(x is not None for x in e) else ()
+        coll["all-gather"] += gather_bytes(shape, item, spec, mesh, keep)
+        rs, ar, ag = grad_reduce_bytes(shape, item, spec, mesh, bdims, e)
         coll["reduce-scatter"] += rs
         coll["all-reduce"] += ar
+        coll["all-gather"] += ag
     coll["all-reduce"] += 2 * LOSS_BYTES * len(bdims)
     return {k: v for k, v in coll.items() if v}
 
@@ -193,34 +226,119 @@ def _rows(mesh, batch: int) -> int:
     return batch // n_dp if batch % n_dp == 0 and batch >= n_dp else batch
 
 
-def _trace_train(model, cfg, shape, mesh, params, remat, microbatch):
+def _storage_shard(tree, pspecs, especs, mesh):
+    """Leaves as held at the loss's entry (``especs``) -> the rank's
+    storage shards (``pspecs``): the batch axes' chunk of a leaf that
+    kept its model shard, the whole leaf's chunk of one gathered whole,
+    and for a bias taken by columns a tensor of its whole shape (its
+    gradient gathered back over "model", counted by
+    :func:`train_collective_bytes`)."""
+    from repro_torch.dist.sharding import P
+    from repro_torch.dist.tensor import local_chunk
+    coord = mesh.coordinate(mesh.ranks()[0])
+    if isinstance(tree, dict):
+        return {k: _storage_shard(v, pspecs[k], especs[k], mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_storage_shard(t, p, e, mesh)
+                          for t, p, e in zip(tree, pspecs, especs))
+    if all(x is None for x in especs):
+        return local_chunk(tree, pspecs, mesh, coord)
+    if all(x is None for x in pspecs):
+        whole = [n * (mesh.sizes["model"] if e == "model" else 1)
+                 for n, e in zip(tree.shape, especs)]
+        return tree.new_empty(whole)
+    no_model = P(*(None if e == "model" else e for e in pspecs))
+    return local_chunk(tree, no_model, mesh, coord)
+
+
+@contextlib.contextmanager
+def model_axis_group(mesh):
+    """The process group a traced rank's tensor-parallel collectives name:
+    the mesh's "model" group when a process group is running (a rank of a
+    real world; collective), else one over a fake process group of the
+    mesh's size (``torch.testing._internal.distributed.fake_pg``; its
+    collectives do nothing, and on ``meta`` none reads data), torn down
+    after the trace."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        yield mesh.device_mesh().get_group("model")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        coord = mesh.coordinate(mesh.ranks()[0])
+        axis = mesh.axis_names.index("model")
+        index = tuple(slice(None) if i == axis else c
+                      for i, c in enumerate(coord))
+        yield dist.new_group(
+            ranks=[int(r) for r in mesh.devices[index].flatten()])
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _model_parallel(mesh):
+    """The ``dist.tp`` context of the mesh's first rank over
+    :func:`model_axis_group`."""
+    from repro_torch.dist import tp
+    with model_axis_group(mesh) as group, \
+            tp.model_parallel(group, mesh.sizes["model"], 0):
+        yield
+
+
+def trace_train(model, cfg, shape, mesh, params, remat="tl", microbatch=1,
+                opt=None):
+    """``(costs, collectives, memory, program)`` of one rank's sharded TL
+    step (module docstring), traced on ``params``' device (``meta`` for
+    the dryrun); ``opt`` defaults to the reference's ``adafactor``."""
     from repro_torch.core.tl_step import make_train_step
+    from repro_torch.dist import tp
     from repro_torch.dist.sharding import param_specs, tokens_pspec
     from repro_torch.optim import adafactor
 
     pspecs = param_specs(params, cfg, mesh)
     local = _local(params, pspecs, mesh)
-    opt = adafactor(1e-3)
+    opt = adafactor(1e-3) if opt is None else opt
     opt_state = opt.init(local)
     batch_sharded = tokens_pspec(mesh, shape.global_batch)[0] is not None
     rows = _rows(mesh, shape.global_batch) if batch_sharded \
         else shape.global_batch
     batch = input_specs(cfg, InputShape(shape.name, shape.seq_len, rows,
                                         "train"), params["embed"].dtype)
+    device = params["embed"].device
+    if device.type != "meta":                       # zeros of the specs
+        batch = {k: torch.zeros_like(v, device=device)
+                 for k, v in batch.items()}
+    especs = tp.entry_specs(params, cfg, mesh)
+    entry = _local(params, especs, mesh)     # params itself unless TP
     step = make_train_step(
-        model, cfg, _LocalUpdate(opt, lambda t: _local(t, pspecs, mesh)),
+        model, cfg, _LocalUpdate(opt, lambda t: _storage_shard(
+            t, pspecs, especs, mesh)),
         remat_mode=remat, microbatch=microbatch)
-    with accounting() as costs:
-        step(params, opt_state, batch)
+    parallel = tp.partitions(cfg, mesh)
+    with (_model_parallel(mesh) if parallel else contextlib.nullcontext()), \
+            accounting() as costs:
+        step(entry, opt_state, batch)
+    if parallel:
+        program = (f"the tensor-parallel TL step over {mesh.sizes['model']} "
+                   f"model ranks on {rows} of {shape.global_batch} rows, "
+                   "each parameter gathered over the batch axes and kept on "
+                   "its model shard where dist.tp partitions it; adafactor "
+                   "on the local shards")
+    else:
+        program = (f"the sharded TL step on {rows} of {shape.global_batch} "
+                   "rows with every parameter gathered whole; adafactor on "
+                   "the local shards")
     coll = train_collective_bytes(params, cfg, mesh, batch_sharded)
+    for kind, nb in costs.coll.items():          # traced: TP's all-reduces
+        coll[kind] = coll.get(kind, 0) + int(nb)
     memory = {"param_shard_bytes": _tree_bytes(local),
               "opt_state_shard_bytes": _tree_bytes(opt_state),
-              "gathered_param_bytes": _tree_bytes(params),
+              "gathered_param_bytes": _tree_bytes(entry),
               "input_bytes": _tree_bytes(batch),
               "traced_live_peak_bytes": int(costs.peak_live_bytes)}
-    program = (f"the sharded TL step on {rows} of {shape.global_batch} rows "
-               "with every parameter gathered whole; adafactor on the "
-               "local shards")
     return costs, coll, memory, program
 
 
@@ -310,7 +428,7 @@ def lower_one(arch: str, shape_name: str, mesh_kind: str, remat: str = "tl",
     axes = batch_axes(mesh) if activation_constraints else None
     with activation_sharding(axes):
         if shape.kind == "train":
-            costs, coll, memory, program = _trace_train(
+            costs, coll, memory, program = trace_train(
                 model, cfg, shape, mesh, params, remat, microbatch)
         else:
             costs, coll, memory, program = _trace_serve(

@@ -33,6 +33,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tp
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        reference_path, rmsnorm,
@@ -163,13 +164,17 @@ def gqa_project(params, cfg: ModelConfig, x, q_pos, *, positions=None):
     (3,B,S), or ``q_pos`` broadcast to them (text only).  Shared by
     ``gqa_apply`` and the paged serving runner."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k, v = x @ params["w_q"], x @ params["w_k"], x @ params["w_v"]
-    if cfg.qkv_bias:
-        q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
+    hd = cfg.resolved_head_dim
+    H = params["w_q"].shape[1] // hd          # this rank's heads under TP
+    if tp.partitioned(H, cfg.n_heads):
+        q, k, v = _tp_qkv(params, cfg, x, H)
+    else:
+        q, k, v = x @ params["w_q"], x @ params["w_k"], x @ params["w_v"]
+        if cfg.qkv_bias:
+            q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    k = k.reshape(B, S, k.shape[-1] // hd, hd)
+    v = v.reshape(B, S, v.shape[-1] // hd, hd)
     if cfg.rope == "rope":
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
@@ -182,6 +187,44 @@ def gqa_project(params, cfg: ModelConfig, x, q_pos, *, positions=None):
     return q, k, v
 
 
+def _tp_qkv(params, cfg: ModelConfig, x, H: int):
+    """Column-parallel q / k / v of this rank's ``H`` query heads
+    (``dist.tp``).  With KV heads split as the query heads are, k and v
+    are the rank's own columns; otherwise each rank projects every KV head
+    and keeps the run of them its query heads use (query head h reads KV
+    head ``h // (n_heads / n_kv_heads)``, the grouping ``attend_dense``
+    assumes), and the gradients of k and v are summed over "model" there,
+    since each rank's heads read only some of them.  A rank whose heads
+    read its KV heads unevenly raises."""
+    hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
+    rep, first = cfg.n_heads // KV, tp.rank() * H
+    used = [h // rep for h in range(first, first + H)]
+    if len({used.count(kv) for kv in used}) > 1:
+        raise ValueError(
+            f"query heads {first}..{first + H - 1} read KV heads {used}: a "
+            "tensor-parallel rank's heads must read each of its KV heads "
+            "equally often")
+    xs = tp.copy_to_model(x)
+    q = xs @ params["w_q"]
+    if cfg.qkv_bias:
+        q = q + params["b_q"]
+    if tp.partitioned(params["w_k"].shape[1] // hd, KV):
+        k, v = xs @ params["w_k"], xs @ params["w_v"]
+        if cfg.qkv_bias:
+            k, v = k + params["b_k"], v + params["b_v"]
+        return q, k, v
+    k, v = x @ params["w_k"], x @ params["w_v"]
+    if cfg.qkv_bias:
+        k, v = k + params["b_k"], v + params["b_v"]
+    B, S, _ = x.shape
+    lo, hi = used[0], used[-1] + 1
+
+    def pick(t):
+        t = tp.copy_to_model(t).reshape(B, S, KV, hd)[:, :, lo:hi]
+        return t.reshape(B, S, (hi - lo) * hd)
+    return q, pick(k), pick(v)
+
+
 def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
               cache_len=None):
     """Full forward (cache=None), prefill into an empty cache (S > 1) or one
@@ -189,7 +232,8 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
     the cache; ``positions`` (3,B,S) M-RoPE streams (``gqa_project``).
     Returns (out, cache)."""
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    H = params["w_q"].shape[1] // hd          # this rank's heads under TP
     pos0 = 0 if cache_len is None else int(cache_len)
     q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = gqa_project(params, cfg, x, q_pos.expand(B, S),
@@ -220,7 +264,10 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
             cache["pos"][idx] = q_pos
             out = attend(q, cache["k"], cache["v"], q_pos, cache["pos"],
                          cfg.sliding_window, scale)
-    return out.reshape(B, S, H * hd) @ params["w_o"], cache
+    out = out.reshape(B, S, H * hd) @ params["w_o"]
+    if tp.partitioned(H, cfg.n_heads):
+        out = tp.reduce_from_model(out)         # row-parallel w_o
+    return out, cache
 
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,

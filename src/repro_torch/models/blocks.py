@@ -110,7 +110,7 @@ def ffn_apply(params, cfg: ModelConfig, ffn: str, h):
         return h + out, aux
     if ffn == "dense":
         h = h + swiglu(params["ffn"], rmsnorm(params["norm2"], h,
-                                              cfg.norm_eps))
+                                              cfg.norm_eps), cfg.d_ff)
     return h, 0.0
 
 

@@ -47,9 +47,19 @@ def swiglu_init(gen, d: int, d_ff: int, *, device, dtype=torch.float32):
             "w_down": dense_init(gen, d_ff, d, device=device, dtype=dtype)}
 
 
-def swiglu(params, x):
+def swiglu(params, x, d_ff: int = None):
+    """``(silu(x W_gate) * x W_up) W_down``.  Given the whole ``d_ff``, a
+    rank holding its share of it runs Megatron's split (``dist.tp``):
+    ``w_gate`` / ``w_up`` column-parallel, ``w_down`` row-parallel and its
+    partial sums reduced over "model"."""
+    from repro_torch.dist import tp
+    split = d_ff is not None and tp.partitioned(params["w_down"].shape[0],
+                                                d_ff)
+    if split:
+        x = tp.copy_to_model(x)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    return tp.reduce_from_model(out) if split else out
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):

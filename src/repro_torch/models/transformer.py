@@ -11,7 +11,9 @@ of (rglru, rglru, attn) and a suffix of 2.  A config with ``mtp_depth``
 adds the reference's ``mtp`` subtree (DeepSeek-V3's multi-token head).
 
 The Traversal-Learning split points are the reference's: ``embed_tokens``
--> ``block0`` (X^(1)) -> ``tail`` (what the orchestrator recomputes).  A
+-> ``block0`` (X^(1)) -> ``tail`` (what the orchestrator recomputes).  Inside
+the sharded step's tensor-parallel context (``dist.tp``) the embedding,
+the head and each block's products run on the rank's shards.  A
 frontend arch (the VLM) prepends ``extra_embeds`` (B,F,d), the stubbed
 patch embeddings, to the token embeddings; its M-RoPE streams come as
 ``positions`` (3,B,S) or default to the token positions.  Caches are a
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import tp
 from repro_torch.models import blocks
 from repro_torch.models.layers import dense_init, embed_init, rmsnorm, rmsnorm_init
 
@@ -108,15 +111,19 @@ def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
     emb = params["embed"]
     # sqrt(d_model) rounded to the table's dtype, as the reference does
     scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype))
-    h = emb[tokens.long()] * scale
+    h = tp.embedding(emb, tokens.long(), cfg.vocab_size) * scale
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     return h
 
 
 def _logits(params, cfg: ModelConfig, h):
+    """Logits (..., V); a rank holding a vocab shard of the head (or of a
+    tied ``embed``) gets its columns, for ``dist.tp.cross_entropy``."""
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    if tp.partitioned(head.shape[1], cfg.vocab_size):
+        h = tp.copy_to_model(h)                 # column-parallel head
     return h @ head
 
 

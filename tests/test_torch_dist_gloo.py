@@ -2,8 +2,9 @@
 
 One 4-rank world (spawned once for the module, ``file://`` store under
 ``tmp_path``, one thread a rank) runs ``repro_torch.launch.check_dist``'s
-checks, which a 4-card machine runs under ``torchrun`` with NCCL; rank 0
-writes the readings to JSON and the tests below assert on them:
+checks, which a 4-card machine runs under ``torchrun`` with NCCL, and
+``check_dist.tp_value_and_grad`` on the JAX reference's parameters; rank
+0 writes the readings to JSON and the tests below assert on them:
 
 * the sharded TL step on the (2, 2) debug mesh against the port's
   one-device step, for deepseek-7b, deepseek-v3-671b (MoE + MLA + MTP),
@@ -19,7 +20,22 @@ writes the readings to JSON and the tests below assert on them:
   rel < 2e-3 (``tests/test_moe_ep.py``), finite grads, a nonzero ``w_gate``
   grad, expert grads equal to ``moe_apply`` 's;
 * the dryrun's per-rank collective bytes equal those a rank's real
-  sharded step dispatches, on (2, 2), (2, 2, 1) and (1, 1);
+  sharded step dispatches, on (2, 2), (1, 4), (2, 2, 1) and (1, 1);
+* tensor parallelism over "model" (``dist.tp``) for the dense GQA archs:
+  the step on (2, 2) and (1, 4) against the one-device step for reduced
+  deepseek-7b (4 KV heads, "torch" and "kernel"), starcoder2-3b (one KV
+  head, so replicated KV, with qkv biases) and qwen2-vl-72b (M-RoPE and
+  the frontend's embeds) at the reference's gates; on (1, 4) a rank's
+  matrix-product FLOPs a quarter of the one-device step's; the dryrun's
+  trace of a rank (``launch.dryrun.trace_train``) equal to the real
+  step's FLOPs, collectives and held memory; no op inside the loss
+  receiving a ``DTensor``; on (1, 4) a rank's loss and whole gradients
+  against the JAX reference's ``tl_loss_fn`` on its own parameters,
+  bridged (``params_from_jax``), and batch; and the primitives on a
+  2-rank group (the
+  vocab-parallel CE within 1e-6 of ``cross_entropy`` with and without a
+  mask, the embedding exact, ``copy_to_model`` / ``reduce_from_model``
+  forward and backward);
 * ``constrain_batch`` and the DTensor row permuter; ``resolve_mesh``.
 
 The CLI drills run as the reference's do (``tests/test_elastic.py``): the
@@ -28,57 +44,115 @@ one rank.
 """
 import json
 import os
+import pickle
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from repro_torch.launch.check_dist import ARCHS  # noqa: E402
+from repro_torch.launch.check_dist import ARCHS, TP_CASES  # noqa: E402
 
 REASSEMBLY = ["torch", "kernel"]
 
 WORLD = textwrap.dedent('''
-    import json, sys
+    import json, pickle, sys
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
-    def work(rank, world, store, ckdir, out_path):
+    def work(rank, world, store, ckdir, out_path, ref_path, grads_path):
         torch.set_num_threads(1)
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=world)
-        from repro_torch.launch.check_dist import run_checks
+        from repro_torch.bridge import params_from_jax
+        from repro_torch.configs import get_config
+        from repro_torch.launch.check_dist import run_checks, \\
+            tp_value_and_grad
+        from repro_torch.launch.mesh import make_mesh_compat
         out = run_checks("cpu", ckdir)
+        # the reference's parameters and batches, bridged: a TP rank's
+        # loss and whole gradients on (1, 4)
+        with open(ref_path, "rb") as f:
+            cases = pickle.load(f)
+        row = make_mesh_compat((1, 4), ("data", "model"), device="cpu")
+        got = {}
+        for key, (arch, reas, np_params, batch) in cases.items():
+            whole = params_from_jax(np_params, get_config(arch, reduced=True),
+                                    torch.device("cpu"))
+            got[key] = tp_value_and_grad(
+                arch, whole, {k: torch.from_numpy(v) for k, v in
+                              batch.items()}, row, reas)
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump(out, f)
+            with open(grads_path, "wb") as f:
+                pickle.dump(got, f)
         dist.barrier()
         dist.destroy_process_group()
 
     if __name__ == "__main__":
-        mp.spawn(work, args=(4, sys.argv[1], sys.argv[2], sys.argv[3]),
-                 nprocs=4)
+        mp.spawn(work, args=(4,) + tuple(sys.argv[1:6]), nprocs=4)
 ''')
+
+# a TP rank against the JAX reference: 4 KV heads split over 4 model
+# ranks, and one KV head (replicated KV) with qkv biases
+JAX_CASES = (("deepseek-7b", "torch"), ("starcoder2-3b", "kernel"))
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def jax_reference(tmp_path_factory):
+    """For each of ``JAX_CASES``: the reference's reduced parameters
+    (``PRNGKey(0)``) and a node-major batch (B 4, S 16, perm [2, 0, 3, 1]),
+    written for the world to bridge, and the reference's ``tl_loss_fn``
+    (remat "tl", reassembly "xla") loss and gradients on them."""
+    import jax
+
+    from repro.configs import get_config as jax_get_config
+    from repro.core.tl_step import tl_loss_fn as jax_tl_loss_fn
+    from repro.models import build_model as jax_build_model
+    cases, want = {}, {}
+    for arch, reas in JAX_CASES:
+        jcfg = jax_get_config(arch, reduced=True)
+        jm = jax_build_model(jcfg)
+        jparams = jax.jit(jm.init)(jax.random.PRNGKey(0))
+        toks = np.random.default_rng(1).integers(
+            0, jcfg.vocab_size, size=(4, 16)).astype(np.int32)
+        batch = {"tokens": toks, "targets": np.roll(toks, -1, 1),
+                 "perm": np.array([2, 0, 3, 1], np.int32)}
+        loss, grads = jax.jit(jax.value_and_grad(jax_tl_loss_fn(
+            jm, jcfg, "tl", reassembly="xla")))(jparams, batch)
+        key = f"{arch}/{reas}"
+        cases[key] = (arch, reas, jax.tree.map(np.asarray, jparams), batch)
+        want[key] = (float(loss), jax.tree.map(np.asarray, grads))
+    path = tmp_path_factory.mktemp("jax") / "cases.pkl"
+    path.write_bytes(pickle.dumps(cases))
+    return path, want
+
+
+@pytest.fixture(scope="module")
+def world_and_grads(tmp_path_factory, jax_reference):
     tmp = tmp_path_factory.mktemp("gloo")
     script = tmp / "world.py"
     script.write_text(WORLD)
-    out = tmp / "out.json"
+    out, grads = tmp / "out.json", tmp / "grads.pkl"
     env = dict(os.environ, PYTHONPATH=os.path.abspath("src"),
                OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, str(script), str(tmp / "store"), str(tmp / "ck"),
-         str(out)],
+         str(out), str(jax_reference[0]), str(grads)],
         env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    return json.loads(out.read_text())
+    return json.loads(out.read_text()), pickle.loads(grads.read_bytes())
+
+
+@pytest.fixture(scope="module")
+def world(world_and_grads):
+    return world_and_grads[0]
 
 
 @pytest.mark.parametrize("reassembly", REASSEMBLY)
@@ -115,20 +189,22 @@ def test_expert_parallel_moe_matches_moe_apply(world):
 
 
 def test_collective_count_matches_what_the_step_does(world):
-    """The dryrun's per-rank collective bytes, counted from the placements
-    (``launch.dryrun.train_collective_bytes``), equal the
-    ``_c10d_functional`` bytes ``analyze_step`` counts on a rank running the
-    real sharded step of reduced deepseek-7b on the (2, 2) mesh: the
-    parameters' all-gathers at the loss's entry and the gradients'
-    reduce-scatters / all-reduces, all above 0; and on the (2, 2, 1)
-    (pod, data, model) mesh, whose two batch axes each reduce; a (1, 1)
-    mesh predicts and counts none, as ``tests/test_engine.py`` asserts
-    for the reference.
+    """The dryrun's per-rank collective bytes (``launch.dryrun.
+    trace_train``: the parameters' collectives from their placements,
+    ``train_collective_bytes``, plus the tensor-parallel all-reduces its
+    trace on ``meta`` dispatches) equal the ``_c10d_functional`` bytes
+    ``analyze_step`` counts on a rank running the real sharded step of
+    reduced deepseek-7b: on the (2, 2) mesh the parameters' all-gathers
+    over the batch axis, the gradients' reduce-scatters / all-reduces and
+    the activations' all-reduces over "model", all above 0; on (1, 4) only
+    the activations' all-reduces; and on the (2, 2, 1) (pod, data, model)
+    mesh, whose two batch axes each reduce; a (1, 1) mesh predicts and
+    counts none, as ``tests/test_engine.py`` asserts for the reference.
+    Reduced starcoder2-3b (replicated KV, its biases' gradients gathered
+    back over "model") and qwen2-vl-72b on (1, 4) too.
     The reference's [1/4, 1.5] band against its GSPMD prediction
-    (``analysis.roofline.predict_train_collective_bytes``) is not asserted:
-    the port's "model" axis shards storage and issues no tensor-parallel
-    activation all-reduce (ROADMAP queue 3), so it counts what the port
-    issues instead."""
+    (``analysis.roofline.predict_train_collective_bytes``) is not
+    asserted: it counts what the port issues instead."""
     c = world["collectives"]
     d22 = c["debug22"]
     assert d22["measured"] == d22["predicted"], d22
@@ -138,9 +214,105 @@ def test_collective_count_matches_what_the_step_does(world):
     ratio = sum(d22["measured"].values()) / sum(d22["predicted"].values())
     print(f"(2, 2) collective bytes measured / predicted: {ratio!r} "
           f"({d22['measured']})")
+    four = c["model4"]
+    assert four["measured"] == four["predicted"], four
+    assert set(four["measured"]) == {"all-reduce"}, four
     mp = c["multipod"]
     assert mp["measured"] == mp["predicted"], mp
-    assert c["debug11"] == {"measured": {}, "predicted": {}}
+    assert c["debug11"]["measured"] == c["debug11"]["predicted"] == {}
+    for arch, got in world["rank_model4"].items():
+        assert got["measured"] == got["predicted"], (arch, got)
+
+
+TP_MESHES = ["debug22", "model4"]
+
+
+@pytest.mark.parametrize("arch,reassembly", TP_CASES)
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tensor_parallel_step_matches_one_device(world, mesh, arch,
+                                                 reassembly):
+    got = world[f"tp/{mesh}/{arch}/{reassembly}"]
+    assert got["loss"] < 1e-4, got
+    assert got["params"] < 5e-3, got
+
+
+@pytest.mark.parametrize("arch,reassembly", JAX_CASES)
+def test_tensor_parallel_rank_matches_the_jax_reference(
+        world_and_grads, jax_reference, arch, reassembly):
+    """On (1, 4), a TP rank's loss and whole gradients (``check_dist.
+    tp_value_and_grad``: vocab-parallel embedding, head and CE, the
+    rank's heads and KV heads, row-parallel ``w_o`` / ``w_down``) at the
+    reference's bridged parameters against the reference's ``tl_loss_fn``
+    on the same batch: loss 1e-4 and gradients 1e-4, as the one-device
+    step is held (``tests/test_torch_production_step.py``)."""
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    key = f"{arch}/{reassembly}"
+    want_loss, want_grads = jax_reference[1][key]
+    loss, grads = world_and_grads[1][key]
+    want = params_from_jax(want_grads, get_config(arch, reduced=True),
+                           torch.device("cpu"))
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(tree_leaves(grads), tree_leaves(want)))
+    print(f"{key}: loss gap {abs(loss - want_loss)!r}, grad gap {gap!r}")
+    assert abs(loss - want_loss) < 1e-4, (loss, want_loss)
+    assert gap < 1e-4, gap
+
+
+def test_tensor_parallel_rank_runs_a_quarter_of_the_products(world):
+    """On (1, 4), reduced deepseek-7b (4 heads on 4 KV heads, d_ff 512,
+    vocab 512): every matrix product is split four ways."""
+    f = world["collectives"]["model4"]["flops"]
+    ratio = f["step"] / f["one_device"]
+    print(f"(1, 4) rank FLOPs / one device: {ratio!r}")
+    assert abs(ratio - 0.25) < 0.05 * 0.25, f
+
+
+RANKS = ["debug22", "model4", "multipod", "debug11", "model4/starcoder2-3b",
+         "model4/qwen2-vl-72b"]
+
+
+def _rank(world, key):
+    if "/" in key:
+        return world["rank_model4"][key.split("/")[1]]
+    return world["collectives"][key]
+
+
+@pytest.mark.parametrize("key", RANKS)
+def test_dryrun_rank_equals_the_real_step(world, key):
+    """``launch.dryrun.trace_train`` on ``meta`` against the real step on
+    the same rank: FLOPs within 2e-3 (equal in fact) and the reckoned
+    memory's parameter and optimizer shards, the parameters the loss
+    receives (a rank's model shard gathered over the batch axes) and the
+    inputs, byte for byte."""
+    got = _rank(world, key)
+    f = got["flops"]
+    assert abs(f["dryrun"] - f["step"]) <= 2e-3 * f["step"], f
+    assert got["memory"]["held"] == got["memory"]["reckoned"], got["memory"]
+
+
+@pytest.mark.parametrize("key", RANKS)
+def test_no_model_op_receives_a_dtensor(world, key):
+    got = _rank(world, key)
+    assert got["model_ops"] > 0 and got["dtensor_ops"] == [], got
+
+
+@pytest.mark.parametrize("case", ["ce", "ce_mask"])
+def test_vocab_parallel_cross_entropy_on_two_ranks(world, case):
+    got = world["tp_primitives"][case]
+    assert got["loss"] < 1e-6 and got["grad"] < 1e-6, got
+
+
+@pytest.mark.parametrize("what", ["copy_to_model", "reduce_from_model"])
+def test_tp_autograd_functions_on_two_ranks(world, what):
+    assert world["tp_primitives"][what] == {"forward": True,
+                                            "backward": True}
+
+
+def test_vocab_parallel_embedding_is_exact_and_unset_is_identity(world):
+    pr = world["tp_primitives"]
+    assert pr["embedding_exact"] and pr["identity_unset"], pr
 
 
 def test_constrain_batch(world):

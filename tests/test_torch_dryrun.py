@@ -7,7 +7,11 @@
 * ``launch.dryrun.lower_one`` at full width (deepseek-7b, mamba2-780m,
   seamless-m4t-medium at ``train_4k`` on the single-pod mesh) returns
   ``status: ok`` with every key of the reference's artifact, and its FLOPs
-  are those of one rank's loss and gradient counted directly.
+  are those of one rank's loss and gradient counted directly: for
+  deepseek-7b the tensor-parallel rank's (``dist.tp``), a sixteenth of
+  the whole model's, for the others the whole model's.  A rank's FLOPs,
+  collectives and held memory on (2, 2), (1, 4) and (2, 2, 1) against the
+  real step's on four gloo ranks are in ``tests/test_torch_dist_gloo.py``.
 * The ``skipped`` verdicts equal the reference's for every arch at
   ``decode_32k`` and ``long_500k`` (the reference's in a subprocess: its
   module forces 512 host devices on import).
@@ -37,6 +41,7 @@ from repro_torch.configs import SHAPES, get_config, get_shape  # noqa: E402
 from repro_torch.configs import list_archs  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core.tl_step import tl_loss_fn, value_and_grad  # noqa: E402
+from repro_torch.dist import tp  # noqa: E402
 from repro_torch.kernels import use_kernel  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as port_mesh  # noqa: E402
@@ -112,28 +117,89 @@ def test_specs_equal_the_reference(arch):
 @pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-780m",
                                   "seamless-m4t-medium"])
 def test_lower_one_traces_a_full_width_train_step(arch):
+    """One rank of the 16 x 16 mesh: B / 16 rows (bf16, as the
+    reference).  deepseek-7b's rank runs tensor-parallel over the 16
+    model ranks (``dist.tp``): its FLOPs are its model shards' loss and
+    gradient counted directly, a sixteenth of the whole model's (every
+    product splits: 32 heads on 32 KV heads, d_ff 11008, vocab 102400),
+    and it holds its model shards gathered over "data"; mamba2-780m and
+    seamless-m4t-medium gather every parameter whole, as before."""
     art = dryrun.lower_one(arch, "train_4k", "single")
     assert art["status"] == "ok", art
     assert REFERENCE_KEYS <= set(art)
     assert art["chips"] == 256 and art["t_compile_s"] == 0.0
     assert "reckoned" in art["extra_tags"]["peak_source"]
     assert "H100" in art["extra_tags"]["device"]
-    # one rank: B / 16 rows, every parameter whole (bf16, as the reference)
     cfg = get_config(arch)
     model = build_model(cfg)
     params = abstract_params(model)
     rows = get_shape("train_4k").global_batch // 16
     batch = input_specs(cfg, InputShape("train_4k", 4096, rows, "train"))
-    direct = analyze_step(value_and_grad, tl_loss_fn(model, cfg, "tl"),
-                          params, batch)
+    loss_fn = tl_loss_fn(model, cfg, "tl")
+    whole = analyze_step(value_and_grad, loss_fn, params, batch)
+    held = params
+    if tp.supported(cfg):
+        mesh = port_mesh.make_production_mesh(device="cpu")
+        held = dryrun._local(params, tp.entry_specs(params, cfg, mesh),
+                             mesh)
+        with dryrun.model_axis_group(mesh) as group, \
+                tp.model_parallel(group, 16, 0):
+            direct = analyze_step(value_and_grad, loss_fn, held, batch)
+        assert direct.flops == pytest.approx(whole.flops / 16, rel=1e-12)
+        assert "tensor-parallel" in art["extra_tags"]["rank_program"]
+        assert art["coll_breakdown"]["all-reduce"] > 0
+        assert art["peak_memory_per_chip"] < 80e9      # was 180.3 GB
+    else:
+        direct = whole
+        assert "gathered whole" in art["extra_tags"]["rank_program"]
+    assert not torch.distributed.is_initialized()
     assert art["flops_per_chip"] == direct.flops
     assert art["hlo_lines"] > 0 and art["bytes_per_chip"] > 0
     mem = art["memory_analysis"]
     assert art["peak_memory_per_chip"] == sum(mem.values())
     assert mem["gathered_param_bytes"] == sum(
-        t.numel() * t.element_size() for t in _flatten(params).values())
+        t.numel() * t.element_size() for t in _flatten(held).values())
     coll = art["coll_breakdown"]
     assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "starcoder2-3b",
+                                  "qwen2-vl-72b"])
+def test_tensor_parallel_rank_on_meta_equals_it_on_cpu_tensors(arch):
+    """``launch.dryrun.trace_train`` of one rank of a (1, 4) layout at
+    reduced width (f32, B 4, S 16): traced on ``meta`` and run on CPU
+    tensors (over a fake process group, whose all-reduces leave the data
+    alone, so only the counts are compared), its FLOPs, collectives and
+    reckoned memory, the traced live high-water included, are the same;
+    the FLOPs are a quarter of the one-device loss and gradient's on the
+    same rows where the KV heads split, a little more where they do not
+    (one KV head: k and v are projected whole on every rank).  The real
+    4-rank step's are held equal to the same trace in
+    ``tests/test_torch_dist_gloo.py``."""
+    from repro_torch.optim import sgd
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    mesh = port_mesh.make_mesh_compat((1, 4), ("data", "model"),
+                                      device="cpu")
+    shape = InputShape("rank", 16, 4, "train")
+    meta = dryrun.trace_train(model, cfg, shape, mesh,
+                              abstract_params(model, torch.float32),
+                              opt=sgd(0.05))
+    real = dryrun.trace_train(model, cfg, shape, mesh,
+                              model.init(seed=0, device="cpu"),
+                              opt=sgd(0.05))
+    assert not torch.distributed.is_initialized()
+    assert meta[0].flops == real[0].flops
+    assert meta[1] == real[1] and meta[1]["all-reduce"] > 0
+    assert meta[2] == real[2]
+    batch = input_specs(cfg, shape, torch.float32)
+    whole = analyze_step(value_and_grad, tl_loss_fn(model, cfg, "tl"),
+                         abstract_params(model, torch.float32), batch)
+    ratio = meta[0].flops / whole.flops
+    if cfg.n_kv_heads % 4 == 0:
+        assert abs(ratio - 0.25) < 0.05 * 0.25, ratio
+    else:                         # k / v projected whole on every rank
+        assert 0.25 < ratio < 0.35, ratio
 
 
 _REFERENCE_VERDICTS = """

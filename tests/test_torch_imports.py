@@ -74,6 +74,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.configs.deepseek_v3_671b",
               "repro_torch.dist", "repro_torch.dist.sharding",
               "repro_torch.dist.constraints", "repro_torch.dist.tensor",
+              "repro_torch.dist.tp",
               "repro_torch.launch.mesh", "repro_torch.launch.elastic",
               "repro_torch.models.moe_ep", "repro_torch.models.encdec",
               "repro_torch.configs.qwen2_vl_72b",

@@ -1,0 +1,303 @@
+"""``dist.tp`` with no process group: the one-device path is untouched,
+and each leaf's layout at the sharded loss's entry follows its spec.
+
+* With the tensor-parallel context unset, every ``dist.tp`` function is
+  the identity or the one-device expression, bit for bit (``is x``,
+  ``table[ids]``, ``models.model.cross_entropy``, ``swiglu`` without
+  ``d_ff``), and the dense GQA archs' TL losses and gradients equal, bit
+  for bit, those of the same loss with the ``dist.tp`` hooks taken out.
+* ``entry_spec`` routes each leaf to "keep the model shard" or "gather
+  whole" as its spec and the arch's head counts say, for the five dense
+  GQA archs at full width on the 16 x 16 mesh and reduced on (2, 2) and
+  (1, 4), and gathers whole every leaf whose spec lost "model"
+  (``_filter_divisible``).
+
+The multi-rank behaviour (the step against one device, the primitives on
+two ranks, the collectives) is held in ``tests/test_torch_dist_gloo.py``.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.tl_step import tl_loss_fn, value_and_grad  # noqa: E402
+from repro_torch.core.tree import tree_leaves  # noqa: E402
+from repro_torch.dist import tp  # noqa: E402
+from repro_torch.dist.sharding import (_map_with_path,  # noqa: E402
+                                       _path_names, param_pspec)
+from repro_torch.launch.specs import abstract_params  # noqa: E402
+from repro_torch.models import attention, build_model, layers  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.model import cross_entropy  # noqa: E402
+
+SLICE = ["deepseek-7b", "starcoder2-3b", "qwen2.5-32b", "stablelm-12b",
+         "qwen2-vl-72b"]
+OTHERS = ["deepseek-v2-236b", "deepseek-v3-671b", "mamba2-780m",
+          "recurrentgemma-9b", "seamless-m4t-medium"]
+PRODUCTION = {"data": 16, "model": 16}
+REDUCED_MESHES = {"debug22": {"data": 2, "model": 2},
+                  "model4": {"data": 1, "model": 4}}
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def test_functions_are_the_identity_when_unset():
+    g = _gen(0)
+    x = torch.randn(2, 3, 8, generator=g)
+    assert tp.copy_to_model(x) is x and tp.reduce_from_model(x) is x
+    assert tp.rank() == 0 and not tp.partitioned(4, 8)
+    table = torch.randn(32, 8, generator=g)
+    ids = torch.randint(0, 32, (2, 3), generator=g)
+    assert torch.equal(tp.embedding(table, ids, 32), table[ids])
+    logits = torch.randn(2, 3, 32, generator=g)
+    mask = (torch.rand(2, 3, generator=g) > 0.5).float()
+    for m in (None, mask):
+        assert torch.equal(tp.cross_entropy(logits, ids, m, vocab=32),
+                           cross_entropy(logits, ids, m))
+    p = layers.swiglu_init(g, 8, 16, device="cpu")
+    assert torch.equal(layers.swiglu(p, x, 16), layers.swiglu(p, x))
+
+
+def _batch(cfg, seed=0):
+    g = _gen(seed)
+    B, S = 2, 8
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    if cfg.frontend:
+        batch["embeds"] = 0.02 * torch.randn(B, cfg.frontend_tokens,
+                                             cfg.d_model, generator=g)
+    return batch
+
+
+def _without_hooks(monkeypatch):
+    """The model code with ``dist.tp`` 's hooks replaced by the
+    one-device expressions they stand for."""
+    monkeypatch.setattr(tp, "embedding",
+                        lambda table, ids, vocab: table[ids])
+    monkeypatch.setattr(tp, "cross_entropy",
+                        lambda logits, t, m=None, vocab=None:
+                        cross_entropy(logits, t, m))
+    monkeypatch.setattr(tp, "copy_to_model", lambda x: x)
+    monkeypatch.setattr(tp, "reduce_from_model", lambda x: x)
+    monkeypatch.setattr(tp, "partitioned", lambda local, whole: False)
+
+
+@pytest.mark.parametrize("remat", ["tl", "none"])
+@pytest.mark.parametrize("arch", SLICE)
+def test_unset_context_leaves_the_step_bit_equal(arch, remat, monkeypatch):
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    batch = _batch(cfg)
+    loss, grads = value_and_grad(tl_loss_fn(model, cfg, remat), params,
+                                 batch)
+    with monkeypatch.context() as mp:
+        _without_hooks(mp)
+        want, want_grads = value_and_grad(tl_loss_fn(model, cfg, remat),
+                                          params, batch)
+    assert torch.equal(loss, want)
+    for a, b in zip(tree_leaves(grads), tree_leaves(want_grads)):
+        assert torch.equal(a, b)
+
+
+def _routes(cfg, sizes):
+    """``{path: (stored spec, entry spec)}`` over ``cfg`` 's parameters."""
+    params = abstract_params(build_model(cfg), torch.float32)
+    out = {}
+
+    def visit(path, leaf):
+        key = "/".join(_path_names(path))
+        out[key] = (param_pspec(path, leaf, cfg, axis_sizes=sizes),
+                    tp.entry_spec(path, leaf, cfg, sizes))
+    _map_with_path(visit, params)
+    return out
+
+
+def _has_model(spec) -> bool:
+    return any(e == "model" or (isinstance(e, tuple) and "model" in e)
+               for e in spec)
+
+
+def _expected(cfg, key, stored, m) -> bool:
+    """Whether the leaf keeps its model shard, from its spec and the
+    arch's head counts (the table of ``dist.tp`` 's docstring)."""
+    last = key.split("/")[-1]
+    heads = cfg.n_heads % m == 0
+    kv = heads and cfg.n_kv_heads % m == 0
+    if last in ("b_q", "b_k", "b_v"):
+        width = cfg.n_heads if last == "b_q" else cfg.n_kv_heads
+        return (heads if last == "b_q" else kv) \
+            and width * cfg.resolved_head_dim % m == 0
+    if not _has_model(stored):
+        return False                 # _filter_divisible dropped "model"
+    if last in ("embed", "head", "w_gate", "w_up", "w_down"):
+        return True
+    if last in ("w_q", "w_o"):
+        return heads
+    if last in ("w_k", "w_v"):
+        return kv
+    return False
+
+
+CASES = [(a, "production", PRODUCTION, False) for a in SLICE] + \
+    [(a, name, sizes, True) for a in SLICE
+     for name, sizes in REDUCED_MESHES.items()]
+
+
+@pytest.mark.parametrize("arch,mesh,sizes,reduced", CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in CASES])
+def test_each_leaf_is_routed_by_its_spec(arch, mesh, sizes, reduced):
+    cfg = get_config(arch, reduced=reduced)
+    m = sizes["model"]
+    kept = 0
+    for key, (stored, entry) in _routes(cfg, sizes).items():
+        want = _expected(cfg, key, stored, m)
+        assert _has_model(entry) == want, (key, stored, entry)
+        assert all(e in (None, "model") for e in entry), (key, entry)
+        if want and _has_model(stored):
+            # the same dim as the stored spec's "model" entry
+            dim = [i for i, e in enumerate(stored)
+                   if e == "model" or (isinstance(e, tuple)
+                                       and "model" in e)]
+            assert [i for i, e in enumerate(entry) if e == "model"] == dim
+        kept += want
+    assert kept > 0
+
+
+def test_routes_of_the_production_mesh():
+    """The head counts that decide attention on the 16 x 16 mesh: 32 heads
+    split with their 32 KV heads (deepseek-7b); 64 and 32 heads split with
+    8 KV heads projected whole (qwen2-vl-72b, stablelm-12b); 24 and 40
+    heads do not split, so the attention of starcoder2-3b and qwen2.5-32b
+    is gathered whole while their FFN and vocab are split."""
+    def keeps(arch, leaf):
+        routes = _routes(get_config(arch), PRODUCTION)
+        return _has_model(routes[f"layers/0/{leaf}"][1]) \
+            if "/" in leaf else _has_model(routes[leaf][1])
+    assert all(keeps("deepseek-7b", f"mixer/{w}")
+               for w in ("w_q", "w_k", "w_v", "w_o"))
+    for arch in ("qwen2-vl-72b", "stablelm-12b"):
+        assert keeps(arch, "mixer/w_q") and keeps(arch, "mixer/w_o")
+        assert not keeps(arch, "mixer/w_k") and not keeps(arch, "mixer/w_v")
+    for arch in ("starcoder2-3b", "qwen2.5-32b"):
+        assert not keeps(arch, "mixer/w_q") and not keeps(arch, "mixer/w_o")
+    for arch in SLICE:
+        assert keeps(arch, "embed") and keeps(arch, "head")
+        assert keeps(arch, "ffn/w_gate") and keeps(arch, "ffn/w_down")
+        assert not keeps(arch, "norm1/scale")
+
+
+def test_a_leaf_whose_spec_lost_model_is_gathered_whole():
+    """A vocab and an FFN width the model axis does not divide: their
+    specs drop "model", and those leaves are gathered whole while the
+    heads still split."""
+    cfg = dataclasses.replace(get_config("deepseek-7b", reduced=True),
+                              vocab_size=510, d_ff=510)
+    routes = _routes(cfg, REDUCED_MESHES["model4"])
+    for key in ("embed", "head", "layers/0/ffn/w_gate", "layers/0/ffn/w_up",
+                "layers/0/ffn/w_down"):
+        stored, entry = routes[key]
+        assert not _has_model(stored) and not _has_model(entry), key
+    assert _has_model(routes["layers/0/mixer/w_q"][1])
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_the_other_archs_gather_every_leaf_whole(arch):
+    cfg = get_config(arch, reduced=True)
+    assert not tp.supported(cfg)
+    for name, sizes in REDUCED_MESHES.items():
+        assert not any(_has_model(e) for _, e in _routes(cfg, sizes).values())
+
+
+def test_the_slice_archs_are_supported():
+    assert all(tp.supported(get_config(a)) for a in SLICE)
+    assert all(tp.supported(get_config(a, reduced=True)) for a in SLICE)
+
+
+def test_a_model_axis_of_one_keeps_nothing():
+    cfg = get_config("deepseek-7b", reduced=True)
+    routes = _routes(cfg, {"data": 4, "model": 1})
+    assert not any(_has_model(e) for _, e in routes.values())
+
+
+def test_partitioned_refuses_a_share_that_is_not_one():
+    class Group:
+        group_name = "unused"
+    with tp.model_parallel(Group(), 4, 1):
+        assert tp.rank() == 1
+        assert tp.partitioned(2, 8) and not tp.partitioned(8, 8)
+        with pytest.raises(ValueError, match="share"):
+            tp.partitioned(3, 8)
+    assert tp.rank() == 0 and not tp.partitioned(2, 8)
+
+
+def test_transformer_and_attention_read_the_context():
+    """The model code decides by local shapes beside the config's whole
+    sizes, so whole parameters never take a tensor-parallel route."""
+    cfg = get_config("deepseek-7b", reduced=True)
+    params = build_model(cfg).init(seed=0, device="cpu")
+
+    class Group:
+        group_name = "unused"
+    x = torch.randn(1, 4, cfg.d_model, generator=_gen(1))
+    with tp.model_parallel(Group(), 2, 0):
+        # whole parameters: no collective is issued, so no group is read
+        out, _ = attention.gqa_apply(params["layers"][0]["mixer"], cfg, x)
+        logits = transformer._logits(params, cfg, x)
+    assert out.shape == x.shape and logits.shape[-1] == cfg.vocab_size
+
+
+@pytest.mark.parametrize("n_heads,n_kv,m,rank", [
+    (4, 2, 4, 1),           # one query head a rank, inside a KV group
+    (4, 2, 4, 2),
+    (8, 2, 2, 1),           # a whole KV group a rank
+    (4, 1, 2, 1),           # one KV head: replicated KV (starcoder2-3b)
+])
+def test_a_rank_keeps_the_kv_heads_its_query_heads_read(n_heads, n_kv, m,
+                                                        rank):
+    """With KV heads the model axis does not split, a rank projects every
+    KV head and keeps the run its query heads read: its q and k are the
+    whole projection's heads (``copy_to_model`` 's forward is a view, so
+    no group is read)."""
+    cfg = dataclasses.replace(get_config("deepseek-7b", reduced=True),
+                              n_heads=n_heads, n_kv_heads=n_kv, head_dim=16)
+    d, hd, H = cfg.d_model, 16, n_heads // m
+    g = _gen(2)
+    whole = {k: 0.1 * torch.randn(d, n * hd, generator=g)
+             for k, n in (("w_q", n_heads), ("w_k", n_kv), ("w_v", n_kv))}
+    x = torch.randn(2, 4, d, generator=g)
+    pos = torch.arange(4).expand(2, 4)
+    q, k, _ = attention.gqa_project(whole, cfg, x, pos)
+    local = dict(whole, w_q=whole["w_q"][:, rank * H * hd:(rank + 1) * H * hd])
+
+    class Group:
+        group_name = "unused"
+    with tp.model_parallel(Group(), m, rank):
+        ql, kl, _ = attention.gqa_project(local, cfg, x, pos)
+    rep = n_heads // n_kv
+    lo, hi = rank * H // rep, ((rank + 1) * H - 1) // rep + 1
+    assert torch.equal(ql, q[:, :, rank * H:(rank + 1) * H])
+    assert torch.equal(kl, k[:, :, lo:hi])
+
+
+def test_a_rank_whose_heads_read_kv_heads_unevenly_raises():
+    """6 heads on 3 KV heads over 2 model ranks: rank 0's heads read KV
+    heads 0, 0, 1, which no supported arch and mesh gives."""
+    cfg = dataclasses.replace(get_config("deepseek-7b", reduced=True),
+                              n_heads=6, n_kv_heads=3, head_dim=16)
+    d = cfg.d_model
+    params = {k: torch.zeros(d, n * 16) for k, n in
+              (("w_q", 3), ("w_k", 3), ("w_v", 3))}
+
+    class Group:
+        group_name = "unused"
+    with tp.model_parallel(Group(), 2, 0), \
+            pytest.raises(ValueError, match="equally often"):
+        attention.gqa_project(params, cfg, torch.zeros(1, 4, d),
+                              torch.zeros(1, 4, dtype=torch.int32))
