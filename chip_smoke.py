@@ -240,7 +240,18 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    reduced width in subprocesses: ``--drill hang-device:1 --watchdog-s 3``
    without ``--elastic`` exits 2 with ``lost at step 1 (hang)``, and
    ``--elastic --drill kill-device:1`` on one rank fails with
-   ``ReshrinkError`` ("no surviving devices").
+   ``ReshrinkError`` ("no surviving devices"); (d) deepseek-v2-236b at
+   full width, depth 60 -> 2 (the dense layer 0 and one MoE layer, 21.4
+   GB of f32 parameters), batch 8 x 512 on 4 nodes, sgd (adamw's moments
+   of a full-width MoE layer do not fit beside it), through ``Engine(
+   mesh=..., reassembly="kernel")`` for 3 steps against the mesh-less
+   engine with ``reassembly="torch"`` (no K1 launch): an arch of
+   ``dist.tp`` 's all-column layout, whose context stays unset over a
+   model axis of size 1; losses and parameters bit-equal (K1 held
+   against its plain version at this X^(1)), K1 once a step each way,
+   ms a step and peak; and a reading: whether each of the cell's column
+   products, cut in two column halves at a (2, 2) rank's 2048 rows,
+   equals the whole product's columns on the card.
 4g. Analysis (after phase 5 and before 4e: its whole-step profiles, as
    4e's, leave later profiler sessions losing records): starcoder2-3b at
    full width, 12 layers, one production step under
@@ -2794,7 +2805,7 @@ def production_opt(steps: int):
 
 def production_run(cfg, steps: int, counters: dict, *, donate: bool = True,
                    mesh=None, reassembly: str = "kernel",
-                   batch: int = PROD_BATCH, **engine_kw):
+                   batch: int = PROD_BATCH, opt=None, **engine_kw):
     """``steps`` production TL steps of ``cfg`` from seed 0 through
     ``Engine(mode="production", reassembly=reassembly, remat_mode="tl",
     donate=donate, **engine_kw)`` on batch ``batch`` (8) x 512 from
@@ -2804,7 +2815,8 @@ def production_run(cfg, steps: int, counters: dict, *, donate: bool = True,
     and read just after.  Returns the engine, its result and the readings:
     ms a step (synced host clock, median of steps 2..), the peak memory
     this run added to what was allocated before it, and the card's memory
-    left under the peak reserved, which must be at least 3 GB."""
+    left under the peak reserved, which must be at least 3 GB.  ``opt``
+    defaults to ``production_opt(steps)`` (adamw)."""
     import numpy as np
     import torch
 
@@ -2814,7 +2826,8 @@ def production_run(cfg, steps: int, counters: dict, *, donate: bool = True,
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(build_model(cfg), cfg, production_opt(steps),
+    eng = Engine(build_model(cfg), cfg,
+                 production_opt(steps) if opt is None else opt,
                  mode="production", reassembly=reassembly, remat_mode="tl",
                  donate=donate, log_every=1, mesh=mesh, device=DEVICE,
                  **engine_kw).init(0)
@@ -3563,6 +3576,127 @@ def sharded_step(card: str):
                   "loss_gap": loss_gap, "param_gap": param_gap}
 
 
+MOE_ARCH = "deepseek-v2-236b"
+MOE_LAYERS = 2              # the dense layer 0 and one MoE layer
+
+
+def column_products(cfg, rows: int, halves: int = 2) -> list:
+    """Whether each column product of a ``cfg`` layer (x of ``rows`` rows,
+    random f32), cut into ``halves`` column shards each multiplied alone,
+    equals those columns of the whole product on this card: ``[(name, K,
+    N, [(equal, max |diff|, elements differing) a shard])]``.  The
+    all-column layout contracts the same K elements per output as one
+    device; whether the sums are bit-equal depends on the kernel cuBLAS
+    picks, which may change with the output width N."""
+    import torch
+
+    m, e = cfg.mla, cfg.moe
+    d, H = cfg.d_model, cfg.n_heads
+    shared = e.n_shared_experts * e.d_ff_expert
+    products = (("router", d, e.n_routed_experts), ("w_dq", d, m.q_lora_rank),
+                ("w_dkv", d, m.kv_lora_rank), ("w_kr", d, m.qk_rope_head_dim),
+                ("w_uq", m.q_lora_rank,
+                 H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                ("w_o", H * m.v_head_dim, d), ("ffn w_gate", d, cfg.d_ff),
+                ("ffn w_down", cfg.d_ff, d), ("shared w_gate", d, shared),
+                ("shared w_down", shared, d))
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    out = []
+    for name, K, N in products:
+        x = torch.randn(rows, K, device=DEVICE, generator=g)
+        w = torch.randn(K, N, device=DEVICE, generator=g) / K ** 0.5
+        whole = x @ w
+        n = N // halves
+        shards = []
+        for r in range(halves):
+            part = x @ w[:, r * n:(r + 1) * n].contiguous()
+            diff = (part - whole[:, r * n:(r + 1) * n]).abs()
+            shards.append((bool(torch.equal(part, whole[:, r * n:(r + 1) * n])),
+                           float(diff.max()), int((diff > 0).sum())))
+        out.append((name, K, N, shards))
+    return out
+
+
+def sharded_moe_step(card: str, mesh):
+    """Phase 4e (d): deepseek-v2-236b at full width, 2 layers, sgd, 3
+    steps from seed 0 on the one-rank (1, 1) NCCL mesh with reassembly
+    "kernel" against the mesh-less engine with reassembly "torch" (K1's
+    plain version) on the same batches (the mesh-less run first, its
+    parameters kept on the host, no K1 launch in it): losses and
+    parameters bit-equal, which holds K1 at this cell's X^(1) against
+    its plain version, K1 once a step each way in the sharded run, ms a
+    step, peak.  The arch takes ``dist.tp`` 's all-column layout, whose
+    context stays unset on a model axis of size 1.  Then a reading, not a
+    check: :func:`column_products` at a (2, 2) rank's rows of this cell,
+    halves as on its two model ranks."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tl_step import tensor_parallel
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist import tp
+    from repro_torch.dist.tensor import full_tree
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.optim import sgd
+
+    t0 = time.perf_counter()
+    k1 = {"permute_rows": permute_rows, "take_rows": take_rows}
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    assert tp.supported(cfg) and tp.layout(cfg) == "all_column"
+    assert tensor_parallel(cfg, mesh, None)[1] is contextlib.nullcontext
+    eng, res, plain = production_run(cfg, DIST_STEPS, k1, opt=sgd(1e-3),
+                                     reassembly="torch")
+    assert plain["launches"] == {"permute_rows": 0, "take_rows": 0}, \
+        plain["launches"]
+    host = [t.detach().cpu() for t in tree_leaves(res.params)]
+    param_gb = sum(t.numel() * t.element_size() for t in host) / 1e9
+    del eng, res
+    free_cuda()
+    # the main path: K1's counts from 0 just before, read just after
+    eng, res, info = production_run(cfg, DIST_STEPS, k1, mesh=mesh,
+                                    opt=sgd(1e-3))
+    want = {"permute_rows": DIST_STEPS, "take_rows": DIST_STEPS}
+    assert info["launches"] == want, info["launches"]
+    loss_gap = max(abs(a - b) for a, b in zip(info["losses"],
+                                              plain["losses"]))
+    param_gap = max(float((t.detach().cpu() - h).abs().max())
+                    for t, h in zip(tree_leaves(full_tree(res.params)), host))
+    print(f"  (d) {MOE_ARCH} at full width, {MOE_LAYERS} layers "
+          f"({param_gb:.2f} GB f32 parameters), sgd, mesh {mesh.shape}, "
+          f"the all-column tensor-parallel path in place (model axis 1: "
+          f"unset); sharded (K1) vs mesh-less (torch reassembly) over "
+          f"{DIST_STEPS} steps: largest loss gap {loss_gap:.3e}, largest "
+          f"param gap {param_gap:.3e} (gates 1e-4 / 5e-3; bit-equality "
+          f"expected)")
+    assert loss_gap == 0.0 and param_gap == 0.0, (loss_gap, param_gap)
+    print_run("(d) sharded", info, card)
+    print_run("(d) mesh-less", plain, card)
+    extra = info["step_ms"] - plain["step_ms"]
+    seconds = time.perf_counter() - t0
+    print(f"  (d) sharded {info['step_ms']:.3f} ms a step against "
+          f"{plain['step_ms']:.3f} mesh-less ({extra:+.3f} ms, "
+          f"{100 * extra / plain['step_ms']:+.2f}%); peak "
+          f"{info['peak_gb']:.2f} GB against {plain['peak_gb']:.2f} GB; "
+          f"(d) took {seconds:.1f} s [{card}]")
+    del eng, res, host
+    free_cuda()
+    rows = PROD_BATCH * PROD_SEQ // 2
+    gemm = column_products(cfg, rows)
+    for name, K, N, shards in gemm:
+        print(f"  (d) reading: {name} M {rows} K {K} N {N}, each half of N "
+              f"alone against the whole's columns (equal, max |diff|, "
+              f"elements differing): {shards} [{card}]")
+    free_cuda()
+    return {"arch": MOE_ARCH, "layers": MOE_LAYERS, "steps": DIST_STEPS,
+            "column_products": gemm,
+            "param_gb": param_gb, "launches": info["launches"],
+            "step_ms": info["step_ms"], "plain_step_ms": plain["step_ms"],
+            "extra_ms": extra, "peak_gb": info["peak_gb"],
+            "plain_peak_gb": plain["peak_gb"], "loss_gap": loss_gap,
+            "param_gap": param_gap, "losses": info["losses"],
+            "seconds": seconds}
+
+
 def nccl_kernels(eng, cfg):
     """``(NCCL kernels, all kernels)`` on the card over one more step of
     ``eng`` (sharded, in place) under the torch profiler."""
@@ -3669,8 +3803,8 @@ def drills(card: str):
 
 
 def distribution(card: str):
-    """Phase 4e: (a), (b) and (c) above; the process group is destroyed
-    at the end."""
+    """Phase 4e: (a), (d), (b) and (c) above; the process group is
+    destroyed at the end."""
     import torch
 
     from repro_torch.launch.mesh import shutdown_distributed
@@ -3678,13 +3812,14 @@ def distribution(card: str):
     torch.use_deterministic_algorithms(True)
     try:
         mesh, step = sharded_step(card)
+        moe = sharded_moe_step(card, mesh)
     finally:
         torch.use_deterministic_algorithms(False)
     try:
         ep = expert_parallel(card, mesh)
     finally:
         shutdown_distributed()
-    out = {"sharded": step, "ep": ep, "drills": drills(card),
+    out = {"sharded": step, "moe": moe, "ep": ep, "drills": drills(card),
            "seconds": time.perf_counter() - t0}
     print(f"  phase 4e {out['seconds']:.1f} s [{card}]")
     return out
@@ -4728,7 +4863,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     print("== phase 4e: main path 8, distribution: the sharded production "
-          "step on a one-rank NCCL mesh, expert parallelism, the drills")
+          "step on a one-rank NCCL mesh (starcoder2-3b, deepseek-v2-236b), "
+          "expert parallelism, the drills")
     dist = distribution(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4765,6 +4901,7 @@ def main() -> None:
         extra["launches_production_qwen2_vl"] = front_train[
             "qwen2-vl-72b"]["launches"][key]
         extra["launches_distributed"] = dist["sharded"]["launches"][key]
+        extra["launches_distributed_moe"] = dist["moe"]["launches"][key]
         extra["launches_analysis"] = analysis["k1"][key]["launches"]
         extra["launches_production_recurrent"] = sum(
             r["launches"][key] for r in rec_train.values())

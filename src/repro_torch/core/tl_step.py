@@ -50,22 +50,30 @@ the parameters gathered over the batch axes at its entry
 gradients onto the parameters' placements (a reduce-scatter over the batch
 axes) and the loss is the mean over the batch shards.
 
-For the dense GQA archs (``dist.tp.supported``) on a "model" axis of size
-m > 1 the compute is partitioned over it as the reference's GSPMD step
+For the archs of ``dist.tp.supported`` on a "model" axis of size m > 1
+the compute is partitioned over it as the reference's GSPMD step
 partitions it (:func:`tensor_parallel`): a leaf keeps its ``Shard`` on
 "model" (``dist.tp.entry_spec``), and inside the tensor-parallel context
-the vocab-parallel embedding, the column-parallel q / k / v, w_gate /
-w_up and head, the row-parallel w_o / w_down and the vocab-parallel CE run
-on local shards with explicit all-reduces over "model" (``dist.tp``): two
-in the forward pass of a block and two in its backward pass, and the
-tail's recompute under ``remat_mode="tl"`` issues its forward ones again,
-on every rank in the same order.  X^(1) leaves block 0 replicated over
+the model runs on local shards with explicit collectives over "model",
+on every rank in the same order (the tail's recompute under
+``remat_mode="tl"`` issues its forward ones again).  The dense GQA archs
+take Megatron's layout: the vocab-parallel embedding, the column-parallel
+q / k / v, w_gate / w_up and head, the row-parallel w_o / w_down and the
+vocab-parallel CE, two all-reduces in the forward pass of a block and two
+in its backward pass.  The MoE archs (deepseek-v2, deepseek-v3) take the
+reference's all-column layout: every weight shards its output dim only,
+the activations are all-gathered over "model" where a contraction or a
+norm reads them whole, and the only forward reductions are the exact
+vocab-parallel embedding and the CEs (the MTP head's too), so every
+forward contraction is whole and a token routes on the same sums as on
+one device.  X^(1)
+leaves block 0 replicated over
 "model" and sharded over the batch, so the perm stays shard-local (each
 block holds a permutation of its own rows, see ``launch.engine``) and the
 reassembly permutes local rows with no collective, K1 seeing only local
-tensors and launching once a step each way.  The other archs (MoE and
-MLA, the recurrent mixers, the encoder-decoder) gather every leaf whole:
-their "model" axis shards the stored weights and replicates the compute.
+tensors and launching once a step each way.  The other archs (the
+recurrent mixers, the encoder-decoder) gather every leaf whole: their
+"model" axis shards the stored weights and replicates the compute.
 No model op sees a ``DTensor``.
 """
 from __future__ import annotations
@@ -81,8 +89,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.dist import tp
 from repro_torch.models import transformer
-from repro_torch.models.model import (MTP_WEIGHT, Model, cross_entropy,
-                                      mtp_shift_targets)
+from repro_torch.models.model import MTP_WEIGHT, Model, mtp_shift_targets
 
 # the matrix products whose outputs the "dots" policy keeps
 _DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -214,7 +221,8 @@ def tl_loss_fn(model: Model, cfg: ModelConfig, remat_mode: str = "tl",
             mtp = transformer.mtp_logits(params, cfg, tokens,
                                          h_final[:, F:])
             t2, valid = mtp_shift_targets(targets)
-            total = total + MTP_WEIGHT * cross_entropy(mtp, t2, valid)
+            total = total + MTP_WEIGHT * tp.cross_entropy(
+                mtp, t2, valid, vocab=cfg.vocab_size)
         return total
 
     return loss

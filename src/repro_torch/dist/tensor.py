@@ -9,13 +9,16 @@
   (collective over the mesh);
 * :func:`sharded_value_and_grad` -- the loss and parameter gradients of a
   shard-local loss: every parameter is gathered over the batch axes at
-  the loss's entry (FSDP's all-gather), and over "model" too unless the
-  step runs tensor-parallel and the leaf keeps its model shard
-  (``dist.tp``), with gradient placements ``Partial`` over the batch axes
-  and the entry's own on "model" (``Replicate`` or its ``Shard``), so the
-  backward pass reduce-scatters the gradients onto the parameters'
-  placements (a bias taken by columns is gathered back over "model"), and
-  the loss is the mean over the batch shards.
+  the loss's entry where FSDP shards it there (FSDP's all-gather), and
+  over "model" too unless the step runs tensor-parallel and the leaf
+  keeps its model shard (``dist.tp``), with gradient placements
+  ``Partial`` over the batch axes and the entry's own on "model"
+  (``Replicate`` or its ``Shard``), so the backward pass reduce-scatters
+  the gradients onto the parameters' placements, or all-reduces them over
+  the batch axes where the parameter is replicated there (the all-column
+  layout has no FSDP; a leaf keeps its ``Shard`` on "model"), a bias
+  taken by columns is gathered back over "model", and the loss is the
+  mean over the batch shards.
 """
 from __future__ import annotations
 

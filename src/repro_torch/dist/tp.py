@@ -1,20 +1,43 @@
 """Tensor parallelism over the mesh's "model" axis, on local tensors.
 
 The reference's sharded step is ``jax.jit`` over ``train_shardings``:
-GSPMD partitions every matrix product by the parameters' Megatron specs
-(``dist.sharding``).  The port does the same by hand for the dense GQA
-decoder LMs (:func:`supported`): the sharded step gathers each parameter
-over the batch axes only and keeps its ``Shard`` on "model"
-(:func:`entry_spec`), and the model computes on those local shards with
-explicit collectives over the model axis's process group.  No model op
-sees a ``DTensor``.
+GSPMD partitions every matrix product by the parameters' specs
+(``dist.sharding``).  The port does the same by hand for the archs of
+:func:`supported`: the sharded step keeps each parameter's ``Shard`` on
+"model" at the loss's entry (:func:`entry_spec`), and the model computes
+on those local shards with explicit collectives over the model axis's
+process group.  No model op sees a ``DTensor``.  Two layouts
+(:func:`layout`), as the reference's ``param_pspec`` gives them:
+
+* ``"megatron"`` -- the dense GQA decoder LMs: column-parallel q / k / v,
+  w_gate / w_up and head, row-parallel w_o / w_down whose partial sums are
+  all-reduced over "model", FSDP over the batch axes;
+* ``"all_column"`` -- the MoE archs (the reference's ``moe_safe``, the
+  routing-stability layout): every weight shards only its output dim, so
+  every forward contraction stays whole and the discrete top-k routing
+  cannot flip.  A column product's output is all-gathered where a
+  contraction or a norm reads its whole feature dim
+  (:func:`gather_from_model`, :func:`column`), and stays column-local
+  through per-feature ops (the SwiGLU product, the MoE combine's gather
+  and weighted sum).  No FSDP: nothing is gathered over the batch axes.
+
+The functions:
 
 * :func:`copy_to_model` -- identity forward, all-reduce backward: where a
   replicated activation enters column-parallel products;
 * :func:`reduce_from_model` -- all-reduce forward, identity backward: the
-  partial sums of a row-parallel product;
+  partial sums of a row-parallel product (Megatron only; an all-column
+  arch reduces in its forward pass only in the exact vocab-parallel
+  embedding and CE);
+* :func:`gather_from_model` -- all-gather forward, this rank's slice of
+  the gradient backward: right because what follows the gather is
+  replicated up to the next column product, whose input passes
+  :func:`copy_to_model`, so the only reduction is in the backward pass;
+* :func:`column` -- ``x @ w`` whole: the column product of a rank's
+  shard of ``w`` on the caller's one :func:`copy_to_model` of ``x``,
+  gathered;
 * :func:`embedding` -- the vocab-parallel lookup: the rank's vocab range,
-  zeros elsewhere, then :func:`reduce_from_model`;
+  zeros elsewhere, then :func:`reduce_from_model` (exact);
 * :func:`cross_entropy` -- the vocab-parallel CE over local logits
   ``(B, S, V/m)``: all-reduces of the max, of the sum of exps and of the
   target's logit; ``models.model.cross_entropy`` , masks included;
@@ -24,14 +47,14 @@ sees a ``DTensor``.
 The context (:func:`model_parallel`) is set by the sharded step around its
 forward and backward passes, the way ``dist.constraints.
 activation_sharding`` is.  Unset, or over a model axis of size 1, every
-function is the identity (``is x``), so the one-device step and the (1, 1)
-mesh are unchanged.
+function is the identity (``is x``) or the one-device expression, so the
+one-device step and the (1, 1) mesh are unchanged.
 
 Which leaves keep their model shard (:func:`entry_spec`), for an arch of
 :func:`supported` on a model axis of size m > 1:
 
 =================================  =========================================
-leaf                               at the loss's entry
+leaf (megatron)                    at the loss's entry
 =================================  =========================================
 ``embed`` (V, d), ``head`` (d, V)  vocab shard, when the spec keeps "model"
 ``w_gate|w_up`` / ``w_down``       column / row shard (d_ff % m == 0)
@@ -42,10 +65,34 @@ leaf                               at the loss's entry
 norms, anything else               whole
 =================================  =========================================
 
+=================================  =========================================
+leaf (all_column)                  at the loss's entry
+=================================  =========================================
+``embed`` (V, d)                   vocab shard (:func:`embedding`)
+``head`` (d, V)                    vocab columns (:func:`cross_entropy`)
+MLA ``w_dq``, ``w_dkv``, ``w_kr``  column shard; output gathered before
+                                   ``q_norm`` / ``kv_norm`` / RoPE
+MLA ``w_uq``, ``w_uk``, ``w_uv``   column shard = the rank's H/m heads
+                                   (H % m == 0; whole otherwise)
+MLA ``w_o`` (H dv, d)              column shard of d (not row): its input
+                                   gathered first, its output after
+``router`` (d, E)                  E/m logit columns, gathered before the
+                                   softmax and the top-k
+experts ``w_gate|w_up`` (E, d, f)  f/m columns, E whole
+experts ``w_down`` (E, f, d)       d/m columns, the hidden state gathered
+                                   over f first
+dense / shared SwiGLU              as the experts (``w_down`` column); a
+                                   SwiGLU's three weights keep their shards
+                                   together, when m divides f and d
+MTP ``proj`` (2d, d)               column shard, output gathered
+norms (1-D)                        whole
+=================================  =========================================
+
 A leaf whose spec lost "model" (``_filter_divisible``) is gathered whole
-whatever the table says.  The biases are replicated by spec, so a rank
-takes its columns of them at the entry (no communication) and their
-gradients are gathered back over "model".
+whatever the tables say, and its product runs whole on every rank.  The
+megatron biases are replicated by spec, so a rank takes its columns of
+them at the entry (no communication) and their gradients are gathered
+back over "model".
 """
 from __future__ import annotations
 
@@ -66,12 +113,24 @@ class _Context:
 _CTX: Optional[_Context] = None
 
 
+def layout(cfg) -> str:
+    """``"all_column"`` for an MoE arch (the reference's ``moe_safe``:
+    every weight column-parallel, no contraction split), else
+    ``"megatron"``."""
+    return "all_column" if cfg.moe is not None else "megatron"
+
+
 def supported(cfg) -> bool:
     """The archs whose sharded step partitions compute over "model": the
-    dense GQA decoder LMs (every block attention with a dense FFN, no MTP
-    head), a frontend's stubbed embeddings included."""
-    return (not cfg.is_encdec and cfg.moe is None and cfg.attention != "mla"
-            and not cfg.mtp_depth and set(cfg.pattern) == {"attn"})
+    decoder LMs whose every block is attention, either dense GQA with a
+    dense FFN and no MTP head (a frontend's stubbed embeddings included;
+    the Megatron layout) or MLA with MoE FFNs, an MTP head included (the
+    all-column layout)."""
+    if cfg.is_encdec or set(cfg.pattern) != {"attn"}:
+        return False
+    if layout(cfg) == "all_column":
+        return cfg.attention == "mla"
+    return cfg.attention != "mla" and not cfg.mtp_depth
 
 
 def partitions(cfg, mesh) -> bool:
@@ -98,6 +157,11 @@ def model_parallel(group, size: int, rank: int):
 
 def rank() -> int:
     return 0 if _CTX is None else _CTX.rank
+
+
+def active() -> bool:
+    """Whether the tensor-parallel context is set."""
+    return _CTX is not None
 
 
 def partitioned(local: int, whole: int) -> bool:
@@ -146,6 +210,42 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group_name, size, rank):
+        ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
+        out = torch.ops._c10d_functional.all_gather_into_tensor(
+            x.contiguous(), size, group_name)
+        out = torch.ops._c10d_functional.wait_tensor(out)
+        return torch.cat(out.chunk(size, 0), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None, \
+            None
+
+
+def gather_from_model(x, dim: int = -1):
+    """All-gather over "model" along ``dim`` (rank-major) forward, this
+    rank's slice of the gradient backward."""
+    if _CTX is None:
+        return x
+    return _GatherFromModel.apply(_plain(x), dim % x.dim(), _CTX.group_name,
+                                  _CTX.size, _CTX.rank)
+
+
+def column(x, xs, w, width: int):
+    """``x @ w`` with ``width`` output columns in all.  ``xs`` is
+    :func:`copy_to_model` (x), made once by the caller for every column
+    product that reads ``x``, so their gradients are summed locally and
+    all-reduced once.  With ``w`` this rank's column shard, ``xs @ w``
+    gathered over "model"; with ``w`` whole, ``x @ w`` (its gradient is
+    whole on every rank and must not be summed over them)."""
+    if not partitioned(w.shape[-1], width):
+        return x @ w
+    return gather_from_model(xs @ w, -1)
 
 
 def copy_to_model(x):
@@ -206,9 +306,12 @@ _HEADS = ("w_q", "b_q", "w_o")
 _KV = ("w_k", "b_k", "w_v", "b_v")
 
 
+_MLA_HEADS = ("w_uq", "w_uk", "w_uv")
+
+
 def keeps_model_shard(path, leaf, cfg, sizes) -> bool:
     """Whether ``leaf`` (whole, at ``path``) keeps its shard on "model" at
-    the loss's entry (module docstring's table)."""
+    the loss's entry (module docstring's tables)."""
     from repro_torch.dist.sharding import _path_names, param_pspec
     if not partitions(cfg, sizes):
         return False
@@ -225,6 +328,15 @@ def keeps_model_shard(path, leaf, cfg, sizes) -> bool:
     if not spec_keeps:
         return False
     heads = cfg.n_heads % m == 0
+    if layout(cfg) == "all_column":
+        if last in _MLA_HEADS:
+            return heads
+        if last in _COLUMN_FFN + ("w_down",):
+            # a SwiGLU (dense, shared or the expert stack) splits whole:
+            # its width f and d_model both divide over "model"
+            f = leaf.shape[-1] if last in _COLUMN_FFN else leaf.shape[-2]
+            return f % m == 0 and cfg.d_model % m == 0
+        return True
     if last in ("embed", "head") or last in _COLUMN_FFN + ("w_down",):
         return True
     if last in _HEADS:
@@ -237,14 +349,16 @@ def keeps_model_shard(path, leaf, cfg, sizes) -> bool:
 def entry_spec(path, leaf, cfg, sizes):
     """The leaf's spec at the loss's entry: its "model" entry only, when
     it keeps its model shard (the column dim of a column-parallel weight
-    or bias, the row dim of ``embed`` and the row-parallel weights), else
-    replicated."""
+    or bias, the row dim of ``embed`` and of Megatron's row-parallel
+    weights), else replicated."""
     from repro_torch.dist.sharding import P, _path_names
     nd = len(leaf.shape)
     if not keeps_model_shard(path, leaf, cfg, sizes):
         return P(*([None] * nd))
     last = _path_names(path)[-1]
-    dim = 0 if last in ("embed", "w_o", "w_down") or nd == 1 else nd - 1
+    rows = ("embed",) if layout(cfg) == "all_column" \
+        else ("embed", "w_o", "w_down")
+    dim = 0 if last in rows or nd == 1 else nd - 1
     spec = [None] * nd
     spec[dim] = "model"
     return P(*spec)

@@ -30,21 +30,30 @@ exit code is 1 when a gate fails.
   (2, 2) mesh and on a (1, 4) mesh for reduced deepseek-7b (4 KV heads,
   reassembly "torch" and "kernel"), starcoder2-3b (one KV head: each
   rank projects it whole; qkv biases) and qwen2-vl-72b (M-RoPE, the
-  frontend's embeds), against the one-device engine at the gates above;
-  the primitives on a 2-rank group (the vocab-parallel CE
-  within 1e-6 of ``cross_entropy`` with and without a mask, the
-  embedding exact, ``copy_to_model`` / ``reduce_from_model`` forward and
-  backward, the identity when unset);
+  frontend's embeds) in Megatron's layout, and deepseek-v2-236b
+  ("kernel") and deepseek-v3-671b ("torch"; MLA, MoE, the MTP head) in
+  the all-column layout, against the one-device engine at the gates
+  above; for the two MoE archs the routing: every MoE layer's top-k
+  expert indices on every rank, at the parameters of seed 0 on the
+  rank's rows, against one device's on the same rows (the (token, choice)
+  pairs whose expert differs, per MoE layer: 0 is the gate); the
+  primitives on a 2-rank group (the vocab-parallel CE within 1e-6 of
+  ``cross_entropy`` with and without a mask, the embedding exact,
+  ``copy_to_model`` / ``reduce_from_model`` / ``gather_from_model``
+  forward and backward, the identity when unset);
 * one rank's sharded step (reduced deepseek-7b, B=4, S=16, sgd, counted
   by ``analysis.dispatch_costs``) against ``launch.dryrun.trace_train``'s
   trace of that rank on ``meta``, on the (2, 2) mesh, the (1, 4) mesh
-  (also starcoder2-3b and qwen2-vl-72b), the (2, 2, 1) (pod, data, model)
-  mesh and a (1, 1) mesh of the first rank (no collective at all): the
-  collective bytes equal, the FLOPs equal, on (1, 4) a quarter of the
-  one-device step's, the memory the rank holds (parameter and optimizer
-  shards, the parameters the loss receives, the inputs) equal to the
-  reckoned, and no op inside the loss's forward pass handed a
-  ``DTensor``;
+  (also starcoder2-3b, qwen2-vl-72b and deepseek-v3-671b), the (2, 2, 1)
+  (pod, data, model) mesh and a (1, 1) mesh of the first rank (no
+  collective at all): the collective bytes equal, the FLOPs equal, on
+  (1, 4) a quarter of the one-device step's, the memory the rank holds
+  (parameter and optimizer shards, the parameters the loss receives in
+  storage other than those shards', the inputs) equal to the reckoned
+  (which counts the leaves received at another size than the stored
+  shards), and
+  no op
+  inside the loss's forward pass handed a ``DTensor``;
 * ``constrain_batch`` (identity without a mesh or on a plain tensor,
   ``Shard(0)`` of a ``DTensor`` with one), the row permuter on
   ``DTensor`` s (shard-local, no collective), K1's refusal of a
@@ -52,18 +61,36 @@ exit code is 1 when a gate fails.
 
 On a card the checks run with deterministic algorithms (the embedding's
 backward accumulates by atomics otherwise).  ``--production`` adds the
-production cell on the cards: starcoder2-3b at full width, 12 layers,
-batch 8 x 512 on 4 nodes, 3 steps through the sharded engine (K1 counted)
-against the one-device engine on the first rank's card, with each run's
-ms a step (synced host clock, median of steps 2..) and peak memory, and
-one more sharded step under the torch profiler for the first rank's
-device ms by kind (NCCL, matrix products, the rest) and busy share.
-starcoder2-3b is one of ``dist.tp`` 's archs: on (2, 2) its 24 heads, 2
-KV heads, FFN and vocab split over the two model ranks.
+production cell of ``--arch`` on the cards (:data:`PRODUCTION`), batch 8
+x 512 on 4 nodes, 3 steps through the sharded engine (K1 counted) against
+the one-device engine on the first rank's card, with each run's ms a step
+(synced host clock, median of steps 2..) and peak memory, and one more
+sharded step under the torch profiler for the first rank's device ms by
+kind (NCCL, matrix products, the rest) and busy share:
+
+* starcoder2-3b (the default) at full width, 12 layers, adamw: Megatron's
+  layout, its 24 heads, 2 KV heads, FFN and vocab split over the two
+  model ranks of (2, 2);
+* deepseek-v2-236b at full width, 2 layers (the dense layer 0 and one
+  MoE layer, 21.4 GB of f32 parameters), sgd (one card cannot hold
+  adamw's moments of a full-width MoE layer): the all-column layout, and
+  the same cell through the gather-whole step (every leaf gathered whole
+  at the loss's entry, as before the MoE archs partitioned) in the same
+  call, both at the gates above; and its routing against one card's on
+  each rank's rows (:func:`routing_flips`): no token's top-k expert
+  set may change (``set_flips`` 0, the ``production_routing`` gate),
+  while the order swaps inside a top-k (``flips``) are a reading printed
+  on that gate's line, not gated: at full width
+  cuBLAS picks its GEMM kernel by the output width, so a rank's column
+  products can differ from one card's by an ulp although no contraction
+  is split, and two near-equal probabilities inside a top-k can then
+  swap, which changes only the order of the combine's sum (the reduced
+  cases gate 0 flips of either kind).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -78,9 +105,17 @@ ARCHS = ("deepseek-7b", "deepseek-v3-671b", "mamba2-780m",
          "recurrentgemma-9b")
 # the tensor-parallel step (dist.tp): 4 KV heads on 4 heads, and one KV
 # head (replicated KV) with qkv biases, M-RoPE and the frontend's embeds
+# (Megatron); MLA + MoE, and with the MTP head (all-column)
 TP_CASES = (("deepseek-7b", "torch"), ("deepseek-7b", "kernel"),
-            ("starcoder2-3b", "kernel"), ("qwen2-vl-72b", "kernel"))
+            ("starcoder2-3b", "kernel"), ("qwen2-vl-72b", "kernel"),
+            ("deepseek-v2-236b", "kernel"), ("deepseek-v3-671b", "torch"))
+# the archs whose routing is read against one device (all-column)
+ROUTED = ("deepseek-v2-236b", "deepseek-v3-671b")
+# a rank's program against the dryrun's trace on (1, 4), beside deepseek-7b
+RANK_ARCHS = ("starcoder2-3b", "qwen2-vl-72b", "deepseek-v3-671b")
 STEPS = 3
+# --production: arch -> (layers, optimizer)
+PRODUCTION = {"starcoder2-3b": (12, "adamw"), "deepseek-v2-236b": (2, "sgd")}
 
 
 def _loader(cfg):
@@ -201,6 +236,12 @@ def run_checks(device: str, ckdir: str) -> dict:
             against_one_device(f"tp/{name}/{arch}/{reas}",
                                get_config(arch, reduced=True), m,
                                reassembly=reas)
+        for arch in ROUTED:
+            cfg_r = get_config(arch, reduced=True)
+            got = routing_flips(cfg_r, m, build_model(cfg_r).init(
+                seed=0, device=device), _routing_batch(cfg_r, device))
+            if lead:
+                out[f"routing/{name}/{arch}"] = got
     out["collectives"] = {
         "debug22": _rank_step(mesh, device),
         "model4": _rank_step(row, device),
@@ -208,7 +249,7 @@ def run_checks(device: str, ckdir: str) -> dict:
                                                         device=device),
                                device)}
     out["rank_model4"] = {arch: _rank_step(row, device, arch)
-                          for arch in ("starcoder2-3b", "qwen2-vl-72b")}
+                          for arch in RANK_ARCHS}
     one = make_debug_mesh(1, 1, device=device)
     one.device_mesh()                    # collective: every rank builds it
     if lead:
@@ -274,8 +315,10 @@ def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
     FLOPs of the step, of its trace and of the one-device loss and
     gradient on the same rows; the reckoned memory beside what the rank
     holds (parameter and optimizer shards, the parameters the loss
-    receives, the inputs); and whether any op inside the loss's forward
-    pass received a ``DTensor``.  sgd is elementwise, so the optimizer
+    receives in storage other than the rank's stored shards', i.e.
+    gathered, the inputs);
+    and whether any op inside the loss's forward pass received a
+    ``DTensor``.  sgd is elementwise, so the optimizer
     issues no collective."""
     from repro_torch.analysis.dispatch_costs import accounting, analyze_step
     from repro_torch.configs import get_config
@@ -322,8 +365,13 @@ def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
     loss_fn = tl_loss_fn(model, cfg, "tl")
 
     def watched(p, b):
-        seen["bytes"] = sum(t.numel() * t.element_size()
-                            for t in tree_leaves(p))
+        # a leaf received in the stored shard's own storage allocates
+        # nothing; one in storage of its own was gathered
+        seen["bytes"] = sum(
+            r.numel() * r.element_size() for r, s in zip(
+                tree_leaves(p), tree_leaves(params))
+            if r.untyped_storage().data_ptr()
+            != s._local_tensor.untyped_storage().data_ptr())
         with watch:
             return loss_fn(p, b)
     with scope():
@@ -384,6 +432,109 @@ def tp_value_and_grad(arch: str, whole, batch, mesh, reassembly: str):
     return float(loss), full_tree(grads)
 
 
+def _routing_batch(cfg, device, B: int = 4, S: int = 16, seed: int = 1):
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           dtype=torch.int32)
+    return {"tokens": tokens.to(device),
+            "targets": torch.roll(tokens, -1, 1).to(device)}
+
+
+def _recorded_routes(fn) -> list:
+    """Run ``fn()`` and return, for every ``models.moe.route`` call it
+    made, in order: its input x (G, T, d), its probabilities (G, T, E) and
+    its top-k expert indices (G, T, k)."""
+    from repro_torch.models import moe
+    real, seen = moe.route, []
+
+    def route(params, cfg, x, xs=None):
+        out = real(params, cfg, x, xs)
+        seen.append((x.detach().clone(), out[0].detach().clone(),
+                     out[2].detach().clone()))
+        return out
+    moe.route = route
+    try:
+        fn()
+    finally:
+        moe.route = real
+    return seen
+
+
+def _routing_reading(one, got, k: int) -> list:
+    """Per MoE layer, this rank's ``[flips, set_flips, pairs]`` and
+    ``[input drift, probability drift, widest margin flipped]``: the
+    (token, choice) pairs whose expert differs; the pairs whose expert is
+    not among the other run's top-k of that token (an order swap inside
+    the top-k changes no output but the order of the combine's sum); the
+    largest |x - x_one| and |p - p_one|; and, over the tokens whose top-k
+    set changed, the largest one-device margin between the k-th and the
+    (k+1)-th probability (a set can change only across a margin below
+    twice the probability drift)."""
+    counts, drifts = [], []
+    for (x1, p1, e1), (x2, p2, e2) in zip(one, got):
+        same = (e1[..., :, None] == e2[..., None, :]).any(-1)
+        set_flips = int((~same).sum())
+        changed = (~same).any(-1)
+        top = torch.sort(p1, dim=-1, descending=True).values
+        margin = (top[..., k - 1] - top[..., k])[changed]
+        counts.append([int((e1 != e2).sum()), set_flips, e1.numel()])
+        drifts.append([float((x1 - x2).abs().max()),
+                       float((p1 - p2).abs().max()),
+                       float(margin.max()) if margin.numel() else 0.0])
+    return counts, drifts
+
+
+def routing_flips(cfg, mesh, whole, batch) -> dict:
+    """Every MoE layer's routing under the sharded step's gradient on
+    ``mesh`` (every rank; collective; remat "none", so one ``route`` call
+    a MoE layer) against one device's on the same rows (this rank's rows
+    of ``batch``, the whole parameters ``whole``, under grad as the step
+    runs): per MoE layer, summed over every rank, the (token, choice)
+    pairs whose expert differs (``flips``) and those whose expert left the
+    token's top-k set (``set_flips``), the pairs compared, and the largest
+    drifts and flipped margin over every rank (:func:`_routing_reading`)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tl_step import (tensor_parallel, tl_loss_fn,
+                                          train_shardings)
+    from repro_torch.core.tree import tree_map
+    from repro_torch.dist.tensor import distribute_tree, \
+        sharded_value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+
+    loss_fn = tl_loss_fn(build_model(cfg), cfg, "none")
+    B, S = batch["tokens"].shape
+    sharded, rows = _rank_rows(mesh, B)
+    mine = {k: v[rows] for k, v in batch.items()}
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), whole)
+    one = _recorded_routes(lambda: loss_fn(leaves, mine))
+    del leaves
+    in_sh, _ = train_shardings(whole, sgd(0.0).init(whole), cfg, mesh,
+                               InputShape("routing", S, B, "train"))
+    params = distribute_tree(whole, in_sh[0], dist.get_rank())
+    entry, scope = tensor_parallel(cfg, mesh, params)
+    with scope():
+        got = _recorded_routes(lambda: sharded_value_and_grad(
+            loss_fn, params, mine, mesh, batch_sharded=sharded,
+            entry=entry))
+    if len(got) != len(one):
+        raise AssertionError(f"{len(got)} route calls against {len(one)}")
+    counts, drifts = _routing_reading(one, got, cfg.moe.top_k)
+    dev = batch["tokens"].device
+    counts = torch.tensor(counts, dtype=torch.int64, device=dev).reshape(
+        -1, 3)
+    drifts = torch.tensor(drifts, dtype=torch.float64, device=dev).reshape(
+        -1, 3)
+    dist.all_reduce(counts)
+    dist.all_reduce(drifts, op=dist.ReduceOp.MAX)
+    return {"flips": counts[:, 0].tolist(),
+            "set_flips": counts[:, 1].tolist(),
+            "pairs": int(counts[:, 2].sum()), "layers": len(one),
+            "input_drift": drifts[:, 0].tolist(),
+            "prob_drift": drifts[:, 1].tolist(),
+            "margin_flipped": drifts[:, 2].tolist()}
+
+
 def _rank_rows(mesh, B: int):
     """``(batch_sharded, rows)``: whether the batch axes split ``B`` rows,
     and this rank's block of them."""
@@ -400,7 +551,8 @@ def _tp_primitives(device) -> dict:
     two ranks) against their one-rank definitions: the vocab-parallel CE
     against ``models.model.cross_entropy`` with and without a mask, the
     vocab-parallel embedding against ``table[ids]``, and the forward and
-    backward passes of ``copy_to_model`` / ``reduce_from_model``.  The
+    backward passes of ``copy_to_model`` / ``reduce_from_model`` /
+    ``gather_from_model``.  The
     first rank's readings; an empty dict elsewhere."""
     from repro_torch.dist import tp
     from repro_torch.models.model import cross_entropy
@@ -449,8 +601,18 @@ def _tp_primitives(device) -> dict:
             "forward": bool(torch.equal(z.detach().cpu(), 3 * x)),
             "backward": bool(torch.equal(xr.grad.cpu(),
                                          torch.full_like(x, 2.0)))}
+        xg = (x[:, rank * 2:(rank + 1) * 2] * (rank + 1)).to(device) \
+            .detach().requires_grad_(True)
+        w = torch.arange(12.).reshape(3, 4).to(device)
+        gathered = tp.gather_from_model(xg, -1)
+        (gathered * w).sum().backward()      # this rank's columns of w
+        want = torch.cat([x[:, :2], 2 * x[:, 2:]], -1)
+        out["gather_from_model"] = {
+            "forward": bool(torch.equal(gathered.detach().cpu(), want)),
+            "backward": bool(torch.equal(
+                xg.grad.cpu(), w[:, rank * 2:(rank + 1) * 2].cpu()))}
     out["identity_unset"] = tp.copy_to_model(x) is x \
-        and tp.reduce_from_model(x) is x
+        and tp.reduce_from_model(x) is x and tp.gather_from_model(x) is x
     return out if rank == 0 else {}
 
 
@@ -539,31 +701,50 @@ def _profile_step(eng, loader) -> dict:
     return _kernel_breakdown(prof, wall_ms)
 
 
-def production(device: str) -> dict:
-    """The ``--production`` cell (module docstring); the first rank's
-    readings, an empty dict on the others."""
+@contextlib.contextmanager
+def gather_whole():
+    """The sharded step with every leaf gathered whole at the loss's entry
+    and the compute replicated over "model" (``dist.tp.partitions`` off):
+    the step as it ran before an arch partitioned its compute."""
+    from repro_torch.dist import tp
+    real = tp.partitions
+    tp.partitions = lambda cfg, mesh: False
+    try:
+        yield
+    finally:
+        tp.partitions = real
+
+
+def production(device: str, arch: str = "starcoder2-3b") -> dict:
+    """The ``--production`` cell of ``arch`` (module docstring); the first
+    rank's readings, an empty dict on the others."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.pipeline import (VirtualBatchLoader, shard_corpus,
                                            synthetic_corpus)
+    from repro_torch.dist import tp
     from repro_torch.dist.tensor import full_tree
     from repro_torch.kernels.vb_scatter import permute_rows, take_rows
     from repro_torch.launch.engine import Engine
     from repro_torch.launch.mesh import resolve_mesh
     from repro_torch.models import build_model
-    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.optim import adamw, sgd, warmup_cosine
 
-    cfg = dataclasses.replace(get_config("starcoder2-3b"), n_layers=12)
+    layers, opt_name = PRODUCTION[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     docs = synthetic_corpus(64, 512, cfg.vocab_size)
     lead = dist.get_rank() == 0
+
+    def optimizer():
+        if opt_name == "sgd":
+            return sgd(1e-3)
+        return adamw(warmup_cosine(3e-4, 10, STEPS), clip_norm=1.0)
 
     def run(mesh):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        eng = Engine(build_model(cfg), cfg,
-                     adamw(warmup_cosine(3e-4, 10, STEPS), clip_norm=1.0),
-                     mesh=mesh, reassembly="kernel", log_every=1,
-                     device=device).init(0)
+        eng = Engine(build_model(cfg), cfg, optimizer(), mesh=mesh,
+                     reassembly="kernel", log_every=1, device=device).init(0)
         for k in (permute_rows, take_rows):
             k.launches = 0
         res = eng.run(VirtualBatchLoader(shard_corpus(docs, 4), 8),
@@ -576,29 +757,54 @@ def production(device: str) -> dict:
             "launches": {"permute_rows": permute_rows.launches,
                          "take_rows": take_rows.launches}}
 
+    def gathered(res):
+        return [t.cpu() if lead else None        # full_tree is collective
+                for t in tree_leaves(full_tree(res.params))]
+
     mesh = resolve_mesh("debug", device=device)
+    out = {"mesh": list(mesh.shape), "layers": cfg.n_layers, "arch": arch,
+           "optimizer": opt_name, "layout": tp.layout(cfg),
+           "tensor_parallel": tp.partitions(cfg, mesh),
+           "card": torch.cuda.get_device_name(0)}
+    if arch in ROUTED:
+        # the routing at seed 0's parameters on each rank's rows
+        whole = build_model(cfg).init(seed=0, device=device)
+        out["routing"] = routing_flips(
+            cfg, mesh, whole, _routing_batch(cfg, device, 8, 512))
+        del whole
+        torch.cuda.empty_cache()
     eng, res, sharded = run(mesh)
-    whole = [t.cpu() if lead else None          # full_tree is collective
-             for t in tree_leaves(full_tree(res.params))]
+    whole = gathered(res)
     # after the gather: the profiled step updates eng
     sharded["profile"] = _profile_step(
         eng, VirtualBatchLoader(shard_corpus(docs, 4), 8))
     del eng, res
     torch.cuda.empty_cache()
-    out = {}
+    out["sharded"] = sharded
+    if arch in ROUTED:
+        with gather_whole():
+            eng, res, parent = run(mesh)
+        out["gather_whole"] = parent
+        whole_gw = gathered(res)
+        del eng, res
+        torch.cuda.empty_cache()
     if lead:
         _, res1, one = run(None)
-        gap = max(float((a - b.cpu()).abs().max())
-                  for a, b in zip(whole, tree_leaves(res1.params)))
-        out = {"mesh": list(mesh.shape), "layers": cfg.n_layers,
-               "sharded": sharded, "one_device": one,
-               "loss_gap": max(abs(a - b) for a, b in zip(
-                   sharded["losses"], one["losses"])),
-               "param_gap": gap,
-               "card": torch.cuda.get_device_name(0)}
-        del res1
+        mine = tree_leaves(res1.params)
+
+        def gap(got):
+            return max(float((a - b.cpu()).abs().max())
+                       for a, b in zip(got, mine))
+        out.update(one_device=one, param_gap=gap(whole),
+                   loss_gap=max(abs(a - b) for a, b in zip(
+                       sharded["losses"], one["losses"])))
+        if arch in ROUTED:
+            out["gather_whole_param_gap"] = gap(whole_gw)
+            out["gather_whole_loss_gap"] = max(abs(a - b) for a, b in zip(
+                out["gather_whole"]["losses"], one["losses"]))
+        del res1, mine
     dist.barrier()
-    return out
+    return out if lead else {}
 
 
 def gates(out: dict) -> dict:
@@ -623,14 +829,22 @@ def gates(out: dict) -> dict:
         r["flops"]["step"] == r["flops"]["dryrun"]
         and r["memory"]["held"] == r["memory"]["reckoned"]
         and r["model_ops"] > 0 and not r["dtensor_ops"] for r in ranks)
-    four = coll["model4"]["flops"]
-    ok["tp_flops"] = abs(four["step"] / four["one_device"] - 0.25) < 0.0125
+    four = [coll["model4"]["flops"]] + [
+        out["rank_model4"][a]["flops"] for a in ROUTED
+        if a in out["rank_model4"]]
+    ok["tp_flops"] = all(abs(f["step"] / f["one_device"] - 0.25) < 0.0125
+                         for f in four)
+    for key, got in out.items():
+        if key.startswith("routing/"):
+            ok[key] = got["layers"] > 0 and not any(got["flips"]) \
+                and not any(got["set_flips"])
     pr = out["tp_primitives"]
     ok["tp_primitives"] = (
         max(pr["ce"].values()) < 1e-6 and max(pr["ce_mask"].values()) < 1e-6
         and pr["embedding_exact"] and pr["identity_unset"]
         and all(pr["copy_to_model"].values())
-        and all(pr["reduce_from_model"].values()))
+        and all(pr["reduce_from_model"].values())
+        and all(pr["gather_from_model"].values()))
     c, p = out["constrain"], out["permuter"]
     ok["constrain"] = (c["identity"] and c["plain_identity"] and c["values"]
                        and c["placements"] == ["S(0)", "R"])
@@ -641,10 +855,19 @@ def gates(out: dict) -> dict:
                           and "256" in out["production"])
     if "production_cell" in out:
         cell = out["production_cell"]
+        k1 = {"permute_rows": STEPS, "take_rows": STEPS}
         ok["production_cell"] = (
             cell["loss_gap"] < 1e-4 and cell["param_gap"] < 5e-3
-            and cell["sharded"]["launches"] == {"permute_rows": STEPS,
-                                                "take_rows": STEPS})
+            and cell["sharded"]["launches"] == k1
+            and cell["tensor_parallel"])
+        if "routing" in cell:
+            r = cell["routing"]
+            ok["production_routing"] = r["layers"] > 0 \
+                and not any(r["set_flips"])
+            ok["production_gather_whole"] = (
+                cell["gather_whole_loss_gap"] < 1e-4
+                and cell["gather_whole_param_gap"] < 5e-3
+                and cell["gather_whole"]["launches"] == k1)
     return ok
 
 
@@ -656,7 +879,10 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory (default: a temporary one)")
     ap.add_argument("--production", action="store_true",
-                    help="also the full-width starcoder2-3b cell (cards)")
+                    help="also the full-width cell of --arch (cards)")
+    ap.add_argument("--arch", default="starcoder2-3b",
+                    choices=sorted(PRODUCTION),
+                    help="the --production cell's arch")
     args = ap.parse_args(argv)
     if args.device != "cpu":
         # bit-equal repeats on a card: deterministic kernels and cuBLAS
@@ -673,14 +899,19 @@ def main(argv=None):
         dist.broadcast_object_list(box, src=0)
         out = run_checks(args.device, box[0])
         if args.production:
-            out["production_cell"] = production(args.device)
+            out["production_cell"] = production(args.device, args.arch)
         failed = []
         if dist.get_rank() == 0:
             ok = gates(out)
             failed = sorted(k for k, v in ok.items() if not v)
             for key in sorted(ok):
+                reading = out.get(key, out.get(key.split("/")[0]))
+                if key == "production_routing":
+                    reading = out["production_cell"]["routing"]
+                elif key.startswith("production_"):
+                    reading = out["production_cell"]
                 print(f"DIST_CHECK {key} ok={str(ok[key]).lower()} "
-                      f"{json.dumps(out.get(key, out.get(key.split('/')[0])))}")
+                      f"{json.dumps(reading)}")
             if args.out:
                 with open(args.out, "w") as f:
                     json.dump(out, f)

@@ -20,17 +20,20 @@ analyses.  The port has no compiler to ask, so it
 (``core.tl_step.make_train_step(mesh=...)``) runs the loss on the rank's
 B / n_dp rows (all B rows when the batch axes do not divide B),
 reduce-scatters the gradients onto the parameters' placements and
-updates the local shards.  For the dense GQA archs on a "model"
-axis of size > 1 (``dist.tp.partitions``) it is tensor-parallel, as the
-reference's GSPMD step partitions it: each parameter is gathered over the
-batch axes only and keeps its shard on "model" (``dist.tp.entry_spec``),
-and the model computes on those shards with all-reduces over "model".
-:func:`trace_train` traces that local program on ``meta`` with the
-``dist.tp`` context over :func:`model_axis_group` (a fake process group
-when none runs), so the matrix products are the rank's share (about
-1 / n_model of them where the heads, the FFN width and the vocab split)
-and its all-reduces reach the dispatch accounting.  The other archs
-(MoE and MLA, the recurrent mixers, the encoder-decoder) gather every
+updates the local shards.  For the archs of ``dist.tp.supported`` on a
+"model" axis of size > 1 (``dist.tp.partitions``) it is
+tensor-parallel, as the reference's GSPMD step partitions it: each
+parameter keeps its shard on "model" (``dist.tp.entry_spec``) and is
+gathered over the batch axes only where FSDP shards it there, and the
+model computes on those shards with collectives over "model": Megatron's
+all-reduces for the dense GQA archs, the all-column layout's activation
+all-gathers for the MoE archs (no FSDP, so nothing is gathered over the
+batch axes).  :func:`trace_train` traces that local program on ``meta``
+with the ``dist.tp`` context over :func:`model_axis_group` (a fake
+process group when none runs), so the matrix products are the rank's
+share (about 1 / n_model of them where the heads, the widths and the
+vocab split) and its collectives reach the dispatch accounting.  The
+other archs (the recurrent mixers, the encoder-decoder) gather every
 parameter whole at the loss's entry and run the loss unsharded: their
 "model" axis shards storage, not compute, so a rank's FLOPs are about
 n_model times the GSPMD reference's and its peak holds every parameter.
@@ -56,13 +59,17 @@ size > 1, a reduce-scatter (result: the leaf divided over the batch dims
 so far) where the parameter is sharded there, an all-reduce where it is
 replicated, and over "model" an all-gather of a bias taken by columns;
 the loss's mean, an all-reduce of a scalar over each batch mesh dim; and
-a tensor-parallel rank's activation all-reduces over "model", counted
+a tensor-parallel rank's activation all-reduces (Megatron) or
+all-gathers and backward all-reduces (all-column) over "model", counted
 off its trace.  With a one-rank mesh there are none.
 
 **Peak per rank** is reckoned, not measured: the local shards of the
-parameters and optimizer state, the parameters as the loss receives them
-(whole, or a tensor-parallel rank's model shards; and the cache), the
-inputs, and the traced step's high-water mark of live tensors.  The
+parameters and optimizer state, the parameters the loss receives at
+another size than the rank's stored shards (gathered: whole, or a
+tensor-parallel rank's model shards gathered over the batch axes; a
+bias's columns copied out; a leaf received as it is stored shares its
+storage and is not counted twice; and the cache), the inputs, and the
+traced step's high-water mark of live tensors.  The
 artifact says so (``extra_tags.peak_source``) and names the constants'
 device.  There is no compile: ``t_lower_s`` is the trace's
 seconds, ``t_compile_s`` 0, ``hlo_lines`` the count of dispatched ops and
@@ -209,6 +216,17 @@ def _tree_bytes(tree) -> int:
     return sum(nbytes(t) for t in tree_leaves(tree))
 
 
+def gathered_bytes(received, stored) -> int:
+    """Bytes of the leaves of ``received`` (as the loss receives them)
+    whose size differs from the same leaves of ``stored`` (the rank's
+    shards): what the entry allocates.  A leaf received at its stored
+    size shares the shard's storage; a larger one was gathered, a smaller
+    one (a bias's columns taken from its replicated whole) copied out."""
+    return sum(nbytes(r) for r, s in zip(tree_leaves(received),
+                                         tree_leaves(stored))
+               if r.numel() != s.numel())
+
+
 class _LocalUpdate:
     """An optimizer whose ``update`` takes whole parameters and gradients
     and updates their local shards (the sharded step's update)."""
@@ -321,7 +339,16 @@ def trace_train(model, cfg, shape, mesh, params, remat="tl", microbatch=1,
     with (_model_parallel(mesh) if parallel else contextlib.nullcontext()), \
             accounting() as costs:
         step(entry, opt_state, batch)
-    if parallel:
+    if parallel and tp.layout(cfg) == "all_column":
+        program = (f"the tensor-parallel TL step over {mesh.sizes['model']} "
+                   f"model ranks on {rows} of {shape.global_batch} rows in "
+                   "the all-column layout (routing-stable: every weight "
+                   "split on its output dim, every forward contraction "
+                   "whole, activations all-gathered over model), each "
+                   "parameter kept on its model shard where dist.tp "
+                   "partitions it and nothing gathered over the batch "
+                   "axes (no FSDP); adafactor on the local shards")
+    elif parallel:
         program = (f"the tensor-parallel TL step over {mesh.sizes['model']} "
                    f"model ranks on {rows} of {shape.global_batch} rows, "
                    "each parameter gathered over the batch axes and kept on "
@@ -336,7 +363,7 @@ def trace_train(model, cfg, shape, mesh, params, remat="tl", microbatch=1,
         coll[kind] = coll.get(kind, 0) + int(nb)
     memory = {"param_shard_bytes": _tree_bytes(local),
               "opt_state_shard_bytes": _tree_bytes(opt_state),
-              "gathered_param_bytes": _tree_bytes(entry),
+              "gathered_param_bytes": gathered_bytes(entry, local),
               "input_bytes": _tree_bytes(batch),
               "traced_live_peak_bytes": int(costs.peak_live_bytes)}
     return costs, coll, memory, program

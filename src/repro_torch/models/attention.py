@@ -290,16 +290,25 @@ def mla_project(params, cfg: ModelConfig, x, q_pos):
 
     Returns (q_full (B,S,H,lora+rope), c_kv (B,S,lora), k_rope (B,S,rope)),
     with q_nope already absorbed through W_UK into the latent.  Shared by
-    ``mla_apply`` and the paged serving runner."""
+    ``mla_apply`` and the paged serving runner.  Inside the
+    tensor-parallel context (``dist.tp``, all-column) ``w_dq`` / ``w_dkv``
+    / ``w_kr`` are column shards whose outputs are gathered before the
+    norms and RoPE, and ``w_uq`` / ``w_uk`` hold this rank's H/m heads, so
+    ``q_full`` has H/m heads over the whole shared latent."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
     nope, rope_d, lora = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
-    cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+    H = params["w_uq"].shape[1] // (nope + rope_d)  # this rank's heads
+    xs = tp.copy_to_model(x)       # read by the three column products
+    cq = rmsnorm(params["q_norm"], tp.column(x, xs, params["w_dq"],
+                                             m.q_lora_rank), cfg.norm_eps)
+    if tp.partitioned(H, cfg.n_heads):
+        cq = tp.copy_to_model(cq)
     q = (cq @ params["w_uq"]).reshape(B, S, H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    c_kv = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
-    k_rope = x @ params["w_kr"]                        # shared, (B,S,rope_d)
+    c_kv = rmsnorm(params["kv_norm"],
+                   tp.column(x, xs, params["w_dkv"], lora), cfg.norm_eps)
+    k_rope = tp.column(x, xs, params["w_kr"], rope_d)  # shared (B,S,rope)
     q_rope = apply_rope(q_rope, q_pos, cfg.rope_theta)
     k_rope = apply_rope(k_rope[:, :, None, :], q_pos, cfg.rope_theta)[:, :, 0]
     w_uk = params["w_uk"].reshape(lora, H, nope)
@@ -308,12 +317,18 @@ def mla_project(params, cfg: ModelConfig, x, q_pos):
 
 
 def mla_output(params, cfg: ModelConfig, out_lat):
-    """Decompress attended latents (B,S,H,lora) through W_UV, then W_O."""
+    """Decompress attended latents (B,S,H,lora) through W_UV, then W_O.
+    With this rank's H/m heads (``dist.tp``) their outputs are gathered
+    over "model" before ``w_o``, a column shard of d (all-column: not
+    row-parallel), whose output is gathered too."""
     m = cfg.mla
     B, S, H = out_lat.shape[:3]
     w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bshr,rhv->bshv", out_lat, w_uv)
-    return out.reshape(B, S, H * m.v_head_dim) @ params["w_o"]
+    out = out.reshape(B, S, H * m.v_head_dim)
+    if tp.partitioned(H, cfg.n_heads):
+        out = tp.gather_from_model(out, -1)
+    return tp.column(out, tp.copy_to_model(out), params["w_o"], cfg.d_model)
 
 
 def mla_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
@@ -322,8 +337,9 @@ def mla_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
     form: MQA with head dim ``kv_lora + rope`` over ``c_kv ‖ k_rope``, the
     latent ``c_kv`` as values, scale ``1/sqrt(nope + rope)``.  Full forward
     (cache=None), prefill into an empty cache (S > 1) or one decode step.
-    ``positions`` is taken and ignored, as in the reference.  Returns (out,
-    cache)."""
+    ``positions`` is taken and ignored, as in the reference.  Under
+    ``dist.tp`` a rank attends with its H/m heads over the whole latent.
+    Returns (out, cache)."""
     m = cfg.mla
     B, S, _ = x.shape
     pos0 = 0 if cache_len is None else int(cache_len)
@@ -340,6 +356,8 @@ def mla_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
     else:
         lat, rope, k_pos = cache["c_kv"], cache["k_rope"], cache["pos"]
     k_full = torch.cat([lat, rope], dim=-1)[:, :, None, :]          # MQA
+    if tp.partitioned(q_full.shape[2], cfg.n_heads):
+        k_full = tp.copy_to_model(k_full)     # read by this rank's heads
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     out_lat = attend(q_full, k_full, None, q_pos, k_pos, 0, scale,
                      v_width=m.kv_lora_rank)                    # (B,S,H,lora)

@@ -47,19 +47,30 @@ def swiglu_init(gen, d: int, d_ff: int, *, device, dtype=torch.float32):
             "w_down": dense_init(gen, d_ff, d, device=device, dtype=dtype)}
 
 
-def swiglu(params, x, d_ff: int = None):
-    """``(silu(x W_gate) * x W_up) W_down``.  Given the whole ``d_ff``, a
-    rank holding its share of it runs Megatron's split (``dist.tp``):
-    ``w_gate`` / ``w_up`` column-parallel, ``w_down`` row-parallel and its
-    partial sums reduced over "model"."""
+def swiglu(params, x, d_ff: int = None, *, xs=None):
+    """``(silu(x W_gate) * x W_up) W_down``.  Inside the tensor-parallel
+    context (``dist.tp``) a rank holding shards takes one of two routes,
+    read from the local shapes: given the whole ``d_ff``, a ``w_down``
+    holding its share of it runs Megatron's split (``w_gate`` / ``w_up``
+    column-parallel, ``w_down`` row-parallel, its partial sums reduced
+    over "model"); a ``w_down`` holding its share of d's columns runs the
+    all-column route (the hidden state gathered over f before ``w_down``,
+    the output gathered over d: no contraction split) on ``xs``, the
+    caller's ``tp.copy_to_model`` (x) where other column products read x
+    too, else its own."""
     from repro_torch.dist import tp
-    split = d_ff is not None and tp.partitioned(params["w_down"].shape[0],
-                                                d_ff)
-    if split:
+    w_gate, w_up, w_down = params["w_gate"], params["w_up"], params["w_down"]
+    if d_ff is not None and tp.partitioned(w_down.shape[0], d_ff):
         x = tp.copy_to_model(x)
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    out = h @ params["w_down"]
-    return tp.reduce_from_model(out) if split else out
+        h = F.silu(x @ w_gate) * (x @ w_up)
+        return tp.reduce_from_model(h @ w_down)
+    if tp.partitioned(w_down.shape[-1], x.shape[-1]):
+        x = tp.copy_to_model(x) if xs is None else xs
+        h = F.silu(x @ w_gate) * (x @ w_up)             # f/m columns
+        h = tp.copy_to_model(tp.gather_from_model(h, -1))
+        return tp.gather_from_model(h @ w_down, -1)
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):

@@ -11,6 +11,16 @@ reference leaves them to XLA.  ``set_expert_parallel_mesh(mesh)`` makes
 ``moe_apply`` delegate to the expert-parallel path
 (``repro_torch.models.moe_ep``, two ``all_to_all`` s a layer), as the
 reference's does; ``None`` switches it off.
+
+Inside the tensor-parallel context (``dist.tp``, the all-column layout)
+a rank holds E/m router columns, f/m columns of ``w_gate`` / ``w_up`` and
+d/m columns of ``w_down``, E whole: the router logits are gathered before
+the softmax and the top-k (every rank routes alike), the hidden state is
+gathered over f before ``w_down``, the combine runs on the rank's d/m
+columns and its output is gathered.  No forward contraction is split, so
+each logit sums the same terms as on one device (bit-equal where the
+GEMM library's kernel does not change with the output width).  Expert
+parallelism and the tensor-parallel context exclude each other.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tp
 from repro_torch.models.layers import _normal, dense_init, swiglu, swiglu_init
 
 
@@ -57,16 +68,19 @@ def set_expert_parallel_mesh(mesh):
     _EP_MESH = mesh
 
 
-def route(params, cfg: ModelConfig, x):
+def route(params, cfg: ModelConfig, x, xs=None):
     """Routing of x (G, T, d): returns ``(probs (G,T,E) f32, gate (G,T,k)
     renormalised, expert_idx (G,T,k), keep (G,T*k) bool, slot (G,T*k),
     C)``.  ``slot`` is ``expert * C + rank`` for a kept choice and the
-    overflow sink ``E * C`` for a dropped one."""
+    overflow sink ``E * C`` for a dropped one.  ``xs`` is the caller's
+    ``dist.tp.copy_to_model`` (x) (``tp.column``), x itself by default."""
     m = cfg.moe
     G, T, _ = x.shape
     E, k = m.n_routed_experts, m.top_k
     C = _capacity(T, cfg)
-    probs = torch.softmax((x @ params["router"]).float(), dim=-1)
+    xs = x if xs is None else xs
+    probs = torch.softmax(tp.column(x, xs, params["router"], E).float(),
+                          dim=-1)
     # top-k by a stable descending sort: among equal probabilities the lower
     # expert index comes first, which is ``jax.lax.top_k``'s order
     gate, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -94,6 +108,10 @@ def route(params, cfg: ModelConfig, x):
 def moe_apply(params, cfg: ModelConfig, x):
     """x (B,S,d) -> (out (B,S,d), aux_loss).  Groups are batch rows."""
     if _EP_MESH is not None:
+        if tp.active():
+            raise ValueError("expert parallelism (set_expert_parallel_mesh) "
+                             "and the tensor-parallel context exclude each "
+                             "other")
         from repro_torch.dist.sharding import batch_axes
         from repro_torch.models.moe_ep import moe_apply_ep
         return moe_apply_ep(params, cfg, x, _EP_MESH,
@@ -101,7 +119,12 @@ def moe_apply(params, cfg: ModelConfig, x):
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.n_routed_experts, m.top_k
-    probs, gate, expert_idx, keep, slot, C = route(params, cfg, x)
+    # all-column: the one copy of x that the router's, the experts' and
+    # the shared experts' column products read (one backward all-reduce)
+    xs = tp.copy_to_model(x)
+    probs, gate, expert_idx, keep, slot, C = route(params, cfg, x, xs)
+    # all-column: this rank's d/m columns of w_down (module docstring)
+    split = tp.partitioned(params["w_down"].shape[-1], d)
 
     # auxiliary load-balance loss (DeepSeek style: E * mean f_i P_i)
     f = F.one_hot(expert_idx, E).float().sum(dim=2).mean(dim=1)     # (G,E)
@@ -111,7 +134,7 @@ def moe_apply(params, cfg: ModelConfig, x):
     # dispatch: token copies into (E*C+1, d) buffers per group (the last
     # row is the overflow sink)
     idx = slot[..., None].expand(B, S * k, d)
-    x_rep = x.repeat_interleave(k, dim=1)                          # (G,T*k,d)
+    x_rep = (xs if split else x).repeat_interleave(k, dim=1)   # (G,T*k,d)
     buf = torch.zeros((B, E * C + 1, d), dtype=x.dtype, device=x.device)
     buf.scatter_add_(1, idx, x_rep)
     expert_in = buf[:, :E * C].reshape(B, E, C, d)
@@ -119,16 +142,25 @@ def moe_apply(params, cfg: ModelConfig, x):
     # expert FFN: batched SwiGLU over (G, E, C, d)
     g = torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"])
     u = torch.einsum("gecd,edf->gecf", expert_in, params["w_up"])
-    expert_out = torch.einsum("gecf,efd->gecd", F.silu(g) * u,
-                              params["w_down"])
+    h = F.silu(g) * u
+    if split:                                     # f/m columns -> whole f
+        h = tp.copy_to_model(tp.gather_from_model(h, -1))
+    expert_out = torch.einsum("gecf,efd->gecd", h, params["w_down"])
 
-    # combine: each choice's slot output, weighted by its gate
-    out_buf = torch.cat([expert_out.reshape(B, E * C, d),
-                         torch.zeros((B, 1, d), dtype=expert_out.dtype,
+    # combine: each choice's slot output, weighted by its gate (on the
+    # rank's d/m columns under the all-column split)
+    dl = expert_out.shape[-1]
+    out_buf = torch.cat([expert_out.reshape(B, E * C, dl),
+                         torch.zeros((B, 1, dl), dtype=expert_out.dtype,
                                      device=x.device)], dim=1)
-    gathered = torch.gather(out_buf, 1, idx)                       # (G,T*k,d)
+    gathered = torch.gather(out_buf, 1,
+                            slot[..., None].expand(B, S * k, dl))  # (G,T*k,dl)
     w = (gate.reshape(B, S * k) * keep).to(gathered.dtype)
-    combined = (gathered * w[..., None]).reshape(B, S, k, d).sum(dim=2)
+    if split:
+        w = tp.copy_to_model(w)
+    combined = (gathered * w[..., None]).reshape(B, S, k, dl).sum(dim=2)
+    if split:
+        combined = tp.gather_from_model(combined, -1)
     if m.n_shared_experts:
-        combined = combined + swiglu(params["shared"], x)
+        combined = combined + swiglu(params["shared"], x, xs=xs)
     return combined, aux

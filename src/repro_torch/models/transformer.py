@@ -166,13 +166,16 @@ def forward_with_hidden(params, cfg: ModelConfig, tokens, extra_embeds=None,
 
 def mtp_logits(params, cfg: ModelConfig, tokens, h_final):
     """DeepSeek-V3 multi-token-prediction head (depth 1): predict t+2 from
-    the final hidden state at t joined with the embedding of token t+1."""
+    the final hidden state at t joined with the embedding of token t+1.
+    Under ``dist.tp`` (all-column) ``proj`` is a column shard whose output
+    is gathered, and the logits are the rank's vocab columns."""
     m = params["mtp"]
     emb_next = torch.roll(embed_tokens(params, cfg, tokens), -1, dims=1)
     z = torch.cat([rmsnorm(m["norm_h"], h_final, cfg.norm_eps),
                    rmsnorm(m["norm_e"], emb_next, cfg.norm_eps)], dim=-1)
     z, _, _ = blocks.block_apply(m["block"], cfg, "attn", _mtp_ffn(cfg),
-                                 z @ m["proj"])
+                                 tp.column(z, tp.copy_to_model(z),
+                                           m["proj"], cfg.d_model))
     return _logits(params, cfg, z)
 
 

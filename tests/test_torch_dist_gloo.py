@@ -21,21 +21,24 @@ checks, which a 4-card machine runs under ``torchrun`` with NCCL, and
   grad, expert grads equal to ``moe_apply`` 's;
 * the dryrun's per-rank collective bytes equal those a rank's real
   sharded step dispatches, on (2, 2), (1, 4), (2, 2, 1) and (1, 1);
-* tensor parallelism over "model" (``dist.tp``) for the dense GQA archs:
-  the step on (2, 2) and (1, 4) against the one-device step for reduced
-  deepseek-7b (4 KV heads, "torch" and "kernel"), starcoder2-3b (one KV
-  head, so replicated KV, with qkv biases) and qwen2-vl-72b (M-RoPE and
-  the frontend's embeds) at the reference's gates; on (1, 4) a rank's
-  matrix-product FLOPs a quarter of the one-device step's; the dryrun's
-  trace of a rank (``launch.dryrun.trace_train``) equal to the real
-  step's FLOPs, collectives and held memory; no op inside the loss
+* tensor parallelism over "model" (``dist.tp``): the step on (2, 2) and
+  (1, 4) against the one-device step for reduced deepseek-7b (4 KV
+  heads, "torch" and "kernel"), starcoder2-3b (one KV head, so
+  replicated KV, with qkv biases) and qwen2-vl-72b (M-RoPE and the
+  frontend's embeds) in Megatron's layout, and deepseek-v2-236b
+  ("kernel") and deepseek-v3-671b ("torch"; MLA, MoE, the MTP head) in
+  the all-column layout, at the reference's gates; for the two MoE archs
+  every MoE layer's top-k expert indices on every rank equal to one
+  device's on the same rows; on (1, 4) a rank's matrix-product FLOPs a
+  quarter of the one-device step's (deepseek-7b, deepseek-v3); the
+  dryrun's trace of a rank (``launch.dryrun.trace_train``) equal to the
+  real step's FLOPs, collectives and held memory; no op inside the loss
   receiving a ``DTensor``; on (1, 4) a rank's loss and whole gradients
   against the JAX reference's ``tl_loss_fn`` on its own parameters,
   bridged (``params_from_jax``), and batch; and the primitives on a
-  2-rank group (the
-  vocab-parallel CE within 1e-6 of ``cross_entropy`` with and without a
-  mask, the embedding exact, ``copy_to_model`` / ``reduce_from_model``
-  forward and backward);
+  2-rank group (the vocab-parallel CE within 1e-6 of ``cross_entropy``
+  with and without a mask, the embedding exact, ``copy_to_model`` /
+  ``reduce_from_model`` / ``gather_from_model`` forward and backward);
 * ``constrain_batch`` and the DTensor row permuter; ``resolve_mesh``.
 
 The CLI drills run as the reference's do (``tests/test_elastic.py``): the
@@ -55,7 +58,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from repro_torch.launch.check_dist import ARCHS, TP_CASES  # noqa: E402
+from repro_torch.launch.check_dist import (ARCHS, RANK_ARCHS,  # noqa: E402
+                                           ROUTED, TP_CASES)
 
 REASSEMBLY = ["torch", "kernel"]
 
@@ -100,8 +104,10 @@ WORLD = textwrap.dedent('''
 ''')
 
 # a TP rank against the JAX reference: 4 KV heads split over 4 model
-# ranks, and one KV head (replicated KV) with qkv biases
-JAX_CASES = (("deepseek-7b", "torch"), ("starcoder2-3b", "kernel"))
+# ranks, one KV head (replicated KV) with qkv biases, and the all-column
+# layout with MLA, MoE and the MTP head
+JAX_CASES = (("deepseek-7b", "torch"), ("starcoder2-3b", "kernel"),
+             ("deepseek-v3-671b", "torch"))
 
 
 @pytest.fixture(scope="module")
@@ -236,15 +242,30 @@ def test_tensor_parallel_step_matches_one_device(world, mesh, arch,
     assert got["params"] < 5e-3, got
 
 
+@pytest.mark.parametrize("arch", ROUTED)
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tensor_parallel_routing_equals_one_device(world, mesh, arch):
+    """The all-column layout splits no forward contraction, so every MoE
+    layer's top-k expert indices on every rank (the sharded step's
+    gradient at seed 0's parameters, B 4, S 16) equal one device's on the
+    same rows: no (token, choice) pair routes to another expert."""
+    got = world[f"routing/{mesh}/{arch}"]
+    assert got["layers"] == 1 and got["pairs"] == 4 * 2 * 16 * 2 \
+        * (2 if mesh == "model4" else 1), got
+    assert got["flips"] == [0] and got["set_flips"] == [0], got
+
+
 @pytest.mark.parametrize("arch,reassembly", JAX_CASES)
 def test_tensor_parallel_rank_matches_the_jax_reference(
         world_and_grads, jax_reference, arch, reassembly):
     """On (1, 4), a TP rank's loss and whole gradients (``check_dist.
-    tp_value_and_grad``: vocab-parallel embedding, head and CE, the
-    rank's heads and KV heads, row-parallel ``w_o`` / ``w_down``) at the
-    reference's bridged parameters against the reference's ``tl_loss_fn``
-    on the same batch: loss 1e-4 and gradients 1e-4, as the one-device
-    step is held (``tests/test_torch_production_step.py``)."""
+    tp_value_and_grad``: vocab-parallel embedding, head and CE; for the
+    dense GQA archs the rank's heads and KV heads and row-parallel ``w_o``
+    / ``w_down``, for deepseek-v3 the all-column layout: MLA heads,
+    column ``w_o``, router, experts and MTP head) at the reference's
+    bridged parameters against the reference's ``tl_loss_fn`` on the same
+    batch: loss 1e-4 and gradients 1e-4, as the one-device step is held
+    (``tests/test_torch_production_step.py``)."""
     from repro_torch.bridge import params_from_jax
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves
@@ -269,8 +290,18 @@ def test_tensor_parallel_rank_runs_a_quarter_of_the_products(world):
     assert abs(ratio - 0.25) < 0.05 * 0.25, f
 
 
-RANKS = ["debug22", "model4", "multipod", "debug11", "model4/starcoder2-3b",
-         "model4/qwen2-vl-72b"]
+def test_all_column_rank_runs_a_quarter_of_the_products(world):
+    """On (1, 4), reduced deepseek-v3 (4 MLA heads, d 256, E 4, d_ff 512,
+    d_ff_expert 128, vocab 512): every matrix product, the MTP head's
+    included, is split four ways; none stays whole."""
+    f = world["rank_model4"]["deepseek-v3-671b"]["flops"]
+    ratio = f["step"] / f["one_device"]
+    print(f"(1, 4) all-column rank FLOPs / one device: {ratio!r}")
+    assert abs(ratio - 0.25) < 0.05 * 0.25, f
+
+
+RANKS = ["debug22", "model4", "multipod", "debug11"] + [
+    f"model4/{a}" for a in RANK_ARCHS]
 
 
 def _rank(world, key):
@@ -304,7 +335,8 @@ def test_vocab_parallel_cross_entropy_on_two_ranks(world, case):
     assert got["loss"] < 1e-6 and got["grad"] < 1e-6, got
 
 
-@pytest.mark.parametrize("what", ["copy_to_model", "reduce_from_model"])
+@pytest.mark.parametrize("what", ["copy_to_model", "reduce_from_model",
+                                  "gather_from_model"])
 def test_tp_autograd_functions_on_two_ranks(world, what):
     assert world["tp_primitives"][what] == {"forward": True,
                                             "backward": True}

@@ -9,7 +9,10 @@
   ``status: ok`` with every key of the reference's artifact, and its FLOPs
   are those of one rank's loss and gradient counted directly: for
   deepseek-7b the tensor-parallel rank's (``dist.tp``), a sixteenth of
-  the whole model's, for the others the whole model's.  A rank's FLOPs,
+  the whole model's, for the others the whole model's.  The MoE archs'
+  ``train_4k`` rank at full width (depth cut to its first MoE layer) is
+  tensor-parallel in the all-column layout: a sixteenth of the
+  gather-whole rank's FLOPs, no parameter gathered.  A rank's FLOPs,
   collectives and held memory on (2, 2), (1, 4) and (2, 2, 1) against the
   real step's on four gloo ranks are in ``tests/test_torch_dist_gloo.py``.
 * The ``skipped`` verdicts equal the reference's for every arch at
@@ -19,6 +22,7 @@
   and refuses a mix, and every arch prefills and decodes on ``meta`` at
   full width.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,6 +46,7 @@ from repro_torch.configs import list_archs  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core.tl_step import tl_loss_fn, value_and_grad  # noqa: E402
 from repro_torch.dist import tp  # noqa: E402
+from repro_torch.dist.sharding import param_specs  # noqa: E402
 from repro_torch.kernels import use_kernel  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as port_mesh  # noqa: E402
@@ -138,8 +143,9 @@ def test_lower_one_traces_a_full_width_train_step(arch):
     loss_fn = tl_loss_fn(model, cfg, "tl")
     whole = analyze_step(value_and_grad, loss_fn, params, batch)
     held = params
+    mesh = port_mesh.make_production_mesh(device="cpu")
+    stored = dryrun._local(params, param_specs(params, cfg, mesh), mesh)
     if tp.supported(cfg):
-        mesh = port_mesh.make_production_mesh(device="cpu")
         held = dryrun._local(params, tp.entry_specs(params, cfg, mesh),
                              mesh)
         with dryrun.model_axis_group(mesh) as group, \
@@ -157,14 +163,50 @@ def test_lower_one_traces_a_full_width_train_step(arch):
     assert art["hlo_lines"] > 0 and art["bytes_per_chip"] > 0
     mem = art["memory_analysis"]
     assert art["peak_memory_per_chip"] == sum(mem.values())
+    # the leaves the loss receives at another size than the rank's
+    # stored shards
     assert mem["gathered_param_bytes"] == sum(
-        t.numel() * t.element_size() for t in _flatten(held).values())
+        t.numel() * t.element_size() for k, t in _flatten(held).items()
+        if t.numel() != _flatten(stored)[k].numel()) > 0
     coll = art["coll_breakdown"]
     assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
 
 
+@pytest.mark.parametrize("arch,layers", [("deepseek-v2-236b", 2),
+                                         ("deepseek-v3-671b", 4)])
+def test_moe_train_rank_is_tensor_parallel_all_column(arch, layers,
+                                                      monkeypatch):
+    """The MoE archs' ``train_4k`` rank on the 16 x 16 mesh at full width,
+    depth cut to the dense prefix and one MoE layer (bf16, adafactor, 16
+    rows): tensor-parallel in the all-column layout (the program says
+    so), a sixteenth of the FLOPs of the same rank with every leaf
+    gathered whole (every product splits: 128 MLA heads, E 160 / 256,
+    the widths and the vocab), no parameter gathered at the loss's entry
+    (no FSDP; the gather-whole rank gathers every leaf over "model"), and
+    its all-gathers the activations' over "model"."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = build_model(cfg)
+    params = abstract_params(model)
+    mesh = port_mesh.make_production_mesh(device="cpu")
+    shape = get_shape("train_4k")
+    assert tp.layout(cfg) == "all_column" and tp.partitions(cfg, mesh)
+    costs, coll, memory, program = dryrun.trace_train(model, cfg, shape,
+                                                      mesh, params)
+    with monkeypatch.context() as mp:
+        mp.setattr(tp, "partitions", lambda cfg, mesh: False)
+        whole = dryrun.trace_train(model, cfg, shape, mesh, params)
+    assert not torch.distributed.is_initialized()
+    assert "all-column" in program and "no FSDP" in program, program
+    assert "gathered whole" in whole[3], whole[3]
+    assert costs.flops == pytest.approx(whole[0].flops / 16, rel=1e-12)
+    assert memory["gathered_param_bytes"] == 0
+    assert whole[2]["gathered_param_bytes"] > memory["param_shard_bytes"]
+    assert coll["all-gather"] > 0 and "reduce-scatter" not in coll
+    assert costs.coll["all-gather"] == coll["all-gather"]  # the traced
+
+
 @pytest.mark.parametrize("arch", ["deepseek-7b", "starcoder2-3b",
-                                  "qwen2-vl-72b"])
+                                  "qwen2-vl-72b", "deepseek-v3-671b"])
 def test_tensor_parallel_rank_on_meta_equals_it_on_cpu_tensors(arch):
     """``launch.dryrun.trace_train`` of one rank of a (1, 4) layout at
     reduced width (f32, B 4, S 16): traced on ``meta`` and run on CPU

@@ -3,14 +3,19 @@ and each leaf's layout at the sharded loss's entry follows its spec.
 
 * With the tensor-parallel context unset, every ``dist.tp`` function is
   the identity or the one-device expression, bit for bit (``is x``,
-  ``table[ids]``, ``models.model.cross_entropy``, ``swiglu`` without
-  ``d_ff``), and the dense GQA archs' TL losses and gradients equal, bit
-  for bit, those of the same loss with the ``dist.tp`` hooks taken out.
+  ``table[ids]``, ``models.model.cross_entropy``, ``x @ w``, ``swiglu``
+  without ``d_ff``), and the TL losses and gradients of the dense GQA
+  archs and of deepseek-v3 (MLA, MoE, MTP) equal, bit for bit, those of
+  the same loss with the ``dist.tp`` hooks taken out.
 * ``entry_spec`` routes each leaf to "keep the model shard" or "gather
   whole" as its spec and the arch's head counts say, for the five dense
-  GQA archs at full width on the 16 x 16 mesh and reduced on (2, 2) and
-  (1, 4), and gathers whole every leaf whose spec lost "model"
-  (``_filter_divisible``).
+  GQA archs (Megatron's layout) at full width on the 16 x 16 mesh and
+  reduced on (2, 2) and (1, 4), and gathers whole every leaf whose spec
+  lost "model" (``_filter_divisible``).  For the MoE archs
+  (deepseek-v2-236b, deepseek-v3-671b; the all-column layout) it keeps
+  "model" on exactly the dims where the reference's ``param_pspec`` puts
+  it, reduced and at full width, on (2, 2), (1, 4) and 16 x 16; the
+  recurrent archs and the encoder-decoder still gather every leaf whole.
 
 The multi-rank behaviour (the step against one device, the primitives on
 two ranks, the collectives) is held in ``tests/test_torch_dist_gloo.py``.
@@ -35,8 +40,8 @@ from repro_torch.models.model import cross_entropy  # noqa: E402
 
 SLICE = ["deepseek-7b", "starcoder2-3b", "qwen2.5-32b", "stablelm-12b",
          "qwen2-vl-72b"]
-OTHERS = ["deepseek-v2-236b", "deepseek-v3-671b", "mamba2-780m",
-          "recurrentgemma-9b", "seamless-m4t-medium"]
+ALL_COLUMN = ["deepseek-v2-236b", "deepseek-v3-671b"]
+OTHERS = ["mamba2-780m", "recurrentgemma-9b", "seamless-m4t-medium"]
 PRODUCTION = {"data": 16, "model": 16}
 REDUCED_MESHES = {"debug22": {"data": 2, "model": 2},
                   "model4": {"data": 1, "model": 4}}
@@ -63,6 +68,15 @@ def test_functions_are_the_identity_when_unset():
     assert torch.equal(layers.swiglu(p, x, 16), layers.swiglu(p, x))
 
 
+def test_gather_and_column_are_plain_when_unset():
+    g = _gen(3)
+    x = torch.randn(2, 3, 8, generator=g)
+    w = torch.randn(8, 6, generator=g)
+    assert not tp.active()
+    assert tp.gather_from_model(x) is x and tp.gather_from_model(x, 1) is x
+    assert torch.equal(tp.column(x, tp.copy_to_model(x), w, 6), x @ w)
+
+
 def _batch(cfg, seed=0):
     g = _gen(seed)
     B, S = 2, 8
@@ -85,11 +99,13 @@ def _without_hooks(monkeypatch):
                         cross_entropy(logits, t, m))
     monkeypatch.setattr(tp, "copy_to_model", lambda x: x)
     monkeypatch.setattr(tp, "reduce_from_model", lambda x: x)
+    monkeypatch.setattr(tp, "gather_from_model", lambda x, dim=-1: x)
+    monkeypatch.setattr(tp, "column", lambda x, xs, w, width: x @ w)
     monkeypatch.setattr(tp, "partitioned", lambda local, whole: False)
 
 
 @pytest.mark.parametrize("remat", ["tl", "none"])
-@pytest.mark.parametrize("arch", SLICE)
+@pytest.mark.parametrize("arch", SLICE + ["deepseek-v3-671b"])
 def test_unset_context_leaves_the_step_bit_equal(arch, remat, monkeypatch):
     cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
@@ -213,11 +229,80 @@ def test_the_other_archs_gather_every_leaf_whole(arch):
     assert not tp.supported(cfg)
     for name, sizes in REDUCED_MESHES.items():
         assert not any(_has_model(e) for _, e in _routes(cfg, sizes).values())
+    assert not any(_has_model(e)
+                   for _, e in _routes(get_config(arch), PRODUCTION).values())
 
 
 def test_the_slice_archs_are_supported():
     assert all(tp.supported(get_config(a)) for a in SLICE)
     assert all(tp.supported(get_config(a, reduced=True)) for a in SLICE)
+
+
+def test_layout_of_each_arch():
+    for reduced in (False, True):
+        for arch in SLICE:
+            assert tp.layout(get_config(arch, reduced=reduced)) == "megatron"
+        for arch in ALL_COLUMN:
+            cfg = get_config(arch, reduced=reduced)
+            assert tp.layout(cfg) == "all_column" and tp.supported(cfg)
+
+
+def _model_dims(spec):
+    return [i for i, e in enumerate(spec)
+            if e == "model" or (isinstance(e, tuple) and "model" in e)]
+
+
+AC_CASES = [(a, name, sizes, reduced) for a in ALL_COLUMN
+            for reduced in (False, True)
+            for name, sizes in dict(REDUCED_MESHES,
+                                    production=PRODUCTION).items()]
+
+
+@pytest.mark.parametrize(
+    "arch,mesh,sizes,reduced", AC_CASES,
+    ids=[f"{c[0]}-{c[1]}-{'reduced' if c[3] else 'full'}" for c in AC_CASES])
+def test_all_column_keeps_model_where_the_reference_spec_does(
+        arch, mesh, sizes, reduced):
+    """The all-column layout keeps each leaf's shard on "model" on exactly
+    the dims the reference's ``param_pspec`` (``src/repro/dist/
+    sharding.py``, routing-stability layout) shards over "model": the
+    output dim of every weight, the vocab rows of ``embed``, ``d_out`` of
+    the expert stacks with E whole; no FSDP, so the stored spec is the
+    entry spec.  One exception, the deliberate difference of
+    ``dist.tp``: where the heads do not divide the model axis (the
+    reduced archs' 4 MLA heads on 16 model ranks) ``w_uq`` / ``w_uk`` /
+    ``w_uv`` are gathered whole, where GSPMD splits their columns across
+    head boundaries."""
+    from repro.dist.sharding import param_pspec as reference_pspec
+    cfg = get_config(arch, reduced=reduced)
+    params = abstract_params(build_model(cfg), torch.float32)
+    seen = {}
+
+    def visit(path, leaf):
+        key = "/".join(_path_names(path))
+        ref = tuple(reference_pspec(path, leaf, cfg, axis_sizes=sizes))
+        entry = tp.entry_spec(path, leaf, cfg, sizes)
+        stored = param_pspec(path, leaf, cfg, axis_sizes=sizes)
+        last = key.split("/")[-1]
+        if last in ("w_uq", "w_uk", "w_uv") and heads_split:
+            assert _model_dims(ref) and not _model_dims(entry), (key, entry)
+        else:
+            assert _model_dims(entry) == _model_dims(ref), (key, ref, entry)
+            assert tuple(stored) == tuple(entry), (key, stored, entry)
+        seen[last] = bool(_model_dims(entry))
+    heads_split = cfg.n_heads % sizes["model"] != 0
+    assert heads_split == (reduced and mesh == "production")
+    _map_with_path(visit, params)
+    kept = ["embed", "head", "w_dq", "w_dkv", "w_kr", "w_o", "w_gate",
+            "w_up", "w_down"]
+    kept += [] if heads_split else ["w_uq", "w_uk", "w_uv"]
+    kept += ["router"] if cfg.moe.n_routed_experts % sizes["model"] == 0 \
+        else []
+    for name in kept:
+        assert seen[name], name
+    assert not seen["scale"]
+    if cfg.mtp_depth:
+        assert seen["proj"]
 
 
 def test_a_model_axis_of_one_keeps_nothing():
