@@ -942,7 +942,9 @@ def device_time(fn, calls: int = 10):
     records over ``calls``, rounded, at least 1: K3's split pass and
     combine, K5's four passes, the add that an elementwise add and subtract
     share, three ``index_copy_``), summed, so no host time counts and a
-    record the profiler drops now and then (it does) does not read low.
+    record the profiler drops now and then (it does) does not read low
+    (with enough calls: a session that loses two records of a kernel
+    launched twice a call rounds it to one over 3 calls, not over 10).
     Also the name of the kernel that takes the most time.  A reading is
     used only from a session whose kernels account for every kernel launch
     the host made in it (``cudaLaunch*`` / ``cuLaunch*`` calls); a session
@@ -1691,7 +1693,7 @@ def time_flash(name, B, Sq, Sk, H, KV, D, window, v_width, scale,
     def call():
         return flash_attention_bh(q, k, v, **kw)
     res = {"ms": cuda_ms(call, runs=10, warmup=2),
-           "device_ms": device_time(call, calls=3)[0],
+           "device_ms": device_time(call)[0],
            "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
                                runs=5, warmup=1),
            "bound_ms": max(t_bytes, t_ops),
@@ -1725,7 +1727,7 @@ def time_flash(name, B, Sq, Sk, H, KV, D, window, v_width, scale,
                                               scale=scale)
     err = _abs_err(sdpa().transpose(1, 2), call())
     assert err < 1e-3, ("sdpa computes another function", err)
-    lib_device_ms, lib_kernel = device_time(sdpa, calls=3)
+    lib_device_ms, lib_kernel = device_time(sdpa)
     res.update(library_ms=cuda_ms(sdpa, runs=5, warmup=1),
                library_device_ms=lib_device_ms, library_kernel=lib_kernel,
                library_max_abs_err=err)

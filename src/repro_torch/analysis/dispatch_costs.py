@@ -195,14 +195,19 @@ class _Accounting(TorchDispatchMode):
             return NotImplemented       # count the local ops it dispatches
         out = func(*args, **kwargs)
         schema = func._schema
+        name = func._overloadpacket.__name__
+        # a functional collective's buffer is the one its wait_tensor
+        # returns (the same tensor on a device, a new one on meta): only
+        # that one is counted live
         fresh = not func.is_view and not schema.is_mutable \
-            and func._overloadpacket.__name__ not in ("detach", "alias")
+            and name not in ("detach", "alias") \
+            and not (func.namespace in _COLL_NAMESPACES
+                     and name in _COLLECTIVES)
         if fresh:
             self._track(out)
         if self.depth:
             return out
         c = self.costs
-        name = func._overloadpacket.__name__
         if func.namespace in _COLL_NAMESPACES:
             kind = _COLLECTIVES.get(name)
             if kind is not None:

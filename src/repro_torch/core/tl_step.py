@@ -60,7 +60,15 @@ on every rank in the same order (the tail's recompute under
 take Megatron's layout: the vocab-parallel embedding, the column-parallel
 q / k / v, w_gate / w_up and head, the row-parallel w_o / w_down and the
 vocab-parallel CE, two all-reduces in the forward pass of a block and two
-in its backward pass.  The MoE archs (deepseek-v2, deepseek-v3) take the
+in its backward pass.  The recurrent archs (mamba2-780m, recurrentgemma-9b)
+take Megatron's layout extended to their mixers: a rank runs H/m of
+Mamba-2's SSD heads (``w_in`` column-parallel, its product gathered over
+"model" for the rank's z / x / dt and the shared B / C, ``w_out``
+row-parallel, the gated norm's sum of squares all-reduced) and W/m of the
+RG-LRU's channels (``w_x`` / ``w_gate`` / ``w_a`` / ``w_i`` and the conv
+column-parallel, the scan on the rank's channels, ``w_out``
+row-parallel), Griffin's local attention and SwiGLU as the dense archs'.
+The MoE archs (deepseek-v2, deepseek-v3) take the
 reference's all-column layout: every weight shards its output dim only,
 the activations are all-gathered over "model" where a contraction or a
 norm reads them whole, and the only forward reductions are the exact
@@ -71,9 +79,9 @@ leaves block 0 replicated over
 "model" and sharded over the batch, so the perm stays shard-local (each
 block holds a permutation of its own rows, see ``launch.engine``) and the
 reassembly permutes local rows with no collective, K1 seeing only local
-tensors and launching once a step each way.  The other archs (the
-recurrent mixers, the encoder-decoder) gather every leaf whole: their
-"model" axis shards the stored weights and replicates the compute.
+tensors and launching once a step each way.  The encoder-decoder gathers
+every leaf whole: its "model" axis shards the stored weights and
+replicates the compute.
 No model op sees a ``DTensor``.
 """
 from __future__ import annotations

@@ -9,9 +9,11 @@ on those local shards with explicit collectives over the model axis's
 process group.  No model op sees a ``DTensor``.  Two layouts
 (:func:`layout`), as the reference's ``param_pspec`` gives them:
 
-* ``"megatron"`` -- the dense GQA decoder LMs: column-parallel q / k / v,
-  w_gate / w_up and head, row-parallel w_o / w_down whose partial sums are
-  all-reduced over "model", FSDP over the batch axes;
+* ``"megatron"`` -- the dense GQA decoder LMs and the recurrent archs
+  (Mamba-2's SSD heads, Griffin's RG-LRU width beside its local attention
+  and SwiGLU): column-parallel q / k / v, w_gate / w_up, the mixers' input
+  products and head, row-parallel w_o / w_down / w_out whose partial sums
+  are all-reduced over "model", FSDP over the batch axes;
 * ``"all_column"`` -- the MoE archs (the reference's ``moe_safe``, the
   routing-stability layout): every weight shards only its output dim, so
   every forward contraction stays whole and the discrete top-k routing
@@ -33,6 +35,9 @@ The functions:
   the gradient backward: right because what follows the gather is
   replicated up to the next column product, whose input passes
   :func:`copy_to_model`, so the only reduction is in the backward pass;
+* :func:`gather_weight` -- all-gather of a weight's shard forward,
+  reduce-scatter of its gradient backward: where each rank uses a part of
+  a weight that its shard's bounds do not follow;
 * :func:`column` -- ``x @ w`` whole: the column product of a rank's
   shard of ``w`` on the caller's one :func:`copy_to_model` of ``x``,
   gathered;
@@ -65,6 +70,40 @@ leaf (megatron)                    at the loss's entry
 norms, anything else               whole
 =================================  =========================================
 
+The recurrent mixers, Megatron's layout extended to them (each mixer's
+leaves split together, when its counts divide m; else the mixer is whole):
+
+=================================  =========================================
+leaf (Mamba-2, H SSD heads)        at the loss's entry (m divides H and
+                                   the columns of ``w_in`` and ``conv/w``)
+=================================  =========================================
+``w_in`` (d, 2di+2N+H)             column shard, whose bounds straddle the
+                                   z | x | B | C | dt boundaries: gathered
+                                   whole in the mixer (:func:`gather_weight`)
+                                   for the columns of the rank's heads' z,
+                                   x, dt and the whole B, C
+``conv/w`` (k, di+2N)              column shard, gathered the same way for
+                                   the rank's x channels and all of B, C
+``conv/b``                         whole (replicated by spec)
+``A_log``, ``D``, ``dt_bias`` (H)  the rank's heads, taken by slice
+``out_norm/scale`` (di)            the rank's channels, taken by slice
+``w_out`` (di, d)                  row shard, partial sums all-reduced
+=================================  =========================================
+
+=================================  =========================================
+leaf (RG-LRU, width W)             at the loss's entry (W % m == 0)
+=================================  =========================================
+``w_x``, ``w_gate`` (d, W)         column shard: the rank's W/m channels
+``conv/w`` (4, W); ``conv/b``      column shard; the rank's slice
+``w_a``, ``w_i`` (W, W)            column shard, on the conv's output
+                                   gathered over "model"
+``b_a``, ``b_i``, ``lam`` (W)      the rank's slice
+``w_out`` (W, d)                   row shard, partial sums all-reduced
+=================================  =========================================
+
+Griffin's local attention and its SwiGLU take the rows of the first
+table (one KV head: projected whole on every rank).
+
 =================================  =========================================
 leaf (all_column)                  at the loss's entry
 =================================  =========================================
@@ -90,9 +129,9 @@ norms (1-D)                        whole
 
 A leaf whose spec lost "model" (``_filter_divisible``) is gathered whole
 whatever the tables say, and its product runs whole on every rank.  The
-megatron biases are replicated by spec, so a rank takes its columns of
-them at the entry (no communication) and their gradients are gathered
-back over "model".
+megatron biases and the recurrent mixers' 1-D leaves are replicated by
+spec, so a rank takes its slice of them at the entry (no communication)
+and their gradients are gathered back over "model".
 """
 from __future__ import annotations
 
@@ -125,12 +164,15 @@ def supported(cfg) -> bool:
     decoder LMs whose every block is attention, either dense GQA with a
     dense FFN and no MTP head (a frontend's stubbed embeddings included;
     the Megatron layout) or MLA with MoE FFNs, an MTP head included (the
-    all-column layout)."""
-    if cfg.is_encdec or set(cfg.pattern) != {"attn"}:
+    all-column layout); and the decoder LMs made of Mamba-2 and RG-LRU
+    blocks, GQA attention beside them (the Megatron layout)."""
+    if cfg.is_encdec:
         return False
+    kinds = set(cfg.pattern)
     if layout(cfg) == "all_column":
-        return cfg.attention == "mla"
-    return cfg.attention != "mla" and not cfg.mtp_depth
+        return kinds == {"attn"} and cfg.attention == "mla"
+    return kinds <= {"attn", "ssm", "rglru"} and cfg.attention != "mla" \
+        and not cfg.mtp_depth
 
 
 def partitions(cfg, mesh) -> bool:
@@ -236,6 +278,35 @@ def gather_from_model(x, dim: int = -1):
                                   _CTX.size, _CTX.rank)
 
 
+class _GatherWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, dim, group_name, size):
+        ctx.dim, ctx.group_name, ctx.size = dim, group_name, size
+        out = torch.ops._c10d_functional.all_gather_into_tensor(
+            w.contiguous(), size, group_name)
+        out = torch.ops._c10d_functional.wait_tensor(out)
+        return torch.cat(out.chunk(size, 0), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = torch.cat(g.chunk(ctx.size, ctx.dim), 0).contiguous()
+        out = torch.ops._c10d_functional.reduce_scatter_tensor(
+            parts, "sum", ctx.size, ctx.group_name)
+        return torch.ops._c10d_functional.wait_tensor(out), None, None, None
+
+
+def gather_weight(w, dim: int = -1):
+    """A weight's model shard all-gathered along ``dim`` (rank-major)
+    forward, its gradient reduce-scattered back onto the shard backward:
+    for a weight of which each rank uses a part that the shards' bounds
+    do not follow (Mamba-2's ``w_in`` and conv columns), so the ranks'
+    gradients of the whole are summed."""
+    if _CTX is None:
+        return w
+    return _GatherWeight.apply(_plain(w), dim % w.dim(), _CTX.group_name,
+                               _CTX.size)
+
+
 def column(x, xs, w, width: int):
     """``x @ w`` with ``width`` output columns in all.  ``xs`` is
     :func:`copy_to_model` (x), made once by the caller for every column
@@ -304,9 +375,43 @@ def cross_entropy(logits, targets, mask=None, *, vocab: int = None):
 _COLUMN_FFN = ("w_gate", "w_up")
 _HEADS = ("w_q", "b_q", "w_o")
 _KV = ("w_k", "b_k", "w_v", "b_v")
+_ROWS = ("embed", "w_o", "w_down", "w_out")     # Megatron's dim 0
 
 
 _MLA_HEADS = ("w_uq", "w_uk", "w_uv")
+# the recurrent mixers' leaves that keep a model shard (by their path's
+# last names), when the mixer splits; the 1-D ones are taken by slice
+_SSM_KEPT = ("w_in", "conv/w", "A_log", "D", "dt_bias", "out_norm/scale",
+             "w_out")
+_RGLRU_KEPT = ("w_x", "w_gate", "conv/w", "conv/b", "w_a", "b_a", "w_i",
+               "b_i", "lam", "w_out")
+
+
+def mixer_kind(names, cfg):
+    """The mixer a leaf at ``names`` (its path's keys) belongs to:
+    ``"attn"`` / ``"ssm"`` / ``"rglru"`` under a layer's ``mixer``, else
+    None.  The last name alone does not say: ``w_gate`` is an RG-LRU
+    branch and a SwiGLU weight, ``w_out`` both mixers' output."""
+    if "mixer" not in names or "layers" not in names:
+        return None
+    return cfg.pattern[int(names[names.index("layers") + 1])]
+
+
+def ssm_splits(cfg, m: int) -> bool:
+    """Whether Mamba-2's mixer splits over ``m`` model ranks: its SSD
+    heads ``cfg.ssm.n_heads(d)`` (not ``cfg.n_heads``), ``w_in`` 's
+    2 di + 2 N + H columns and the conv's di + 2 N all divide."""
+    s, d = cfg.ssm, cfg.d_model
+    H, di, N = s.n_heads(d), s.d_inner(d), s.d_state
+    return H % m == 0 and (2 * di + 2 * N + H) % m == 0 \
+        and (di + 2 * N) % m == 0
+
+
+def _recurrent_keeps(names, kind, cfg, m) -> bool:
+    tail = "/".join(names[names.index("mixer") + 1:])
+    if kind == "ssm":
+        return ssm_splits(cfg, m) and tail in _SSM_KEPT
+    return (cfg.rglru_width or cfg.d_model) % m == 0 and tail in _RGLRU_KEPT
 
 
 def keeps_model_shard(path, leaf, cfg, sizes) -> bool:
@@ -318,6 +423,10 @@ def keeps_model_shard(path, leaf, cfg, sizes) -> bool:
     m = sizes["model"]
     names = _path_names(path)
     last = names[-1] if names else ""
+    kind = mixer_kind(names, cfg) if layout(cfg) == "megatron" else None
+    if kind in ("ssm", "rglru"):
+        # the mixer's leaves split together, 1-D ones by slice
+        return _recurrent_keeps(names, kind, cfg, m)
     if last in ("b_q", "b_k", "b_v"):
         spec_keeps = leaf.shape[0] % m == 0     # replicated by spec
     else:
@@ -348,16 +457,15 @@ def keeps_model_shard(path, leaf, cfg, sizes) -> bool:
 
 def entry_spec(path, leaf, cfg, sizes):
     """The leaf's spec at the loss's entry: its "model" entry only, when
-    it keeps its model shard (the column dim of a column-parallel weight
-    or bias, the row dim of ``embed`` and of Megatron's row-parallel
-    weights), else replicated."""
+    it keeps its model shard (the column dim of a column-parallel weight,
+    dim 0 of a 1-D leaf taken by slice, the row dim of ``embed`` and of
+    Megatron's row-parallel weights), else replicated."""
     from repro_torch.dist.sharding import P, _path_names
     nd = len(leaf.shape)
     if not keeps_model_shard(path, leaf, cfg, sizes):
         return P(*([None] * nd))
     last = _path_names(path)[-1]
-    rows = ("embed",) if layout(cfg) == "all_column" \
-        else ("embed", "w_o", "w_down")
+    rows = ("embed",) if layout(cfg) == "all_column" else _ROWS
     dim = 0 if last in rows or nd == 1 else nd - 1
     spec = [None] * nd
     spec[dim] = "model"

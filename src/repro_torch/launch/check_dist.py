@@ -32,22 +32,28 @@ exit code is 1 when a gate fails.
   rank projects it whole; qkv biases) and qwen2-vl-72b (M-RoPE, the
   frontend's embeds) in Megatron's layout, and deepseek-v2-236b
   ("kernel") and deepseek-v3-671b ("torch"; MLA, MoE, the MTP head) in
-  the all-column layout, against the one-device engine at the gates
-  above; for the two MoE archs the routing: every MoE layer's top-k
+  the all-column layout, and mamba2-780m and recurrentgemma-9b
+  ("kernel"; Megatron's layout over the SSD heads and the RG-LRU width)
+  on (1, 4) (their (2, 2) steps are the first item's), against the
+  one-device engine at the gates above; for the two MoE archs the
+  routing: every MoE layer's top-k
   expert indices on every rank, at the parameters of seed 0 on the
   rank's rows, against one device's on the same rows (the (token, choice)
   pairs whose expert differs, per MoE layer: 0 is the gate); the
   primitives on a 2-rank group (the vocab-parallel CE within 1e-6 of
   ``cross_entropy`` with and without a mask, the embedding exact,
-  ``copy_to_model`` / ``reduce_from_model`` / ``gather_from_model``
-  forward and backward, the identity when unset);
+  ``copy_to_model`` / ``reduce_from_model`` / ``gather_from_model`` /
+  ``gather_weight`` forward and backward, the identity when unset);
 * one rank's sharded step (reduced deepseek-7b, B=4, S=16, sgd, counted
   by ``analysis.dispatch_costs``) against ``launch.dryrun.trace_train``'s
-  trace of that rank on ``meta``, on the (2, 2) mesh, the (1, 4) mesh
-  (also starcoder2-3b, qwen2-vl-72b and deepseek-v3-671b), the (2, 2, 1)
-  (pod, data, model) mesh and a (1, 1) mesh of the first rank (no
-  collective at all): the collective bytes equal, the FLOPs equal, on
-  (1, 4) a quarter of the one-device step's, the memory the rank holds
+  trace of that rank on ``meta``, on the (2, 2) mesh (also mamba2-780m
+  and recurrentgemma-9b), the (1, 4) mesh (also starcoder2-3b,
+  qwen2-vl-72b, deepseek-v3-671b and the two recurrent archs), the
+  (2, 2, 1) (pod, data, model) mesh and a (1, 1) mesh of the first rank
+  (no collective at all): the collective bytes equal, the FLOPs equal,
+  on (1, 4) a quarter of the one-device step's (the recurrent archs':
+  exactly the share :func:`replicated_products` reckons, on (2, 2)
+  too), the memory the rank holds
   (parameter and optimizer shards, the parameters the loss receives in
   storage other than those shards', the inputs) equal to the reckoned
   (which counts the leaves received at another size than the stored
@@ -66,7 +72,10 @@ x 512 on 4 nodes, 3 steps through the sharded engine (K1 counted) against
 the one-device engine on the first rank's card, with each run's ms a step
 (synced host clock, median of steps 2..) and peak memory, and one more
 sharded step under the torch profiler for the first rank's device ms by
-kind (NCCL, matrix products, the rest) and busy share:
+kind (NCCL, matrix products, the rest) and busy share; and the same cell
+through the gather-whole step (every leaf gathered whole at the loss's
+entry, the compute replicated over "model", as before an arch
+partitioned) in the same call, at the same gates:
 
 * starcoder2-3b (the default) at full width, 12 layers, adamw: Megatron's
   layout, its 24 heads, 2 KV heads, FFN and vocab split over the two
@@ -74,9 +83,7 @@ kind (NCCL, matrix products, the rest) and busy share:
 * deepseek-v2-236b at full width, 2 layers (the dense layer 0 and one
   MoE layer, 21.4 GB of f32 parameters), sgd (one card cannot hold
   adamw's moments of a full-width MoE layer): the all-column layout, and
-  the same cell through the gather-whole step (every leaf gathered whole
-  at the loss's entry, as before the MoE archs partitioned) in the same
-  call, both at the gates above; and its routing against one card's on
+  its routing against one card's on
   each rank's rows (:func:`routing_flips`): no token's top-k expert
   set may change (``set_flips`` 0, the ``production_routing`` gate),
   while the order swaps inside a top-k (``flips``) are a reading printed
@@ -85,7 +92,14 @@ kind (NCCL, matrix products, the rest) and busy share:
   products can differ from one card's by an ulp although no contraction
   is split, and two near-equal probabilities inside a top-k can then
   swap, which changes only the order of the combine's sum (the reduced
-  cases gate 0 flips of either kind).
+  cases gate 0 flips of either kind);
+* mamba2-780m at full width, 48 layers, and recurrentgemma-9b at full
+  width, 6 layers (the depths phase 4d of ``chip_smoke.py`` trains on
+  one card), adamw: Megatron's layout over the 48 SSD heads / the 4096
+  RG-LRU channels, and :func:`no_grad_forward`: the sharded loss once
+  more without grad, whose scans launch K5 once an SSM layer and K6 once
+  an RG-LRU layer on each rank's heads / channels, its loss within 1e-4
+  of the grad path's (the ``production_no_grad`` gate).
 """
 from __future__ import annotations
 
@@ -108,14 +122,19 @@ ARCHS = ("deepseek-7b", "deepseek-v3-671b", "mamba2-780m",
 # (Megatron); MLA + MoE, and with the MTP head (all-column)
 TP_CASES = (("deepseek-7b", "torch"), ("deepseek-7b", "kernel"),
             ("starcoder2-3b", "kernel"), ("qwen2-vl-72b", "kernel"),
-            ("deepseek-v2-236b", "kernel"), ("deepseek-v3-671b", "torch"))
+            ("deepseek-v2-236b", "kernel"), ("deepseek-v3-671b", "torch"),
+            ("mamba2-780m", "kernel"), ("recurrentgemma-9b", "kernel"))
 # the archs whose routing is read against one device (all-column)
 ROUTED = ("deepseek-v2-236b", "deepseek-v3-671b")
+# the recurrent archs (Megatron's layout over the SSD heads / RG-LRU width)
+RECURRENT = ("mamba2-780m", "recurrentgemma-9b")
 # a rank's program against the dryrun's trace on (1, 4), beside deepseek-7b
-RANK_ARCHS = ("starcoder2-3b", "qwen2-vl-72b", "deepseek-v3-671b")
+RANK_ARCHS = ("starcoder2-3b", "qwen2-vl-72b", "deepseek-v3-671b") \
+    + RECURRENT
 STEPS = 3
 # --production: arch -> (layers, optimizer)
-PRODUCTION = {"starcoder2-3b": (12, "adamw"), "deepseek-v2-236b": (2, "sgd")}
+PRODUCTION = {"starcoder2-3b": (12, "adamw"), "deepseek-v2-236b": (2, "sgd"),
+              "mamba2-780m": (48, "adamw"), "recurrentgemma-9b": (6, "adamw")}
 
 
 def _loader(cfg):
@@ -250,6 +269,8 @@ def run_checks(device: str, ckdir: str) -> dict:
                                device)}
     out["rank_model4"] = {arch: _rank_step(row, device, arch)
                           for arch in RANK_ARCHS}
+    out["rank_debug22"] = {arch: _rank_step(mesh, device, arch)
+                           for arch in RECURRENT}
     one = make_debug_mesh(1, 1, device=device)
     one.device_mesh()                    # collective: every rank builds it
     if lead:
@@ -389,12 +410,44 @@ def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
             "gathered_param_bytes": seen["bytes"],
             "input_bytes": sum(t.numel() * t.element_size()
                                for t in batch.values())}
+    m = mesh.sizes.get("model", 1)
+    share = 1 / m + (1 - 1 / m) * replicated_products(
+        cfg, rows.stop - rows.start, S, m) / one.flops
     return {"measured": costs.coll, "predicted": coll,
             "flops": {"step": costs.flops, "dryrun": pred.flops,
-                      "one_device": one.flops},
+                      "one_device": one.flops, "share": share},
             "memory": {"held": held,
                        "reckoned": {k: memory[k] for k in held}},
             "model_ops": watch.ops, "dtensor_ops": watch.dtensor_ops}
+
+
+def replicated_products(cfg, rows: int, seq: int, m: int) -> float:
+    """The matrix-product FLOPs of the one-device TL step (remat "tl") on
+    ``rows`` x ``seq`` tokens that a tensor-parallel rank over ``m``
+    model ranks still runs whole, reckoned from the shapes: Mamba-2's
+    B and C columns of ``w_in`` and C·Bᵀ scores of each chunk (every rank
+    scans B and C whole), the k / v projections where the KV heads do
+    not split (each rank projects every KV head), and the head where the
+    vocab does not (kept whole).  Every other product splits m ways, so
+    a rank runs ``one / m + (1 - 1 / m) * this``.  A product runs three times in
+    block 0 (its forward and the gradients of its two operands) and four
+    in the tail, whose forward is recomputed, the head excepted (the
+    non-reentrant checkpoint stops recomputing once the tensors the
+    backward pass saves are back, and no one saves the logits)."""
+    total = 0
+    for i, kind in enumerate(cfg.pattern):
+        runs = 3 if i == 0 else 4
+        if kind == "ssm":                     # S padded to whole chunks
+            chunk, N = cfg.ssm.chunk_size, cfg.ssm.d_state
+            total += runs * 2 * rows * (-(-seq // chunk) * chunk * chunk * N
+                                        + seq * cfg.d_model * 2 * N)
+        elif kind == "attn" and cfg.attention != "mla" \
+                and cfg.n_kv_heads % m:
+            total += runs * 2 * 2 * rows * seq * cfg.d_model \
+                * cfg.n_kv_heads * cfg.resolved_head_dim
+    if cfg.vocab_size % m:
+        total += 3 * 2 * rows * seq * cfg.d_model * cfg.vocab_size
+    return float(total)
 
 
 def tp_value_and_grad(arch: str, whole, batch, mesh, reassembly: str):
@@ -405,8 +458,9 @@ def tp_value_and_grad(arch: str, whole, batch, mesh, reassembly: str):
     ``train_shardings``, each rank's rows, the tensor-parallel context
     where ``dist.tp`` partitions the arch.  The loss is the global
     batch's; the gradients are gathered whole.  A ``perm`` in ``batch``
-    is taken as it is, so it must be shard-local where the batch axes
-    split the rows (on (1, 4) they do not)."""
+    must be shard-local where the batch axes split the rows (each block
+    of rows permuted among itself, as ``launch.engine`` draws it): a rank
+    takes its block of it, made local."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.core.tl_step import (tensor_parallel, tl_loss_fn,
@@ -423,12 +477,17 @@ def tp_value_and_grad(arch: str, whole, batch, mesh, reassembly: str):
     in_sh, _ = train_shardings(whole, sgd(0.0).init(whole), cfg, mesh, shape)
     params = distribute_tree(whole, in_sh[0], dist.get_rank())
     sharded, rows = _rank_rows(mesh, B)
+    mine = {k: v[rows] for k, v in batch.items()}
+    if "perm" in mine:
+        mine["perm"] = mine["perm"] - rows.start
+        if bool(((mine["perm"] < 0) | (mine["perm"] >= len(mine["perm"])))
+                .any()):
+            raise ValueError("the perm is not shard-local on this mesh")
     entry, scope = tensor_parallel(cfg, mesh, params)
     with scope():
         loss, grads = sharded_value_and_grad(
             tl_loss_fn(model, cfg, "tl", reassembly=reassembly, mesh=mesh),
-            params, {k: v[rows] for k, v in batch.items()}, mesh,
-            batch_sharded=sharded, entry=entry)
+            params, mine, mesh, batch_sharded=sharded, entry=entry)
     return float(loss), full_tree(grads)
 
 
@@ -552,7 +611,7 @@ def _tp_primitives(device) -> dict:
     against ``models.model.cross_entropy`` with and without a mask, the
     vocab-parallel embedding against ``table[ids]``, and the forward and
     backward passes of ``copy_to_model`` / ``reduce_from_model`` /
-    ``gather_from_model``.  The
+    ``gather_from_model`` / ``gather_weight``.  The
     first rank's readings; an empty dict elsewhere."""
     from repro_torch.dist import tp
     from repro_torch.models.model import cross_entropy
@@ -611,8 +670,17 @@ def _tp_primitives(device) -> dict:
             "forward": bool(torch.equal(gathered.detach().cpu(), want)),
             "backward": bool(torch.equal(
                 xg.grad.cpu(), w[:, rank * 2:(rank + 1) * 2].cpu()))}
+        xw = (x[:, rank * 2:(rank + 1) * 2] * (rank + 1)).to(device) \
+            .detach().requires_grad_(True)
+        whole = tp.gather_weight(xw)
+        (whole * w * (rank + 1)).sum().backward()   # summed: 3 w's columns
+        out["gather_weight"] = {
+            "forward": bool(torch.equal(whole.detach().cpu(), want)),
+            "backward": bool(torch.equal(
+                xw.grad.cpu(), 3 * w[:, rank * 2:(rank + 1) * 2].cpu()))}
     out["identity_unset"] = tp.copy_to_model(x) is x \
-        and tp.reduce_from_model(x) is x and tp.gather_from_model(x) is x
+        and tp.reduce_from_model(x) is x and tp.gather_from_model(x) is x \
+        and tp.gather_weight(x) is x
     return out if rank == 0 else {}
 
 
@@ -715,6 +783,49 @@ def gather_whole():
         tp.partitions = real
 
 
+def no_grad_forward(eng, loader) -> dict:
+    """The sharded loss at ``eng`` 's parameters on the next batch of
+    ``loader`` (every rank; collective), through the sharded gradient and
+    once more under ``torch.no_grad()`` with the same entry and
+    tensor-parallel context, where the recurrent scans take the
+    forward-only kernels on the rank's SSD heads / RG-LRU channels (and
+    attention K4): both global losses, their gap and the launches of K5,
+    K6, K4 and K1 in the no-grad forward."""
+    from repro_torch.core.tl_step import tensor_parallel, tl_loss_fn
+    from repro_torch.core.tree import tree_map
+    from repro_torch.dist.sharding import tokens_pspec
+    from repro_torch.dist.tensor import global_mean, sharded_value_and_grad
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bh
+    from repro_torch.kernels.rglru.kernel import rglru_scan_b
+    from repro_torch.kernels.ssd.kernel import ssd_bh
+    from repro_torch.kernels.vb_scatter import permute_rows
+    mesh = eng.mesh
+    eng._build_step()
+    batch = {k: v.to(eng.device) for k, v in
+             eng._host_batch(next(iter(loader))).items()}
+    sharded = tokens_pspec(mesh, eng.global_batch)[0] is not None
+    loss_fn = tl_loss_fn(eng.model, eng.cfg, "tl", reassembly=eng.reassembly,
+                         mesh=mesh)
+    entry, scope = tensor_parallel(eng.cfg, mesh, eng.params)
+    with scope():
+        grad_loss, grads = sharded_value_and_grad(
+            loss_fn, eng.params, batch, mesh, batch_sharded=sharded,
+            entry=entry)
+    del grads
+    kernels = (ssd_bh, rglru_scan_b, flash_attention_bh, permute_rows)
+    for k in kernels:
+        k.launches = 0
+    dm = mesh.device_mesh()
+    with torch.no_grad(), scope():
+        held = tree_map(lambda t, sh: t.redistribute(
+            dm, sh.placements).to_local(), eng.params, entry)
+        loss = global_mean(loss_fn(held, batch), mesh, sharded)
+    del held
+    return {"grad_loss": float(grad_loss), "no_grad_loss": float(loss),
+            "gap": abs(float(grad_loss) - float(loss)),
+            "launches": {k.name: k.launches for k in kernels}}
+
+
 def production(device: str, arch: str = "starcoder2-3b") -> dict:
     """The ``--production`` cell of ``arch`` (module docstring); the first
     rank's readings, an empty dict on the others."""
@@ -763,6 +874,7 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
 
     mesh = resolve_mesh("debug", device=device)
     out = {"mesh": list(mesh.shape), "layers": cfg.n_layers, "arch": arch,
+           "pattern": list(cfg.pattern),
            "optimizer": opt_name, "layout": tp.layout(cfg),
            "tensor_parallel": tp.partitions(cfg, mesh),
            "card": torch.cuda.get_device_name(0)}
@@ -775,19 +887,22 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
         torch.cuda.empty_cache()
     eng, res, sharded = run(mesh)
     whole = gathered(res)
-    # after the gather: the profiled step updates eng
+    # after the gather: the no-grad forward reads eng, the profiled step
+    # updates it
+    if arch in RECURRENT:
+        sharded["no_grad"] = no_grad_forward(
+            eng, VirtualBatchLoader(shard_corpus(docs, 4), 8))
     sharded["profile"] = _profile_step(
         eng, VirtualBatchLoader(shard_corpus(docs, 4), 8))
     del eng, res
     torch.cuda.empty_cache()
     out["sharded"] = sharded
-    if arch in ROUTED:
-        with gather_whole():
-            eng, res, parent = run(mesh)
-        out["gather_whole"] = parent
-        whole_gw = gathered(res)
-        del eng, res
-        torch.cuda.empty_cache()
+    with gather_whole():
+        eng, res, parent = run(mesh)
+    out["gather_whole"] = parent
+    whole_gw = gathered(res)
+    del eng, res
+    torch.cuda.empty_cache()
     if lead:
         _, res1, one = run(None)
         mine = tree_leaves(res1.params)
@@ -798,10 +913,9 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
         out.update(one_device=one, param_gap=gap(whole),
                    loss_gap=max(abs(a - b) for a, b in zip(
                        sharded["losses"], one["losses"])))
-        if arch in ROUTED:
-            out["gather_whole_param_gap"] = gap(whole_gw)
-            out["gather_whole_loss_gap"] = max(abs(a - b) for a, b in zip(
-                out["gather_whole"]["losses"], one["losses"]))
+        out["gather_whole_param_gap"] = gap(whole_gw)
+        out["gather_whole_loss_gap"] = max(abs(a - b) for a, b in zip(
+            out["gather_whole"]["losses"], one["losses"]))
         del res1, mine
     dist.barrier()
     return out if lead else {}
@@ -820,7 +934,10 @@ def gates(out: dict) -> dict:
     ok["ep"] = (ep["rel"] < 2e-3 and ep["finite"] and ep["w_gate_grad"] > 0
                 and ep["expert_grad_rel"] < 1e-5 and ep["hooked"])
     coll = out["collectives"]
-    ranks = list(coll.values()) + list(out["rank_model4"].values())
+    recurrent = [out[k][a] for k in ("rank_model4", "rank_debug22")
+                 for a in RECURRENT if a in out[k]]
+    ranks = list(coll.values()) + list(out["rank_model4"].values()) \
+        + list(out["rank_debug22"].values())
     ok["collectives"] = (
         all(r["measured"] == r["predicted"] for r in ranks)
         and coll["debug22"]["measured"].get("all-gather", 0) > 0
@@ -832,8 +949,12 @@ def gates(out: dict) -> dict:
     four = [coll["model4"]["flops"]] + [
         out["rank_model4"][a]["flops"] for a in ROUTED
         if a in out["rank_model4"]]
+    # the recurrent ranks: exactly the share of replicated_products
     ok["tp_flops"] = all(abs(f["step"] / f["one_device"] - 0.25) < 0.0125
-                         for f in four)
+                         for f in four) and all(
+        abs(r["flops"]["step"] - r["flops"]["share"]
+            * r["flops"]["one_device"]) <= 1e-9 * r["flops"]["step"]
+        for r in recurrent)
     for key, got in out.items():
         if key.startswith("routing/"):
             ok[key] = got["layers"] > 0 and not any(got["flips"]) \
@@ -844,7 +965,8 @@ def gates(out: dict) -> dict:
         and pr["embedding_exact"] and pr["identity_unset"]
         and all(pr["copy_to_model"].values())
         and all(pr["reduce_from_model"].values())
-        and all(pr["gather_from_model"].values()))
+        and all(pr["gather_from_model"].values())
+        and all(pr["gather_weight"].values()))
     c, p = out["constrain"], out["permuter"]
     ok["constrain"] = (c["identity"] and c["plain_identity"] and c["values"]
                        and c["placements"] == ["S(0)", "R"])
@@ -864,10 +986,18 @@ def gates(out: dict) -> dict:
             r = cell["routing"]
             ok["production_routing"] = r["layers"] > 0 \
                 and not any(r["set_flips"])
-            ok["production_gather_whole"] = (
-                cell["gather_whole_loss_gap"] < 1e-4
-                and cell["gather_whole_param_gap"] < 5e-3
-                and cell["gather_whole"]["launches"] == k1)
+        ok["production_gather_whole"] = (
+            cell["gather_whole_loss_gap"] < 1e-4
+            and cell["gather_whole_param_gap"] < 5e-3
+            and cell["gather_whole"]["launches"] == k1)
+        if "no_grad" in cell["sharded"]:
+            # K5 / K6 once a recurrent layer on the rank's heads / channels
+            ng, pattern = cell["sharded"]["no_grad"], cell["pattern"]
+            ok["production_no_grad"] = (
+                ng["gap"] < 1e-4
+                and ng["launches"]["ssd_bh"] == pattern.count("ssm")
+                and ng["launches"]["rglru_scan_b"] == pattern.count("rglru")
+                and ng["launches"]["permute_rows"] == 1)
     return ok
 
 

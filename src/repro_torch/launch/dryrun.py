@@ -26,15 +26,18 @@ tensor-parallel, as the reference's GSPMD step partitions it: each
 parameter keeps its shard on "model" (``dist.tp.entry_spec``) and is
 gathered over the batch axes only where FSDP shards it there, and the
 model computes on those shards with collectives over "model": Megatron's
-all-reduces for the dense GQA archs, the all-column layout's activation
+all-reduces for the dense GQA archs and the recurrent archs (Mamba-2's
+SSD heads, whose ``w_in`` product is all-gathered, and the RG-LRU's
+width), the all-column layout's activation
 all-gathers for the MoE archs (no FSDP, so nothing is gathered over the
 batch axes).  :func:`trace_train` traces that local program on ``meta``
 with the ``dist.tp`` context over :func:`model_axis_group` (a fake
 process group when none runs), so the matrix products are the rank's
 share (about 1 / n_model of them where the heads, the widths and the
-vocab split) and its collectives reach the dispatch accounting.  The
-other archs (the recurrent mixers, the encoder-decoder) gather every
-parameter whole at the loss's entry and run the loss unsharded: their
+vocab split; Mamba-2's C·Bᵀ scores and the k / v projections of KV
+heads that do not split run whole on every rank) and its collectives
+reach the dispatch accounting.  The encoder-decoder gathers every
+parameter whole at the loss's entry and runs the loss unsharded: its
 "model" axis shards storage, not compute, so a rank's FLOPs are about
 n_model times the GSPMD reference's and its peak holds every parameter.
 The artifact reports what the port runs; it does not reshape the
@@ -142,26 +145,47 @@ def grad_reduce_bytes(shape, itemsize, spec, mesh, batch_dims, entry):
     gradient with the placements of its leaf at the loss's entry
     (``entry``, a spec; all ``None``: whole), ``Partial`` over
     ``batch_dims`` (mesh dims), redistributed onto the parameter's
-    placements mesh dim by mesh dim; the all-reduce counted x2.  A dim
-    sharded at the entry and not in storage (a bias taken by columns) is
-    gathered back."""
+    placements in ``DTensor`` 's greedy order: a gradient holding a shard
+    first walks the mesh dims innermost first (a dim sharded at the entry
+    and not in storage, a bias taken by its slice, is gathered back over
+    "model" there, before its batch reduction), then every dim left
+    outermost first; the all-reduce counted x2."""
+    from torch.distributed.tensor import Partial, Replicate
+
     from repro_torch.dist.sharding import spec_placements
     sizes = mesh.shape
-    cur = list(local_shape(shape, entry, mesh))
+    target = spec_placements(spec, mesh)
+    cur = [Partial() if i in batch_dims else e for i, e in
+           enumerate(spec_placements(entry, mesh))]
+    local = list(local_shape(shape, entry, mesh))
+    moves = []
+
+    def move(i, dst):
+        if cur[i] != dst:
+            moves.append((i, cur[i], dst))
+            cur[i] = dst
+    if any(p.is_shard() for p in cur):
+        for i in reversed(range(len(cur))):
+            dst = target[i]
+            if dst.is_shard() and [j for j in range(i)
+                                   if cur[j].is_shard(dst.dim)] != \
+                    [j for j in range(i) if target[j].is_shard(dst.dim)]:
+                dst = Replicate()
+            move(i, dst)
+    for i in range(len(cur)):
+        move(i, target[i])
     rs = ar = ag = 0
-    for i, (p, e) in enumerate(zip(spec_placements(spec, mesh),
-                                   spec_placements(entry, mesh))):
-        if i in batch_dims:
-            if p.is_shard():
-                cur[p.dim] //= sizes[i]
-                rs += math.prod(cur) * itemsize
-            else:
-                ar += 2 * math.prod(cur) * itemsize
-        elif p.is_shard() and not e.is_shard():
-            cur[p.dim] //= sizes[i]
-        elif e.is_shard() and not p.is_shard():
-            cur[e.dim] *= sizes[i]
-            ag += math.prod(cur) * itemsize
+    for i, src, dst in moves:
+        if src.is_partial() and dst.is_shard():
+            local[dst.dim] //= sizes[i]
+            rs += math.prod(local) * itemsize
+        elif src.is_partial():
+            ar += 2 * math.prod(local) * itemsize
+        elif src.is_shard() and not dst.is_shard():
+            local[src.dim] *= sizes[i]
+            ag += math.prod(local) * itemsize
+        elif dst.is_shard():                    # a local chunk
+            local[dst.dim] //= sizes[i]
     return rs, ar, ag
 
 
@@ -349,11 +373,16 @@ def trace_train(model, cfg, shape, mesh, params, remat="tl", microbatch=1,
                    "partitions it and nothing gathered over the batch "
                    "axes (no FSDP); adafactor on the local shards")
     elif parallel:
+        mixers = {"ssm": "Mamba-2's SSD heads split over model (w_in's "
+                         "product gathered, C·Bᵀ scores whole)",
+                  "rglru": "the RG-LRU width split over model"}
+        split = [mixers[k] for k in mixers if k in cfg.pattern]
         program = (f"the tensor-parallel TL step over {mesh.sizes['model']} "
                    f"model ranks on {rows} of {shape.global_batch} rows, "
                    "each parameter gathered over the batch axes and kept on "
-                   "its model shard where dist.tp partitions it; adafactor "
-                   "on the local shards")
+                   "its model shard where dist.tp partitions it"
+                   + "".join(f", {t}" for t in split)
+                   + "; adafactor on the local shards")
     else:
         program = (f"the sharded TL step on {rows} of {shape.global_batch} "
                    "rows with every parameter gathered whole; adafactor on "

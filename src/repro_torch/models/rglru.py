@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tp
 from repro_torch.kernels.rglru.ops import rglru_scan as rglru_scan_kernel
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
                                        causal_conv1d_step, dense_init,
@@ -76,10 +77,37 @@ def _gates(params, xw):
     return a, beta, i.float()
 
 
+def _scan(a, bx):
+    return (rglru_scan(a, bx) if reference_path(a, bx)
+            else rglru_scan_kernel(a, bx)[0])
+
+
+def _rglru_tp(params, x):
+    """The training forward of this rank's W/m channels (``dist.tp``,
+    Megatron's layout extended to the RG-LRU): ``w_x`` / ``w_gate`` are
+    column-parallel, the causal conv runs on the rank's channels, its
+    output is gathered over "model" for the column products ``w_a`` /
+    ``w_i`` (``b_a`` / ``b_i`` / ``lam`` are the rank's slices), the scan
+    is elementwise over W, and ``w_out`` is row-parallel."""
+    xs = tp.copy_to_model(x)
+    xw = xs @ params["w_x"]
+    gate = F.gelu(xs @ params["w_gate"], approximate="tanh")
+    xc = causal_conv1d(params["conv"], xw)
+    a, beta, i = _gates(params, tp.copy_to_model(tp.gather_from_model(xc)))
+    h = _scan(a, beta * i * xc.float())
+    return tp.reduce_from_model((h.to(x.dtype) * gate) @ params["w_out"])
+
+
 def rglru_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
     """x: (B,S,d).  cache: {"conv": (B,3,W), "h": (B,W)}, filled in place by
     a prefill (S > 1) or advanced by one decode step (S == 1).  Returns
-    (out, cache)."""
+    (out, cache).  Holding this rank's share of the width (the
+    tensor-parallel context, no cache), :func:`_rglru_tp`."""
+    if tp.partitioned(params["w_x"].shape[-1], cfg.rglru_width or cfg.d_model):
+        if cache is not None:
+            raise ValueError("a tensor-parallel RG-LRU block runs the "
+                             "training forward only, with no cache")
+        return _rglru_tp(params, x), cache
     xw = x @ params["w_x"]
     gate = F.gelu(x @ params["w_gate"], approximate="tanh")
 
@@ -87,9 +115,7 @@ def rglru_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
         # full scan (training, or prefill-from-empty when a cache is given)
         xc = causal_conv1d(params["conv"], xw)
         a, beta, i = _gates(params, xc)
-        bx = beta * i * xc.float()
-        h = (rglru_scan(a, bx) if reference_path(a, bx)
-             else rglru_scan_kernel(a, bx)[0])
+        h = _scan(a, beta * i * xc.float())
         if cache is not None:
             # the last k-1 conv inputs (behind the empty cache's zeros when
             # the prompt is shorter) and the final state h[:, -1]

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tp
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
                                        causal_conv1d_step, dense_init,
@@ -126,13 +127,90 @@ def _split_in(proj, di, N, H):
     return z, x, Bm, Cm, dt
 
 
+def _scan(params, cfg: ModelConfig, conv_out, dt, di: int, H: int):
+    """The SSD scan of ``H`` heads on the conv's output ``[x | B | C]``
+    (x over ``di`` = H·P channels) and the raw ``dt`` (B,S,H): returns
+    y + D·x (B,S,H,P) and the final state."""
+    s = cfg.ssm
+    B, S, _ = conv_out.shape
+    N, P = s.d_state, s.head_dim
+    xs, Bm, Cm = (conv_out[..., :di], conv_out[..., di:di + N],
+                  conv_out[..., di + N:])
+    dt = softplus(dt.float() + params["dt_bias"])
+    xh = xs.reshape(B, S, H, P)
+    pad = (-S) % s.chunk_size
+    if pad:
+        # pad with dt=0, x=0: decay exp(0·A)=1 and zero input, so the
+        # final state hT passes through padding unchanged (exact)
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    if reference_path(xh, dt, params["A_log"], Bm, Cm):
+        y, hT = ssd_chunked(xh, dt, params["A_log"], Bm, Cm, s.chunk_size)
+    else:
+        y, hT = ssd(xh, dt, params["A_log"], Bm, Cm, chunk=s.chunk_size)
+    y = y[:, :S] + params["D"][None, None, :, None] * xh[:, :S]
+    return y, hT
+
+
+def _columns(w, spans):
+    """The last-dim columns ``[a, b)`` of each of the sorted, disjoint
+    ``spans`` of ``w``, concatenated: one split, whose backward builds
+    ``w`` 's gradient in one buffer (a slice each would build one
+    each)."""
+    edges = [0] + [e for span in spans for e in span] + [w.shape[-1]]
+    pieces = w.split([b - a for a, b in zip(edges, edges[1:])], -1)
+    return torch.cat(pieces[1::2], -1)
+
+
+def _mamba2_tp(params, cfg: ModelConfig, x):
+    """The training forward of this rank's H/m contiguous SSD heads
+    (``dist.tp``, Megatron's layout extended to Mamba-2).  The column
+    shards of ``w_in`` and of the conv straddle the z | x | B | C | dt
+    boundaries, so each is gathered whole (``tp.gather_weight``: the
+    gradients reduce-scattered back) and the rank takes the columns of its
+    heads' z, x and dt and the whole B and C: its products are its share
+    but B and C's, and the head-independent C·Bᵀ scores run on every
+    rank.  The gated RMSNorm's sum of squares over di is all-reduced (a
+    split reduction); ``w_out`` is row-parallel."""
+    s = cfg.ssm
+    B, S, d = x.shape
+    di, N = s.d_inner(d), s.d_state
+    Hl = params["A_log"].shape[0]                 # this rank's heads
+    dl, r = Hl * s.head_dim, tp.rank()
+    lo = r * dl
+    dt0 = 2 * di + 2 * N + r * Hl
+    w_in = _columns(tp.gather_weight(params["w_in"]),
+                    [(lo, lo + dl), (di + lo, di + lo + dl),
+                     (2 * di, 2 * di + 2 * N), (dt0, dt0 + Hl)])
+    z, xs, Bm, Cm, dt = _split_in(tp.copy_to_model(x) @ w_in, dl, N, Hl)
+    spans = [(lo, lo + dl), (di, di + 2 * N)]
+    conv = {"w": _columns(tp.gather_weight(params["conv"]["w"]), spans),
+            "b": _columns(tp.copy_to_model(params["conv"]["b"]), spans)}
+    conv_out = F.silu(causal_conv1d(conv, torch.cat([xs, Bm, Cm], dim=-1)))
+    y, _ = _scan(params, cfg, conv_out, dt, dl, Hl)
+    g = (y.reshape(B, S, dl).to(x.dtype) * F.silu(z)).float()
+    ss = tp.copy_to_model(tp.reduce_from_model(
+        g.square().sum(dim=-1, keepdim=True)))
+    g = g * torch.rsqrt(ss / di + cfg.norm_eps)
+    g = (g * params["out_norm"]["scale"].float()).to(x.dtype)
+    return tp.reduce_from_model(g @ params["w_out"])
+
+
 def mamba2_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
     """x: (B,S,d).  cache: {"conv": (B,k-1,conv_ch), "state": (B,H,P,N)},
     filled in place by a prefill (S > 1) or advanced by one decode step
-    (S == 1).  Returns (out, cache)."""
+    (S == 1).  Returns (out, cache).  Holding this rank's share of the
+    heads (the tensor-parallel context, no cache), :func:`_mamba2_tp`."""
     s = cfg.ssm
     B, S, d = x.shape
     di, N, H, P = s.d_inner(d), s.d_state, s.n_heads(d), s.head_dim
+    if tp.partitioned(params["A_log"].shape[0], H):
+        if cache is not None:
+            raise ValueError("a tensor-parallel Mamba-2 block runs the "
+                             "training forward only, with no cache")
+        return _mamba2_tp(params, cfg, x), cache
     proj = x @ params["w_in"]
     z, xs, Bm, Cm, dt = _split_in(proj, di, N, H)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
@@ -140,25 +218,7 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
     if cache is None or S > 1:
         # full scan (training, or prefill-from-empty when a cache is given)
         conv_out = F.silu(causal_conv1d(params["conv"], conv_in))
-        xs, Bm, Cm = (conv_out[..., :di], conv_out[..., di:di + N],
-                      conv_out[..., di + N:])
-        dt = softplus(dt.float() + params["dt_bias"])
-        xh = xs.reshape(B, S, H, P)
-        pad = (-S) % s.chunk_size
-        if pad:
-            # pad with dt=0, x=0: decay exp(0·A)=1 and zero input, so the
-            # final state hT passes through padding unchanged (exact)
-            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-            dt = F.pad(dt, (0, 0, 0, pad))
-            Bm = F.pad(Bm, (0, 0, 0, pad))
-            Cm = F.pad(Cm, (0, 0, 0, pad))
-        if reference_path(xh, dt, params["A_log"], Bm, Cm):
-            y, hT = ssd_chunked(xh, dt, params["A_log"], Bm, Cm,
-                                s.chunk_size)
-        else:
-            y, hT = ssd(xh, dt, params["A_log"], Bm, Cm, chunk=s.chunk_size)
-        y = y[:, :S]
-        y = y + params["D"][None, None, :, None] * xh[:, :S]
+        y, hT = _scan(params, cfg, conv_out, dt, di, H)
         if cache is not None:
             # the last k-1 conv inputs, behind the empty cache's zeros when
             # the prompt is shorter than that

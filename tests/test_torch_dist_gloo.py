@@ -27,18 +27,25 @@ checks, which a 4-card machine runs under ``torchrun`` with NCCL, and
   replicated KV, with qkv biases) and qwen2-vl-72b (M-RoPE and the
   frontend's embeds) in Megatron's layout, and deepseek-v2-236b
   ("kernel") and deepseek-v3-671b ("torch"; MLA, MoE, the MTP head) in
-  the all-column layout, at the reference's gates; for the two MoE archs
+  the all-column layout, and mamba2-780m and recurrentgemma-9b (the SSD
+  heads and the RG-LRU width, Megatron's layout), at the reference's
+  gates; for the two MoE archs
   every MoE layer's top-k expert indices on every rank equal to one
   device's on the same rows; on (1, 4) a rank's matrix-product FLOPs a
-  quarter of the one-device step's (deepseek-7b, deepseek-v3); the
-  dryrun's trace of a rank (``launch.dryrun.trace_train``) equal to the
-  real step's FLOPs, collectives and held memory; no op inside the loss
-  receiving a ``DTensor``; on (1, 4) a rank's loss and whole gradients
-  against the JAX reference's ``tl_loss_fn`` on its own parameters,
-  bridged (``params_from_jax``), and batch; and the primitives on a
+  quarter of the one-device step's (deepseek-7b, deepseek-v3), and for
+  the recurrent archs on (1, 4) and (2, 2) the share stated from the
+  shapes (the products each rank runs whole); the dryrun's trace of a
+  rank (``launch.dryrun.trace_train``) equal to the real step's FLOPs,
+  collectives and held memory (the recurrent archs on (2, 2) too); no op
+  inside the loss receiving a ``DTensor``; on (1, 4) a rank's loss and
+  whole gradients against the JAX reference's ``tl_loss_fn`` on its own
+  parameters, bridged (``params_from_jax``), and batch (the recurrent
+  archs on (2, 2) too, with a perm each data shard keeps among its own
+  rows); and the primitives on a
   2-rank group (the vocab-parallel CE within 1e-6 of ``cross_entropy``
   with and without a mask, the embedding exact, ``copy_to_model`` /
-  ``reduce_from_model`` / ``gather_from_model`` forward and backward);
+  ``reduce_from_model`` / ``gather_from_model`` / ``gather_weight``
+  forward and backward);
 * ``constrain_batch`` and the DTensor row permuter; ``resolve_mesh``.
 
 The CLI drills run as the reference's do (``tests/test_elastic.py``): the
@@ -59,9 +66,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.launch.check_dist import (ARCHS, RANK_ARCHS,  # noqa: E402
-                                           ROUTED, TP_CASES)
+                                           RECURRENT, ROUTED, TP_CASES)
 
 REASSEMBLY = ["torch", "kernel"]
+TP_MESHES = ["debug22", "model4"]
 
 WORLD = textwrap.dedent('''
     import json, pickle, sys
@@ -80,17 +88,22 @@ WORLD = textwrap.dedent('''
         from repro_torch.launch.mesh import make_mesh_compat
         out = run_checks("cpu", ckdir)
         # the reference's parameters and batches, bridged: a TP rank's
-        # loss and whole gradients on (1, 4)
+        # loss and whole gradients on (1, 4), and on (2, 2) where asked
         with open(ref_path, "rb") as f:
             cases = pickle.load(f)
-        row = make_mesh_compat((1, 4), ("data", "model"), device="cpu")
+        meshes = {"model4": make_mesh_compat((1, 4), ("data", "model"),
+                                             device="cpu"),
+                  "debug22": make_mesh_compat((2, 2), ("data", "model"),
+                                              device="cpu")}
         got = {}
-        for key, (arch, reas, np_params, batch) in cases.items():
+        for key, (arch, reas, np_params, batch, names) in cases.items():
             whole = params_from_jax(np_params, get_config(arch, reduced=True),
                                     torch.device("cpu"))
-            got[key] = tp_value_and_grad(
-                arch, whole, {k: torch.from_numpy(v) for k, v in
-                              batch.items()}, row, reas)
+            for name in names:
+                got[key if name == "model4" else f"{key}/{name}"] = \
+                    tp_value_and_grad(arch, whole, {
+                        k: torch.from_numpy(v) for k, v in batch.items()},
+                        meshes[name], reas)
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump(out, f)
@@ -108,32 +121,42 @@ WORLD = textwrap.dedent('''
 # layout with MLA, MoE and the MTP head
 JAX_CASES = (("deepseek-7b", "torch"), ("starcoder2-3b", "kernel"),
              ("deepseek-v3-671b", "torch"))
+# the recurrent archs against the reference on both TP meshes: Mamba-2's
+# SSD heads and the RG-LRU width with Griffin's one KV head
+RECURRENT_JAX = (("mamba2-780m", "kernel"), ("recurrentgemma-9b", "torch"))
 
 
 @pytest.fixture(scope="module")
 def jax_reference(tmp_path_factory):
-    """For each of ``JAX_CASES``: the reference's reduced parameters
-    (``PRNGKey(0)``) and a node-major batch (B 4, S 16, perm [2, 0, 3, 1]),
-    written for the world to bridge, and the reference's ``tl_loss_fn``
-    (remat "tl", reassembly "xla") loss and gradients on them."""
+    """For each of ``JAX_CASES`` and ``RECURRENT_JAX``: the reference's
+    reduced parameters (``PRNGKey(0)``) and a node-major batch (B 4, S 16,
+    perm [2, 0, 3, 1]; [1, 0, 3, 2] for the recurrent archs, which each
+    data shard of (2, 2) permutes among its own rows), written for the
+    world to bridge with the meshes to run them on, and the reference's
+    ``tl_loss_fn`` (remat "tl", reassembly "xla") loss and gradients on
+    them."""
     import jax
 
     from repro.configs import get_config as jax_get_config
     from repro.core.tl_step import tl_loss_fn as jax_tl_loss_fn
     from repro.models import build_model as jax_build_model
     cases, want = {}, {}
-    for arch, reas in JAX_CASES:
+    for arch, reas in JAX_CASES + RECURRENT_JAX:
+        recurrent = (arch, reas) in RECURRENT_JAX
         jcfg = jax_get_config(arch, reduced=True)
         jm = jax_build_model(jcfg)
         jparams = jax.jit(jm.init)(jax.random.PRNGKey(0))
         toks = np.random.default_rng(1).integers(
             0, jcfg.vocab_size, size=(4, 16)).astype(np.int32)
+        perm = [1, 0, 3, 2] if recurrent else [2, 0, 3, 1]
         batch = {"tokens": toks, "targets": np.roll(toks, -1, 1),
-                 "perm": np.array([2, 0, 3, 1], np.int32)}
+                 "perm": np.array(perm, np.int32)}
         loss, grads = jax.jit(jax.value_and_grad(jax_tl_loss_fn(
             jm, jcfg, "tl", reassembly="xla")))(jparams, batch)
         key = f"{arch}/{reas}"
-        cases[key] = (arch, reas, jax.tree.map(np.asarray, jparams), batch)
+        meshes = TP_MESHES if recurrent else ["model4"]
+        cases[key] = (arch, reas, jax.tree.map(np.asarray, jparams), batch,
+                      meshes)
         want[key] = (float(loss), jax.tree.map(np.asarray, grads))
     path = tmp_path_factory.mktemp("jax") / "cases.pkl"
     path.write_bytes(pickle.dumps(cases))
@@ -228,9 +251,9 @@ def test_collective_count_matches_what_the_step_does(world):
     assert c["debug11"]["measured"] == c["debug11"]["predicted"] == {}
     for arch, got in world["rank_model4"].items():
         assert got["measured"] == got["predicted"], (arch, got)
-
-
-TP_MESHES = ["debug22", "model4"]
+    for arch, got in world["rank_debug22"].items():       # FSDP, TP
+        assert got["measured"] == got["predicted"], (arch, got)
+        assert got["measured"]["reduce-scatter"] > 0, (arch, got)
 
 
 @pytest.mark.parametrize("arch,reassembly", TP_CASES)
@@ -281,6 +304,63 @@ def test_tensor_parallel_rank_matches_the_jax_reference(
     assert gap < 1e-4, gap
 
 
+@pytest.mark.parametrize("arch,reassembly", RECURRENT_JAX)
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_recurrent_tensor_parallel_rank_matches_the_jax_reference(
+        world_and_grads, jax_reference, mesh, arch, reassembly):
+    """A TP rank of reduced mamba2-780m (H/m of its 16 SSD heads, the
+    gathered ``w_in`` / conv columns, the split gated norm) and
+    recurrentgemma-9b (W/m of the RG-LRU's 256 channels, Griffin's local
+    attention on one KV head, the SwiGLU) on (2, 2) and (1, 4), at the
+    reference's bridged parameters, against the reference's
+    ``tl_loss_fn`` on the same batch: loss 1e-4 and gradients 1e-4."""
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    key = f"{arch}/{reassembly}"
+    want_loss, want_grads = jax_reference[1][key]
+    loss, grads = world_and_grads[1][
+        key if mesh == "model4" else f"{key}/{mesh}"]
+    want = params_from_jax(want_grads, get_config(arch, reduced=True),
+                           torch.device("cpu"))
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(tree_leaves(grads), tree_leaves(want)))
+    print(f"{key} on {mesh}: loss gap {abs(loss - want_loss)!r}, grad gap "
+          f"{gap!r}")
+    assert abs(loss - want_loss) < 1e-4, (loss, want_loss)
+    assert gap < 1e-4, gap
+
+
+# a TP rank's matrix-product FLOPs against one device's on its rows (B 4,
+# S 16 in all; rows = 4 on (1, 4), 2 on (2, 2)), stated from the shapes:
+# every product splits m ways except those each rank runs whole, R, so a
+# rank runs one / m + (1 - 1 / m) R.  A product runs 3 times in block 0
+# (its forward, the gradients of both operands) and 4 in the tail (its
+# forward recomputed).  Reduced mamba2 (d 256, N 16, chunk 16, 2 ssm
+# layers): the B and C columns of w_in, 2 rows 16 256 32 a layer, and the
+# C·Bᵀ scores, 2 rows 16 16 16.  Reduced recurrentgemma (d 256, one KV
+# head of 64, layers rglru, rglru, attn): the k and v projections of the
+# attention layer (in the tail), 2 2 rows 16 256 64.
+def _replicated(arch, rows):
+    if arch == "mamba2-780m":
+        return (3 + 4) * 2 * rows * 16 * (256 * 32 + 16 * 16)
+    return 4 * 2 * 2 * rows * 16 * 256 * 64
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("mesh,m,rows", [("debug22", 2, 2),
+                                         ("model4", 4, 4)])
+def test_recurrent_rank_runs_its_share_of_the_products(world, mesh, m,
+                                                       rows, arch):
+    f = world[f"rank_{mesh}"][arch]["flops"]
+    share = 1 / m + (1 - 1 / m) * _replicated(arch, rows) / f["one_device"]
+    ratio = f["step"] / f["one_device"]
+    print(f"{mesh} {arch}: rank FLOPs / one device {ratio!r}, stated "
+          f"share {share!r}")
+    assert f["step"] == pytest.approx(share * f["one_device"], rel=1e-12)
+    assert f["share"] == pytest.approx(share, rel=1e-12)   # check_dist's
+
+
 def test_tensor_parallel_rank_runs_a_quarter_of_the_products(world):
     """On (1, 4), reduced deepseek-7b (4 heads on 4 KV heads, d_ff 512,
     vocab 512): every matrix product is split four ways."""
@@ -301,12 +381,14 @@ def test_all_column_rank_runs_a_quarter_of_the_products(world):
 
 
 RANKS = ["debug22", "model4", "multipod", "debug11"] + [
-    f"model4/{a}" for a in RANK_ARCHS]
+    f"model4/{a}" for a in RANK_ARCHS] + [
+    f"debug22/{a}" for a in RECURRENT]
 
 
 def _rank(world, key):
     if "/" in key:
-        return world["rank_model4"][key.split("/")[1]]
+        mesh, arch = key.split("/")
+        return world[f"rank_{mesh}"][arch]
     return world["collectives"][key]
 
 
@@ -336,7 +418,7 @@ def test_vocab_parallel_cross_entropy_on_two_ranks(world, case):
 
 
 @pytest.mark.parametrize("what", ["copy_to_model", "reduce_from_model",
-                                  "gather_from_model"])
+                                  "gather_from_model", "gather_weight"])
 def test_tp_autograd_functions_on_two_ranks(world, what):
     assert world["tp_primitives"][what] == {"forward": True,
                                             "backward": True}

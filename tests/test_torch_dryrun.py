@@ -123,12 +123,17 @@ def test_specs_equal_the_reference(arch):
                                   "seamless-m4t-medium"])
 def test_lower_one_traces_a_full_width_train_step(arch):
     """One rank of the 16 x 16 mesh: B / 16 rows (bf16, as the
-    reference).  deepseek-7b's rank runs tensor-parallel over the 16
-    model ranks (``dist.tp``): its FLOPs are its model shards' loss and
-    gradient counted directly, a sixteenth of the whole model's (every
-    product splits: 32 heads on 32 KV heads, d_ff 11008, vocab 102400),
-    and it holds its model shards gathered over "data"; mamba2-780m and
-    seamless-m4t-medium gather every parameter whole, as before."""
+    reference).  deepseek-7b's and mamba2-780m's ranks run tensor-parallel
+    over the 16 model ranks (``dist.tp``): their FLOPs are their model
+    shards' loss and gradient counted directly, and they hold their model
+    shards gathered over "data".  deepseek-7b's are a sixteenth of the
+    whole model's (every product splits: 32 heads on 32 KV heads, d_ff
+    11008, vocab 102400); mamba2-780m's a sixteenth but for the products
+    each rank runs whole (``check_dist.replicated_products``: the head,
+    whose vocab 50280 does not divide 16, the B / C columns of ``w_in``
+    and the C·Bᵀ scores).  seamless-m4t-medium gathers every parameter
+    whole, as before."""
+    from repro_torch.launch.check_dist import replicated_products
     art = dryrun.lower_one(arch, "train_4k", "single")
     assert art["status"] == "ok", art
     assert REFERENCE_KEYS <= set(art)
@@ -151,7 +156,9 @@ def test_lower_one_traces_a_full_width_train_step(arch):
         with dryrun.model_axis_group(mesh) as group, \
                 tp.model_parallel(group, 16, 0):
             direct = analyze_step(value_and_grad, loss_fn, held, batch)
-        assert direct.flops == pytest.approx(whole.flops / 16, rel=1e-12)
+        assert direct.flops == pytest.approx(
+            whole.flops / 16 + 15 / 16 * replicated_products(
+                cfg, rows, 4096, 16), rel=1e-12)
         assert "tensor-parallel" in art["extra_tags"]["rank_program"]
         assert art["coll_breakdown"]["all-reduce"] > 0
         assert art["peak_memory_per_chip"] < 80e9      # was 180.3 GB
@@ -206,7 +213,8 @@ def test_moe_train_rank_is_tensor_parallel_all_column(arch, layers,
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "starcoder2-3b",
-                                  "qwen2-vl-72b", "deepseek-v3-671b"])
+                                  "qwen2-vl-72b", "deepseek-v3-671b",
+                                  "mamba2-780m", "recurrentgemma-9b"])
 def test_tensor_parallel_rank_on_meta_equals_it_on_cpu_tensors(arch):
     """``launch.dryrun.trace_train`` of one rank of a (1, 4) layout at
     reduced width (f32, B 4, S 16): traced on ``meta`` and run on CPU
@@ -215,9 +223,12 @@ def test_tensor_parallel_rank_on_meta_equals_it_on_cpu_tensors(arch):
     reckoned memory, the traced live high-water included, are the same;
     the FLOPs are a quarter of the one-device loss and gradient's on the
     same rows where the KV heads split, a little more where they do not
-    (one KV head: k and v are projected whole on every rank).  The real
-    4-rank step's are held equal to the same trace in
+    (one KV head: k and v are projected whole on every rank), and for the
+    recurrent archs exactly a quarter but for the products each rank runs
+    whole (``check_dist.replicated_products``).  The real 4-rank step's
+    are held equal to the same trace in
     ``tests/test_torch_dist_gloo.py``."""
+    from repro_torch.launch.check_dist import RECURRENT, replicated_products
     from repro_torch.optim import sgd
     cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
@@ -238,7 +249,11 @@ def test_tensor_parallel_rank_on_meta_equals_it_on_cpu_tensors(arch):
     whole = analyze_step(value_and_grad, tl_loss_fn(model, cfg, "tl"),
                          abstract_params(model, torch.float32), batch)
     ratio = meta[0].flops / whole.flops
-    if cfg.n_kv_heads % 4 == 0:
+    if arch in RECURRENT:
+        assert meta[0].flops == pytest.approx(
+            whole.flops / 4 + 3 / 4 * replicated_products(cfg, 4, 16, 4),
+            rel=1e-12)
+    elif cfg.n_kv_heads % 4 == 0:
         assert abs(ratio - 0.25) < 0.05 * 0.25, ratio
     else:                         # k / v projected whole on every rank
         assert 0.25 < ratio < 0.35, ratio

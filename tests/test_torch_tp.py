@@ -5,8 +5,9 @@ and each leaf's layout at the sharded loss's entry follows its spec.
   the identity or the one-device expression, bit for bit (``is x``,
   ``table[ids]``, ``models.model.cross_entropy``, ``x @ w``, ``swiglu``
   without ``d_ff``), and the TL losses and gradients of the dense GQA
-  archs and of deepseek-v3 (MLA, MoE, MTP) equal, bit for bit, those of
-  the same loss with the ``dist.tp`` hooks taken out.
+  archs, of deepseek-v3 (MLA, MoE, MTP) and of the recurrent archs
+  (mamba2-780m, recurrentgemma-9b) equal, bit for bit, those of the same
+  loss with the ``dist.tp`` hooks taken out.
 * ``entry_spec`` routes each leaf to "keep the model shard" or "gather
   whole" as its spec and the arch's head counts say, for the five dense
   GQA archs (Megatron's layout) at full width on the 16 x 16 mesh and
@@ -14,8 +15,13 @@ and each leaf's layout at the sharded loss's entry follows its spec.
   lost "model" (``_filter_divisible``).  For the MoE archs
   (deepseek-v2-236b, deepseek-v3-671b; the all-column layout) it keeps
   "model" on exactly the dims where the reference's ``param_pspec`` puts
-  it, reduced and at full width, on (2, 2), (1, 4) and 16 x 16; the
-  recurrent archs and the encoder-decoder still gather every leaf whole.
+  it, reduced and at full width, on (2, 2), (1, 4) and 16 x 16.  For the
+  recurrent archs (Megatron's layout extended to Mamba-2's SSD heads and
+  the RG-LRU width) every 2-D leaf keeps "model" on exactly the dims the
+  reference's spec does, Griffin's one KV head excepted (projected
+  whole), and the mixers' 1-D leaves are taken by slice; the SSD heads,
+  not ``cfg.n_heads``, decide Mamba-2's split.  The encoder-decoder still
+  gathers every leaf whole.
 
 The multi-rank behaviour (the step against one device, the primitives on
 two ranks, the collectives) is held in ``tests/test_torch_dist_gloo.py``.
@@ -41,7 +47,8 @@ from repro_torch.models.model import cross_entropy  # noqa: E402
 SLICE = ["deepseek-7b", "starcoder2-3b", "qwen2.5-32b", "stablelm-12b",
          "qwen2-vl-72b"]
 ALL_COLUMN = ["deepseek-v2-236b", "deepseek-v3-671b"]
-OTHERS = ["mamba2-780m", "recurrentgemma-9b", "seamless-m4t-medium"]
+RECURRENT = ["mamba2-780m", "recurrentgemma-9b"]
+OTHERS = ["seamless-m4t-medium"]
 PRODUCTION = {"data": 16, "model": 16}
 REDUCED_MESHES = {"debug22": {"data": 2, "model": 2},
                   "model4": {"data": 1, "model": 4}}
@@ -100,12 +107,13 @@ def _without_hooks(monkeypatch):
     monkeypatch.setattr(tp, "copy_to_model", lambda x: x)
     monkeypatch.setattr(tp, "reduce_from_model", lambda x: x)
     monkeypatch.setattr(tp, "gather_from_model", lambda x, dim=-1: x)
+    monkeypatch.setattr(tp, "gather_weight", lambda w, dim=-1: w)
     monkeypatch.setattr(tp, "column", lambda x, xs, w, width: x @ w)
     monkeypatch.setattr(tp, "partitioned", lambda local, whole: False)
 
 
 @pytest.mark.parametrize("remat", ["tl", "none"])
-@pytest.mark.parametrize("arch", SLICE + ["deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", SLICE + ["deepseek-v3-671b"] + RECURRENT)
 def test_unset_context_leaves_the_step_bit_equal(arch, remat, monkeypatch):
     cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
@@ -234,8 +242,85 @@ def test_the_other_archs_gather_every_leaf_whole(arch):
 
 
 def test_the_slice_archs_are_supported():
-    assert all(tp.supported(get_config(a)) for a in SLICE)
-    assert all(tp.supported(get_config(a, reduced=True)) for a in SLICE)
+    assert all(tp.supported(get_config(a)) for a in SLICE + RECURRENT)
+    assert all(tp.supported(get_config(a, reduced=True))
+               for a in SLICE + RECURRENT)
+    assert all(tp.layout(get_config(a)) == "megatron" for a in RECURRENT)
+
+
+# the recurrent mixers' 1-D leaves taken by slice (the rank's heads or
+# channels), which the reference's spec replicates
+SLICED = {"ssm": ("A_log", "D", "dt_bias", "out_norm/scale"),
+          "rglru": ("b_a", "b_i", "lam", "conv/b")}
+REC_CASES = [(a, "production", PRODUCTION, False) for a in RECURRENT] + \
+    [(a, name, sizes, True) for a in RECURRENT
+     for name, sizes in REDUCED_MESHES.items()]
+
+
+@pytest.mark.parametrize("arch,mesh,sizes,reduced", REC_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in REC_CASES])
+def test_recurrent_leaves_keep_model_where_the_reference_spec_does(
+        arch, mesh, sizes, reduced):
+    """Every 2-D leaf of mamba2-780m / recurrentgemma-9b keeps its shard on
+    "model" on exactly the dims where the reference's ``param_pspec``
+    (``src/repro/dist/sharding.py``) names "model", on the 16 x 16 mesh
+    at full width and on (2, 2) and (1, 4) reduced: Mamba-2's ``w_in`` and
+    ``conv/w`` columns and row-parallel ``w_out``; the RG-LRU's ``w_x`` /
+    ``w_gate`` / ``w_a`` / ``w_i`` / ``conv/w`` columns and row-parallel
+    ``w_out``; the SwiGLU; ``w_q`` / ``w_o``; the vocab where it divides
+    (mamba2's 50280 does not divide 16).  The one exception is Griffin's
+    single KV head: ``w_k`` / ``w_v`` are projected whole on every rank.
+    The mixers' 1-D leaves that the spec replicates are taken by slice
+    (dim 0), ``conv/b`` of Mamba-2 (its x | B | C channels) excepted."""
+    from repro.dist.sharding import param_pspec as reference_pspec
+    cfg = get_config(arch, reduced=reduced)
+    params = abstract_params(build_model(cfg), torch.float32)
+    kept = set()
+
+    def visit(path, leaf):
+        names = _path_names(path)
+        key = "/".join(names)
+        ref = tuple(reference_pspec(path, leaf, cfg, axis_sizes=sizes))
+        entry = tp.entry_spec(path, leaf, cfg, sizes)
+        kind = tp.mixer_kind(names, cfg)
+        tail = "/".join(names[names.index("mixer") + 1:]) if kind else ""
+        if kind in SLICED and tail in SLICED[kind]:
+            want = [0]
+        elif kind == "attn" and tail in ("w_k", "w_v"):
+            assert cfg.n_kv_heads == 1 and _model_dims(ref), (key, ref)
+            want = []
+        else:
+            want = _model_dims(ref)
+        assert _model_dims(entry) == want, (key, ref, entry)
+        assert all(e in (None, "model") for e in entry), (key, entry)
+        if want:
+            kept.add(tail or names[-1])
+    _map_with_path(visit, params)
+    if arch == "mamba2-780m":
+        assert {"w_in", "conv/w", "w_out", "A_log", "D", "dt_bias",
+                "out_norm/scale"} <= kept, kept
+        assert ("embed" in kept) == (cfg.vocab_size % sizes["model"] == 0)
+    else:
+        assert {"w_x", "w_gate", "conv/w", "conv/b", "w_a", "b_a", "w_i",
+                "b_i", "lam", "w_out", "w_q", "w_o", "embed",
+                "head"} <= kept, kept
+
+
+def test_mamba2_splits_by_its_ssd_heads_not_n_heads():
+    """Reduced mamba2-780m has 16 SSD heads (``cfg.ssm.n_heads(d)``: d_inner
+    512 over head_dim 32) while ``cfg.n_heads`` is 4: on 8 and 16 model
+    ranks its mixer still splits (1072 ``w_in`` columns, 544 conv
+    channels), on 32 it does not and every mixer leaf is whole."""
+    cfg = get_config("mamba2-780m", reduced=True)
+    assert cfg.ssm.n_heads(cfg.d_model) == 16 and cfg.n_heads == 4
+    for m, splits in ((8, True), (16, True), (32, False)):
+        sizes = {"data": 1, "model": m}
+        assert tp.ssm_splits(cfg, m) == splits and cfg.n_heads % m != 0
+        routes = _routes(cfg, sizes)
+        for leaf in ("w_in", "conv/w", "A_log", "D", "dt_bias", "w_out"):
+            key = f"layers/0/mixer/{leaf}"
+            assert _has_model(routes[key][1]) == splits, (m, key)
+    assert tp.ssm_splits(get_config("mamba2-780m"), 16)      # 48 heads
 
 
 def test_layout_of_each_arch():
