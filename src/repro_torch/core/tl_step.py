@@ -62,12 +62,18 @@ q / k / v, w_gate / w_up and head, the row-parallel w_o / w_down and the
 vocab-parallel CE, two all-reduces in the forward pass of a block and two
 in its backward pass.  The recurrent archs (mamba2-780m, recurrentgemma-9b)
 take Megatron's layout extended to their mixers: a rank runs H/m of
-Mamba-2's SSD heads (``w_in`` column-parallel, its product gathered over
-"model" for the rank's z / x / dt and the shared B / C, ``w_out``
+Mamba-2's SSD heads (``w_in`` and the conv keep their column shards and
+are gathered whole in the mixer, ``dist.tp.gather_weight``, for the
+columns of the rank's z / x / dt and the shared B / C; ``w_out``
 row-parallel, the gated norm's sum of squares all-reduced) and W/m of the
 RG-LRU's channels (``w_x`` / ``w_gate`` / ``w_a`` / ``w_i`` and the conv
 column-parallel, the scan on the rank's channels, ``w_out``
 row-parallel), Griffin's local attention and SwiGLU as the dense archs'.
+The encoder-decoder takes Megatron's layout over its encoder's
+self-attention, its decoder's self- and cross-attention (k / v on the
+encoder output, copied to the model ranks once for the decoder stack)
+and its SwiGLUs, with the vocab-parallel embedding, head and CE; its
+loss is ``model.loss`` with reassembly "none", as the reference's.
 The MoE archs (deepseek-v2, deepseek-v3) take the
 reference's all-column layout: every weight shards its output dim only,
 the activations are all-gathered over "model" where a contraction or a
@@ -79,9 +85,7 @@ leaves block 0 replicated over
 "model" and sharded over the batch, so the perm stays shard-local (each
 block holds a permutation of its own rows, see ``launch.engine``) and the
 reassembly permutes local rows with no collective, K1 seeing only local
-tensors and launching once a step each way.  The encoder-decoder gathers
-every leaf whole: its "model" axis shards the stored weights and
-replicates the compute.
+tensors and launching once a step each way.
 No model op sees a ``DTensor``.
 """
 from __future__ import annotations

@@ -9,11 +9,12 @@ on those local shards with explicit collectives over the model axis's
 process group.  No model op sees a ``DTensor``.  Two layouts
 (:func:`layout`), as the reference's ``param_pspec`` gives them:
 
-* ``"megatron"`` -- the dense GQA decoder LMs and the recurrent archs
+* ``"megatron"`` -- the dense GQA decoder LMs, the recurrent archs
   (Mamba-2's SSD heads, Griffin's RG-LRU width beside its local attention
-  and SwiGLU): column-parallel q / k / v, w_gate / w_up, the mixers' input
-  products and head, row-parallel w_o / w_down / w_out whose partial sums
-  are all-reduced over "model", FSDP over the batch axes;
+  and SwiGLU) and the encoder-decoder (its three attentions and SwiGLUs):
+  column-parallel q / k / v, w_gate / w_up, the mixers' input products
+  and head, row-parallel w_o / w_down / w_out whose partial sums are
+  all-reduced over "model", FSDP over the batch axes;
 * ``"all_column"`` -- the MoE archs (the reference's ``moe_safe``, the
   routing-stability layout): every weight shards only its output dim, so
   every forward contraction stays whole and the discrete top-k routing
@@ -104,6 +105,26 @@ leaf (RG-LRU, width W)             at the loss's entry (W % m == 0)
 Griffin's local attention and its SwiGLU take the rows of the first
 table (one KV head: projected whole on every rank).
 
+The encoder-decoder takes the first table's rows by each leaf's last
+name (its paths hold no ``layers``, so :func:`mixer_kind` is None):
+
+=================================  =========================================
+leaf (encoder-decoder)             at the loss's entry (Megatron)
+=================================  =========================================
+``encoder/<i>/attn/w_q|w_k|w_v``   column shard of heads (H, KV % m == 0);
+                                   the bidirectional self-attention
+``decoder/<i>/mixer/w_q|w_k|w_v``  the same; the causal self-attention
+``decoder/<i>/cross/w_q``          column shard, on the decoder stream
+``decoder/<i>/cross/w_k|w_v``      column shard, on the encoder output
+                                   copied to the model ranks once for the
+                                   whole decoder stack
+``.../w_o`` (all three)            row shard, partial sums all-reduced
+``.../ffn/w_gate|w_up|w_down``     column / column / row shard
+``embed`` / ``head``               vocab shard where m divides the vocab
+                                   (seamless's 256206: 2, not 4 or 16)
+norms (``enc_norm`` included)      whole
+=================================  =========================================
+
 =================================  =========================================
 leaf (all_column)                  at the loss's entry
 =================================  =========================================
@@ -164,10 +185,9 @@ def supported(cfg) -> bool:
     decoder LMs whose every block is attention, either dense GQA with a
     dense FFN and no MTP head (a frontend's stubbed embeddings included;
     the Megatron layout) or MLA with MoE FFNs, an MTP head included (the
-    all-column layout); and the decoder LMs made of Mamba-2 and RG-LRU
-    blocks, GQA attention beside them (the Megatron layout)."""
-    if cfg.is_encdec:
-        return False
+    all-column layout); the decoder LMs made of Mamba-2 and RG-LRU
+    blocks, GQA attention beside them; and the encoder-decoder (the
+    Megatron layout): every one of the port's archs."""
     kinds = set(cfg.pattern)
     if layout(cfg) == "all_column":
         return kinds == {"attn"} and cfg.attention == "mla"

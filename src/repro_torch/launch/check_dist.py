@@ -32,9 +32,12 @@ exit code is 1 when a gate fails.
   rank projects it whole; qkv biases) and qwen2-vl-72b (M-RoPE, the
   frontend's embeds) in Megatron's layout, and deepseek-v2-236b
   ("kernel") and deepseek-v3-671b ("torch"; MLA, MoE, the MTP head) in
-  the all-column layout, and mamba2-780m and recurrentgemma-9b
-  ("kernel"; Megatron's layout over the SSD heads and the RG-LRU width)
-  on (1, 4) (their (2, 2) steps are the first item's), against the
+  the all-column layout, mamba2-780m and recurrentgemma-9b ("kernel";
+  Megatron's layout over the SSD heads and the RG-LRU width) on (1, 4)
+  (their (2, 2) steps are the first item's), and seamless-m4t-medium
+  ("none"; Megatron's layout over the encoder's and the decoder's self-
+  and cross-attention and the SwiGLUs, on seeded random frames,
+  :class:`FramedLoader`), against the
   one-device engine at the gates above; for the two MoE archs the
   routing: every MoE layer's top-k
   expert indices on every rank, at the parameters of seed 0 on the
@@ -46,12 +49,13 @@ exit code is 1 when a gate fails.
   ``gather_weight`` forward and backward, the identity when unset);
 * one rank's sharded step (reduced deepseek-7b, B=4, S=16, sgd, counted
   by ``analysis.dispatch_costs``) against ``launch.dryrun.trace_train``'s
-  trace of that rank on ``meta``, on the (2, 2) mesh (also mamba2-780m
-  and recurrentgemma-9b), the (1, 4) mesh (also starcoder2-3b,
-  qwen2-vl-72b, deepseek-v3-671b and the two recurrent archs), the
+  trace of that rank on ``meta``, on the (2, 2) mesh (also the archs of
+  :data:`EXACT_SHARE`: mamba2-780m, recurrentgemma-9b and
+  seamless-m4t-medium), the (1, 4) mesh (also starcoder2-3b,
+  qwen2-vl-72b, deepseek-v3-671b and those three), the
   (2, 2, 1) (pod, data, model) mesh and a (1, 1) mesh of the first rank
   (no collective at all): the collective bytes equal, the FLOPs equal,
-  on (1, 4) a quarter of the one-device step's (the recurrent archs':
+  on (1, 4) a quarter of the one-device step's (:data:`EXACT_SHARE` 's:
   exactly the share :func:`replicated_products` reckons, on (2, 2)
   too), the memory the rank holds
   (parameter and optimizer shards, the parameters the loss receives in
@@ -69,13 +73,36 @@ On a card the checks run with deterministic algorithms (the embedding's
 backward accumulates by atomics otherwise).  ``--production`` adds the
 production cell of ``--arch`` on the cards (:data:`PRODUCTION`), batch 8
 x 512 on 4 nodes, 3 steps through the sharded engine (K1 counted) against
-the one-device engine on the first rank's card, with each run's ms a step
+the one-device engine on the first rank's card (:func:`production`,
+:func:`production_gates`), with each run's ms a step
 (synced host clock, median of steps 2..) and peak memory, and one more
 sharded step under the torch profiler for the first rank's device ms by
 kind (NCCL, matrix products, the rest) and busy share; and the same cell
 through the gather-whole step (every leaf gathered whole at the loss's
 entry, the compute replicated over "model", as before an arch
-partitioned) in the same call, at the same gates:
+partitioned) in the same call, at the same gates; and each one's step-1
+gradients at seed 0's parameters on the first batch (TP and
+gather-whole, gathered whole) against one card's, leaf by leaf, on the
+whole batch and on the batch split as the data shards split it
+(:func:`split_gradients`, the same f32 summation order over rows): the
+largest gap, the largest gap of a leaf over that leaf's largest
+gradient, and the entries whose sign differs, read beside adamw's eps
+(:func:`grad_reading`).  The ``production_step1_grads`` gate holds all
+four readings within the tolerances ``tests/test_torch_dist_gloo.py``
+holds a TP rank's gradients to (:func:`grads_hold`: every leaf within
+:data:`GRAD_TOL`, 1e-4, and within :data:`GRAD_RTOL`, 1e-2, of its own
+largest gradient), at a depth of at most :data:`GRAD_LAYERS` (the
+cell's weights cut to it where the cell is deeper).  The loss gates
+compare step 3's loss, after two adamw updates: at mamba2-780m's 48
+layers the f32 summation order of splitting the batch in two (one card,
+``microbatch=2``) alone moves it 2.2e-4 and the step-1 gradients
+6.2e-4, at 12 layers 1e-6 and 6.8e-6, so at 12 layers the step-1
+gradients tell a fault of the partitioning from the order.
+``--cell-only`` runs the cell without the other checks.  ``--order``
+(one card, no ``torchrun``) runs :func:`order_only` at the cell's depth
+or ``--layers``: the cell's one-device run against the same run with
+only the f32 summation order changed, and the step-1 gradients of the
+weights moved one ulp.
 
 * starcoder2-3b (the default) at full width, 12 layers, adamw: Megatron's
   layout, its 24 heads, 2 KV heads, FFN and vocab split over the two
@@ -99,7 +126,13 @@ partitioned) in the same call, at the same gates:
   RG-LRU channels, and :func:`no_grad_forward`: the sharded loss once
   more without grad, whose scans launch K5 once an SSM layer and K6 once
   an RG-LRU layer on each rank's heads / channels, its loss within 1e-4
-  of the grad path's (the ``production_no_grad`` gate).
+  of the grad path's (the ``production_no_grad`` gate);
+* seamless-m4t-medium at full width, its published 12 + 12 layers,
+  adamw, reassembly "none" (K1 0 + 0), on seeded random frames
+  (:class:`FramedLoader`): Megatron's layout over its 16 heads, d_ff and
+  vocab (256206 divides 2), and :func:`no_grad_forward`, whose every
+  attention launches K4 on the rank's 8 heads: 12 encoder, 12 causal
+  decoder and 12 cross-attention launches a rank.
 """
 from __future__ import annotations
 
@@ -123,25 +156,74 @@ ARCHS = ("deepseek-7b", "deepseek-v3-671b", "mamba2-780m",
 TP_CASES = (("deepseek-7b", "torch"), ("deepseek-7b", "kernel"),
             ("starcoder2-3b", "kernel"), ("qwen2-vl-72b", "kernel"),
             ("deepseek-v2-236b", "kernel"), ("deepseek-v3-671b", "torch"),
-            ("mamba2-780m", "kernel"), ("recurrentgemma-9b", "kernel"))
+            ("mamba2-780m", "kernel"), ("recurrentgemma-9b", "kernel"),
+            ("seamless-m4t-medium", "none"))
 # the archs whose routing is read against one device (all-column)
 ROUTED = ("deepseek-v2-236b", "deepseek-v3-671b")
 # the recurrent archs (Megatron's layout over the SSD heads / RG-LRU width)
 RECURRENT = ("mamba2-780m", "recurrentgemma-9b")
+# the encoder-decoder (Megatron's layout over its three attentions)
+ENCDEC = "seamless-m4t-medium"
+# the ranks whose matrix-product FLOPs are held to the share
+# replicated_products states, on (1, 4) and (2, 2)
+EXACT_SHARE = RECURRENT + (ENCDEC,)
+# the cells whose sharded forward without grad launches kernels: K5 / K6
+# on a rank's SSD heads / RG-LRU channels, K4 on its attention heads
+NO_GRAD = RECURRENT + (ENCDEC,)
 # a rank's program against the dryrun's trace on (1, 4), beside deepseek-7b
 RANK_ARCHS = ("starcoder2-3b", "qwen2-vl-72b", "deepseek-v3-671b") \
-    + RECURRENT
+    + EXACT_SHARE
 STEPS = 3
-# --production: arch -> (layers, optimizer)
+# --production: arch -> (layers, optimizer); seamless's 12 are the
+# decoder's, beside its 12 encoder layers
 PRODUCTION = {"starcoder2-3b": (12, "adamw"), "deepseek-v2-236b": (2, "sgd"),
-              "mamba2-780m": (48, "adamw"), "recurrentgemma-9b": (6, "adamw")}
+              "mamba2-780m": (48, "adamw"), "recurrentgemma-9b": (6, "adamw"),
+              ENCDEC: (12, "adamw")}
+# the production cell's step-1 gradients against one card's, leaf by leaf:
+# the tolerances tests/test_torch_dist_gloo.py holds a tensor-parallel
+# rank's gradients to against the reference's (each leaf within GRAD_TOL,
+# and within GRAD_RTOL of that leaf's largest |gradient|, so a leaf of
+# small gradients, the encoder's, is held too), read at a depth of at
+# most GRAD_LAYERS: there the f32 summation order of splitting the batch
+# over the data shards stays well below it (mamba2-780m: 6.8e-6 at 12
+# layers, 6.2e-4 at 48, one card)
+GRAD_TOL = 1e-4
+GRAD_RTOL = 1e-2
+GRAD_LAYERS = 12
+FRAME_STD = 0.02            # the seeded random frames of an enc-dec batch
+
+
+class FramedLoader:
+    """A loader's host batches with seeded random frames (``embeds``, (B,
+    F, d) f32, std ``FRAME_STD``, drawn from ``(seed, batch index)``): the
+    same on every rank and on one device.  The engine's zero frames
+    would make the encoder's output exactly 0, and with it every encoder
+    weight's and the cross-attention's ``w_k`` / ``w_v`` 's gradient."""
+
+    def __init__(self, loader, cfg, seed: int = 0):
+        self.loader, self.cfg, self.seed = loader, cfg, seed
+        self.batch_size = loader.batch_size
+
+    def __iter__(self):
+        import numpy as np
+        F, d = self.cfg.frontend_tokens, self.cfg.d_model
+        for i, batch in enumerate(self.loader):
+            rng = np.random.default_rng((self.seed, i))
+            frames = FRAME_STD * rng.standard_normal(
+                (len(batch["tokens"]), F, d), dtype=np.float32)
+            yield dict(batch, embeds=frames)
+
+
+def framed(loader, cfg):
+    """``loader``, with :class:`FramedLoader` 's frames for an enc-dec."""
+    return FramedLoader(loader, cfg) if cfg.is_encdec else loader
 
 
 def _loader(cfg):
     from repro_torch.data.pipeline import (VirtualBatchLoader, shard_corpus,
                                            synthetic_corpus)
     docs = synthetic_corpus(2 * 64, 16, cfg.vocab_size, seed=1)
-    return VirtualBatchLoader(shard_corpus(docs, 2), 4, seed=0)
+    return framed(VirtualBatchLoader(shard_corpus(docs, 2), 4, seed=0), cfg)
 
 
 def _diff(a, b) -> float:
@@ -270,7 +352,7 @@ def run_checks(device: str, ckdir: str) -> dict:
     out["rank_model4"] = {arch: _rank_step(row, device, arch)
                           for arch in RANK_ARCHS}
     out["rank_debug22"] = {arch: _rank_step(mesh, device, arch)
-                           for arch in RECURRENT}
+                           for arch in EXACT_SHARE}
     one = make_debug_mesh(1, 1, device=device)
     one.device_mesh()                    # collective: every rank builds it
     if lead:
@@ -433,9 +515,12 @@ def replicated_products(cfg, rows: int, seq: int, m: int) -> float:
     block 0 (its forward and the gradients of its two operands) and four
     in the tail, whose forward is recomputed, the head excepted (the
     non-reentrant checkpoint stops recomputing once the tensors the
-    backward pass saves are back, and no one saves the logits)."""
+    backward pass saves are back, and no one saves the logits).  The
+    encoder-decoder's loss has no checkpoint, so each of its products runs
+    three times, and only its head can stay whole: its KV heads are its
+    query heads, so its k / v split with them."""
     total = 0
-    for i, kind in enumerate(cfg.pattern):
+    for i, kind in enumerate(() if cfg.is_encdec else cfg.pattern):
         runs = 3 if i == 0 else 4
         if kind == "ssm":                     # S padded to whole chunks
             chunk, N = cfg.ssm.chunk_size, cfg.ssm.d_state
@@ -450,10 +535,11 @@ def replicated_products(cfg, rows: int, seq: int, m: int) -> float:
     return float(total)
 
 
-def tp_value_and_grad(arch: str, whole, batch, mesh, reassembly: str):
-    """``(loss, grads)`` of reduced ``arch``'s production TL loss (remat
-    "tl", ``reassembly``) at the parameters ``whole`` on ``batch`` (every
-    row, plain tensors), through the sharded step's gradient on ``mesh``
+def tp_value_and_grad(cfg, whole, batch, mesh, reassembly: str):
+    """``(loss, grads)`` of ``cfg`` 's production TL loss (remat
+    "tl", ``reassembly``) at the parameters ``whole`` (plain tensors, on
+    the batch's device or the host) on ``batch`` (every row, plain
+    tensors), through the sharded step's gradient on ``mesh``
     (every rank; collective): the parameters placed by
     ``train_shardings``, each rank's rows, the tensor-parallel context
     where ``dist.tp`` partitions the arch.  The loss is the global
@@ -461,21 +547,24 @@ def tp_value_and_grad(arch: str, whole, batch, mesh, reassembly: str):
     must be shard-local where the batch axes split the rows (each block
     of rows permuted among itself, as ``launch.engine`` draws it): a rank
     takes its block of it, made local."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.core.tl_step import (tensor_parallel, tl_loss_fn,
                                           train_shardings)
-    from repro_torch.dist.tensor import (distribute_tree, full_tree,
+    from repro_torch.core.tree import tree_map
+    from repro_torch.dist.tensor import (distribute, full_tree,
                                          sharded_value_and_grad)
     from repro_torch.models import build_model
     from repro_torch.optim import sgd
 
-    cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
     B, S = batch["tokens"].shape
     shape = InputShape("tp", S, B, "train")
     in_sh, _ = train_shardings(whole, sgd(0.0).init(whole), cfg, mesh, shape)
-    params = distribute_tree(whole, in_sh[0], dist.get_rank())
+    # leaf by leaf to the batch's device, so ``whole`` may be held on the
+    # host: only a rank's shards of it stay on the card
+    dev, rank = batch["tokens"].device, dist.get_rank()
+    params = tree_map(lambda t, s: distribute(t.to(dev), s, rank), whole,
+                      in_sh[0])
     sharded, rows = _rank_rows(mesh, B)
     mine = {k: v[rows] for k, v in batch.items()}
     if "perm" in mine:
@@ -788,9 +877,10 @@ def no_grad_forward(eng, loader) -> dict:
     ``loader`` (every rank; collective), through the sharded gradient and
     once more under ``torch.no_grad()`` with the same entry and
     tensor-parallel context, where the recurrent scans take the
-    forward-only kernels on the rank's SSD heads / RG-LRU channels (and
-    attention K4): both global losses, their gap and the launches of K5,
-    K6, K4 and K1 in the no-grad forward."""
+    forward-only kernels on the rank's SSD heads / RG-LRU channels and
+    every attention K4 on the rank's heads (the encoder-decoder's three):
+    both global losses, their gap and the launches of K5, K6, K4 and K1
+    in the no-grad forward."""
     from repro_torch.core.tl_step import tensor_parallel, tl_loss_fn
     from repro_torch.core.tree import tree_map
     from repro_torch.dist.sharding import tokens_pspec
@@ -826,40 +916,199 @@ def no_grad_forward(eng, loader) -> dict:
             "launches": {k.name: k.launches for k in kernels}}
 
 
-def production(device: str, arch: str = "starcoder2-3b") -> dict:
-    """The ``--production`` cell of ``arch`` (module docstring); the first
-    rank's readings, an empty dict on the others."""
+def _cell(arch: str, layers: int = None):
+    """``(cfg, docs, optimizer factory, reassembly)`` of the
+    ``--production`` cell of ``arch`` (:data:`PRODUCTION`): full width,
+    the depth cut (to ``layers`` where given), 64 documents of 512
+    tokens; K1 reassembles X^(1) except for the enc-dec, whose loss takes
+    reassembly "none" only."""
     from repro_torch.configs import get_config
-    from repro_torch.core.tree import tree_leaves
-    from repro_torch.data.pipeline import (VirtualBatchLoader, shard_corpus,
-                                           synthetic_corpus)
-    from repro_torch.dist import tp
-    from repro_torch.dist.tensor import full_tree
-    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
-    from repro_torch.launch.engine import Engine
-    from repro_torch.launch.mesh import resolve_mesh
-    from repro_torch.models import build_model
+    from repro_torch.data.pipeline import synthetic_corpus
     from repro_torch.optim import adamw, sgd, warmup_cosine
-
-    layers, opt_name = PRODUCTION[arch]
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    depth, opt_name = PRODUCTION[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers or depth)
     docs = synthetic_corpus(64, 512, cfg.vocab_size)
-    lead = dist.get_rank() == 0
 
     def optimizer():
         if opt_name == "sgd":
             return sgd(1e-3)
         return adamw(warmup_cosine(3e-4, 10, STEPS), clip_norm=1.0)
+    return cfg, docs, optimizer, "none" if cfg.is_encdec else "kernel"
+
+
+def _cell_loader(cfg, docs):
+    from repro_torch.data.pipeline import VirtualBatchLoader, shard_corpus
+    return framed(VirtualBatchLoader(shard_corpus(docs, 4), 8), cfg)
+
+
+def first_batch(cfg, docs, device, n_shards: int = 1) -> dict:
+    """The cell's first batch, every row on ``device``: with reassembly,
+    the engine's perm of ``n_shards`` batch shards (each block of rows
+    permuted among itself) in global row numbers, as
+    :func:`tp_value_and_grad` takes it."""
+    import numpy as np
+
+    from repro_torch.launch.engine import Engine
+    hb = dict(next(iter(_cell_loader(cfg, docs))))
+    positions = hb.pop("positions")
+    if not cfg.is_encdec:
+        rows = len(positions) // n_shards
+        hb["perm"] = Engine._local_perm(positions, n_shards) \
+            + np.repeat(np.arange(n_shards, dtype=np.int32) * rows, rows)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in hb.items()}
+
+
+def split_gradients(model, cfg, params, batch, n: int,
+                    reassembly: str) -> list:
+    """One device's gradients of the TL loss on ``batch`` split into ``n``
+    contiguous blocks of rows, as ``n`` data shards split it (a block's
+    perm made local to it): the mean of the blocks' gradients,
+    accumulated in f32 in order, as ``make_train_step(microbatch=n)``
+    does, leaf by leaf on the host (the card holds one block's gradients
+    beside the parameters, no more than a whole batch's)."""
+    from repro_torch.core.tl_step import tl_loss_fn, value_and_grad
+    from repro_torch.core.tree import tree_leaves
+    loss_fn = tl_loss_fn(model, cfg, "tl", reassembly)
+    rows = batch["tokens"].shape[0] // n
+    acc = None
+    for j in range(n):
+        part = {k: v[j * rows:(j + 1) * rows] for k, v in batch.items()}
+        if "perm" in part:
+            part["perm"] = part["perm"] - j * rows
+        _, g = value_and_grad(loss_fn, params, part)
+        g = [t.cpu() for t in tree_leaves(g)]
+        if acc is None:
+            acc = g
+        else:
+            for a, b in zip(acc, g):
+                a.add_(b)
+        del g
+    return [a / n for a in acc]
+
+
+def grad_reading(got, want) -> dict:
+    """Gradients ``got`` against ``want`` (lists of CPU tensors, leaf by
+    leaf): the largest gap and the leaf that holds it; the largest gap of
+    a leaf over that leaf's largest ``|want|`` (``rel_gap``, 0 where both
+    are 0) and its leaf; the entries whose sign differs (a zero counted
+    as its own sign) and the largest ``|want|`` among them, beside
+    adamw's ``eps`` (a first adamw update is ``lr * g / (|g| + eps)``:
+    an entry well above eps moves ~lr one way or the other by its
+    sign)."""
+    eps = 1e-8                   # optim.adamw's
+    gap, where, rel, rel_where, flips, above, top = 0.0, -1, 0.0, -1, 0, 0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        d = float((a - b).abs().max())
+        if d > gap:
+            gap, where = d, i
+        scale = float(b.abs().max())
+        r = d / scale if scale else (math.inf if d else 0.0)
+        if r > rel:
+            rel, rel_where = r, i
+        flipped = torch.sign(a) != torch.sign(b)
+        mags = b[flipped].abs()
+        flips += int(flipped.sum())
+        above += int((mags > eps).sum())
+        top = max(top, float(mags.max()) if mags.numel() else 0.0)
+    return {"max_gap": gap, "leaf": where, "rel_gap": rel,
+            "rel_leaf": rel_where, "sign_flips": flips,
+            "flips_above_eps": above, "flip_max_abs": top, "eps": eps,
+            "largest_grad": max(float(b.abs().max()) for b in want)}
+
+
+def grads_hold(r: dict) -> bool:
+    """A :func:`grad_reading` within the gradient gate: every leaf within
+    :data:`GRAD_TOL` and within :data:`GRAD_RTOL` of its own largest
+    ``|want|``."""
+    return r["max_gap"] < GRAD_TOL and r["rel_gap"] < GRAD_RTOL
+
+
+def ulp_moved(params, seed: int = 0):
+    """``params`` with every entry moved one ulp up or down, the way drawn
+    from ``seed``: a change of the weights as small as a rounding."""
+    from repro_torch.core.tree import tree_map
+    g = torch.Generator().manual_seed(seed)
+
+    def move(p):
+        up = torch.randint(0, 2, p.shape, generator=g).to(p.device)
+        return torch.nextafter(p, torch.where(up.bool(), math.inf,
+                                              -math.inf).to(p.dtype))
+    return tree_map(move, params)
+
+
+def order_only(device: str, arch: str, layers: int = None) -> dict:
+    """On one card, without a process group: the ``--production`` cell's
+    one-device run (:func:`_cell`, 3 steps) against the same run with only
+    the f32 summation order changed (``microbatch=2``: two micro-batches'
+    gradients averaged, with reassembly "none", which alone moves mamba2's
+    step 3 by 1.9e-5 at 48 layers), each step's loss gap; and at seed 0's
+    parameters on the first batch, the step-1 gradients against the
+    cell's, leaf by leaf (:func:`grad_reading`): of the batch split in two
+    halves (:func:`split_gradients`, what two data shards and
+    ``microbatch=2`` compute), and of the weights moved one ulp
+    (:func:`ulp_moved`), how far a rounding's change of the weights alone
+    moves them at this depth."""
+    from repro_torch.core.tl_step import tl_loss_fn, value_and_grad
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import build_model
+    cfg, docs, optimizer, reassembly = _cell(arch, layers)
+    variants = {"cell": dict(reassembly=reassembly),
+                "microbatch2": dict(reassembly="none", microbatch=2)}
+    losses = {}
+    for name, kw in variants.items():
+        eng = Engine(build_model(cfg), cfg, optimizer(), log_every=1,
+                     device=device, **kw).init(0)
+        res = eng.run(_cell_loader(cfg, docs), steps=STEPS)
+        losses[name] = [float(x) for x in res.losses]
+        del eng, res
+        torch.cuda.empty_cache()
+    out = {"arch": arch, "layers": cfg.n_layers, "losses": losses,
+           "loss_gap": [abs(a - b) for a, b in zip(losses["microbatch2"],
+                                                   losses["cell"])]}
+    model = build_model(cfg)
+    whole = model.init(seed=0, device=device)
+    batch = first_batch(cfg, docs, device)
+    loss_fn = tl_loss_fn(model, cfg, "tl", reassembly)
+
+    def step1(params):
+        _, g = value_and_grad(loss_fn, params, batch)
+        return [t.cpu() for t in tree_leaves(g)]
+    cell = step1(whole)
+    got = {"halves": split_gradients(model, cfg, whole, first_batch(
+        cfg, docs, device, 2), 2, reassembly),
+        "ulp": step1(ulp_moved(whole))}
+    out["step1_grads"] = {name: grad_reading(g, cell)
+                          for name, g in got.items()}
+    return out
+
+
+def production(device: str, arch: str = "starcoder2-3b") -> dict:
+    """The ``--production`` cell of ``arch`` (module docstring); the first
+    rank's readings, an empty dict on the others."""
+    from repro_torch.core.tl_step import tl_loss_fn, value_and_grad
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.dist import tp
+    from repro_torch.dist.sharding import tokens_pspec
+    from repro_torch.dist.tensor import batch_width, full_tree
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.mesh import resolve_mesh
+    from repro_torch.models import build_model
+
+    cfg, docs, optimizer, reassembly = _cell(arch)
+    lead = dist.get_rank() == 0
 
     def run(mesh):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         eng = Engine(build_model(cfg), cfg, optimizer(), mesh=mesh,
-                     reassembly="kernel", log_every=1, device=device).init(0)
+                     reassembly=reassembly, log_every=1,
+                     device=device).init(0)
         for k in (permute_rows, take_rows):
             k.launches = 0
-        res = eng.run(VirtualBatchLoader(shard_corpus(docs, 4), 8),
-                      steps=STEPS)
+        res = eng.run(_cell_loader(cfg, docs), steps=STEPS)
         return eng, res, {
             "losses": [float(x) for x in res.losses],
             "step_ms": statistics.median(1e3 * t for t in res.step_s[1:]),
@@ -874,8 +1123,9 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
 
     mesh = resolve_mesh("debug", device=device)
     out = {"mesh": list(mesh.shape), "layers": cfg.n_layers, "arch": arch,
-           "pattern": list(cfg.pattern),
-           "optimizer": opt_name, "layout": tp.layout(cfg),
+           "encoder_layers": cfg.n_encoder_layers,
+           "pattern": list(cfg.pattern), "reassembly": reassembly,
+           "optimizer": PRODUCTION[arch][1], "layout": tp.layout(cfg),
            "tensor_parallel": tp.partitions(cfg, mesh),
            "card": torch.cuda.get_device_name(0)}
     if arch in ROUTED:
@@ -885,15 +1135,28 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
             cfg, mesh, whole, _routing_batch(cfg, device, 8, 512))
         del whole
         torch.cuda.empty_cache()
+    # the step-1 gradients at seed 0's parameters, TP and gathered whole,
+    # at a depth of at most GRAD_LAYERS; ``whole`` is held on the host
+    n = batch_width(mesh, tokens_pspec(mesh, 8)[0] is not None)
+    gcfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, GRAD_LAYERS))
+    step1 = {}
+    for name in ("sharded", "gather_whole"):
+        whole = tree_map(lambda t: t.cpu(),
+                         build_model(gcfg).init(seed=0, device=device))
+        with (gather_whole() if name == "gather_whole"
+              else contextlib.nullcontext()):
+            _, g = tp_value_and_grad(gcfg, whole, first_batch(
+                gcfg, docs, device, n), mesh, reassembly)
+        step1[name] = [t.cpu() for t in tree_leaves(g)] if lead else None
+        del whole, g
+        torch.cuda.empty_cache()
     eng, res, sharded = run(mesh)
     whole = gathered(res)
     # after the gather: the no-grad forward reads eng, the profiled step
     # updates it
-    if arch in RECURRENT:
-        sharded["no_grad"] = no_grad_forward(
-            eng, VirtualBatchLoader(shard_corpus(docs, 4), 8))
-    sharded["profile"] = _profile_step(
-        eng, VirtualBatchLoader(shard_corpus(docs, 4), 8))
+    if arch in NO_GRAD:
+        sharded["no_grad"] = no_grad_forward(eng, _cell_loader(cfg, docs))
+    sharded["profile"] = _profile_step(eng, _cell_loader(cfg, docs))
     del eng, res
     torch.cuda.empty_cache()
     out["sharded"] = sharded
@@ -904,7 +1167,7 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
     del eng, res
     torch.cuda.empty_cache()
     if lead:
-        _, res1, one = run(None)
+        eng, res1, one = run(None)
         mine = tree_leaves(res1.params)
 
         def gap(got):
@@ -916,14 +1179,38 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
         out["gather_whole_param_gap"] = gap(whole_gw)
         out["gather_whole_loss_gap"] = max(abs(a - b) for a, b in zip(
             out["gather_whole"]["losses"], one["losses"]))
-        del res1, mine
+        del eng, res1, mine
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(gcfg)
+        params = model.init(seed=0, device=device)
+        _, g = value_and_grad(tl_loss_fn(model, gcfg, "tl", reassembly),
+                              params, first_batch(gcfg, docs, device))
+        want = [t.cpu() for t in tree_leaves(g)]
+        del g
+        split = split_gradients(model, gcfg, params, first_batch(
+            gcfg, docs, device, n), n, reassembly)
+        del params
+        torch.cuda.empty_cache()
+        r = {"layers": gcfg.n_layers, "tolerance": GRAD_TOL,
+             "rtol": GRAD_RTOL, "split_vs_whole": grad_reading(split, want),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        for name in ("sharded", "gather_whole"):
+            r[name] = grad_reading(step1[name], want)
+            r[f"{name}_vs_split"] = grad_reading(step1[name], split)
+        out["step1_grads"] = r
     dist.barrier()
     return out if lead else {}
 
 
 def gates(out: dict) -> dict:
-    """Each check's verdict, by name."""
+    """Each check's verdict, by name (the production cell's only, when
+    the run made no other check)."""
     ok = {}
+    if "production_cell" in out:
+        ok.update(production_gates(out["production_cell"]))
+    if "debug_shape" not in out:
+        return ok
     for key, got in out.items():
         if key.startswith(("step/", "tp/")):
             ok[key] = got["loss"] < 1e-4 and got["params"] < 5e-3
@@ -934,8 +1221,8 @@ def gates(out: dict) -> dict:
     ok["ep"] = (ep["rel"] < 2e-3 and ep["finite"] and ep["w_gate_grad"] > 0
                 and ep["expert_grad_rel"] < 1e-5 and ep["hooked"])
     coll = out["collectives"]
-    recurrent = [out[k][a] for k in ("rank_model4", "rank_debug22")
-                 for a in RECURRENT if a in out[k]]
+    exact = [out[k][a] for k in ("rank_model4", "rank_debug22")
+             for a in EXACT_SHARE if a in out[k]]
     ranks = list(coll.values()) + list(out["rank_model4"].values()) \
         + list(out["rank_debug22"].values())
     ok["collectives"] = (
@@ -949,12 +1236,13 @@ def gates(out: dict) -> dict:
     four = [coll["model4"]["flops"]] + [
         out["rank_model4"][a]["flops"] for a in ROUTED
         if a in out["rank_model4"]]
-    # the recurrent ranks: exactly the share of replicated_products
+    # the recurrent and enc-dec ranks: exactly the share of
+    # replicated_products
     ok["tp_flops"] = all(abs(f["step"] / f["one_device"] - 0.25) < 0.0125
                          for f in four) and all(
         abs(r["flops"]["step"] - r["flops"]["share"]
             * r["flops"]["one_device"]) <= 1e-9 * r["flops"]["step"]
-        for r in recurrent)
+        for r in exact)
     for key, got in out.items():
         if key.startswith("routing/"):
             ok[key] = got["layers"] > 0 and not any(got["flips"]) \
@@ -975,29 +1263,51 @@ def gates(out: dict) -> dict:
     ok["resolve_mesh"] = (out["debug_shape"] == [2, 2]
                           and out["host_shape"] == [2, 2]
                           and "256" in out["production"])
-    if "production_cell" in out:
-        cell = out["production_cell"]
-        k1 = {"permute_rows": STEPS, "take_rows": STEPS}
-        ok["production_cell"] = (
-            cell["loss_gap"] < 1e-4 and cell["param_gap"] < 5e-3
-            and cell["sharded"]["launches"] == k1
-            and cell["tensor_parallel"])
-        if "routing" in cell:
-            r = cell["routing"]
-            ok["production_routing"] = r["layers"] > 0 \
-                and not any(r["set_flips"])
-        ok["production_gather_whole"] = (
-            cell["gather_whole_loss_gap"] < 1e-4
-            and cell["gather_whole_param_gap"] < 5e-3
-            and cell["gather_whole"]["launches"] == k1)
-        if "no_grad" in cell["sharded"]:
-            # K5 / K6 once a recurrent layer on the rank's heads / channels
-            ng, pattern = cell["sharded"]["no_grad"], cell["pattern"]
-            ok["production_no_grad"] = (
-                ng["gap"] < 1e-4
-                and ng["launches"]["ssd_bh"] == pattern.count("ssm")
-                and ng["launches"]["rglru_scan_b"] == pattern.count("rglru")
-                and ng["launches"]["permute_rows"] == 1)
+    return ok
+
+
+def production_gates(cell: dict) -> dict:
+    """The ``--production`` cell's verdicts: the loss 1e-4 and params 5e-3
+    of one card, K1 once a step each way (0 for the enc-dec), TP and
+    gather-whole; the step-1 gradients within the gradient gate of one
+    card's (whole batch and split rows), leaf by leaf, TP and
+    gather-whole (:func:`grads_hold`); the routing; the no-grad
+    forward's launches and loss."""
+    ok = {}
+    k1 = STEPS if cell["reassembly"] == "kernel" else 0
+    k1 = {"permute_rows": k1, "take_rows": k1}
+    ok["production_cell"] = (
+        cell["loss_gap"] < 1e-4 and cell["param_gap"] < 5e-3
+        and cell["sharded"]["launches"] == k1
+        and cell["tensor_parallel"])
+    if "routing" in cell:
+        r = cell["routing"]
+        ok["production_routing"] = r["layers"] > 0 \
+            and not any(r["set_flips"])
+    ok["production_gather_whole"] = (
+        cell["gather_whole_loss_gap"] < 1e-4
+        and cell["gather_whole_param_gap"] < 5e-3
+        and cell["gather_whole"]["launches"] == k1)
+    # against one card's whole batch and against its rows split as the
+    # data shards split them (the same f32 summation order over rows)
+    g = cell["step1_grads"]
+    ok["production_step1_grads"] = all(
+        grads_hold(g[k]) for k in ("sharded", "gather_whole",
+                                   "sharded_vs_split", "gather_whole_vs_split"))
+    if "no_grad" in cell["sharded"]:
+        # K5 / K6 once a recurrent layer on the rank's heads / channels,
+        # K4 once an attention (the enc-dec's encoder, decoder self- and
+        # cross-attention), K1 once a step's forward where it reassembles
+        ng, pattern = cell["sharded"]["no_grad"], cell["pattern"]
+        attn = pattern.count("attn")
+        if cell["encoder_layers"]:
+            attn = 2 * attn + cell["encoder_layers"]
+        ok["production_no_grad"] = (
+            ng["gap"] < 1e-4
+            and ng["launches"]["ssd_bh"] == pattern.count("ssm")
+            and ng["launches"]["rglru_scan_b"] == pattern.count("rglru")
+            and ng["launches"]["flash_attention_bh"] == attn
+            and ng["launches"]["permute_rows"] == k1["permute_rows"] // STEPS)
     return ok
 
 
@@ -1013,12 +1323,28 @@ def main(argv=None):
     ap.add_argument("--arch", default="starcoder2-3b",
                     choices=sorted(PRODUCTION),
                     help="the --production cell's arch")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="with --order: the cell's depth (default: "
+                         "PRODUCTION's)")
+    ap.add_argument("--cell-only", action="store_true",
+                    help="with --production: the cell alone, no other check")
+    ap.add_argument("--order", action="store_true",
+                    help="one card, no torchrun: the cell's one-device run "
+                         "against the same run with only the summation "
+                         "order changed (order_only)")
     args = ap.parse_args(argv)
     if args.device != "cpu":
         # bit-equal repeats on a card: deterministic kernels and cuBLAS
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
         torch.backends.cuda.matmul.allow_tf32 = False
+    if args.order:
+        got = order_only(args.device, args.arch, args.layers)
+        print(f"ORDER_ONLY {json.dumps(got)}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(got, f)
+        return
     from repro_torch.launch.mesh import init_distributed, shutdown_distributed
     _, world = init_distributed(args.device)
     try:
@@ -1027,7 +1353,8 @@ def main(argv=None):
         box = [args.ckpt or (tempfile.mkdtemp(prefix="tl_check_dist_")
                              if dist.get_rank() == 0 else None)]
         dist.broadcast_object_list(box, src=0)
-        out = run_checks(args.device, box[0])
+        out = {} if args.production and args.cell_only \
+            else run_checks(args.device, box[0])
         if args.production:
             out["production_cell"] = production(args.device, args.arch)
         failed = []

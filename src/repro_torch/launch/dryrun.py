@@ -26,20 +26,20 @@ tensor-parallel, as the reference's GSPMD step partitions it: each
 parameter keeps its shard on "model" (``dist.tp.entry_spec``) and is
 gathered over the batch axes only where FSDP shards it there, and the
 model computes on those shards with collectives over "model": Megatron's
-all-reduces for the dense GQA archs and the recurrent archs (Mamba-2's
-SSD heads, whose ``w_in`` product is all-gathered, and the RG-LRU's
-width), the all-column layout's activation
+all-reduces for the dense GQA archs, the recurrent archs (Mamba-2's SSD
+heads, whose ``w_in`` and conv weights are all-gathered whole in the
+mixer, and the RG-LRU's width) and the encoder-decoder (its encoder's
+self-attention, its decoder's self- and cross-attention and its
+SwiGLUs), the all-column layout's activation
 all-gathers for the MoE archs (no FSDP, so nothing is gathered over the
 batch axes).  :func:`trace_train` traces that local program on ``meta``
 with the ``dist.tp`` context over :func:`model_axis_group` (a fake
 process group when none runs), so the matrix products are the rank's
 share (about 1 / n_model of them where the heads, the widths and the
-vocab split; Mamba-2's C·Bᵀ scores and the k / v projections of KV
-heads that do not split run whole on every rank) and its collectives
-reach the dispatch accounting.  The encoder-decoder gathers every
-parameter whole at the loss's entry and runs the loss unsharded: its
-"model" axis shards storage, not compute, so a rank's FLOPs are about
-n_model times the GSPMD reference's and its peak holds every parameter.
+vocab split; Mamba-2's C·Bᵀ scores, the k / v projections of KV heads
+that do not split and a head whose vocab does not split run whole on
+every rank) and its collectives reach the dispatch accounting.  Every
+arch's train rank is tensor-parallel on a "model" axis of size > 1.
 The artifact reports what the port runs; it does not reshape the
 numbers to look like the reference's.  The optimizer runs on the local
 shards (the port's ``adafactor`` refuses ``DTensor`` leaves, whose
@@ -373,10 +373,17 @@ def trace_train(model, cfg, shape, mesh, params, remat="tl", microbatch=1,
                    "partitions it and nothing gathered over the batch "
                    "axes (no FSDP); adafactor on the local shards")
     elif parallel:
-        mixers = {"ssm": "Mamba-2's SSD heads split over model (w_in's "
-                         "product gathered, C·Bᵀ scores whole)",
+        mixers = {"ssm": "Mamba-2's SSD heads split over model (w_in and "
+                         "the conv gathered whole in the mixer, C·Bᵀ "
+                         "scores whole)",
                   "rglru": "the RG-LRU width split over model"}
         split = [mixers[k] for k in mixers if k in cfg.pattern]
+        if cfg.is_encdec:
+            split.append(
+                "the encoder's self-attention, the decoder's self- and "
+                "cross-attention and the SwiGLUs split over model, the "
+                "vocab " + ("split" if cfg.vocab_size % mesh.sizes["model"]
+                            == 0 else "whole (it does not divide model)"))
         program = (f"the tensor-parallel TL step over {mesh.sizes['model']} "
                    f"model ranks on {rows} of {shape.global_batch} rows, "
                    "each parameter gathered over the batch axes and kept on "

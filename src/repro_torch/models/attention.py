@@ -165,14 +165,8 @@ def gqa_project(params, cfg: ModelConfig, x, q_pos, *, positions=None):
     ``gqa_apply`` and the paged serving runner."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    H = params["w_q"].shape[1] // hd          # this rank's heads under TP
-    if tp.partitioned(H, cfg.n_heads):
-        q, k, v = _tp_qkv(params, cfg, x, H)
-    else:
-        q, k, v = x @ params["w_q"], x @ params["w_k"], x @ params["w_v"]
-        if cfg.qkv_bias:
-            q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
-    q = q.reshape(B, S, H, hd)
+    q, k, v = project_qkv(params, cfg, x)
+    q = q.reshape(B, S, q.shape[-1] // hd, hd)
     k = k.reshape(B, S, k.shape[-1] // hd, hd)
     v = v.reshape(B, S, v.shape[-1] // hd, hd)
     if cfg.rope == "rope":
@@ -187,15 +181,34 @@ def gqa_project(params, cfg: ModelConfig, x, q_pos, *, positions=None):
     return q, k, v
 
 
-def _tp_qkv(params, cfg: ModelConfig, x, H: int):
+def project_qkv(params, cfg: ModelConfig, x, kv=None, kvs=None):
+    """``(x W_q, kv W_k, kv W_v)``, flat, with the qkv biases where the
+    config has them; ``kv`` is the keys' and values' input, ``x`` itself
+    when None (self-attention).  A rank holding its
+    H/m query heads (read from ``w_q`` 's local width) inside the
+    tensor-parallel context projects them column-parallel
+    (:func:`_tp_qkv`); ``kvs`` is the caller's ``tp.copy_to_model`` (kv)
+    where several layers' products read ``kv``, else it is made here."""
+    H = params["w_q"].shape[1] // cfg.resolved_head_dim
+    if tp.partitioned(H, cfg.n_heads):
+        return _tp_qkv(params, cfg, x, H, kv, kvs)
+    kv = x if kv is None else kv
+    q, k, v = x @ params["w_q"], kv @ params["w_k"], kv @ params["w_v"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
+    return q, k, v
+
+
+def _tp_qkv(params, cfg: ModelConfig, x, H: int, kv, kvs):
     """Column-parallel q / k / v of this rank's ``H`` query heads
-    (``dist.tp``).  With KV heads split as the query heads are, k and v
-    are the rank's own columns; otherwise each rank projects every KV head
-    and keeps the run of them its query heads use (query head h reads KV
-    head ``h // (n_heads / n_kv_heads)``, the grouping ``attend_dense``
-    assumes), and the gradients of k and v are summed over "model" there,
-    since each rank's heads read only some of them.  A rank whose heads
-    read its KV heads unevenly raises."""
+    (``dist.tp``), k and v on ``kv`` (``x`` when None).  With KV heads
+    split as the query heads are, k and v are the rank's own columns;
+    otherwise each rank projects every KV head and keeps the run of them
+    its query heads use (query head h reads KV head ``h // (n_heads /
+    n_kv_heads)``, the grouping ``attend_dense`` assumes), and the
+    gradients of k and v are summed over "model" there, since each rank's
+    heads read only some of them.  A rank whose heads read its KV heads
+    unevenly raises."""
     hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
     rep, first = cfg.n_heads // KV, tp.rank() * H
     used = [h // rep for h in range(first, first + H)]
@@ -209,20 +222,52 @@ def _tp_qkv(params, cfg: ModelConfig, x, H: int):
     if cfg.qkv_bias:
         q = q + params["b_q"]
     if tp.partitioned(params["w_k"].shape[1] // hd, KV):
-        k, v = xs @ params["w_k"], xs @ params["w_v"]
+        if kv is None:
+            kvs = xs
+        elif kvs is None:
+            kvs = tp.copy_to_model(kv)
+        k, v = kvs @ params["w_k"], kvs @ params["w_v"]
         if cfg.qkv_bias:
             k, v = k + params["b_k"], v + params["b_v"]
         return q, k, v
-    k, v = x @ params["w_k"], x @ params["w_v"]
+    kv = x if kv is None else kv
+    k, v = kv @ params["w_k"], kv @ params["w_v"]
     if cfg.qkv_bias:
         k, v = k + params["b_k"], v + params["b_v"]
-    B, S, _ = x.shape
+    B, Sk, _ = kv.shape
     lo, hi = used[0], used[-1] + 1
 
     def pick(t):
-        t = tp.copy_to_model(t).reshape(B, S, KV, hd)[:, :, lo:hi]
-        return t.reshape(B, S, (hi - lo) * hd)
+        t = tp.copy_to_model(t).reshape(B, Sk, KV, hd)[:, :, lo:hi]
+        return t.reshape(B, Sk, (hi - lo) * hd)
     return q, pick(k), pick(v)
+
+
+def visible_attention(params, cfg: ModelConfig, x, kv=None, kvs=None):
+    """An attention sublayer in which every query sees every key: queries
+    from x (B,S,d), keys and values from kv (B,Sk,d) -- x itself when
+    None, the encoder's bidirectional self-attention, or the encoder
+    output, the decoder's cross-attention -- at the reference's positions
+    (queries at Sk, keys at 0..Sk-1), without rope.  Inside the tensor-parallel context a
+    rank holding H/m heads runs them (:func:`project_qkv`, ``kvs`` as
+    there) and ``w_o`` row-parallel, its partial sums reduced over
+    "model"."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    Sk = S if kv is None else kv.shape[1]
+    q, k, v = project_qkv(params, cfg, x, kv, kvs)
+    H = q.shape[-1] // hd
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, Sk, k.shape[-1] // hd, hd)
+    v = v.reshape(B, Sk, v.shape[-1] // hd, hd)
+    q_pos = torch.full((S,), Sk, dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(Sk, dtype=torch.int32, device=x.device)
+    out = attend(q, k, v, q_pos, k_pos, 0, 1.0 / math.sqrt(hd),
+                 all_visible=True)
+    out = out.reshape(B, S, H * hd) @ params["w_o"]
+    if tp.partitioned(H, cfg.n_heads):
+        out = tp.reduce_from_model(out)         # row-parallel w_o
+    return out
 
 
 def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,

@@ -9,8 +9,6 @@ encoder output between the mixer and the FFN.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -60,29 +58,18 @@ def block_init(gen, cfg: ModelConfig, kind: str, ffn: str, *,
     return p
 
 
-def cross_attend(params, cfg: ModelConfig, h, enc_out):
-    """Cross-attention sublayer: queries from h (B,S,d), keys and values
-    from enc_out (B,Se,d), every encoder position visible to every query
-    (the reference's positions: queries at Se, keys at 0..Se-1)."""
-    B, S, _ = h.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    Se = enc_out.shape[1]
-    q = (h @ params["w_q"]).reshape(B, S, H, hd)
-    k = (enc_out @ params["w_k"]).reshape(B, Se, KV, hd)
-    v = (enc_out @ params["w_v"]).reshape(B, Se, KV, hd)
-    q_pos = torch.full((S,), Se, dtype=torch.int32, device=h.device)
-    k_pos = torch.arange(Se, dtype=torch.int32, device=h.device)
-    out = attention.attend(q, k, v, q_pos, k_pos, 0, 1.0 / math.sqrt(hd),
-                           all_visible=True)
-    return out.reshape(B, S, H * hd) @ params["w_o"]
-
-
 def block_apply(params, cfg: ModelConfig, kind: str, ffn: str, h, *,
-                cache=None, cache_len=None, positions=None, enc_out=None):
+                cache=None, cache_len=None, positions=None, enc_out=None,
+                enc_xs=None):
     """Returns (h, cache, aux_loss): the MoE FFN's f32 scalar loss, or the
     float 0.0 for the other FFNs (no device tensor on the serving paths).
-    ``positions`` goes to the mixer (M-RoPE streams); with ``enc_out`` a
-    ``cross=True`` block attends into it after the mixer.  The block's
+    ``positions`` goes to the mixer (M-RoPE streams); with ``enc_out``
+    (B,Se,d) a ``cross=True`` block attends into it after the mixer, every
+    encoder position visible to every query
+    (``attention.visible_attention``); ``enc_xs`` is the decoder stack's
+    one ``tp.copy_to_model`` (enc_out), so that under tensor parallelism
+    the gradient of enc_out is summed over the layers locally and
+    all-reduced once.  The block's
     input and output pass ``dist.constraints.constrain_batch`` (the
     identity without an activation mesh)."""
     _check_kinds(kind, ffn)
@@ -93,9 +80,9 @@ def block_apply(params, cfg: ModelConfig, kind: str, ffn: str, h, *,
         cache=cache, cache_len=cache_len, **extra)
     h = h + mixed
     if "cross" in params and enc_out is not None:
-        h = h + cross_attend(params["cross"], cfg,
-                             rmsnorm(params["cross_norm"], h, cfg.norm_eps),
-                             enc_out)
+        h = h + attention.visible_attention(
+            params["cross"], cfg,
+            rmsnorm(params["cross_norm"], h, cfg.norm_eps), enc_out, enc_xs)
     h, aux = ffn_apply(params, cfg, ffn, h)
     return constrain_batch(h), cache, aux
 

@@ -16,15 +16,20 @@ the frames once and every decode step cross-attends into ``enc_out``.
 Without grad the encoder's bidirectional self-attention and the
 decoder's cross-attention of a prefill or full forward go to K4 non-causally
 (``attention.attend``); decode steps (one query) stay on the dense path.
+
+Inside the tensor-parallel context (``dist.tp``: the sharded step on a
+"model" axis) a rank runs H/m heads of all three attentions
+(``attention.visible_attention``, ``gqa_apply``) and d_ff/m of every
+SwiGLU in Megatron's layout; the decoder stack copies ``enc_out`` to the
+model ranks once for all its cross-attentions (:func:`_dec_stack`).
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import tp
 from repro_torch.models import attention, blocks
 from repro_torch.models.layers import (dense_init, embed_init, rmsnorm,
                                        rmsnorm_init, swiglu, swiglu_init)
@@ -47,26 +52,13 @@ def _enc_layer_init(gen, cfg: ModelConfig, **kw):
             "ffn": swiglu_init(gen, cfg.d_model, cfg.d_ff, **kw)}
 
 
-def _enc_attend(params, cfg: ModelConfig, h):
-    """Bidirectional self-attention: every query at position S sees keys
-    0..S-1, the reference's way of lifting the causal mask."""
-    B, S, _ = h.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = (h @ params["w_q"]).reshape(B, S, H, hd)
-    k = (h @ params["w_k"]).reshape(B, S, KV, hd)
-    v = (h @ params["w_v"]).reshape(B, S, KV, hd)
-    q_pos = torch.full((S,), S, dtype=torch.int32, device=h.device)
-    k_pos = torch.arange(S, dtype=torch.int32, device=h.device)
-    out = attention.attend(q, k, v, q_pos, k_pos, 0, 1.0 / math.sqrt(hd),
-                           all_visible=True)
-    return out.reshape(B, S, H * hd) @ params["w_o"]
-
-
 def _enc_layer_apply(params, cfg: ModelConfig, h):
-    h = h + _enc_attend(params["attn"], cfg,
-                        rmsnorm(params["norm1"], h, cfg.norm_eps))
+    # the bidirectional self-attention: every query sees every key, the
+    # reference's way of lifting the causal mask
+    h = h + attention.visible_attention(
+        params["attn"], cfg, rmsnorm(params["norm1"], h, cfg.norm_eps))
     return h + swiglu(params["ffn"], rmsnorm(params["norm2"], h,
-                                             cfg.norm_eps))
+                                             cfg.norm_eps), cfg.d_ff)
 
 
 # ------------------------------------------------------------------- model
@@ -105,10 +97,14 @@ def encode(params, cfg: ModelConfig, frames):
 
 def _dec_stack(params, cfg: ModelConfig, h, enc_out, caches=None,
                cache_len=None):
+    # one copy of enc_out for every layer's cross-attention k / v: under
+    # tensor parallelism its gradient is all-reduced once (dist.tp)
+    enc_xs = tp.copy_to_model(enc_out)
     for i, lp in enumerate(params["decoder"]):
         c = None if caches is None else caches[i]
         h, _, _ = blocks.block_apply(lp, cfg, "attn", "dense", h, cache=c,
-                                     cache_len=cache_len, enc_out=enc_out)
+                                     cache_len=cache_len, enc_out=enc_out,
+                                     enc_xs=enc_xs)
     return h
 
 

@@ -28,6 +28,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tp
 from repro_torch.models import encdec, transformer
 
 MTP_WEIGHT = 0.3
@@ -112,7 +113,9 @@ def _build_encdec(cfg: ModelConfig) -> Model:
     def loss_fn(params, batch):
         logits = encdec.forward(params, cfg, batch["tokens"],
                                 batch.get("embeds"))
-        ce = cross_entropy(logits, batch["targets"], batch.get("mask"))
+        # vocab-parallel where a rank holds a shard of the head (dist.tp)
+        ce = tp.cross_entropy(logits, batch["targets"], batch.get("mask"),
+                              vocab=cfg.vocab_size)
         return ce, {"ce": ce, "aux": 0.0, "loss": ce}
 
     return Model(

@@ -27,21 +27,25 @@ checks, which a 4-card machine runs under ``torchrun`` with NCCL, and
   replicated KV, with qkv biases) and qwen2-vl-72b (M-RoPE and the
   frontend's embeds) in Megatron's layout, and deepseek-v2-236b
   ("kernel") and deepseek-v3-671b ("torch"; MLA, MoE, the MTP head) in
-  the all-column layout, and mamba2-780m and recurrentgemma-9b (the SSD
-  heads and the RG-LRU width, Megatron's layout), at the reference's
-  gates; for the two MoE archs
+  the all-column layout, mamba2-780m and recurrentgemma-9b (the SSD
+  heads and the RG-LRU width, Megatron's layout) and seamless-m4t-medium
+  (the encoder's and the decoder's self- and cross-attention and the
+  SwiGLUs, Megatron's layout, on seeded random frames), at the
+  reference's gates; for the two MoE archs
   every MoE layer's top-k expert indices on every rank equal to one
   device's on the same rows; on (1, 4) a rank's matrix-product FLOPs a
   quarter of the one-device step's (deepseek-7b, deepseek-v3), and for
-  the recurrent archs on (1, 4) and (2, 2) the share stated from the
-  shapes (the products each rank runs whole); the dryrun's trace of a
-  rank (``launch.dryrun.trace_train``) equal to the real step's FLOPs,
-  collectives and held memory (the recurrent archs on (2, 2) too); no op
-  inside the loss receiving a ``DTensor``; on (1, 4) a rank's loss and
-  whole gradients against the JAX reference's ``tl_loss_fn`` on its own
-  parameters, bridged (``params_from_jax``), and batch (the recurrent
-  archs on (2, 2) too, with a perm each data shard keeps among its own
-  rows); and the primitives on a
+  the recurrent archs and the enc-dec on (1, 4) and (2, 2) the share
+  stated from the shapes (the products each rank runs whole; none for
+  the enc-dec); the dryrun's trace of a rank
+  (``launch.dryrun.trace_train``) equal to the real step's FLOPs,
+  collectives and held memory (the recurrent archs and the enc-dec on
+  (2, 2) too); no op inside the loss receiving a ``DTensor``; on (1, 4)
+  a rank's loss and whole gradients against the JAX reference's
+  ``tl_loss_fn`` on its own parameters, bridged (``params_from_jax``),
+  and batch (the recurrent archs and the enc-dec on (2, 2) too, with a
+  perm each data shard keeps among its own rows, and the enc-dec's
+  frames); and the primitives on a
   2-rank group (the vocab-parallel CE within 1e-6 of ``cross_entropy``
   with and without a mask, the embedding exact, ``copy_to_model`` /
   ``reduce_from_model`` / ``gather_from_model`` / ``gather_weight``
@@ -65,8 +69,10 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from repro_torch.launch.check_dist import (ARCHS, RANK_ARCHS,  # noqa: E402
-                                           RECURRENT, ROUTED, TP_CASES)
+from repro_torch.launch.check_dist import (ARCHS, ENCDEC,  # noqa: E402
+                                           EXACT_SHARE, FRAME_STD,
+                                           RANK_ARCHS, RECURRENT, ROUTED,
+                                           TP_CASES)
 
 REASSEMBLY = ["torch", "kernel"]
 TP_MESHES = ["debug22", "model4"]
@@ -97,11 +103,11 @@ WORLD = textwrap.dedent('''
                                               device="cpu")}
         got = {}
         for key, (arch, reas, np_params, batch, names) in cases.items():
-            whole = params_from_jax(np_params, get_config(arch, reduced=True),
-                                    torch.device("cpu"))
+            cfg = get_config(arch, reduced=True)
+            whole = params_from_jax(np_params, cfg, torch.device("cpu"))
             for name in names:
                 got[key if name == "model4" else f"{key}/{name}"] = \
-                    tp_value_and_grad(arch, whole, {
+                    tp_value_and_grad(cfg, whole, {
                         k: torch.from_numpy(v) for k, v in batch.items()},
                         meshes[name], reas)
         if rank == 0:
@@ -124,37 +130,46 @@ JAX_CASES = (("deepseek-7b", "torch"), ("starcoder2-3b", "kernel"),
 # the recurrent archs against the reference on both TP meshes: Mamba-2's
 # SSD heads and the RG-LRU width with Griffin's one KV head
 RECURRENT_JAX = (("mamba2-780m", "kernel"), ("recurrentgemma-9b", "torch"))
+# the encoder-decoder against the reference on both TP meshes (its loss
+# takes reassembly "none"), on seeded frames (B 4, F 8)
+ENCDEC_JAX = ((ENCDEC, "none"),)
 
 
 @pytest.fixture(scope="module")
 def jax_reference(tmp_path_factory):
-    """For each of ``JAX_CASES`` and ``RECURRENT_JAX``: the reference's
-    reduced parameters (``PRNGKey(0)``) and a node-major batch (B 4, S 16,
-    perm [2, 0, 3, 1]; [1, 0, 3, 2] for the recurrent archs, which each
-    data shard of (2, 2) permutes among its own rows), written for the
+    """For each of ``JAX_CASES``, ``RECURRENT_JAX`` and ``ENCDEC_JAX``: the
+    reference's reduced parameters (``PRNGKey(0)``) and a node-major batch
+    (B 4, S 16, perm [2, 0, 3, 1]; [1, 0, 3, 2] for the recurrent archs,
+    which each data shard of (2, 2) permutes among its own rows; for the
+    enc-dec no perm and seeded frames, std ``FRAME_STD``), written for the
     world to bridge with the meshes to run them on, and the reference's
-    ``tl_loss_fn`` (remat "tl", reassembly "xla") loss and gradients on
-    them."""
+    ``tl_loss_fn`` (remat "tl", reassembly "xla", the enc-dec's "none")
+    loss and gradients on them."""
     import jax
 
     from repro.configs import get_config as jax_get_config
     from repro.core.tl_step import tl_loss_fn as jax_tl_loss_fn
     from repro.models import build_model as jax_build_model
     cases, want = {}, {}
-    for arch, reas in JAX_CASES + RECURRENT_JAX:
-        recurrent = (arch, reas) in RECURRENT_JAX
+    for arch, reas in JAX_CASES + RECURRENT_JAX + ENCDEC_JAX:
+        both = (arch, reas) not in JAX_CASES
         jcfg = jax_get_config(arch, reduced=True)
         jm = jax_build_model(jcfg)
         jparams = jax.jit(jm.init)(jax.random.PRNGKey(0))
-        toks = np.random.default_rng(1).integers(
-            0, jcfg.vocab_size, size=(4, 16)).astype(np.int32)
-        perm = [1, 0, 3, 2] if recurrent else [2, 0, 3, 1]
-        batch = {"tokens": toks, "targets": np.roll(toks, -1, 1),
-                 "perm": np.array(perm, np.int32)}
+        rng = np.random.default_rng(1)
+        toks = rng.integers(0, jcfg.vocab_size, size=(4, 16)).astype(np.int32)
+        batch = {"tokens": toks, "targets": np.roll(toks, -1, 1)}
+        if jcfg.is_encdec:
+            batch["embeds"] = (FRAME_STD * rng.standard_normal(
+                (4, jcfg.frontend_tokens, jcfg.d_model))).astype(np.float32)
+        else:
+            batch["perm"] = np.array([1, 0, 3, 2] if both else [2, 0, 3, 1],
+                                     np.int32)
         loss, grads = jax.jit(jax.value_and_grad(jax_tl_loss_fn(
-            jm, jcfg, "tl", reassembly="xla")))(jparams, batch)
+            jm, jcfg, "tl", reassembly="none" if jcfg.is_encdec
+            else "xla")))(jparams, batch)
         key = f"{arch}/{reas}"
-        meshes = TP_MESHES if recurrent else ["model4"]
+        meshes = TP_MESHES if both else ["model4"]
         cases[key] = (arch, reas, jax.tree.map(np.asarray, jparams), batch,
                       meshes)
         want[key] = (float(loss), jax.tree.map(np.asarray, grads))
@@ -331,6 +346,43 @@ def test_recurrent_tensor_parallel_rank_matches_the_jax_reference(
     assert gap < 1e-4, gap
 
 
+@pytest.mark.parametrize("arch,reassembly", ENCDEC_JAX)
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_encdec_tensor_parallel_rank_matches_the_jax_reference(
+        world_and_grads, jax_reference, mesh, arch, reassembly):
+    """A TP rank of reduced seamless-m4t-medium (2 of its 4 heads on
+    (2, 2), 1 on (1, 4), in the encoder's self-attention and the
+    decoder's self- and cross-attention, d_ff / m of each SwiGLU, the
+    vocab-parallel embedding, head and CE) on (2, 2) and (1, 4), at the
+    reference's bridged parameters, against the reference's
+    ``tl_loss_fn`` (reassembly "none") on the same tokens and seeded
+    frames: loss 1e-4, and each leaf's gradient within 1e-4 and within
+    1e-2 of that leaf's largest (``check_dist.grads_hold``), so the
+    encoder's and the cross-attention's k / v leaves, whose gradients are
+    small beside the head's, are held each to its own scale (random
+    frames: zero ones would zero them)."""
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.check_dist import grad_reading, grads_hold
+    key = f"{arch}/{reassembly}"
+    want_loss, want_grads = jax_reference[1][key]
+    loss, grads = world_and_grads[1][
+        key if mesh == "model4" else f"{key}/{mesh}"]
+    cfg = get_config(arch, reduced=True)
+    want = params_from_jax(want_grads, cfg, torch.device("cpu"))
+    r = grad_reading(tree_leaves(grads), tree_leaves(want))
+    print(f"{key} on {mesh}: loss gap {abs(loss - want_loss)!r}, grad gap "
+          f"{r['max_gap']!r}, per-leaf relative gap {r['rel_gap']!r} "
+          f"(leaf {r['rel_leaf']})")
+    assert abs(loss - want_loss) < 1e-4, (loss, want_loss)
+    assert grads_hold(r), r
+    for leaf in (want["encoder"][0]["attn"]["w_q"],
+                 want["decoder"][0]["cross"]["w_k"],
+                 want["decoder"][0]["cross"]["w_v"]):
+        assert float(leaf.abs().max()) > 0
+
+
 # a TP rank's matrix-product FLOPs against one device's on its rows (B 4,
 # S 16 in all; rows = 4 on (1, 4), 2 on (2, 2)), stated from the shapes:
 # every product splits m ways except those each rank runs whole, R, so a
@@ -361,6 +413,20 @@ def test_recurrent_rank_runs_its_share_of_the_products(world, mesh, m,
     assert f["share"] == pytest.approx(share, rel=1e-12)   # check_dist's
 
 
+@pytest.mark.parametrize("mesh,m", [("debug22", 2), ("model4", 4)])
+def test_encdec_rank_runs_its_share_of_the_products(world, mesh, m):
+    """Reduced seamless-m4t-medium (4 heads on 4 KV heads, d_ff 512,
+    vocab 512): every matrix product of the encoder, the decoder's self-
+    and cross-attention, the SwiGLUs and the head splits m ways, so a rank
+    runs 1 / m of one device's on its rows (``check_dist.
+    replicated_products`` states 0 whole)."""
+    f = world[f"rank_{mesh}"][ENCDEC]["flops"]
+    ratio = f["step"] / f["one_device"]
+    print(f"{mesh} {ENCDEC}: rank FLOPs / one device {ratio!r}")
+    assert f["step"] == pytest.approx(f["one_device"] / m, rel=1e-12)
+    assert f["share"] == pytest.approx(1 / m, rel=1e-12)    # check_dist's
+
+
 def test_tensor_parallel_rank_runs_a_quarter_of_the_products(world):
     """On (1, 4), reduced deepseek-7b (4 heads on 4 KV heads, d_ff 512,
     vocab 512): every matrix product is split four ways."""
@@ -382,7 +448,7 @@ def test_all_column_rank_runs_a_quarter_of_the_products(world):
 
 RANKS = ["debug22", "model4", "multipod", "debug11"] + [
     f"model4/{a}" for a in RANK_ARCHS] + [
-    f"debug22/{a}" for a in RECURRENT]
+    f"debug22/{a}" for a in EXACT_SHARE]
 
 
 def _rank(world, key):

@@ -123,16 +123,17 @@ def test_specs_equal_the_reference(arch):
                                   "seamless-m4t-medium"])
 def test_lower_one_traces_a_full_width_train_step(arch):
     """One rank of the 16 x 16 mesh: B / 16 rows (bf16, as the
-    reference).  deepseek-7b's and mamba2-780m's ranks run tensor-parallel
-    over the 16 model ranks (``dist.tp``): their FLOPs are their model
-    shards' loss and gradient counted directly, and they hold their model
-    shards gathered over "data".  deepseek-7b's are a sixteenth of the
-    whole model's (every product splits: 32 heads on 32 KV heads, d_ff
-    11008, vocab 102400); mamba2-780m's a sixteenth but for the products
-    each rank runs whole (``check_dist.replicated_products``: the head,
-    whose vocab 50280 does not divide 16, the B / C columns of ``w_in``
-    and the C·Bᵀ scores).  seamless-m4t-medium gathers every parameter
-    whole, as before."""
+    reference).  Every arch's rank runs tensor-parallel over the 16 model
+    ranks (``dist.tp``): its FLOPs are its model shards' loss and gradient
+    counted directly, and it holds its model shards gathered over "data".
+    deepseek-7b's are a sixteenth of the whole model's (every product
+    splits: 32 heads on 32 KV heads, d_ff 11008, vocab 102400);
+    mamba2-780m's a sixteenth but for the products each rank runs whole
+    (``check_dist.replicated_products``: the head, whose vocab 50280 does
+    not divide 16, the B / C columns of ``w_in`` and the C·Bᵀ scores);
+    seamless-m4t-medium's a sixteenth (16 heads, d_ff 4096, in the
+    encoder and the decoder's self- and cross-attention) but for its head,
+    whose vocab 256206 does not divide 16."""
     from repro_torch.launch.check_dist import replicated_products
     art = dryrun.lower_one(arch, "train_4k", "single")
     assert art["status"] == "ok", art
@@ -147,24 +148,24 @@ def test_lower_one_traces_a_full_width_train_step(arch):
     batch = input_specs(cfg, InputShape("train_4k", 4096, rows, "train"))
     loss_fn = tl_loss_fn(model, cfg, "tl")
     whole = analyze_step(value_and_grad, loss_fn, params, batch)
-    held = params
     mesh = port_mesh.make_production_mesh(device="cpu")
     stored = dryrun._local(params, param_specs(params, cfg, mesh), mesh)
-    if tp.supported(cfg):
-        held = dryrun._local(params, tp.entry_specs(params, cfg, mesh),
-                             mesh)
-        with dryrun.model_axis_group(mesh) as group, \
-                tp.model_parallel(group, 16, 0):
-            direct = analyze_step(value_and_grad, loss_fn, held, batch)
-        assert direct.flops == pytest.approx(
-            whole.flops / 16 + 15 / 16 * replicated_products(
-                cfg, rows, 4096, 16), rel=1e-12)
-        assert "tensor-parallel" in art["extra_tags"]["rank_program"]
-        assert art["coll_breakdown"]["all-reduce"] > 0
-        assert art["peak_memory_per_chip"] < 80e9      # was 180.3 GB
-    else:
-        direct = whole
-        assert "gathered whole" in art["extra_tags"]["rank_program"]
+    assert tp.supported(cfg)          # every arch partitions
+    held = dryrun._local(params, tp.entry_specs(params, cfg, mesh), mesh)
+    with dryrun.model_axis_group(mesh) as group, \
+            tp.model_parallel(group, 16, 0):
+        direct = analyze_step(value_and_grad, loss_fn, held, batch)
+    assert direct.flops == pytest.approx(
+        whole.flops / 16 + 15 / 16 * replicated_products(
+            cfg, rows, 4096, 16), rel=1e-12)
+    assert "tensor-parallel" in art["extra_tags"]["rank_program"]
+    if cfg.is_encdec:
+        assert "cross-attention" in art["extra_tags"]["rank_program"]
+    assert art["coll_breakdown"]["all-reduce"] > 0
+    # deepseek-7b's was 180.3 GB gathered whole, seamless's 752.8 GB;
+    # seamless's whole-vocab logits (16 x 4096 x 256206) stay whole
+    assert art["peak_memory_per_chip"] < (300e9 if cfg.is_encdec
+                                          else 80e9)
     assert not torch.distributed.is_initialized()
     assert art["flops_per_chip"] == direct.flops
     assert art["hlo_lines"] > 0 and art["bytes_per_chip"] > 0
@@ -214,7 +215,8 @@ def test_moe_train_rank_is_tensor_parallel_all_column(arch, layers,
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "starcoder2-3b",
                                   "qwen2-vl-72b", "deepseek-v3-671b",
-                                  "mamba2-780m", "recurrentgemma-9b"])
+                                  "mamba2-780m", "recurrentgemma-9b",
+                                  "seamless-m4t-medium"])
 def test_tensor_parallel_rank_on_meta_equals_it_on_cpu_tensors(arch):
     """``launch.dryrun.trace_train`` of one rank of a (1, 4) layout at
     reduced width (f32, B 4, S 16): traced on ``meta`` and run on CPU
@@ -224,11 +226,13 @@ def test_tensor_parallel_rank_on_meta_equals_it_on_cpu_tensors(arch):
     the FLOPs are a quarter of the one-device loss and gradient's on the
     same rows where the KV heads split, a little more where they do not
     (one KV head: k and v are projected whole on every rank), and for the
-    recurrent archs exactly a quarter but for the products each rank runs
-    whole (``check_dist.replicated_products``).  The real 4-rank step's
+    recurrent archs and the encoder-decoder exactly a quarter but for the
+    products each rank runs whole (``check_dist.replicated_products``:
+    none for the reduced encoder-decoder).  The real 4-rank step's
     are held equal to the same trace in
     ``tests/test_torch_dist_gloo.py``."""
-    from repro_torch.launch.check_dist import RECURRENT, replicated_products
+    from repro_torch.launch.check_dist import (EXACT_SHARE,
+                                              replicated_products)
     from repro_torch.optim import sgd
     cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
@@ -249,7 +253,7 @@ def test_tensor_parallel_rank_on_meta_equals_it_on_cpu_tensors(arch):
     whole = analyze_step(value_and_grad, tl_loss_fn(model, cfg, "tl"),
                          abstract_params(model, torch.float32), batch)
     ratio = meta[0].flops / whole.flops
-    if arch in RECURRENT:
+    if arch in EXACT_SHARE:
         assert meta[0].flops == pytest.approx(
             whole.flops / 4 + 3 / 4 * replicated_products(cfg, 4, 16, 4),
             rel=1e-12)

@@ -6,8 +6,8 @@ and each leaf's layout at the sharded loss's entry follows its spec.
   ``table[ids]``, ``models.model.cross_entropy``, ``x @ w``, ``swiglu``
   without ``d_ff``), and the TL losses and gradients of the dense GQA
   archs, of deepseek-v3 (MLA, MoE, MTP) and of the recurrent archs
-  (mamba2-780m, recurrentgemma-9b) equal, bit for bit, those of the same
-  loss with the ``dist.tp`` hooks taken out.
+  (mamba2-780m, recurrentgemma-9b) and of the encoder-decoder equal, bit
+  for bit, those of the same loss with the ``dist.tp`` hooks taken out.
 * ``entry_spec`` routes each leaf to "keep the model shard" or "gather
   whole" as its spec and the arch's head counts say, for the five dense
   GQA archs (Megatron's layout) at full width on the 16 x 16 mesh and
@@ -20,8 +20,12 @@ and each leaf's layout at the sharded loss's entry follows its spec.
   the RG-LRU width) every 2-D leaf keeps "model" on exactly the dims the
   reference's spec does, Griffin's one KV head excepted (projected
   whole), and the mixers' 1-D leaves are taken by slice; the SSD heads,
-  not ``cfg.n_heads``, decide Mamba-2's split.  The encoder-decoder still
-  gathers every leaf whole.
+  not ``cfg.n_heads``, decide Mamba-2's split.  For the encoder-decoder
+  (Megatron's layout over its encoder, its decoder's self- and
+  cross-attention and its SwiGLUs) every leaf keeps "model" on exactly
+  the dims the reference's per-layer rule does, at full width on 16 x 16
+  and (1, 4) (the vocab, 256206, divides neither: ``embed`` / ``head``
+  whole) and reduced on (2, 2) and (1, 4).
 
 The multi-rank behaviour (the step against one device, the primitives on
 two ranks, the collectives) is held in ``tests/test_torch_dist_gloo.py``.
@@ -48,7 +52,7 @@ SLICE = ["deepseek-7b", "starcoder2-3b", "qwen2.5-32b", "stablelm-12b",
          "qwen2-vl-72b"]
 ALL_COLUMN = ["deepseek-v2-236b", "deepseek-v3-671b"]
 RECURRENT = ["mamba2-780m", "recurrentgemma-9b"]
-OTHERS = ["seamless-m4t-medium"]
+ENCDEC = "seamless-m4t-medium"
 PRODUCTION = {"data": 16, "model": 16}
 REDUCED_MESHES = {"debug22": {"data": 2, "model": 2},
                   "model4": {"data": 1, "model": 4}}
@@ -113,7 +117,8 @@ def _without_hooks(monkeypatch):
 
 
 @pytest.mark.parametrize("remat", ["tl", "none"])
-@pytest.mark.parametrize("arch", SLICE + ["deepseek-v3-671b"] + RECURRENT)
+@pytest.mark.parametrize("arch", SLICE + ["deepseek-v3-671b"] + RECURRENT
+                         + [ENCDEC])
 def test_unset_context_leaves_the_step_bit_equal(arch, remat, monkeypatch):
     cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
@@ -231,16 +236,6 @@ def test_a_leaf_whose_spec_lost_model_is_gathered_whole():
     assert _has_model(routes["layers/0/mixer/w_q"][1])
 
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_the_other_archs_gather_every_leaf_whole(arch):
-    cfg = get_config(arch, reduced=True)
-    assert not tp.supported(cfg)
-    for name, sizes in REDUCED_MESHES.items():
-        assert not any(_has_model(e) for _, e in _routes(cfg, sizes).values())
-    assert not any(_has_model(e)
-                   for _, e in _routes(get_config(arch), PRODUCTION).values())
-
-
 def test_the_slice_archs_are_supported():
     assert all(tp.supported(get_config(a)) for a in SLICE + RECURRENT)
     assert all(tp.supported(get_config(a, reduced=True))
@@ -304,6 +299,54 @@ def test_recurrent_leaves_keep_model_where_the_reference_spec_does(
         assert {"w_x", "w_gate", "conv/w", "conv/b", "w_a", "b_a", "w_i",
                 "b_i", "lam", "w_out", "w_q", "w_o", "embed",
                 "head"} <= kept, kept
+
+
+ENC_CASES = [("production", PRODUCTION, False),
+             ("model4", REDUCED_MESHES["model4"], False)] + \
+    [(name, sizes, True) for name, sizes in REDUCED_MESHES.items()]
+
+
+@pytest.mark.parametrize(
+    "mesh,sizes,reduced", ENC_CASES,
+    ids=[f"{c[0]}-{'reduced' if c[2] else 'full'}" for c in ENC_CASES])
+def test_encdec_leaves_keep_model_where_the_reference_spec_does(
+        mesh, sizes, reduced):
+    """Every leaf of seamless-m4t-medium keeps its shard on "model" on
+    exactly the dims where the reference's ``param_pspec`` names "model"
+    for one layer's leaf (the port's per-layer lists; the reference's
+    stacked-leaf spec is a caveat, ROADMAP): the column-parallel q / k / v
+    and row-parallel ``w_o`` of the encoder's self-attention and of the
+    decoder's self- and cross-attention, the SwiGLUs' columns and
+    ``w_down`` 's rows, the vocab where it divides the model axis.  At
+    full width the vocab, 256206, divides neither 4 nor 16, so ``embed``
+    and ``head`` stay whole; the reduced vocab, 512, splits.  The
+    decoder's ``mixer`` paths hold no ``layers``: ``mixer_kind`` gives
+    None and they take the attention rows, not a recurrent mixer's."""
+    from repro.dist.sharding import param_pspec as reference_pspec
+    cfg = get_config(ENCDEC, reduced=reduced)
+    assert tp.supported(cfg) and tp.layout(cfg) == "megatron"
+    params = abstract_params(build_model(cfg), torch.float32)
+    kept = set()
+
+    def visit(path, leaf):
+        names = _path_names(path)
+        key = "/".join(names)
+        ref = tuple(reference_pspec(path, leaf, cfg, axis_sizes=sizes))
+        entry = tp.entry_spec(path, leaf, cfg, sizes)
+        assert tp.mixer_kind(names, cfg) is None, key
+        assert _model_dims(entry) == _model_dims(ref), (key, ref, entry)
+        assert all(e in (None, "model") for e in entry), (key, entry)
+        if _model_dims(entry):
+            kept.add("/".join(n for n in names if not n.isdigit()))
+    _map_with_path(visit, params)
+    every = {f"{part}/{w}" for part in ("encoder/attn", "decoder/mixer",
+                                        "decoder/cross")
+             for w in ("w_q", "w_k", "w_v", "w_o")} | {
+        f"{part}/ffn/{w}" for part in ("encoder", "decoder")
+        for w in ("w_gate", "w_up", "w_down")}
+    vocab = cfg.vocab_size % sizes["model"] == 0
+    assert vocab == reduced, cfg.vocab_size
+    assert kept == every | ({"embed", "head"} if vocab else set()), kept
 
 
 def test_mamba2_splits_by_its_ssd_heads_not_n_heads():
