@@ -251,7 +251,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    against its plain version at this X^(1)), K1 once a step each way,
    ms a step and peak; and a reading: whether each of the cell's column
    products, cut in two column halves at a (2, 2) rank's 2048 rows,
-   equals the whole product's columns on the card.
+   equals the whole product's columns on the card; (e) deepseek-7b
+   (depth 30 -> 2) and mamba2-780m (depth 48 -> 4) at full width (B 4, a
+   32-token prompt, 8 tokens) through the sharded serve step (``core.tl_step.ShardedServe``,
+   which on a model axis of size 1 runs the one-device expression)
+   against ``launch/serve.py`` 's ``generate``: every logit and token
+   bit-equal, K4 / K5 once a layer in the sharded prefill, each launch
+   held against its plain version on its own inputs.
 4g. Analysis (after phase 5 and before 4e: its whole-step profiles, as
    4e's, leave later profiler sessions losing records): starcoder2-3b at
    full width, 12 layers, one production step under
@@ -3699,6 +3705,97 @@ def sharded_moe_step(card: str, mesh):
             "seconds": seconds}
 
 
+# arch -> (its prefill's kernel, the layer kind that launches it, depth)
+SHARDED_SERVE = {"deepseek-7b": ("flash_attention_bh", "attn", 2),
+                 "mamba2-780m": ("ssd_bh", "ssm", 4)}
+SHARDED_SERVE_P, SHARDED_SERVE_GEN = 32, 8
+
+
+def sharded_serve(card: str, mesh):
+    """Phase 4e (e): deepseek-7b (2 layers) and mamba2-780m (4 layers) at
+    full width (B 4, a 32-token prompt, 8 tokens, weights from seed 0)
+    prefilled and decoded through the sharded serve step
+    (``core.tl_step.ShardedServe``) on the one-rank (1, 1) NCCL mesh,
+    against ``launch/serve.py`` 's ``generate`` on the card: every step's
+    logits and the tokens bit-equal; K4 / K5 once a layer in the sharded
+    prefill (counts from 0 just before, read just after), each launch held
+    against its plain version on its own inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tl_step import ShardedServe
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bh
+    from repro_torch.kernels.ssd.kernel import ssd_bh
+    from repro_torch.launch.check_dist import _record, hold_recorded
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    kernels = {k.name: k for k in (flash_attention_bh, ssd_bh)}
+    out = {}
+    for arch, (kname, kind, depth) in SHARDED_SERVE.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        model = build_model(cfg)
+        params = model.init(seed=0, device=DEVICE)
+        B, P, G = SERVE_B, SHARDED_SERVE_P, SHARDED_SERVE_GEN
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(B, P)).astype(np.int32)
+        seen = []
+
+        def keep(fn):
+            def call(*a):
+                logits, cache = fn(*a)
+                seen.append(logits.clone())
+                return logits, cache
+            return call
+        oracle = dataclasses.replace(model, prefill=keep(model.prefill),
+                                     decode_step=keep(model.decode_step))
+        tokens = generate(oracle, cfg, params, prompts, G, device=DEVICE)
+        serve = ShardedServe(model, cfg, mesh, B)
+        assert serve.model_ranks == 1 and serve.rows == slice(0, B)
+        placed = serve.place(params)
+        cache = serve.init_cache(P + G)
+        pt = torch.as_tensor(prompts, device=DEVICE)
+        for k in kernels.values():
+            k.launches = 0
+        calls, restore = _record(kernels.values())
+        try:
+            logits, cache = serve.prefill(placed, cache, pt)
+        finally:
+            restore()
+        launches = {n: k.launches for n, k in kernels.items()}
+        got, toks = [logits], []
+        for t in range(G):
+            tok = logits.argmax(-1).to(torch.int32)
+            toks.append(tok)
+            if t == G - 1:
+                break
+            logits, cache = serve.decode_step(placed, cache, tok, P + t)
+            got.append(logits)
+        n_layers = cfg.pattern.count(kind)
+        want = {n: n_layers if n == kname else 0 for n in kernels}
+        assert launches == want, (arch, launches, want)
+        err = hold_recorded(kname, calls[kname])
+        bit_equal = len(got) == len(seen) and all(
+            torch.equal(a, b) for a, b in zip(got, seen))
+        same_tokens = torch.equal(torch.stack(toks, 1), tokens)
+        print(f"  (e) {arch} (full width, {cfg.n_layers} layers) through the "
+              f"sharded serve step on the (1, 1) mesh: logits of the "
+              f"prefill and {G - 1} decode steps bit-equal to generate's "
+              f"{bit_equal}, tokens equal {same_tokens}; {kname} "
+              f"{launches[kname]} a prefill ({n_layers} layers), each "
+              f"launch against its plain version: max_abs_err {err:.3e} "
+              f"[{card}]")
+        assert bit_equal and same_tokens, arch
+        out[arch] = {"launches": launches, "max_abs_err": err,
+                     "bit_equal": bit_equal, "tokens_equal": same_tokens}
+        del params, placed, cache, calls
+        free_cuda()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  (e) {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def nccl_kernels(eng, cfg):
     """``(NCCL kernels, all kernels)`` on the card over one more step of
     ``eng`` (sharded, in place) under the torch profiler."""
@@ -3805,7 +3902,7 @@ def drills(card: str):
 
 
 def distribution(card: str):
-    """Phase 4e: (a), (d), (b) and (c) above; the process group is
+    """Phase 4e: (a), (d), (e), (b) and (c) above; the process group is
     destroyed at the end."""
     import torch
 
@@ -3815,14 +3912,15 @@ def distribution(card: str):
     try:
         mesh, step = sharded_step(card)
         moe = sharded_moe_step(card, mesh)
+        serve = sharded_serve(card, mesh)
     finally:
         torch.use_deterministic_algorithms(False)
     try:
         ep = expert_parallel(card, mesh)
     finally:
         shutdown_distributed()
-    out = {"sharded": step, "moe": moe, "ep": ep, "drills": drills(card),
-           "seconds": time.perf_counter() - t0}
+    out = {"sharded": step, "moe": moe, "serve": serve, "ep": ep,
+           "drills": drills(card), "seconds": time.perf_counter() - t0}
     print(f"  phase 4e {out['seconds']:.1f} s [{card}]")
     return out
 
@@ -4866,6 +4964,7 @@ def main() -> None:
 
     print("== phase 4e: main path 8, distribution: the sharded production "
           "step on a one-rank NCCL mesh (starcoder2-3b, deepseek-v2-236b), "
+          "the sharded serve step (deepseek-7b, mamba2-780m, full width), "
           "expert parallelism, the drills")
     dist = distribution(card)
     gc.collect()
@@ -5001,7 +5100,11 @@ def main() -> None:
               launches_training=rec_train["mamba2-780m"]["launches"][
                   "ssd_bh"],
               launches_training_forward=rec_train["mamba2-780m"][
-                  "forward_launches"]["ssd_bh"]),
+                  "forward_launches"]["ssd_bh"],
+              launches_sharded_serve=dist["serve"]["mamba2-780m"][
+                  "launches"]["ssd_bh"],
+              sharded_serve_max_abs_err=dist["serve"]["mamba2-780m"][
+                  "max_abs_err"]),
         entry("rglru_scan_b", rglru_kernel.SOURCE,
               "src/repro/kernels/rglru/kernel.py:47",
               recurrent["recurrentgemma-9b"]["launches"], rglru_err,
@@ -5021,6 +5124,10 @@ def main() -> None:
               bound_f32_ms=flash_t["mla"]["bound_f32_ms"],
               library_kernel=flash_t["mla"]["library_kernel"],
               launches_deepseek_7b=launches["flash_attention_bh"],
+              launches_sharded_serve=dist["serve"]["deepseek-7b"][
+                  "launches"]["flash_attention_bh"],
+              sharded_serve_max_abs_err=dist["serve"]["deepseek-7b"][
+                  "max_abs_err"],
               launches_analysis_prefill=analysis["prefill"]["k4_launches"],
               launches_restore=fire["launches_restore"]["flash_attention_bh"],
               launches_recovery=fire["launches_recovery"][

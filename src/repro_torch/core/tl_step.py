@@ -1,7 +1,9 @@
 """Production TL training step, on one device or sharded over a mesh.
 
 Port of ``repro/core/tl_step.py`` (``tl_loss_fn``, ``make_train_step``,
-``train_shardings``, ``make_serve_step``, ``serve_shardings``).  The
+``train_shardings``, ``make_serve_step``, ``serve_shardings``), with
+:class:`ShardedServe`, the prefill and decode step the reference's dryrun
+compiles under ``serve_shardings``, on a rank of a mesh.  The
 loss's autograd graph *is* the TL protocol:
 
 * the node phase computes ``embed -> block0``, giving X^(1);
@@ -348,10 +350,133 @@ def make_train_step(model: Model, cfg: ModelConfig, optimizer, *,
 
 def make_serve_step(model: Model, cfg: ModelConfig) -> Callable:
     """``(params, cache, token, cache_len) -> (logits, cache)``: one decode
-    step (the step the dryrun traces for a decode shape)."""
+    step on one device (:class:`ShardedServe` runs it on a mesh)."""
     def step(params, cache, token, cache_len):
         return model.decode_step(params, cache, token, cache_len)
     return step
+
+
+class ShardedServe:
+    """``model.prefill`` and one ``decode_step`` on a rank of ``mesh`` (a
+    ``launch.mesh.Mesh`` whose process group runs): the port's
+    ``jax.jit(model.prefill | make_serve_step, in_shardings=
+    serve_shardings(...))`` for a global batch of ``global_batch`` rows.
+
+    * **Weights** are ``DTensor`` s placed by :func:`serve_shardings`
+      (:meth:`place`; ``fsdp`` as there: FSDP over the batch axes unless
+      ``fsdp=False``).  At each call's entry a leaf is redistributed to
+      ``dist.tp.entry_specs`` ' placement -- its shard on "model" where
+      tensor parallelism splits it, else whole -- so FSDP's all-gather
+      over the batch axes runs where the storage shards a leaf there,
+      and the model computes on local tensors with its collectives over
+      "model" (:func:`tensor_parallel`'s scope), no model op seeing a
+      ``DTensor``.  An arch or mesh that ``dist.tp.partitions`` does not
+      split (a model axis of 1) runs the one-device expression.
+    * **The cache** is this rank's shard of each leaf under
+      :func:`serve_shardings`' cache specs, plain tensors
+      (:meth:`init_cache`); a layer reads more than the shard only by
+      gathering it over "model" and writes back only the shard
+      (``dist.tp`` 's serve table).
+    * **Rows and logits**: the rank runs its own rows (:attr:`rows`,
+      ``tokens_pspec`` 's block; every row where the batch axes do not
+      divide the batch) and gets their logits over the whole vocab.
+
+    The step takes no gradient and sets no grad mode: under
+    ``torch.no_grad`` the attentions and scans take the kernels (K4-K6),
+    as one device's serving does.  ``cache_seq_shard`` (the reference's
+    split-sequence decode) is not ported."""
+
+    def __init__(self, model: Model, cfg: ModelConfig, mesh,
+                 global_batch: int, *, fsdp=None):
+        import torch.distributed as dist
+
+        from repro_torch.dist.sharding import batch_axes, tokens_pspec
+        self.model, self.cfg, self.mesh = model, cfg, mesh
+        self.global_batch, self.fsdp = global_batch, fsdp
+        self.rank = dist.get_rank()
+        B = global_batch
+        if tokens_pspec(mesh, B)[0] is None:
+            self.rows = slice(0, B)
+        else:
+            n = math.prod(mesh.sizes[a] for a in batch_axes(mesh))
+            i = mesh.index_along(self.rank, batch_axes(mesh))
+            self.rows = slice(i * B // n, (i + 1) * B // n)
+        self.model_ranks = mesh.sizes.get("model", 1) \
+            if tp.partitions(cfg, mesh) else 1
+        self.device = torch.device(
+            "cuda", torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device("cpu")
+        self._layout = None
+
+    def shardings(self, params, max_len: int):
+        """:func:`serve_shardings` ' ``(params, cache)`` shardings of the
+        whole trees (``params`` whole or placed; the cache of
+        ``global_batch`` rows and ``max_len`` positions on ``meta``)."""
+        whole = self.model.init_cache(self.global_batch, max_len,
+                                      device="meta")
+        shape = InputShape("serve", max_len, self.global_batch, "decode")
+        return serve_shardings(params, whole, self.cfg, self.mesh, shape,
+                               fsdp=self.fsdp)[0][:2]
+
+    def place(self, params):
+        """Whole parameters (the same on every rank) as ``DTensor`` s with
+        :func:`serve_shardings` ' placements, with no communication."""
+        from repro_torch.dist.tensor import distribute_tree
+        return distribute_tree(params, self.shardings(params, 1)[0],
+                               self.rank)
+
+    def init_cache(self, max_len: int, *, dtype=torch.float32):
+        """This rank's empty cache: its rows, each leaf's shard under
+        :func:`serve_shardings` ' spec (the model's ``init_cache`` over
+        the model ranks, held to the specs' local shapes)."""
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.dist.tensor import local_chunk
+        rows = self.rows.stop - self.rows.start
+        cache = self.model.init_cache(rows, max_len, device=self.device,
+                                      dtype=dtype,
+                                      model_ranks=self.model_ranks)
+        whole = self.model.init_cache(self.global_batch, max_len,
+                                      device="meta", dtype=dtype)
+        coord = self.mesh.coordinate(self.rank)
+        specs = self.shardings(self.model.init(device="meta"), max_len)[1]
+        want = [tuple(local_chunk(t, s.spec, self.mesh, coord).shape)
+                for t, s in zip(tree_leaves(whole), tree_leaves(specs))]
+        got = [tuple(t.shape) for t in tree_leaves(cache)]
+        if got != want:
+            raise AssertionError(f"the local cache's shapes {got} are not "
+                                 f"its serve specs' shards {want}")
+        return cache
+
+    def _entry(self, params):
+        """The parameters as the model receives them (local tensors) and
+        the tensor-parallel scope; a leaf already at its entry placement
+        is handed on without a redistribution."""
+        if self._layout is None:
+            entry, scope = tensor_parallel(self.cfg, self.mesh, params)
+            self._layout = [s.placements for s in tree_flatten(entry)[0]], \
+                scope
+        placements, scope = self._layout
+        dm = self.mesh.device_mesh()
+        leaves, treedef = tree_flatten(params)
+        held = [(x if tuple(x.placements) == p
+                 else x.redistribute(dm, p)).to_local()
+                for x, p in zip(leaves, placements)]
+        return tree_unflatten(treedef, held), scope
+
+    def prefill(self, params, cache, tokens, extra_embeds=None):
+        """Fill this rank's cache from its rows' prompts ``tokens`` (and
+        frames ``extra_embeds``); returns their last position's logits
+        over the whole vocab and the cache."""
+        local, scope = self._entry(params)
+        with scope():
+            return self.model.prefill(local, cache, tokens, extra_embeds)
+
+    def decode_step(self, params, cache, token, cache_len: int):
+        """One decode step of this rank's rows: ``token`` (rows,), returns
+        their logits over the whole vocab and the cache."""
+        local, scope = self._entry(params)
+        with scope():
+            return self.model.decode_step(local, cache, token, cache_len)
 
 
 # -------------------------------------------------------------- shardings

@@ -153,6 +153,39 @@ whatever the tables say, and its product runs whole on every rank.  The
 megatron biases and the recurrent mixers' 1-D leaves are replicated by
 spec, so a rank takes its slice of them at the entry (no communication)
 and their gradients are gathered back over "model".
+
+**Serving** (``core.tl_step.ShardedServe``, the reference's prefill and
+decode step under ``serve_shardings``) takes the same entry specs: a
+weight is stored by ``param_specs(fsdp=...)`` and gathered at the entry
+over the batch axes only where FSDP shards it there (``fsdp=False``
+stores TP-only weights, which need no gather).  The cache stays at rest
+as the rank's shard of each leaf under ``serve_shardings``' spec (the
+caches' ``model_ranks``); a layer reads a leaf whole
+(:func:`cache_whole`, an all-gather over "model") where its share of the
+products reads more than the shard, and writes back only the shard
+(:func:`cache_shard`).  Leaf by leaf, with m model ranks:
+
+=================================  =========================================
+cache leaf                         at rest / what a rank computes
+=================================  =========================================
+GQA ``k``, ``v`` (B, S, KV, hd)    KV heads on "model" (KV % m == 0): the
+                                   rank's KV heads, read and written
+                                   locally; else replicated: every KV head
+                                   written whole, the rank's run of them
+                                   read
+MLA ``c_kv`` (B, S, lora),         columns on "model": the rank's columns of
+``k_rope`` (B, S, rope)            the latent it computes whole; a decode
+                                   step gathers both (its H/m heads read
+                                   the whole latent)
+Mamba-2 ``state`` (B, H, P, N)     SSD heads on "model": the rank's heads
+Mamba-2 ``conv`` (B, k-1, C),      replicated (k-1 = 3 does not divide):
+RG-LRU ``conv`` (B, 3, W)          the whole window, the rank's x / W/m
+                                   channels all-gathered into it
+RG-LRU ``h`` (B, W)                width on "model": the rank's channels
+enc-dec ``enc_out`` (B, F, d)      frames on "model": gathered whole for
+                                   the cross-attention of a decode step
+``pos``                            replicated
+=================================  =========================================
 """
 from __future__ import annotations
 
@@ -351,6 +384,32 @@ def reduce_from_model(x):
     if _CTX is None:
         return x
     return _ReduceFromModel.apply(_plain(x), _CTX.group_name)
+
+
+# ----------------------------------------------------------- serve caches
+
+def cache_split(n: int, m: int) -> int:
+    """A cache dim of ``n`` held at rest over ``m`` model ranks:
+    ``n / m`` where ``m`` divides it, else ``n`` (the spec drops "model",
+    as ``serve_shardings`` ' divisibility rule does)."""
+    return n // m if m > 1 and n % m == 0 else n
+
+
+def cache_whole(leaf, dim: int, whole: int):
+    """A cache leaf read whole along ``dim``: gathered over "model" where
+    the rank holds its share of ``whole`` there, else ``leaf``."""
+    if not partitioned(leaf.shape[dim], whole):
+        return leaf
+    return gather_from_model(leaf, dim)
+
+
+def cache_shard(x, dim: int, local: int):
+    """What a rank writes into a cache leaf holding ``local`` of ``x``'s
+    dim ``dim`` at rest: its block of ``x`` where ``x`` is whole there
+    (no communication), else ``x``."""
+    if not partitioned(local, x.shape[dim]):
+        return x
+    return x.narrow(dim, _CTX.rank * local, local)
 
 
 # ------------------------------------------------------- vocab-parallel

@@ -232,8 +232,9 @@ def _diff(a, b) -> float:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def run_checks(device: str, ckdir: str) -> dict:
-    """Every check of the module docstring; the readings (the first
+def run_checks(device: str, ckdir: str, serve: bool = True) -> dict:
+    """Every check of the module docstring (the serve checks,
+    :func:`serve_checks`, unless ``serve=False``); the readings (the first
     rank's, which holds the one-device references), an empty dict on the
     others."""
     from torch.distributed.tensor import DTensor, Replicate
@@ -388,6 +389,8 @@ def run_checks(device: str, ckdir: str) -> dict:
     # shard permutes its own rows
     out["permuter"] = {"placements": [str(p) for p in outs[0].placements],
                        "rows": rows, "kernel_refuses": refused}
+    if serve:
+        out.update(serve_checks(device))
     return out if lead else {}
 
 
@@ -503,35 +506,48 @@ def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
             "model_ops": watch.ops, "dtensor_ops": watch.dtensor_ops}
 
 
-def replicated_products(cfg, rows: int, seq: int, m: int) -> float:
-    """The matrix-product FLOPs of the one-device TL step (remat "tl") on
-    ``rows`` x ``seq`` tokens that a tensor-parallel rank over ``m``
-    model ranks still runs whole, reckoned from the shapes: Mamba-2's
+def replicated_products(cfg, rows: int, seq: int, m: int,
+                        kind: str = "train") -> float:
+    """The matrix-product FLOPs of the one-device TL step (remat "tl"), or
+    of a ``kind`` ``"prefill"`` of ``seq`` positions or ``"decode"`` step
+    (one position), on ``rows`` rows that a tensor-parallel rank over
+    ``m`` model ranks still runs whole, reckoned from the shapes: Mamba-2's
     B and C columns of ``w_in`` and C·Bᵀ scores of each chunk (every rank
-    scans B and C whole), the k / v projections where the KV heads do
-    not split (each rank projects every KV head), and the head where the
-    vocab does not (kept whole).  Every other product splits m ways, so
-    a rank runs ``one / m + (1 - 1 / m) * this``.  A product runs three times in
+    scans B and C whole; a decode step has no scores, but its conv over
+    the window is an einsum, whose B and C channels run whole), the k / v
+    projections where the KV heads do not split (each rank projects every
+    KV head), and the head where the vocab does not (kept whole; a
+    prefill's and a decode step's logits are one position's).  Every
+    other product splits m ways, so a rank runs ``one / m + (1 - 1 / m) *
+    this``.  In the TL step a product runs three times in
     block 0 (its forward and the gradients of its two operands) and four
     in the tail, whose forward is recomputed, the head excepted (the
     non-reentrant checkpoint stops recomputing once the tensors the
-    backward pass saves are back, and no one saves the logits).  The
+    backward pass saves are back, and no one saves the logits); a serve
+    step runs each once.  The
     encoder-decoder's loss has no checkpoint, so each of its products runs
     three times, and only its head can stay whole: its KV heads are its
     query heads, so its k / v split with them."""
+    train = kind == "train"
+    if kind == "decode":
+        seq = 1
     total = 0
-    for i, kind in enumerate(() if cfg.is_encdec else cfg.pattern):
-        runs = 3 if i == 0 else 4
-        if kind == "ssm":                     # S padded to whole chunks
+    for i, layer in enumerate(() if cfg.is_encdec else cfg.pattern):
+        runs = (3 if i == 0 else 4) if train else 1
+        if layer == "ssm":                    # S padded to whole chunks
             chunk, N = cfg.ssm.chunk_size, cfg.ssm.d_state
-            total += runs * 2 * rows * (-(-seq // chunk) * chunk * chunk * N
-                                        + seq * cfg.d_model * 2 * N)
-        elif kind == "attn" and cfg.attention != "mla" \
+            # a decode step's conv is an einsum over the window: its B and
+            # C channels' share is whole too
+            scores = -(-seq // chunk) * chunk * chunk * N \
+                if kind != "decode" else cfg.ssm.conv_kernel * 2 * N
+            total += runs * 2 * rows * (scores + seq * cfg.d_model * 2 * N)
+        elif layer == "attn" and cfg.attention != "mla" \
                 and cfg.n_kv_heads % m:
             total += runs * 2 * 2 * rows * seq * cfg.d_model \
                 * cfg.n_kv_heads * cfg.resolved_head_dim
     if cfg.vocab_size % m:
-        total += 3 * 2 * rows * seq * cfg.d_model * cfg.vocab_size
+        total += (3 * seq if train else 1) * 2 * rows * cfg.d_model \
+            * cfg.vocab_size
     return float(total)
 
 
@@ -1037,6 +1053,19 @@ def ulp_moved(params, seed: int = 0):
     return tree_map(move, params)
 
 
+def ulp_move_(params, seed: int = 0):
+    """:func:`ulp_moved` in place, leaf by leaf, the ways drawn on the
+    leaves' device (a copy of a 37 GB tree does not fit beside it)."""
+    from repro_torch.core.tree import tree_leaves
+    for p in tree_leaves(params):
+        g = torch.Generator(device=p.device).manual_seed(seed)
+        up = torch.randint(0, 2, p.shape, generator=g, device=p.device,
+                           dtype=torch.uint8).bool()
+        p.copy_(torch.nextafter(p, torch.where(up, math.inf, -math.inf)
+                                .to(p.dtype)))
+        del up
+
+
 def order_only(device: str, arch: str, layers: int = None) -> dict:
     """On one card, without a process group: the ``--production`` cell's
     one-device run (:func:`_cell`, 3 steps) against the same run with only
@@ -1203,10 +1232,605 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
     return out if lead else {}
 
 
+# ------------------------------------------------------------- serving
+
+# the sharded serve step (core.tl_step.ShardedServe): every arch, reduced,
+# B 4, a 16-token prompt, then 4 greedy decode steps, on (2, 2) and (1, 4)
+SERVE_B, SERVE_P, SERVE_STEPS = 4, 16, 4
+SERVE_TOL = 1e-5          # tests/test_torch_models.py's TOL, atol = rtol
+# Griffin's local attention past its window (64 reduced): the ring buffer
+# wraps in the prefill
+RING = ("starcoder2-3b", 70)
+# --serve: arch -> decoder layers, the depth each one-card serving phase
+# of chip_smoke.py uses (seamless: 12 + 12; Griffin: phase 3b's 6)
+SERVE_CELLS = {"deepseek-7b": 30, "deepseek-v2-236b": 3, "mamba2-780m": 48,
+               "recurrentgemma-9b": 6, ENCDEC: 12}
+CELL_B, CELL_P, CELL_STEPS = 4, 1024, 16
+CELL_GAP = 1e-3           # a step's argmax is held where one card's top-2
+CELL_CACHE_RTOL = 1e-4    # gap exceeds it; the cache shards' relative gap
+# the forward-only kernels a TP prefill launches, with their plain
+# versions' tolerance (chip_smoke.py phase 2's)
+SERVE_KERNELS = {"flash_attention_bh": 1e-5, "ssd_bh": 2e-4,
+                 "rglru_scan_b": 1e-5}
+
+
+def serve_inputs(cfg, B: int, P: int, seed: int = 1) -> dict:
+    """Seeded prompts and, for a frontend arch, frames (B, F, d) f32 of
+    std :data:`FRAME_STD`, on the host, filling ``P`` positions of the
+    cache as ``launch.specs`` makes them: (B, P) int32 tokens, (B, P - F)
+    behind a VLM's frames."""
+    import numpy as np
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.specs import text_len
+    rng = np.random.default_rng(seed)
+    S = text_len(cfg, InputShape("serve", P, B, "prefill"))
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32))}
+    if cfg.frontend:
+        out["embeds"] = torch.from_numpy((FRAME_STD * rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model))).astype(np.float32))
+    return out
+
+
+def _serve(prefill, decode, cache, inputs, steps: int, start: int,
+           teacher=None):
+    """A prefill of ``inputs`` (``start`` positions) then ``steps`` decode
+    steps, greedy or fed ``teacher`` 's tokens (rows, steps): ``(logits
+    (rows, steps + 1, V), tokens (rows, steps), cache)``; each step's
+    input is the argmax of the previous logits (the teacher's where
+    given)."""
+    P = start
+    logits, cache = prefill(cache, inputs["tokens"], inputs.get("embeds"))
+    out, toks = [logits], []
+    for t in range(steps):
+        tok = (logits.argmax(-1) if teacher is None
+               else teacher[:, t]).to(torch.int32)
+        toks.append(tok)
+        logits, cache = decode(cache, tok, P + t)
+        out.append(logits)
+    return torch.stack(out, 1), torch.stack(toks, 1), cache
+
+
+def _one_device(model, params, inputs, steps, start, teacher=None):
+    rows = inputs["tokens"].shape[0]
+    cache = model.init_cache(rows, start + steps,
+                             device=inputs["tokens"].device,
+                             dtype=params["embed"].dtype)
+    return _serve(lambda c, t, e: model.prefill(params, c, t, e),
+                  lambda c, t, n: model.decode_step(params, c, t, n),
+                  cache, inputs, steps, start, teacher)
+
+
+def _sharded(serve, placed, inputs, steps, start, teacher=None):
+    cache = serve.init_cache(start + steps)
+    return _serve(lambda c, t, e: serve.prefill(placed, c, t, e),
+                  lambda c, t, n: serve.decode_step(placed, c, t, n),
+                  cache, inputs, steps, start, teacher)
+
+
+def cache_shards(serve, cache, max_len: int):
+    """``cache`` (one device's, the rank's rows) cut to the rank's shard
+    of each leaf under ``serve_shardings`` ' spec on "model" (its batch
+    rows are the rank's already)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist.sharding import P, batch_axes
+    from repro_torch.dist.tensor import local_chunk
+    mesh, dp = serve.mesh, batch_axes(serve.mesh)
+    coord = mesh.coordinate(serve.rank)
+    specs = serve.shardings(serve.model.init(device="meta"), max_len)[1]
+
+    def model_only(spec):
+        return P(*(None if e is not None and set(
+            e if isinstance(e, tuple) else (e,)) <= set(dp) else e
+            for e in tuple(spec)))
+    return [local_chunk(t, model_only(s.spec), mesh, coord)
+            for t, s in zip(tree_leaves(cache), tree_leaves(specs))]
+
+
+def _cache_gaps(got, want) -> tuple:
+    """The largest ``|got - want|`` over the leaves, the largest of it
+    over a leaf's largest ``|want|``, and whether every leaf is within
+    :data:`SERVE_TOL` (atol = rtol, elementwise)."""
+    from repro_torch.core.tree import tree_leaves
+    gap = rel = 0.0
+    close = True
+    for a, b in zip(tree_leaves(got), want):
+        if a.shape != b.shape:
+            raise AssertionError(f"cache leaf {tuple(a.shape)} against "
+                                 f"its shard {tuple(b.shape)}")
+        if not a.is_floating_point():
+            close = close and bool(torch.equal(a, b))
+            continue
+        d = float((a.float() - b.float()).abs().max()) if a.numel() else 0.
+        top = float(b.float().abs().max()) if b.numel() else 0.0
+        gap, rel = max(gap, d), max(rel, d / top if top else d)
+        close = close and bool(torch.allclose(
+            a.float(), b.float(), atol=SERVE_TOL, rtol=SERVE_TOL))
+    return gap, rel, close
+
+
+def _all_max(values, device) -> list:
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
+def serve_against_one_device(cfg, mesh, whole, inputs, start: int, *,
+                             steps: int = SERVE_STEPS, fsdp=None) -> dict:
+    """The sharded serve step on ``mesh`` (every rank; collective) against
+    one device on the same rows: this rank's rows of ``inputs`` (host
+    tensors of every row) prefilled and decoded greedily ``steps`` steps
+    by ``model.prefill`` / ``decode_step`` at the whole parameters
+    ``whole`` and by ``ShardedServe`` at the same parameters placed by
+    ``serve_shardings`` (the prefill filling ``start`` positions).  Over every rank: the largest logit gap and
+    whether each is within :data:`SERVE_TOL` (allclose), whether every
+    token stream is equal, the cache leaves against their spec shards of
+    the one-device cache (largest gap, relative gap, allclose), and for an
+    MoE arch the (token, choice) pairs routed to another expert in the
+    prefill and the decode steps."""
+    from repro_torch.core.tl_step import ShardedServe
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    B = inputs["tokens"].shape[0]
+    max_len = start + steps
+    serve = ShardedServe(model, cfg, mesh, B, fsdp=fsdp)
+    dev = whole["embed"].device
+    mine = {k: v[serve.rows].to(dev) for k, v in inputs.items()}
+    routed = cfg.moe is not None
+    with torch.no_grad():
+        run1 = []
+        routes1 = _recorded_routes(lambda: run1.extend(_one_device(
+            model, whole, mine, steps, start))) if routed else \
+            run1.extend(_one_device(model, whole, mine, steps, start))
+        placed = serve.place(whole)
+        run2 = []
+        routes2 = _recorded_routes(lambda: run2.extend(_sharded(
+            serve, placed, mine, steps, start))) if routed else \
+            run2.extend(_sharded(serve, placed, mine, steps, start))
+    (l1, t1, c1), (l2, t2, c2) = run1, run2
+    gap = float((l2 - l1).abs().max())
+    close = bool(torch.allclose(l2, l1, atol=SERVE_TOL, rtol=SERVE_TOL))
+    c_gap, c_rel, c_close = _cache_gaps(c2, cache_shards(serve, c1,
+                                                         max_len))
+    flips = 0
+    if routed:
+        if len(routes1) != len(routes2):
+            raise AssertionError(f"{len(routes2)} route calls against "
+                                 f"{len(routes1)}")
+        flips = sum(int((a[2] != b[2]).sum())
+                    for a, b in zip(routes1, routes2))
+    bad = [float(not close), float(not torch.equal(t1, t2)),
+           float(not c_close)]
+    worst = _all_max([gap, c_gap, c_rel, float(flips)] + bad, dev)
+    flips_all = torch.tensor([flips], device=dev)
+    dist.all_reduce(flips_all)
+    return {"logit_gap": worst[0], "logits_close": not worst[4],
+            "streams_equal": not worst[5], "cache_gap": worst[1],
+            "cache_rel": worst[2], "cache_close": not worst[6],
+            "flips": int(flips_all.item()), "rows": B, "prompt": start,
+            "steps": steps, "model_ranks": serve.model_ranks,
+            "routes": len(routes1) if routed else 0}
+
+
+def _serve_rank(mesh, device, arch: str, fsdp=None) -> dict:
+    """One rank's sharded prefill (B 4, P 16) and decode step (the cache
+    holding 17 positions) of reduced ``arch`` under the dispatch
+    accounting, beside ``launch.dryrun.trace_serve`` 's trace of the same
+    rank on ``meta``: each kind's collective result bytes issued
+    (``measured``) and predicted, the matrix-product FLOPs of the two,
+    the memory the rank holds (parameter shards, the parameters received
+    in storage of their own, i.e. gathered, the cache shard, the inputs)
+    against the reckoned, and the ops that received a ``DTensor``.  The
+    real step runs on parameters that require grad, so its attentions
+    and scans take the reference's own paths, as the trace on ``meta``
+    does (the kernels' plain versions would hide their products from the
+    accounting)."""
+    from repro_torch.analysis.dispatch_costs import accounting
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tl_step import ShardedServe
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.dryrun import trace_serve
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    B, S = SERVE_B, SERVE_P
+    whole = model.init(seed=0, device=device)
+    serve = ShardedServe(model, cfg, mesh, B, fsdp=fsdp)
+    placed = tree_map(lambda t: t.detach().requires_grad_(True),
+                      serve.place(whole))
+    inputs = {k: v[serve.rows].to(device)
+              for k, v in serve_inputs(cfg, B, S).items()}
+    out = {}
+    for kind in ("prefill", "decode"):
+        seq = S if kind == "prefill" else S + 1
+        cache = serve.init_cache(seq)
+        if kind == "decode":
+            with torch.no_grad():
+                serve.prefill(placed, cache, inputs["tokens"],
+                              inputs.get("embeds"))
+        seen = {}
+        watch = _RefuseDTensor()
+        real_entry = serve._entry
+
+        def entry(p):
+            local, scope = real_entry(p)
+            # a leaf received in the stored shard's own storage allocates
+            # nothing; one in storage of its own was gathered
+            seen["bytes"] = sum(
+                r.numel() * r.element_size() for r, s in zip(
+                    tree_leaves(local), tree_leaves(p))
+                if r.untyped_storage().data_ptr()
+                != s._local_tensor.untyped_storage().data_ptr())
+            return local, lambda: _watched(scope, watch)
+        serve._entry = entry
+        try:
+            with accounting() as costs:
+                if kind == "prefill":
+                    serve.prefill(placed, cache, inputs["tokens"],
+                                  inputs.get("embeds"))
+                    fed = [inputs[k] for k in ("tokens", "embeds")
+                           if k in inputs]
+                else:
+                    token = inputs["tokens"][:, 0]
+                    serve.decode_step(placed, cache, token, S)
+                    fed = [token]
+        finally:
+            serve._entry = real_entry
+        pred, coll, memory, program = trace_serve(
+            model, cfg, InputShape(kind, seq, B, kind), mesh,
+            abstract_params(model, torch.float32), serve_fsdp=fsdp)
+        held = {"param_shard_bytes": sum(
+                    t._local_tensor.numel() * t.element_size()
+                    for t in tree_leaves(placed)),
+                "gathered_param_bytes": seen["bytes"],
+                "cache_shard_bytes": sum(t.numel() * t.element_size()
+                                         for t in tree_leaves(cache)),
+                "input_bytes": sum(t.numel() * t.element_size()
+                                   for t in fed)}
+        out[kind] = {"measured": {k: int(v) for k, v in costs.coll.items()},
+                     "predicted": coll,
+                     "flops": {"step": costs.flops, "dryrun": pred.flops},
+                     "memory": {"held": held,
+                                "reckoned": {k: memory[k] for k in held}},
+                     "model_ops": watch.ops,
+                     "dtensor_ops": watch.dtensor_ops,
+                     "program": program}
+    return out
+
+
+@contextlib.contextmanager
+def _watched(scope, watch):
+    with scope(), watch:
+        yield
+
+
+def serve_checks(device: str) -> dict:
+    """The sharded serve step's checks on the reduced archs (every rank;
+    collective): :func:`serve_against_one_device` for every arch on (2, 2)
+    and (1, 4), the ring case (:data:`RING`) on (1, 4) and deepseek-7b
+    with TP-only weights (``fsdp=False``) on (2, 2); a rank's program
+    against the dryrun's trace (:func:`_serve_rank`) for every arch on
+    (2, 2) and (1, 4) and for deepseek-7b with ``fsdp=False``.  The first
+    rank's readings; an empty dict on the others."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build_model
+    meshes = {"debug22": make_mesh_compat((2, 2), ("data", "model"),
+                                          device=device),
+              "model4": make_mesh_compat((1, 4), ("data", "model"),
+                                         device=device)}
+    out = {}
+    for name, mesh in meshes.items():
+        for arch in list_archs():
+            cfg = get_config(arch, reduced=True)
+            whole = build_model(cfg).init(seed=0, device=device)
+            out[f"serve/{name}/{arch}"] = serve_against_one_device(
+                cfg, mesh, whole, serve_inputs(cfg, SERVE_B, SERVE_P),
+                SERVE_P)
+    arch, P = RING
+    cfg = get_config(arch, reduced=True)
+    whole = build_model(cfg).init(seed=0, device=device)
+    out[f"serve/model4/{arch}/ring"] = serve_against_one_device(
+        cfg, meshes["model4"], whole, serve_inputs(cfg, SERVE_B, P), P)
+    cfg = get_config("deepseek-7b", reduced=True)
+    out["serve/debug22/deepseek-7b/tp_only"] = serve_against_one_device(
+        cfg, meshes["debug22"], build_model(cfg).init(seed=0, device=device),
+        serve_inputs(cfg, SERVE_B, SERVE_P), SERVE_P, fsdp=False)
+    for name, mesh in meshes.items():
+        for arch in list_archs():
+            out[f"serve_rank/{name}/{arch}"] = _serve_rank(mesh, device,
+                                                           arch)
+    out["serve_rank/debug22/deepseek-7b/tp_only"] = _serve_rank(
+        meshes["debug22"], device, "deepseek-7b", fsdp=False)
+    return out if dist.get_rank() == 0 else {}
+
+
+def _timed(fn, device) -> tuple:
+    """``(fn(), ms)``: the host clock around the call, synced on a card."""
+    import time
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _timed_serve(prefill, decode, cache, inputs, steps, start, device,
+                 teacher=None) -> dict:
+    """:func:`_serve` with each call timed (:func:`_timed`): the logits,
+    tokens and cache, the prefill's ms and the decode steps' median ms,
+    and the peak bytes allocated on a card over the run."""
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    ms = []
+
+    def timed(fn):
+        def call(*a):
+            out, t = _timed(lambda: fn(*a), device)
+            ms.append(t)
+            return out
+        return call
+    logits, toks, cache = _serve(timed(prefill), timed(decode), cache,
+                                 inputs, steps, start, teacher)
+    return {"logits": logits, "tokens": toks, "cache": cache,
+            "prefill_ms": ms[0], "decode_ms": statistics.median(ms[1:]),
+            "peak_bytes": torch.cuda.max_memory_allocated()
+            if device != "cpu" else 0}
+
+
+def _record(kernels) -> tuple:
+    """Patch each kernel wrapper's ``__call__`` to keep a copy of every
+    call's arguments and output (made after the call, so the path sees
+    its own tensors); returns ``(calls by name, restore)``."""
+    calls, real = {}, {}
+
+    def keep(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    for k in kernels:
+        cls, name = type(k), k.name
+        real[cls] = cls.__call__
+        calls[name] = []
+
+        def call(self, *a, _real=cls.__call__, _name=name, **kw):
+            out = _real(self, *a, **kw)
+            calls[_name].append(([keep(x) for x in a], kw,
+                                 tuple(keep(o) for o in out)
+                                 if isinstance(out, tuple) else keep(out)))
+            return out
+        cls.__call__ = call
+
+    def restore():
+        for cls, fn in real.items():
+            cls.__call__ = fn
+    return calls, restore
+
+
+def hold_recorded(name: str, calls: list) -> float:
+    """Every recorded call of kernel ``name`` against its plain version on
+    that call's own inputs, within :data:`SERVE_KERNELS` ' tolerance
+    (abs = rel); returns the largest abs error (raises past the
+    tolerance)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.rglru import rglru_ref
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+    refs = {"flash_attention_bh": flash_attention_ref,
+            "ssd_bh": lambda dA, x, Bm, Cm, chunk=256: ssd_chunked_ref(
+                dA, x, Bm, Cm, chunk),
+            "rglru_scan_b": lambda a, b, chunk=64: rglru_ref(a, b)}
+    tol, worst = SERVE_KERNELS[name], 0.0
+    for args, kw, out in calls:
+        want = refs[name](*args, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        wants = want if isinstance(want, tuple) else (want,)
+        for o, w in zip(outs, wants):
+            torch.testing.assert_close(o, w, atol=tol, rtol=tol)
+            worst = max(worst, float((o.float() - w.float()).abs().max()))
+    return worst
+
+
+def _argmax_misses(got, want, gap: float) -> int:
+    """Positions (row, step) whose argmax differs where ``want`` 's top-2
+    gap exceeds ``gap``."""
+    top = want.topk(2, dim=-1).values
+    held = (top[..., 0] - top[..., 1]) > gap
+    return int(((got.argmax(-1) != want.argmax(-1)) & held).sum())
+
+
+def serve_cell(device: str, arch: str, mesh_shape=(1, 4)) -> dict:
+    """``--serve``: the sharded serve step of ``arch`` at full width (the
+    depth of :data:`SERVE_CELLS`) on a (data, model) mesh of
+    ``mesh_shape`` (every rank; collective): B :data:`CELL_B`, a prompt of
+    :data:`CELL_P` positions (seamless: its 1024 seeded frames too), then
+    :data:`CELL_STEPS` decode steps fed one card's greedy stream.  Each
+    rank runs one card's prefill and decode of its rows at the whole
+    parameters (the reference; the first rank also runs it with every
+    weight moved one ulp, the witness), then ``ShardedServe``: each
+    step's argmax against one card's where its top-2 gap exceeds
+    :data:`CELL_GAP`, each step's largest logit gap beside the witness's,
+    the cache shards' relative gap, the K4 / K5 / K6 launches of the
+    sharded prefill and each one held against its plain version on its
+    own inputs, ms a prefill and a decode step and peak bytes of both
+    runs, and on a card one more sharded prefill and decode run under the
+    profiler (``launch.profile_serve``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tl_step import ShardedServe
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bh
+    from repro_torch.kernels.rglru.kernel import rglru_scan_b
+    from repro_torch.kernels.ssd.kernel import ssd_bh
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build_model
+
+    lead = dist.get_rank() == 0
+    cfg = dataclasses.replace(get_config(arch), n_layers=SERVE_CELLS[arch])
+    B, P, steps = CELL_B, CELL_P, CELL_STEPS
+    model = build_model(cfg)
+    mesh = make_mesh_compat(tuple(mesh_shape), ("data", "model"),
+                            device=device)
+    serve = ShardedServe(model, cfg, mesh, B)
+    dev = torch.device(device, torch.cuda.current_device()) \
+        if device != "cpu" else torch.device("cpu")
+    mine = {k: v[serve.rows].to(dev)
+            for k, v in serve_inputs(cfg, B, P).items()}
+    whole = model.init(seed=0, device=dev)
+
+    def one(params, teacher=None):
+        cache = model.init_cache(len(mine["tokens"]), P + steps, device=dev)
+        return _timed_serve(
+            lambda c, t, e: model.prefill(params, c, t, e),
+            lambda c, t, n: model.decode_step(params, c, t, n), cache,
+            mine, steps, P, device, teacher)
+
+    with torch.no_grad():
+        one(whole)                                 # warm: cuBLAS, builds
+        ref = one(whole)
+        witness = None
+        if lead:                # every weight moved one ulp, then redrawn
+            ulp_move_(whole)
+            witness = (one(whole, ref["tokens"])["logits"]
+                       - ref["logits"]).abs().amax(dim=(0, 2)).tolist()
+            del whole
+            whole = model.init(seed=0, device=dev)
+        placed = serve.place(whole)
+        del whole
+        if device != "cpu":
+            torch.cuda.empty_cache()
+
+        def sharded(teacher, n=steps):
+            return _timed_serve(
+                lambda c, t, e: serve.prefill(placed, c, t, e),
+                lambda c, t, n_: serve.decode_step(placed, c, t, n_),
+                serve.init_cache(P + steps), mine, n, P, device, teacher)
+        sharded(ref["tokens"], 2)                  # warm
+        kernels = (flash_attention_bh, ssd_bh, rglru_scan_b)
+        for k in kernels:
+            k.launches = 0
+        got = sharded(ref["tokens"])
+        launches = {k.name: k.launches for k in kernels}
+        calls, restore = _record(kernels)
+        try:
+            serve.prefill(placed, serve.init_cache(P + steps),
+                          mine["tokens"], mine.get("embeds"))
+        finally:
+            restore()
+        held = {name: hold_recorded(name, c) for name, c in calls.items()
+                if c}
+        recorded = {name: len(c) for name, c in calls.items()}
+        del calls
+        gaps = (got["logits"] - ref["logits"]).abs().amax(dim=(0, 2))
+        misses = _argmax_misses(got["logits"], ref["logits"], CELL_GAP)
+        c_gap, c_rel, _ = _cache_gaps(got["cache"], cache_shards(
+            serve, ref["cache"], P + steps))
+        profile = _profile_serve(serve, placed, mine, P, steps, device) \
+            if device != "cpu" else None
+    worst = _all_max([float(gaps.max()), c_gap, c_rel, float(misses)], dev)
+    counts = torch.tensor([launches[k.name] for k in kernels], device=dev)
+    lo = counts.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(counts, op=dist.ReduceOp.MAX)
+    out = {"arch": arch, "mesh": list(mesh_shape), "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_encoder_layers if cfg.is_encdec else 0,
+           "pattern": list(cfg.pattern), "rows": B, "prompt": P,
+           "steps": steps, "model_ranks": serve.model_ranks,
+           "logit_gap": worst[0], "step_gaps": gaps.tolist(),
+           "witness_step_gaps": witness, "argmax_misses": int(worst[3]),
+           "cache_gap": worst[1], "cache_rel": worst[2],
+           "launches": launches,
+           "launches_min": dict(zip(launches, lo.tolist())),
+           "launches_max": dict(zip(launches, counts.tolist())),
+           "recorded": recorded, "kernel_max_abs_err": held,
+           "one_card": {k: ref[k] for k in ("prefill_ms", "decode_ms",
+                                             "peak_bytes")},
+           "sharded": {k: got[k] for k in ("prefill_ms", "decode_ms",
+                                           "peak_bytes")},
+           "profile": profile}
+    dist.barrier()
+    return out if lead else {}
+
+
+def _profile_serve(serve, placed, mine, P: int, steps: int,
+                   device) -> dict:
+    """One sharded prefill and ``steps`` decode steps of this rank under
+    ``launch.profile_serve`` 's profiler (every rank; collective): per
+    phase the wall ms unprofiled and profiled, the device busy ms and the
+    top kernels' device ms a call; the first rank prints the tables."""
+    from repro_torch.launch.profile_serve import _device_us, _profile, \
+        _report
+    dev = torch.device(device, torch.cuda.current_device())
+    out = {}
+    cache = serve.init_cache(P + steps)
+    state = {"cache": cache, "pos": P}
+
+    def prefill():
+        state["cache"] = serve.init_cache(P + steps)
+        return serve.prefill(placed, state["cache"], mine["tokens"],
+                             mine.get("embeds"))
+    tok = prefill()[0].argmax(-1).to(torch.int32)
+
+    def decode():
+        serve.decode_step(placed, state["cache"], tok, state["pos"])
+
+    for name, fn, n in (("prefill", prefill, 1), ("decode", decode, steps)):
+        if name == "decode":
+            prefill()
+        plain_ms, wall_ms, kernels = _profile(fn, n, dev)
+        if dist.get_rank() == 0:
+            _report(f"rank 0 sharded {name} ({serve.mesh.shape} mesh, "
+                    f"{len(mine['tokens'])} rows)", n, plain_ms, wall_ms,
+                    kernels, 8)
+        busy = sum(_device_us(e) for e in kernels) / 1e3 / n
+        top = sorted(kernels, key=_device_us, reverse=True)[:8]
+        out[name] = {"plain_ms": plain_ms, "profiled_ms": wall_ms,
+                     "busy_ms": busy, "busy_share": busy / plain_ms,
+                     "top": [[e.key[:80], _device_us(e) / 1e3 / n,
+                              e.count / n] for e in top]}
+    return out
+
+
+def serve_gates(out: dict) -> dict:
+    """The serve checks' verdicts: every arch's sharded prefill and decode
+    within :data:`SERVE_TOL` of one device's, streams equal, cache shards
+    equal, 0 routing flips; a rank's program equal to the dryrun's; the
+    ``--serve`` cell's gates (:data:`CELL_GAP`, :data:`CELL_CACHE_RTOL`,
+    K4 once an attention, K5 / K6 once a recurrent layer, on every rank,
+    each launch held)."""
+    ok = {}
+    for key, got in out.items():
+        if key.startswith("serve/"):
+            ok[key] = (got["logits_close"] and got["streams_equal"]
+                       and got["cache_close"] and got["flips"] == 0)
+        elif key.startswith("serve_rank/"):
+            ok[key] = all(
+                r["measured"] == r["predicted"]
+                and r["flops"]["step"] == r["flops"]["dryrun"]
+                and r["memory"]["held"] == r["memory"]["reckoned"]
+                and r["model_ops"] > 0 and not r["dtensor_ops"]
+                for r in got.values())
+    if "serve_cell" in out:
+        c = out["serve_cell"]
+        attn = c["pattern"].count("attn")
+        if c["encoder_layers"]:
+            attn = 2 * attn + c["encoder_layers"]
+        want = {"flash_attention_bh": attn,
+                "ssd_bh": c["pattern"].count("ssm"),
+                "rglru_scan_b": c["pattern"].count("rglru")}
+        ok["serve_cell"] = (
+            c["argmax_misses"] == 0 and c["cache_rel"] <= CELL_CACHE_RTOL
+            and c["launches_min"] == want and c["launches_max"] == want
+            and c["recorded"] == want)
+    return ok
+
+
 def gates(out: dict) -> dict:
     """Each check's verdict, by name (the production cell's only, when
     the run made no other check)."""
-    ok = {}
+    ok = serve_gates(out)
     if "production_cell" in out:
         ok.update(production_gates(out["production_cell"]))
     if "debug_shape" not in out:
@@ -1320,9 +1944,17 @@ def main(argv=None):
                     help="checkpoint directory (default: a temporary one)")
     ap.add_argument("--production", action="store_true",
                     help="also the full-width cell of --arch (cards)")
-    ap.add_argument("--arch", default="starcoder2-3b",
-                    choices=sorted(PRODUCTION),
-                    help="the --production cell's arch")
+    ap.add_argument("--arch", default=None,
+                    choices=sorted(set(PRODUCTION) | set(SERVE_CELLS)),
+                    help="the --production cell's arch (default "
+                         "starcoder2-3b) or the --serve cell's (default "
+                         "deepseek-7b)")
+    ap.add_argument("--serve", action="store_true",
+                    help="the full-width serve cell of --arch alone "
+                         "(serve_cell; cards)")
+    ap.add_argument("--mesh", default="1x4", choices=["1x4", "2x2", "1x1"],
+                    help="with --serve: the (data, model) mesh (1x1: one "
+                         "rank, no torchrun)")
     ap.add_argument("--layers", type=int, default=None,
                     help="with --order: the cell's depth (default: "
                          "PRODUCTION's)")
@@ -1333,13 +1965,18 @@ def main(argv=None):
                          "against the same run with only the summation "
                          "order changed (order_only)")
     args = ap.parse_args(argv)
+    arch = args.arch or ("deepseek-7b" if args.serve else "starcoder2-3b")
+    if (args.serve and arch not in SERVE_CELLS) or (
+            not args.serve and arch not in PRODUCTION):
+        ap.error(f"--arch {arch} has no "
+                 f"{'--serve' if args.serve else '--production'} cell")
     if args.device != "cpu":
         # bit-equal repeats on a card: deterministic kernels and cuBLAS
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
         torch.backends.cuda.matmul.allow_tf32 = False
     if args.order:
-        got = order_only(args.device, args.arch, args.layers)
+        got = order_only(args.device, arch, args.layers)
         print(f"ORDER_ONLY {json.dumps(got)}")
         if args.out:
             with open(args.out, "w") as f:
@@ -1348,15 +1985,20 @@ def main(argv=None):
     from repro_torch.launch.mesh import init_distributed, shutdown_distributed
     _, world = init_distributed(args.device)
     try:
-        if world != 4:
-            raise SystemExit(f"check_dist needs 4 ranks, got {world}")
+        need = math.prod(int(n) for n in args.mesh.split("x")) \
+            if args.serve else 4
+        if world != need:
+            raise SystemExit(f"check_dist needs {need} ranks, got {world}")
         box = [args.ckpt or (tempfile.mkdtemp(prefix="tl_check_dist_")
                              if dist.get_rank() == 0 else None)]
         dist.broadcast_object_list(box, src=0)
-        out = {} if args.production and args.cell_only \
+        out = {} if (args.production and args.cell_only) or args.serve \
             else run_checks(args.device, box[0])
         if args.production:
-            out["production_cell"] = production(args.device, args.arch)
+            out["production_cell"] = production(args.device, arch)
+        if args.serve:
+            out["serve_cell"] = serve_cell(
+                args.device, arch, tuple(int(n) for n in args.mesh.split("x")))
         failed = []
         if dist.get_rank() == 0:
             ok = gates(out)

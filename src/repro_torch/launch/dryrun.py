@@ -45,12 +45,22 @@ numbers to look like the reference's.  The optimizer runs on the local
 shards (the port's ``adafactor`` refuses ``DTensor`` leaves, whose
 factored row and column means would need collectives; it is traced here
 on the shards, as the reference's is).
-*Prefill / decode*: nothing in the port serves on a mesh yet, so a rank is
-reckoned to run ``model.prefill`` / ``make_serve_step`` the way the train
-step runs its loss: on its own batch rows (the cache's batch axes), with
-every parameter gathered whole (``serve_shardings``' placements) and its
-rows' cache whole (for decode gathered over the other axes; a prefill
-fills it), keeping its shard of the cache after the step.
+*Prefill / decode*: a rank runs ``core.tl_step.ShardedServe`` 's
+``model.prefill`` / decode step, the counterpart of the reference's
+compiled serve step under ``serve_shardings``: its own batch rows, each
+weight stored by ``serve_shardings`` (FSDP over the batch axes unless
+``--no-serve-fsdp``) and held at the entry on its model shard where
+``dist.tp`` partitions it (whole elsewhere), the cache held as the rank's
+shard of ``serve_shardings`` ' cache specs, and the products partitioned
+over "model" as the train step's, the logits gathered over the whole
+vocab.  :func:`trace_serve` traces that local program on ``meta`` under
+the ``dist.tp`` context over :func:`model_axis_group`; its collectives
+over "model" (the activations' and the cache's gathers) come off the
+trace, the entry's gathers from the placements
+(:func:`entry_gather_bytes`).  ``--cache-seq-shard`` (the
+reference's split-sequence, flash-decoding layout, not ported) keeps the
+gather-whole reckoning: every parameter whole, the rank's rows' cache
+gathered over the other axes.
 
 **Collectives a rank issues** (result bytes, all-reduce x2), modelled on
 what ``DTensor`` dispatches, which ``tests/test_torch_dist_gloo.py`` holds
@@ -67,12 +77,13 @@ all-gathers and backward all-reduces (all-column) over "model", counted
 off its trace.  With a one-rank mesh there are none.
 
 **Peak per rank** is reckoned, not measured: the local shards of the
-parameters and optimizer state, the parameters the loss receives at
-another size than the rank's stored shards (gathered: whole, or a
+parameters and optimizer state (a serve rank: of the parameters and the
+cache), the parameters the loss or the serve step receives at another
+size than the rank's stored shards (gathered: whole, or a
 tensor-parallel rank's model shards gathered over the batch axes; a
 bias's columns copied out; a leaf received as it is stored shares its
-storage and is not counted twice; and the cache), the inputs, and the
-traced step's high-water mark of live tensors.  The
+storage and is not counted twice), the inputs, and the traced step's
+high-water mark of live tensors.  The
 artifact says so (``extra_tags.peak_source``) and names the constants'
 device.  There is no compile: ``t_lower_s`` is the trace's
 seconds, ``t_compile_s`` 0, ``hlo_lines`` the count of dispatched ops and
@@ -208,13 +219,11 @@ def train_collective_bytes(params, cfg, mesh, batch_sharded: bool):
     bdims = _batch_dims(mesh, batch_sharded)
     specs = param_specs(params, cfg, mesh)
     entry = tp.entry_specs(params, cfg, mesh)
-    model = {i for i, a in enumerate(mesh.axis_names) if a == "model"}
-    coll = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+    coll = {"all-gather": entry_gather_bytes(params, cfg, mesh),
+            "reduce-scatter": 0, "all-reduce": 0}
     for (leaf, spec), (_, e) in zip(leaf_specs(params, specs),
                                     leaf_specs(params, entry)):
         shape, item = tuple(leaf.shape), leaf.element_size()
-        keep = model if any(x is not None for x in e) else ()
-        coll["all-gather"] += gather_bytes(shape, item, spec, mesh, keep)
         rs, ar, ag = grad_reduce_bytes(shape, item, spec, mesh, bdims, e)
         coll["reduce-scatter"] += rs
         coll["all-reduce"] += ar
@@ -405,8 +414,116 @@ def trace_train(model, cfg, shape, mesh, params, remat="tl", microbatch=1,
     return costs, coll, memory, program
 
 
-def _trace_serve(model, cfg, shape, mesh, params, cache_seq_shard,
-                 serve_fsdp):
+def entry_gather_bytes(params, cfg, mesh, fsdp=None) -> int:
+    """Per-rank result bytes of the all-gathers that bring each parameter
+    from its stored placement (``param_specs(fsdp=...)``) to its
+    placement at the step's entry (``dist.tp.entry_specs``): over the
+    batch axes where FSDP shards a leaf that keeps its model shard, to
+    the whole leaf otherwise.  The sharded TL step's (FSDP on) and the
+    sharded serve step's (``core.tl_step.ShardedServe``)."""
+    from repro_torch.dist import tp
+    from repro_torch.dist.sharding import param_specs
+    specs = param_specs(params, cfg, mesh, fsdp=fsdp)
+    entry = tp.entry_specs(params, cfg, mesh)
+    model = {i for i, a in enumerate(mesh.axis_names) if a == "model"}
+    total = 0
+    for (leaf, spec), (_, e) in zip(leaf_specs(params, specs),
+                                    leaf_specs(params, entry)):
+        keep = model if any(x is not None for x in e) else ()
+        total += gather_bytes(tuple(leaf.shape), leaf.element_size(), spec,
+                              mesh, keep)
+    return total
+
+
+def _serve_program(cfg, shape, mesh, rows, fsdp) -> str:
+    from repro_torch.dist import tp
+    what = "model.prefill" if shape.kind == "prefill" else "make_serve_step"
+    head = f"{what} on {rows} of {shape.global_batch} rows"
+    if not tp.partitions(cfg, mesh):
+        return head + " with every parameter whole (a model axis of 1)"
+    m = mesh.sizes["model"]
+    weights = ("stored TP-only" if fsdp is False or tp.layout(cfg)
+               == "all_column" else "stored with FSDP over the batch axes "
+               "and gathered over them at the entry")
+    split = {"attn": "attention heads", "ssm": "Mamba-2's SSD heads (C·Bᵀ "
+             "scores whole)", "rglru": "the RG-LRU width"}
+    kinds = [split[k] for k in split if k in cfg.pattern or
+             (k == "attn" and cfg.is_encdec)]
+    return (f"{head}, tensor-parallel over {m} model ranks in the "
+            f"{tp.layout(cfg)} layout ({', '.join(kinds)} split over "
+            f"model, logits gathered over the whole vocab), weights "
+            f"{weights}, each kept on its model shard where dist.tp "
+            "partitions it; the cache held as the rank's shard of "
+            "serve_shardings' specs, gathered over model where a layer "
+            "reads more (core.tl_step.ShardedServe)")
+
+
+def trace_serve(model, cfg, shape, mesh, params, cache_seq_shard=False,
+                serve_fsdp=None):
+    """``(costs, collectives, memory, program)`` of one rank's prefill or
+    decode step of ``core.tl_step.ShardedServe`` (module docstring),
+    traced on ``params``' device (``meta`` for the dryrun) under the
+    ``dist.tp`` context over :func:`model_axis_group`.  With
+    ``cache_seq_shard`` (the reference's split-sequence decode, not
+    ported) the rank is reckoned as before the port served on a mesh:
+    every parameter gathered whole (:func:`_reckon_serve`)."""
+    from repro_torch.core.tl_step import serve_shardings
+    from repro_torch.dist import tp
+
+    if cache_seq_shard:
+        return _reckon_serve(model, cfg, shape, mesh, params, serve_fsdp)
+    dtype = params["embed"].dtype
+    device = params["embed"].device
+    rows = _rows(mesh, shape.global_batch)
+    whole_cache = abstract_cache(model, shape.global_batch, shape.seq_len,
+                                 dtype)
+    in_sh, _ = serve_shardings(params, whole_cache, cfg, mesh, shape,
+                               fsdp=serve_fsdp)
+    pspecs = tree_map(lambda s: s.spec, in_sh[0])
+    local = _local(params, pspecs, mesh)
+    entry = _local(params, tp.entry_specs(params, cfg, mesh), mesh)
+    parallel = tp.partitions(cfg, mesh)
+    cache = model.init_cache(rows, shape.seq_len, device=device, dtype=dtype,
+                             model_ranks=mesh.sizes["model"] if parallel
+                             else 1)
+    specs = input_specs(cfg, InputShape(shape.name, shape.seq_len, rows,
+                                        shape.kind), dtype)
+    if device.type != "meta":                       # zeros of the specs
+        specs = {k: torch.zeros_like(v, device=device)
+                 for k, v in specs.items()}
+    if shape.kind == "prefill":
+        inputs = {k: specs[k] for k in ("tokens", "embeds") if k in specs}
+
+        def run():
+            return model.prefill(entry, cache, specs["tokens"],
+                                 specs.get("embeds"))
+    else:
+        inputs = {"token": specs["token"]}
+
+        def run():
+            return model.decode_step(entry, cache, specs["token"],
+                                     shape.seq_len - 1)
+    with (_model_parallel(mesh) if parallel else contextlib.nullcontext()), \
+            accounting() as costs, torch.no_grad():
+        run()
+    gathers = entry_gather_bytes(params, cfg, mesh, serve_fsdp)
+    coll = {"all-gather": gathers} if gathers else {}
+    for kind, nb in costs.coll.items():    # traced: TP's and the cache's
+        coll[kind] = coll.get(kind, 0) + int(nb)
+    memory = {"param_shard_bytes": _tree_bytes(local),
+              "gathered_param_bytes": gathered_bytes(entry, local),
+              "cache_shard_bytes": _tree_bytes(cache),
+              "input_bytes": _tree_bytes(inputs),
+              "traced_live_peak_bytes": int(costs.peak_live_bytes)}
+    return costs, coll, memory, _serve_program(cfg, shape, mesh, rows,
+                                               serve_fsdp)
+
+
+def _reckon_serve(model, cfg, shape, mesh, params, serve_fsdp):
+    """The ``cache_seq_shard`` rank, reckoned the way the train step runs
+    its loss: its rows with every parameter gathered whole and its rows'
+    cache whole (for decode gathered over the other axes; a prefill fills
+    it), keeping its shard of the cache after the step."""
     from repro_torch.core.tl_step import make_serve_step, serve_shardings
     from repro_torch.dist.sharding import batch_axes
 
@@ -416,8 +533,7 @@ def _trace_serve(model, cfg, shape, mesh, params, cache_seq_shard,
     full_cache = abstract_cache(model, shape.global_batch, shape.seq_len,
                                 params["embed"].dtype)
     in_sh, _ = serve_shardings(params, full_cache, cfg, mesh, shape,
-                               cache_seq_shard=cache_seq_shard,
-                               fsdp=serve_fsdp)
+                               cache_seq_shard=True, fsdp=serve_fsdp)
     pspecs = tree_map(lambda s: s.spec, in_sh[0])
     cspecs = tree_map(lambda s: s.spec, in_sh[1])
     local = _local(params, pspecs, mesh)
@@ -432,17 +548,15 @@ def _trace_serve(model, cfg, shape, mesh, params, cache_seq_shard,
         def run():
             return model.prefill(params, cache, specs["tokens"],
                                  specs.get("embeds"))
-        gathered_cache = 0
     else:
         step = make_serve_step(model, cfg)
 
         def run():
             return step(params, cache, specs["token"], shape.seq_len - 1)
         # the rank's rows' cache, whole over the axes that are not its rows
-        gathered_cache = sum(
+        gathers += sum(
             gather_bytes(tuple(c.shape), c.element_size(), s, mesh, keep)
             for c, s in leaf_specs(full_cache, cspecs))
-        gathers += gathered_cache
     with accounting() as costs, torch.no_grad():
         run()
     coll = {"all-gather": gathers} if gathers else {}
@@ -454,8 +568,9 @@ def _trace_serve(model, cfg, shape, mesh, params, cache_seq_shard,
               "traced_live_peak_bytes": int(costs.peak_live_bytes)}
     what = "model.prefill" if shape.kind == "prefill" else "make_serve_step"
     program = (f"{what} on {rows} of {shape.global_batch} rows with every "
-               "parameter gathered whole (serving on a mesh is not ported; "
-               "reckoned as the train step runs its loss)")
+               "parameter gathered whole, reckoned as the train step runs "
+               "its loss: the split-sequence decode of cache_seq_shard "
+               "(the reference's flash-decoding layout) is not ported")
     return costs, coll, memory, program
 
 
@@ -494,7 +609,7 @@ def lower_one(arch: str, shape_name: str, mesh_kind: str, remat: str = "tl",
             costs, coll, memory, program = trace_train(
                 model, cfg, shape, mesh, params, remat, microbatch)
         else:
-            costs, coll, memory, program = _trace_serve(
+            costs, coll, memory, program = trace_serve(
                 model, cfg, shape, mesh, params, cache_seq_shard,
                 serve_fsdp)
     t_lower = time.time() - t0

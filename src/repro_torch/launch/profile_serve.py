@@ -67,9 +67,11 @@ def _profile(fn, steps: int, dev):
             fn()
         torch.cuda.synchronize(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    # device-side rows only: an operator's row repeats its kernels' time
+    # device-side rows only: an operator's row repeats its kernels' time,
+    # and so does the "nccl:<collective>" annotation of an NCCL kernel
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+               and not e.key.startswith("nccl:")]
     if not kernels:
         raise RuntimeError("the profiler recorded no device time: time the "
                            "step with CUDA events instead")

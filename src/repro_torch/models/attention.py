@@ -158,14 +158,16 @@ def attend(q, k, v, q_pos, k_pos, window: int, scale: float, *,
 
 # ================================================================= GQA / MHA
 
-def gqa_project(params, cfg: ModelConfig, x, q_pos, *, positions=None):
+def gqa_project(params, cfg: ModelConfig, x, q_pos, *, positions=None,
+                pick: bool = True):
     """Project x (B,S,d) to rope'd (q, k, v); q_pos (B,S) absolute positions.
     Under ``rope="mrope"`` the three position streams are ``positions``
-    (3,B,S), or ``q_pos`` broadcast to them (text only).  Shared by
-    ``gqa_apply`` and the paged serving runner."""
+    (3,B,S), or ``q_pos`` broadcast to them (text only).  ``pick`` as in
+    :func:`project_qkv`.  Shared by ``gqa_apply`` and the paged serving
+    runner."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = project_qkv(params, cfg, x)
+    q, k, v = project_qkv(params, cfg, x, pick=pick)
     q = q.reshape(B, S, q.shape[-1] // hd, hd)
     k = k.reshape(B, S, k.shape[-1] // hd, hd)
     v = v.reshape(B, S, v.shape[-1] // hd, hd)
@@ -181,17 +183,21 @@ def gqa_project(params, cfg: ModelConfig, x, q_pos, *, positions=None):
     return q, k, v
 
 
-def project_qkv(params, cfg: ModelConfig, x, kv=None, kvs=None):
+def project_qkv(params, cfg: ModelConfig, x, kv=None, kvs=None, *,
+                pick: bool = True):
     """``(x W_q, kv W_k, kv W_v)``, flat, with the qkv biases where the
     config has them; ``kv`` is the keys' and values' input, ``x`` itself
     when None (self-attention).  A rank holding its
     H/m query heads (read from ``w_q`` 's local width) inside the
     tensor-parallel context projects them column-parallel
     (:func:`_tp_qkv`); ``kvs`` is the caller's ``tp.copy_to_model`` (kv)
-    where several layers' products read ``kv``, else it is made here."""
+    where several layers' products read ``kv``, else it is made here.
+    ``pick=False`` keeps every KV head where the KV heads do not split
+    (a replicated serve cache holds them all; :func:`kv_run` gives the
+    ones the rank's heads read)."""
     H = params["w_q"].shape[1] // cfg.resolved_head_dim
     if tp.partitioned(H, cfg.n_heads):
-        return _tp_qkv(params, cfg, x, H, kv, kvs)
+        return _tp_qkv(params, cfg, x, H, kv, kvs, pick)
     kv = x if kv is None else kv
     q, k, v = x @ params["w_q"], kv @ params["w_k"], kv @ params["w_v"]
     if cfg.qkv_bias:
@@ -199,24 +205,31 @@ def project_qkv(params, cfg: ModelConfig, x, kv=None, kvs=None):
     return q, k, v
 
 
-def _tp_qkv(params, cfg: ModelConfig, x, H: int, kv, kvs):
-    """Column-parallel q / k / v of this rank's ``H`` query heads
-    (``dist.tp``), k and v on ``kv`` (``x`` when None).  With KV heads
-    split as the query heads are, k and v are the rank's own columns;
-    otherwise each rank projects every KV head and keeps the run of them
-    its query heads use (query head h reads KV head ``h // (n_heads /
-    n_kv_heads)``, the grouping ``attend_dense`` assumes), and the
-    gradients of k and v are summed over "model" there, since each rank's
-    heads read only some of them.  A rank whose heads read its KV heads
-    unevenly raises."""
-    hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
-    rep, first = cfg.n_heads // KV, tp.rank() * H
+def kv_run(cfg: ModelConfig, H: int) -> slice:
+    """The KV heads this rank's ``H`` query heads read (``dist.tp``), a
+    run: query head h reads KV head ``h // (n_heads / n_kv_heads)``, the
+    grouping ``attend_dense`` assumes.  A rank whose heads read its KV
+    heads unevenly raises."""
+    rep, first = cfg.n_heads // cfg.n_kv_heads, tp.rank() * H
     used = [h // rep for h in range(first, first + H)]
     if len({used.count(kv) for kv in used}) > 1:
         raise ValueError(
             f"query heads {first}..{first + H - 1} read KV heads {used}: a "
             "tensor-parallel rank's heads must read each of its KV heads "
             "equally often")
+    return slice(used[0], used[-1] + 1)
+
+
+def _tp_qkv(params, cfg: ModelConfig, x, H: int, kv, kvs, pick: bool):
+    """Column-parallel q / k / v of this rank's ``H`` query heads
+    (``dist.tp``), k and v on ``kv`` (``x`` when None).  With KV heads
+    split as the query heads are, k and v are the rank's own columns;
+    otherwise each rank projects every KV head and keeps the run of them
+    its query heads use (:func:`kv_run`; every one with ``pick=False``),
+    and the gradients of k and v are summed over "model" there, since
+    each rank's heads read only some of them."""
+    hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
+    run = kv_run(cfg, H)
     xs = tp.copy_to_model(x)
     q = xs @ params["w_q"]
     if cfg.qkv_bias:
@@ -234,13 +247,15 @@ def _tp_qkv(params, cfg: ModelConfig, x, H: int, kv, kvs):
     k, v = kv @ params["w_k"], kv @ params["w_v"]
     if cfg.qkv_bias:
         k, v = k + params["b_k"], v + params["b_v"]
+    if not pick:
+        return q, k, v
     B, Sk, _ = kv.shape
-    lo, hi = used[0], used[-1] + 1
+    n = run.stop - run.start
 
-    def pick(t):
-        t = tp.copy_to_model(t).reshape(B, Sk, KV, hd)[:, :, lo:hi]
-        return t.reshape(B, Sk, (hi - lo) * hd)
-    return q, pick(k), pick(v)
+    def used(t):
+        t = tp.copy_to_model(t).reshape(B, Sk, KV, hd)[:, :, run]
+        return t.reshape(B, Sk, n * hd)
+    return q, used(k), used(v)
 
 
 def visible_attention(params, cfg: ModelConfig, x, kv=None, kvs=None):
@@ -275,28 +290,40 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
     """Full forward (cache=None), prefill into an empty cache (S > 1) or one
     decode step (S == 1).  x: (B,S,d); ``cache_len`` (int) tokens already in
     the cache; ``positions`` (3,B,S) M-RoPE streams (``gqa_project``).
-    Returns (out, cache)."""
+    Under ``dist.tp`` the cache holds the rank's KV heads where they split
+    and every KV head where they do not (the rank's heads reading
+    :func:`kv_run` of them); a cache holding its share of KV heads the
+    rank projects whole is written by shard and read gathered
+    (``tp.cache_shard`` / ``tp.cache_whole``).  Returns (out, cache)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H = params["w_q"].shape[1] // hd          # this rank's heads under TP
     pos0 = 0 if cache_len is None else int(cache_len)
     q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
+    # a replicated cache under tensor parallelism holds every KV head
+    heads = tp.partitioned(H, cfg.n_heads)
+    every = heads and cache is not None \
+        and cache["k"].shape[2] == cfg.n_kv_heads
     q, k, v = gqa_project(params, cfg, x, q_pos.expand(B, S),
-                          positions=positions)
+                          positions=positions, pick=not every)
+    run = kv_run(cfg, H) if every else slice(None)
 
     scale = 1.0 / math.sqrt(hd)
     if cache is None:
         out = attend(q, k, v, q_pos, q_pos, cfg.sliding_window, scale)
     else:
-        max_len = cache["k"].shape[1]
+        max_len, width = cache["k"].shape[1], cache["k"].shape[2]
         if S > 1:
             # prefill-from-empty: attend over the current keys, then write
             # (only) the last `max_len` positions into the ring buffer
-            out = attend(q, k, v, q_pos, q_pos, cfg.sliding_window, scale)
+            out = attend(q, k[:, :, run], v[:, :, run], q_pos, q_pos,
+                         cfg.sliding_window, scale)
             W = min(S, max_len)
             idx = (q_pos[-W:] % max_len).long()
-            cache["k"][:, idx] = k[:, -W:].to(cache["k"].dtype)
-            cache["v"][:, idx] = v[:, -W:].to(cache["v"].dtype)
+            cache["k"][:, idx] = tp.cache_shard(k[:, -W:], 2, width).to(
+                cache["k"].dtype)
+            cache["v"][:, idx] = tp.cache_shard(v[:, -W:], 2, width).to(
+                cache["v"].dtype)
             cache["pos"][idx] = q_pos[-W:]
         else:
             # single-token decode: the new k / v keep the batch layout (a
@@ -304,20 +331,27 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
             from repro_torch.dist.constraints import constrain_batch
             k, v = constrain_batch(k), constrain_batch(v)
             idx = (q_pos % max_len).long()     # ring buffer for sliding windows
-            cache["k"][:, idx] = k.to(cache["k"].dtype)
-            cache["v"][:, idx] = v.to(cache["v"].dtype)
+            cache["k"][:, idx] = tp.cache_shard(k, 2, width).to(
+                cache["k"].dtype)
+            cache["v"][:, idx] = tp.cache_shard(v, 2, width).to(
+                cache["v"].dtype)
             cache["pos"][idx] = q_pos
-            out = attend(q, cache["k"], cache["v"], q_pos, cache["pos"],
-                         cfg.sliding_window, scale)
+            ck = tp.cache_whole(cache["k"], 2, k.shape[2])
+            cv = tp.cache_whole(cache["v"], 2, v.shape[2])
+            out = attend(q, ck[:, :, run], cv[:, :, run], q_pos,
+                         cache["pos"], cfg.sliding_window, scale)
     out = out.reshape(B, S, H * hd) @ params["w_o"]
-    if tp.partitioned(H, cfg.n_heads):
+    if heads:
         out = tp.reduce_from_model(out)         # row-parallel w_o
     return out, cache
 
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
-                   dtype=torch.float32):
-    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+                   dtype=torch.float32, model_ranks: int = 1):
+    """``{k, v, pos}``; over ``model_ranks`` model ranks the KV heads the
+    rank holds at rest (``tp.cache_split``)."""
+    KV, hd = tp.cache_split(cfg.n_kv_heads, model_ranks), \
+        cfg.resolved_head_dim
     if cfg.sliding_window:
         max_len = min(max_len, cfg.sliding_window)
     return {
@@ -383,7 +417,8 @@ def mla_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
     latent ``c_kv`` as values, scale ``1/sqrt(nope + rope)``.  Full forward
     (cache=None), prefill into an empty cache (S > 1) or one decode step.
     ``positions`` is taken and ignored, as in the reference.  Under
-    ``dist.tp`` a rank attends with its H/m heads over the whole latent.
+    ``dist.tp`` a rank attends with its H/m heads over the whole latent,
+    and its cache holds its columns of the latent and the rope key.
     Returns (out, cache)."""
     m = cfg.mla
     B, S, _ = x.shape
@@ -391,15 +426,21 @@ def mla_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
     q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
     q_full, c_kv, k_rope = mla_project(params, cfg, x, q_pos.expand(B, S))
     if cache is not None:
+        # under dist.tp the cache holds the rank's latent / rope columns
         idx = q_pos.long()
-        cache["c_kv"][:, idx] = c_kv.to(cache["c_kv"].dtype)
-        cache["k_rope"][:, idx] = k_rope.to(cache["k_rope"].dtype)
+        cache["c_kv"][:, idx] = tp.cache_shard(
+            c_kv, 2, cache["c_kv"].shape[2]).to(cache["c_kv"].dtype)
+        cache["k_rope"][:, idx] = tp.cache_shard(
+            k_rope, 2, cache["k_rope"].shape[2]).to(cache["k_rope"].dtype)
         cache["pos"][idx] = q_pos
     if cache is None or S > 1:
         # full forward / prefill-from-empty: attend over the current latents
         lat, rope, k_pos = c_kv, k_rope, q_pos
     else:
-        lat, rope, k_pos = cache["c_kv"], cache["k_rope"], cache["pos"]
+        # the rank's heads read the whole latent: gathered over "model"
+        lat = tp.cache_whole(cache["c_kv"], 2, m.kv_lora_rank)
+        rope = tp.cache_whole(cache["k_rope"], 2, m.qk_rope_head_dim)
+        k_pos = cache["pos"]
     k_full = torch.cat([lat, rope], dim=-1)[:, :, None, :]          # MQA
     if tp.partitioned(q_full.shape[2], cfg.n_heads):
         k_full = tp.copy_to_model(k_full)     # read by this rank's heads
@@ -410,12 +451,16 @@ def mla_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
-                   dtype=torch.float32):
+                   dtype=torch.float32, model_ranks: int = 1):
+    """``{c_kv, k_rope, pos}``; over ``model_ranks`` model ranks the
+    latent and rope columns the rank holds at rest."""
     m = cfg.mla
     kw = dict(dtype=dtype, device=device)
+    lora = tp.cache_split(m.kv_lora_rank, model_ranks)
+    rope = tp.cache_split(m.qk_rope_head_dim, model_ranks)
     return {
-        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), **kw),
-        "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim), **kw),
+        "c_kv": torch.zeros((batch, max_len, lora), **kw),
+        "k_rope": torch.zeros((batch, max_len, rope), **kw),
         "pos": torch.full((max_len,), INT32_MAX, dtype=torch.int32,
                           device=device),
     }
@@ -430,7 +475,7 @@ def attention_apply(params, cfg: ModelConfig, x, **kw):
 
 
 def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
-                         device, dtype=torch.float32):
-    if cfg.attention == "mla":
-        return mla_cache_init(cfg, batch, max_len, device=device, dtype=dtype)
-    return gqa_cache_init(cfg, batch, max_len, device=device, dtype=dtype)
+                         device, dtype=torch.float32, model_ranks: int = 1):
+    init = mla_cache_init if cfg.attention == "mla" else gqa_cache_init
+    return init(cfg, batch, max_len, device=device, dtype=dtype,
+                model_ranks=model_ranks)

@@ -102,12 +102,14 @@ def ffn_apply(params, cfg: ModelConfig, ffn: str, h):
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, *,
-                     device, dtype=torch.float32):
+                     device, dtype=torch.float32, model_ranks: int = 1):
+    """The mixer's cache of ``batch`` rows; over ``model_ranks`` model
+    ranks the shard a rank holds at rest (``dist.tp`` 's serve table)."""
+    kw = dict(device=device, dtype=dtype, model_ranks=model_ranks)
     if kind == "attn":
-        return attention.attention_cache_init(cfg, batch, max_len,
-                                              device=device, dtype=dtype)
+        return attention.attention_cache_init(cfg, batch, max_len, **kw)
     if kind == "rglru":
-        return rglru.rglru_cache_init(cfg, batch, device=device, dtype=dtype)
+        return rglru.rglru_cache_init(cfg, batch, **kw)
     if kind == "ssm":
-        return ssm.mamba2_cache_init(cfg, batch, device=device, dtype=dtype)
+        return ssm.mamba2_cache_init(cfg, batch, **kw)
     raise ValueError(kind)

@@ -119,31 +119,37 @@ def forward(params, cfg: ModelConfig, tokens, extra_embeds=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
-               dtype=torch.float32):
-    return {"self": [attention.attention_cache_init(cfg, batch, max_len,
-                                                    device=device,
-                                                    dtype=dtype)
-                     for _ in range(cfg.n_layers)],
-            "enc_out": torch.zeros((batch, cfg.frontend_tokens or 1,
-                                    cfg.d_model), dtype=dtype,
-                                   device=device)}
+               dtype=torch.float32, model_ranks: int = 1):
+    """The decoder's self-attention caches and ``enc_out``; over
+    ``model_ranks`` model ranks each leaf's shard a rank holds at rest
+    (``enc_out`` 's frames, ``dist.tp`` 's serve table)."""
+    frames = tp.cache_split(cfg.frontend_tokens or 1, model_ranks)
+    return {"self": [attention.attention_cache_init(
+                cfg, batch, max_len, device=device, dtype=dtype,
+                model_ranks=model_ranks) for _ in range(cfg.n_layers)],
+            "enc_out": torch.zeros((batch, frames, cfg.d_model),
+                                   dtype=dtype, device=device)}
 
 
 def prefill(params, cfg: ModelConfig, caches, tokens, extra_embeds=None):
     """Encode the frames, fill the decoder's self-attention caches with the
-    prompt, keep the encoder output in the cache; return the last
-    position's logits (B, V) and the caches."""
+    prompt, keep the encoder output in the cache (a rank's frames under
+    ``dist.tp``); return the last position's logits (B, V) and the
+    caches."""
     enc_out = encode(params, cfg, extra_embeds)
     h = _dec_stack(params, cfg, embed_tokens(params, cfg, tokens), enc_out,
                    caches["self"], 0)
-    caches["enc_out"] = enc_out.to(caches["enc_out"].dtype)
-    return _logits(params, cfg, h[:, -1:])[:, 0], caches
+    caches["enc_out"] = tp.cache_shard(
+        enc_out, 1, caches["enc_out"].shape[1]).to(caches["enc_out"].dtype)
+    return _logits(params, cfg, h[:, -1:], whole=True)[:, 0], caches
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, cache_len: int,
                 positions=None):
-    """One decode step into the cached encoder output.  token (B,);
-    cache_len tokens already cached.  Returns (logits (B, V), caches)."""
+    """One decode step into the cached encoder output (gathered over
+    "model" where a rank holds its frames).  token (B,); cache_len tokens
+    already cached.  Returns (logits (B, V), caches)."""
+    enc_out = tp.cache_whole(caches["enc_out"], 1, cfg.frontend_tokens or 1)
     h = _dec_stack(params, cfg, embed_tokens(params, cfg, token[:, None]),
-                   caches["enc_out"], caches["self"], cache_len)
-    return _logits(params, cfg, h)[:, 0], caches
+                   enc_out, caches["self"], cache_len)
+    return _logits(params, cfg, h, whole=True)[:, 0], caches

@@ -157,6 +157,19 @@ def causal_conv1d_step(params, state, x_t):
     return window[:, 1:, :], out
 
 
+def keep_conv_window(cache, new, k: int, window=None):
+    """A recurrent mixer's conv window after ``new`` (B, n, C) whole conv
+    inputs: the last ``k`` rows of the held window (``window``, else the
+    cache's ``conv`` read whole) and ``new``, written back as the shard the
+    cache holds at rest (``dist.tp.cache_shard``; the whole window off a
+    model axis), behind the empty cache's zeros when a prompt is shorter
+    than ``k``."""
+    from repro_torch.dist import tp
+    held = tp.cache_whole(cache["conv"], 1, k) if window is None else window
+    whole = torch.cat([held, new.to(held.dtype)], dim=1)[:, -k:]
+    cache["conv"] = tp.cache_shard(whole, 1, cache["conv"].shape[1])
+
+
 def needs_grad(*tensors) -> bool:
     """True when autograd tracks one of ``tensors``: the models then take
     their differentiable paths, since the kernels are forward-only."""

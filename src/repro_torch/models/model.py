@@ -60,7 +60,8 @@ class Model:
     init: Callable           # (*, seed, device, dtype) -> params
     forward: Callable        # (params, tokens, extra_embeds=None) -> logits
     loss: Callable           # (params, batch) -> (scalar, metrics)
-    init_cache: Callable     # (batch, max_len, *, device, dtype) -> caches
+    init_cache: Callable     # (batch, max_len, *, device, dtype,
+    #                           model_ranks=1) -> caches (a rank's shards)
     decode_step: Callable    # (params, caches, token, cache_len) -> (logits, caches)
     prefill: Callable        # (params, caches, tokens, extra_embeds=None) -> (logits, caches)
     embed: Callable = None   # (params, tokens, extra_embeds=None) -> h0

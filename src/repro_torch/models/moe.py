@@ -19,8 +19,12 @@ the softmax and the top-k (every rank routes alike), the hidden state is
 gathered over f before ``w_down``, the combine runs on the rank's d/m
 columns and its output is gathered.  No forward contraction is split, so
 each logit sums the same terms as on one device (bit-equal where the
-GEMM library's kernel does not change with the output width).  Expert
-parallelism and the tensor-parallel context exclude each other.
+GEMM library's kernel does not change with the output width).  A
+sharded prefill and decode step (``core.tl_step.ShardedServe``) take the
+same route on the rank's rows: the capacity is per group (batch row), so
+a decode step's is ``top_k`` and a prefill's ``ceil(S k cf / E)`` (cf the
+config's capacity factor), as on one device.  Expert parallelism and the
+tensor-parallel context exclude each other.
 """
 from __future__ import annotations
 

@@ -29,6 +29,7 @@ from repro_torch.dist import tp
 from repro_torch.kernels.rglru.ops import rglru_scan as rglru_scan_kernel
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
                                        causal_conv1d_step, dense_init,
+                                       keep_conv_window,
                                        reference_path, softplus)
 from repro_torch.scan import associative_scan
 
@@ -82,32 +83,52 @@ def _scan(a, bx):
             else rglru_scan_kernel(a, bx)[0])
 
 
-def _rglru_tp(params, x):
-    """The training forward of this rank's W/m channels (``dist.tp``,
-    Megatron's layout extended to the RG-LRU): ``w_x`` / ``w_gate`` are
-    column-parallel, the causal conv runs on the rank's channels, its
-    output is gathered over "model" for the column products ``w_a`` /
-    ``w_i`` (``b_a`` / ``b_i`` / ``lam`` are the rank's slices), the scan
-    is elementwise over W, and ``w_out`` is row-parallel."""
+def _rglru_tp(params, x, cache=None):
+    """This rank's W/m channels (``dist.tp``, Megatron's layout extended
+    to the RG-LRU): ``w_x`` / ``w_gate`` are column-parallel, the causal
+    conv runs on the rank's channels, its output is gathered over "model"
+    for the column products ``w_a`` / ``w_i`` (``b_a`` / ``b_i`` / ``lam``
+    are the rank's slices), the scan is elementwise over W, and ``w_out``
+    is row-parallel.  With a cache (``tp`` 's serve table) ``h`` holds the
+    rank's channels and the conv window is whole: a prefill all-gathers
+    its last inputs into it, a decode step reads the rank's channels of it
+    and all-gathers the new input."""
     xs = tp.copy_to_model(x)
     xw = xs @ params["w_x"]
     gate = F.gelu(xs @ params["w_gate"], approximate="tanh")
-    xc = causal_conv1d(params["conv"], xw)
-    a, beta, i = _gates(params, tp.copy_to_model(tp.gather_from_model(xc)))
-    h = _scan(a, beta * i * xc.float())
-    return tp.reduce_from_model((h.to(x.dtype) * gate) @ params["w_out"])
+    Wl = xw.shape[-1]
+    if cache is None or x.shape[1] > 1:
+        xc = causal_conv1d(params["conv"], xw)
+        a, beta, i = _gates(params, tp.copy_to_model(
+            tp.gather_from_model(xc)))
+        h = _scan(a, beta * i * xc.float())
+        if cache is not None:
+            k = params["conv"]["w"].shape[0] - 1
+            keep_conv_window(cache, tp.gather_from_model(xw[:, -k:], -1), k)
+            cache["h"] = tp.cache_shard(h[:, -1], 1, cache["h"].shape[1])
+    else:
+        k = params["conv"]["w"].shape[0] - 1
+        window = tp.cache_whole(cache["conv"], 1, k)
+        lo = tp.rank() * Wl
+        _, xc1 = causal_conv1d_step(params["conv"],
+                                    window[..., lo:lo + Wl], xw[:, 0])
+        keep_conv_window(cache, tp.gather_from_model(xw, -1), k, window)
+        a, beta, i = _gates(params, tp.copy_to_model(
+            tp.gather_from_model(xc1)))
+        h1 = a * tp.cache_whole(cache["h"], 1, Wl) + beta * i * xc1.float()
+        cache["h"] = tp.cache_shard(h1, 1, cache["h"].shape[1])
+        h = h1[:, None, :]
+    return tp.reduce_from_model((h.to(x.dtype) * gate) @ params["w_out"]), \
+        cache
 
 
 def rglru_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
-    """x: (B,S,d).  cache: {"conv": (B,3,W), "h": (B,W)}, filled in place by
-    a prefill (S > 1) or advanced by one decode step (S == 1).  Returns
+    """x: (B,S,d).  cache: {"conv": (B,3,W), "h": (B,W)}, filled by a
+    prefill (S > 1) or advanced by one decode step (S == 1).  Returns
     (out, cache).  Holding this rank's share of the width (the
-    tensor-parallel context, no cache), :func:`_rglru_tp`."""
+    tensor-parallel context), :func:`_rglru_tp`."""
     if tp.partitioned(params["w_x"].shape[-1], cfg.rglru_width or cfg.d_model):
-        if cache is not None:
-            raise ValueError("a tensor-parallel RG-LRU block runs the "
-                             "training forward only, with no cache")
-        return _rglru_tp(params, x), cache
+        return _rglru_tp(params, x, cache)
     xw = x @ params["w_x"]
     gate = F.gelu(x @ params["w_gate"], approximate="tanh")
 
@@ -136,9 +157,14 @@ def rglru_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
 
 
 def rglru_cache_init(cfg: ModelConfig, batch: int, *, device,
-                     dtype=torch.float32):
+                     dtype=torch.float32, model_ranks: int = 1):
+    """``{conv, h}``; over ``model_ranks`` model ranks the share of each
+    leaf's first state dim the rank holds at rest (the width of ``h``; the
+    conv's 3 window rows where they divide)."""
     w = cfg.rglru_width or cfg.d_model
     return {
-        "conv": torch.zeros((batch, 3, w), dtype=dtype, device=device),
-        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, tp.cache_split(3, model_ranks), w),
+                            dtype=dtype, device=device),
+        "h": torch.zeros((batch, tp.cache_split(w, model_ranks)),
+                         dtype=torch.float32, device=device),
     }

@@ -20,6 +20,7 @@ from repro_torch.dist import tp
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_init,
                                        causal_conv1d_step, dense_init,
+                                       keep_conv_window,
                                        reference_path, rmsnorm,
                                        rmsnorm_init, softplus)
 
@@ -164,16 +165,19 @@ def _columns(w, spans):
     return torch.cat(pieces[1::2], -1)
 
 
-def _mamba2_tp(params, cfg: ModelConfig, x):
-    """The training forward of this rank's H/m contiguous SSD heads
-    (``dist.tp``, Megatron's layout extended to Mamba-2).  The column
-    shards of ``w_in`` and of the conv straddle the z | x | B | C | dt
-    boundaries, so each is gathered whole (``tp.gather_weight``: the
-    gradients reduce-scattered back) and the rank takes the columns of its
-    heads' z, x and dt and the whole B and C: its products are its share
-    but B and C's, and the head-independent C·Bᵀ scores run on every
-    rank.  The gated RMSNorm's sum of squares over di is all-reduced (a
-    split reduction); ``w_out`` is row-parallel."""
+def _mamba2_tp(params, cfg: ModelConfig, x, cache=None):
+    """This rank's H/m contiguous SSD heads (``dist.tp``, Megatron's
+    layout extended to Mamba-2).  The column shards of ``w_in`` and of the
+    conv straddle the z | x | B | C | dt boundaries, so each is gathered
+    whole (``tp.gather_weight``: the gradients reduce-scattered back) and
+    the rank takes the columns of its heads' z, x and dt and the whole B
+    and C: its products are its share but B and C's, and the
+    head-independent C·Bᵀ scores run on every rank.  The gated RMSNorm's
+    sum of squares over di is all-reduced (a split reduction); ``w_out``
+    is row-parallel.  With a cache (``tp`` 's serve table) a prefill
+    leaves the rank's heads' final state and the whole conv window (the
+    rank's x channels all-gathered into it), and a decode step advances
+    the rank's heads by one token on its channels of that window."""
     s = cfg.ssm
     B, S, d = x.shape
     di, N = s.d_inner(d), s.d_state
@@ -188,29 +192,66 @@ def _mamba2_tp(params, cfg: ModelConfig, x):
     spans = [(lo, lo + dl), (di, di + 2 * N)]
     conv = {"w": _columns(tp.gather_weight(params["conv"]["w"]), spans),
             "b": _columns(tp.copy_to_model(params["conv"]["b"]), spans)}
-    conv_out = F.silu(causal_conv1d(conv, torch.cat([xs, Bm, Cm], dim=-1)))
-    y, _ = _scan(params, cfg, conv_out, dt, dl, Hl)
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)
+    if cache is None or S > 1:
+        conv_out = F.silu(causal_conv1d(conv, conv_in))
+        y, hT = _scan(params, cfg, conv_out, dt, dl, Hl)
+        if cache is not None:
+            k = s.conv_kernel - 1
+            tail = torch.cat([tp.gather_from_model(xs[:, -k:], -1),
+                              Bm[:, -k:], Cm[:, -k:]], dim=-1)
+            keep_conv_window(cache, tail, k)
+            cache["state"] = tp.cache_shard(hT, 1,
+                                            cache["state"].shape[1])
+    else:
+        k = s.conv_kernel - 1
+        window = tp.cache_whole(cache["conv"], 1, k)
+        local = _columns(window, spans)           # the rank's channels
+        _, conv_out = causal_conv1d_step(conv, local, conv_in[:, 0])
+        row = torch.cat([tp.gather_from_model(xs[:, 0], -1), Bm[:, 0],
+                         Cm[:, 0]], dim=-1)
+        keep_conv_window(cache, row[:, None], k, window)
+        state = tp.cache_whole(cache["state"], 1, Hl)
+        y, state = _step(params, cfg, F.silu(conv_out), dt, state, dl, Hl)
+        cache["state"] = tp.cache_shard(state, 1, cache["state"].shape[1])
     g = (y.reshape(B, S, dl).to(x.dtype) * F.silu(z)).float()
     ss = tp.copy_to_model(tp.reduce_from_model(
         g.square().sum(dim=-1, keepdim=True)))
     g = g * torch.rsqrt(ss / di + cfg.norm_eps)
     g = (g * params["out_norm"]["scale"].float()).to(x.dtype)
-    return tp.reduce_from_model(g @ params["w_out"])
+    return tp.reduce_from_model(g @ params["w_out"]), cache
+
+
+def _step(params, cfg: ModelConfig, conv_out, dt, state, di: int, H: int):
+    """One decode step of ``H`` heads on the conv's activated output
+    (B, di + 2N) and the raw ``dt`` (B, 1, H) from ``state`` (B, H, P, N):
+    returns y + D·x (B, 1, H, P) and the new state (plain torch: one
+    recurrence step, which no Pallas kernel of the reference computes)."""
+    N, P = cfg.ssm.d_state, cfg.ssm.head_dim
+    B = conv_out.shape[0]
+    xs1, Bm1, Cm1 = (conv_out[..., :di], conv_out[..., di:di + N],
+                     conv_out[..., di + N:])
+    dt1 = softplus(dt[:, 0].float() + params["dt_bias"])
+    xh = xs1.reshape(B, H, P)
+    A = -torch.exp(params["A_log"])
+    decay = torch.exp(dt1 * A)                                   # (B,H)
+    upd = torch.einsum("bhp,bn->bhpn", xh * dt1[..., None], Bm1.to(xh.dtype))
+    state = state * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, Cm1.to(state.dtype))
+    y = y + params["D"][None, :, None] * xh
+    return y[:, None], state
 
 
 def mamba2_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
     """x: (B,S,d).  cache: {"conv": (B,k-1,conv_ch), "state": (B,H,P,N)},
-    filled in place by a prefill (S > 1) or advanced by one decode step
-    (S == 1).  Returns (out, cache).  Holding this rank's share of the
-    heads (the tensor-parallel context, no cache), :func:`_mamba2_tp`."""
+    filled by a prefill (S > 1) or advanced by one decode step (S == 1).
+    Returns (out, cache).  Holding this rank's share of the heads (the
+    tensor-parallel context), :func:`_mamba2_tp`."""
     s = cfg.ssm
     B, S, d = x.shape
-    di, N, H, P = s.d_inner(d), s.d_state, s.n_heads(d), s.head_dim
+    di, N, H = s.d_inner(d), s.d_state, s.n_heads(d)
     if tp.partitioned(params["A_log"].shape[0], H):
-        if cache is not None:
-            raise ValueError("a tensor-parallel Mamba-2 block runs the "
-                             "training forward only, with no cache")
-        return _mamba2_tp(params, cfg, x), cache
+        return _mamba2_tp(params, cfg, x, cache)
     proj = x @ params["w_in"]
     z, xs, Bm, Cm, dt = _split_in(proj, di, N, H)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
@@ -228,23 +269,11 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
             cache["state"] = hT
         y = y.reshape(B, S, di).to(x.dtype)     # keep dtype scan-stable
     else:
-        # decode: one step through conv state + SSM state (plain torch: one
-        # recurrence step, which no Pallas kernel of the reference computes)
+        # decode: one step through conv state + SSM state
         conv_state, conv_out = causal_conv1d_step(params["conv"],
                                                   cache["conv"], conv_in[:, 0])
-        conv_out = F.silu(conv_out)
-        xs1, Bm1, Cm1 = (conv_out[..., :di], conv_out[..., di:di + N],
-                         conv_out[..., di + N:])
-        dt1 = softplus(dt[:, 0].float() + params["dt_bias"])
-        xh = xs1.reshape(B, H, P)
-        A = -torch.exp(params["A_log"])
-        decay = torch.exp(dt1 * A)                               # (B,H)
-        upd = torch.einsum("bhp,bn->bhpn", xh * dt1[..., None],
-                           Bm1.to(xh.dtype))
-        ssm_state = cache["state"] * decay[..., None, None] + upd
-        y = torch.einsum("bhpn,bn->bhp", ssm_state,
-                         Cm1.to(ssm_state.dtype))
-        y = y + params["D"][None, :, None] * xh
+        y, ssm_state = _step(params, cfg, F.silu(conv_out), dt,
+                             cache["state"], di, H)
         y = y.reshape(B, 1, di).to(x.dtype)
         cache["conv"], cache["state"] = conv_state, ssm_state
 
@@ -253,13 +282,17 @@ def mamba2_apply(params, cfg: ModelConfig, x, *, cache=None, cache_len=None):
 
 
 def mamba2_cache_init(cfg: ModelConfig, batch: int, *, device,
-                      dtype=torch.float32):
+                      dtype=torch.float32, model_ranks: int = 1):
+    """``{conv, state}``; over ``model_ranks`` model ranks the share of
+    each leaf's first state dim the rank holds at rest (the SSD heads; the
+    conv's k-1 window rows where they divide)."""
     s = cfg.ssm
     d = cfg.d_model
     di, N, H, P = s.d_inner(d), s.d_state, s.n_heads(d), s.head_dim
     return {
-        "conv": torch.zeros((batch, s.conv_kernel - 1, di + 2 * N),
-                            dtype=dtype, device=device),
-        "state": torch.zeros((batch, H, P, N), dtype=torch.float32,
-                             device=device),
+        "conv": torch.zeros((batch, tp.cache_split(s.conv_kernel - 1,
+                                                   model_ranks),
+                             di + 2 * N), dtype=dtype, device=device),
+        "state": torch.zeros((batch, tp.cache_split(H, model_ranks), P, N),
+                             dtype=torch.float32, device=device),
     }

@@ -117,13 +117,16 @@ def embed_tokens(params, cfg: ModelConfig, tokens, extra_embeds=None):
     return h
 
 
-def _logits(params, cfg: ModelConfig, h):
+def _logits(params, cfg: ModelConfig, h, whole: bool = False):
     """Logits (..., V); a rank holding a vocab shard of the head (or of a
-    tied ``embed``) gets its columns, for ``dist.tp.cross_entropy``."""
+    tied ``embed``) gets its columns, for ``dist.tp.cross_entropy``, or
+    with ``whole`` (the serving paths) the columns all-gathered over
+    "model"."""
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     if tp.partitioned(head.shape[1], cfg.vocab_size):
-        h = tp.copy_to_model(h)                 # column-parallel head
+        h = tp.copy_to_model(h) @ head          # column-parallel head
+        return tp.gather_from_model(h, -1) if whole else h
     return h @ head
 
 
@@ -180,18 +183,22 @@ def mtp_logits(params, cfg: ModelConfig, tokens, h_final):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
-               dtype=torch.float32):
+               dtype=torch.float32, model_ranks: int = 1):
+    """One cache a layer; over ``model_ranks`` model ranks each leaf's
+    shard a rank holds at rest (``dist.tp`` 's serve table)."""
     return [blocks.block_cache_init(cfg, cfg.pattern[i], batch, max_len,
-                                    device=device, dtype=dtype)
+                                    device=device, dtype=dtype,
+                                    model_ranks=model_ranks)
             for i in range(cfg.n_layers)]
 
 
 def prefill(params, cfg: ModelConfig, caches, tokens, extra_embeds=None):
     """Fill the caches with the whole prompt (after ``extra_embeds``, when
-    given); return the last position's logits (B,V) and the caches."""
+    given); return the last position's logits (B,V), over the whole
+    vocab under ``dist.tp`` too, and the caches."""
     h = embed_tokens(params, cfg, tokens, extra_embeds)
     h, caches, _ = run_stack(params, cfg, h, caches=caches, cache_len=0)
-    return _logits(params, cfg, h[:, -1:])[:, 0], caches
+    return _logits(params, cfg, h[:, -1:], whole=True)[:, 0], caches
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, cache_len: int,
@@ -201,4 +208,4 @@ def decode_step(params, cfg: ModelConfig, caches, token, cache_len: int,
     h = embed_tokens(params, cfg, token[:, None])
     h, caches, _ = run_stack(params, cfg, h, caches=caches,
                              cache_len=cache_len, positions=positions)
-    return _logits(params, cfg, h)[:, 0], caches
+    return _logits(params, cfg, h, whole=True)[:, 0], caches

@@ -52,6 +52,9 @@ checks, which a 4-card machine runs under ``torchrun`` with NCCL, and
   forward and backward);
 * ``constrain_batch`` and the DTensor row permuter; ``resolve_mesh``.
 
+``check_dist`` 's serve checks run in ``tests/test_torch_tp_serve.py``'s
+world.
+
 The CLI drills run as the reference's do (``tests/test_elastic.py``): the
 elastic kill drill under ``torchrun`` on 4 ranks, the unsupervised hang as
 one rank.
@@ -92,7 +95,7 @@ WORLD = textwrap.dedent('''
         from repro_torch.launch.check_dist import run_checks, \\
             tp_value_and_grad
         from repro_torch.launch.mesh import make_mesh_compat
-        out = run_checks("cpu", ckdir)
+        out = run_checks("cpu", ckdir, serve=False)   # its own file
         # the reference's parameters and batches, bridged: a TP rank's
         # loss and whole gradients on (1, 4), and on (2, 2) where asked
         with open(ref_path, "rb") as f:

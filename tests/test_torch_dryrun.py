@@ -342,3 +342,92 @@ def test_prefill_and_decode_run_on_meta_at_full_width(arch):
                                            specs["tokens"][:, 0], 319)
     assert logits.is_meta and tuple(logits.shape) == (2, cfg.vocab_size)
     assert tuple(step_logits.shape) == (2, cfg.vocab_size)
+
+
+# the serve ranks whose matrix-product FLOPs are held exactly to the share
+# check_dist.replicated_products states (its whole products: mamba2's
+# B / C columns of w_in and C·Bᵀ scores and its head, vocab 50280;
+# Griffin's one KV head's k / v; seamless's head, vocab 256206)
+EXACT_SERVE = ("mamba2-780m", "recurrentgemma-9b", "seamless-m4t-medium")
+
+
+def _shard_bytes(tree, shardings, mesh) -> int:
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist.tensor import local_chunk
+    coord = mesh.coordinate(mesh.ranks()[0])
+    return sum(local_chunk(t, s.spec, mesh, coord).numel() * t.element_size()
+               for t, s in zip(tree_leaves(tree), tree_leaves(shardings)))
+
+
+def _small_shape(monkeypatch, kind: str) -> InputShape:
+    """B 2 at 320 positions, registered in ``SHAPES`` for this test, so
+    that ``lower_one`` finds it by name as it finds the reference's."""
+    from repro_torch.configs import shapes
+    shape = InputShape(f"small_{kind}", 320, 2, kind)
+    monkeypatch.setitem(shapes.SHAPES, shape.name, shape)
+    return shape
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lower_one_traces_the_tp_serve_rank(arch, kind, monkeypatch):
+    """At ``test_prefill_and_decode_run_on_meta_at_full_width`` 's shape
+    (B 2, 320 positions) and full width on the 16 x 16 mesh, ``lower_one``
+    traces the sharded serve step's rank (``core.tl_step.ShardedServe``):
+    its program says tensor-parallel over the 16 model ranks, its
+    reckoned memory holds the rank's parameter and cache shards under
+    ``serve_shardings`` (not whole ones), and for the recurrent archs and
+    the enc-dec its matrix-product FLOPs are exactly one device's share
+    as ``check_dist.replicated_products`` states it for a serve step."""
+    from repro_torch.core.tl_step import serve_shardings
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.check_dist import replicated_products
+    shape = _small_shape(monkeypatch, kind)
+    art = dryrun.lower_one(arch, shape.name, "single")
+    assert art["status"] == "ok", art
+    program = art["extra_tags"]["rank_program"]
+    assert "tensor-parallel over 16 model ranks" in program, program
+    assert "ShardedServe" in program and "not ported" not in program
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = abstract_params(model)
+    mesh = port_mesh.make_production_mesh(device="cpu")
+    cache = abstract_cache(model, 2, 320)
+    pspecs, cspecs = serve_shardings(params, cache, cfg, mesh, shape)[0][:2]
+    mem = art["memory_analysis"]
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    assert mem["param_shard_bytes"] == _shard_bytes(params, pspecs, mesh)
+    assert mem["param_shard_bytes"] < whole / 8
+    assert mem["cache_shard_bytes"] == _shard_bytes(cache, cspecs, mesh)
+    assert art["peak_memory_per_chip"] == sum(mem.values())
+    assert art["coll_breakdown"].get("all-reduce", 0) \
+        + art["coll_breakdown"].get("all-gather", 0) > 0
+    if arch in EXACT_SERVE:
+        specs = input_specs(cfg, shape)
+        with torch.no_grad():
+            if kind == "prefill":
+                one = analyze_step(model.prefill, params, cache,
+                                   specs["tokens"], specs.get("embeds"))
+            else:
+                one = analyze_step(model.decode_step, params, cache,
+                                   specs["token"], 319)
+        share = one.flops / 16 + 15 / 16 * replicated_products(
+            cfg, 2, 320, 16, kind)
+        print(f"{arch} {kind}: rank FLOPs {art['flops_per_chip']!r}, "
+              f"one device {one.flops!r}, stated share {share!r}")
+        assert art["flops_per_chip"] == pytest.approx(share, rel=1e-12)
+    assert not torch.distributed.is_initialized()
+
+
+def test_long_context_skip_and_the_seq_shard_reckoning_stay(monkeypatch):
+    """A full-attention arch's ``long_500k`` keeps the reference's skip
+    verdict; ``--cache-seq-shard`` (the split-sequence decode, not ported)
+    keeps the gather-whole reckoning and says so."""
+    art = dryrun.lower_one("deepseek-7b", "long_500k", "single")
+    assert art["status"] == "skipped" and "quadratic" in art["reason"]
+    art = dryrun.lower_one("deepseek-7b",
+                           _small_shape(monkeypatch, "decode").name,
+                           "single", cache_seq_shard=True)
+    assert art["status"] == "ok"
+    assert "not ported" in art["extra_tags"]["rank_program"]
+    assert art["memory_analysis"]["gathered_param_bytes"] > 0

@@ -1,0 +1,288 @@
+"""The sharded serve step on a 4-rank gloo world: prefill and decode
+partitioned over "model", as the reference's dryrun compiles them under
+``serve_shardings``.
+
+One world (spawned once for the module in a subprocess, ``file://``
+store under ``tmp_path``, one thread a rank) runs
+``repro_torch.launch.check_dist.serve_checks`` and the sharded serve step
+on the JAX reference's bridged parameters; rank 0 writes the readings
+and the tests below assert on them:
+
+* every arch at reduced size on (2, 2) and (1, 4), B 4, a 16-position
+  prompt and 4 greedy decode steps (``core.tl_step.ShardedServe``)
+  against one device's ``prefill`` / ``decode_step`` on the same rows:
+  the logits over the whole vocab within atol = rtol = 1e-5
+  (``tests/test_torch_models.py``'s ``TOL``), the token streams equal,
+  each rank's cache leaves within the same tolerance of their
+  ``serve_shardings`` shards of the one-device cache; the two MoE archs
+  with 0 (token, choice) pairs routed to another expert; Griffin's
+  window ring wrapping in a 70-token prefill (starcoder2-3b, window 64),
+  and deepseek-7b with TP-only weights (``fsdp=False``);
+* on both meshes the TP rank's logits and greedy tokens against the JAX
+  reference's ``prefill`` / ``decode_step`` at ``PRNGKey(0)`` parameters
+  (``bridge.params_from_jax``): deepseek-7b, starcoder2-3b,
+  deepseek-v3-671b, mamba2-780m, recurrentgemma-9b and seamless-m4t-medium
+  (seeded frames, ``check_dist.FRAME_STD``), within 1e-5;
+* a rank's prefill and decode step under the dispatch accounting against
+  ``launch.dryrun.trace_serve``'s trace of that rank on ``meta``: the
+  collective bytes and the matrix-product FLOPs equal, the memory it
+  holds (parameter and cache shards, parameters received gathered, the
+  inputs) equal to the reckoned, and no model op handed a ``DTensor``.
+
+The JAX side runs in this process while the world runs.  The cache
+shapes against ``serve_shardings``' shards and the cache helpers' unset
+identity need no world.
+"""
+import json
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.launch.check_dist import (ROUTED, RING,  # noqa: E402
+                                           SERVE_B, SERVE_P, SERVE_STEPS,
+                                           SERVE_TOL, serve_inputs)
+
+ARCHS = list_archs()
+MESHES = ["debug22", "model4"]
+TOL = dict(atol=SERVE_TOL, rtol=SERVE_TOL)
+# the sharded rank against the JAX reference: Megatron on 32 / 4 KV heads
+# and on one replicated KV head (qkv biases, the window), all-column MLA +
+# MoE, Mamba-2's SSD heads, the RG-LRU width, the encoder-decoder
+JAX_ARCHS = ("deepseek-7b", "starcoder2-3b", "deepseek-v3-671b",
+             "mamba2-780m", "recurrentgemma-9b", "seamless-m4t-medium")
+KEYS = [f"serve/{m}/{a}" for m in MESHES for a in ARCHS] + [
+    f"serve/model4/{RING[0]}/ring", "serve/debug22/deepseek-7b/tp_only"]
+RANKS = [f"serve_rank/{m}/{a}" for m in MESHES for a in ARCHS] + [
+    "serve_rank/debug22/deepseek-7b/tp_only"]
+
+WORLD = textwrap.dedent('''
+    import json, pickle, sys
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    def work(rank, world, store, out_path, ref_path, got_path):
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        from repro_torch.bridge import params_from_jax
+        from repro_torch.configs import get_config
+        from repro_torch.core.tl_step import ShardedServe
+        from repro_torch.launch.check_dist import _sharded, serve_checks
+        from repro_torch.launch.mesh import make_mesh_compat
+        from repro_torch.models import build_model
+        out = serve_checks("cpu")
+        meshes = {"model4": make_mesh_compat((1, 4), ("data", "model"),
+                                             device="cpu"),
+                  "debug22": make_mesh_compat((2, 2), ("data", "model"),
+                                              device="cpu")}
+        with open(ref_path, "rb") as f:
+            cases = pickle.load(f)
+        got = {}
+        for arch, (np_params, inputs, start, steps) in cases.items():
+            cfg = get_config(arch, reduced=True)
+            whole = params_from_jax(np_params, cfg, torch.device("cpu"))
+            inputs = {k: torch.from_numpy(v) for k, v in inputs.items()}
+            for name, mesh in meshes.items():
+                serve = ShardedServe(build_model(cfg), cfg, mesh,
+                                     len(inputs["tokens"]))
+                mine = {k: v[serve.rows] for k, v in inputs.items()}
+                with torch.no_grad():
+                    logits, toks, _ = _sharded(serve, serve.place(whole),
+                                               mine, steps, start)
+                parts = [None] * world
+                dist.all_gather_object(parts, (serve.rows.start,
+                                               logits.numpy(), toks.numpy()))
+                seen = {}
+                for r0, lg, tk in parts:         # each block of rows once
+                    seen[r0] = (lg, tk)
+                got[f"{name}/{arch}"] = [seen[r0] for r0 in sorted(seen)]
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+            with open(got_path, "wb") as f:
+                pickle.dump(got, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+    if __name__ == "__main__":
+        mp.spawn(work, args=(4,) + tuple(sys.argv[1:5]), nprocs=4)
+''')
+
+
+def _jax_greedy(jm, jparams, inputs, start, steps):
+    """The reference's ``prefill`` then ``steps`` greedy decode steps:
+    logits (B, steps + 1, V) and tokens (B, steps)."""
+    import jax
+    import jax.numpy as jnp
+    B = inputs["tokens"].shape[0]
+    cache = jm.init_cache(B, start + steps)
+    extra = inputs.get("embeds")
+    logits, cache = jax.jit(jm.prefill)(
+        jparams, cache, jnp.asarray(inputs["tokens"]),
+        None if extra is None else jnp.asarray(extra))
+    decode = jax.jit(jm.decode_step)
+    out, toks = [np.asarray(logits)], []
+    for t in range(steps):
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        toks.append(np.asarray(tok))
+        logits, cache = decode(jparams, cache, tok, start + t)
+        out.append(np.asarray(logits))
+    return np.stack(out, 1), np.stack(toks, 1)
+
+
+@pytest.fixture(scope="module")
+def world_and_jax(tmp_path_factory):
+    """The JAX reference's reduced parameters (``PRNGKey(0)``) and seeded
+    inputs of ``JAX_ARCHS`` handed to the world, which starts at once;
+    the reference's logits and tokens computed here meanwhile."""
+    import jax
+
+    from repro.configs import get_config as jax_get_config
+    from repro.models import build_model as jax_build_model
+    cases, jax_side = {}, {}
+    for arch in JAX_ARCHS:
+        jcfg = jax_get_config(arch, reduced=True)
+        jm = jax_build_model(jcfg)
+        jparams = jax.jit(jm.init)(jax.random.PRNGKey(0))
+        inputs = {k: v.numpy() for k, v in serve_inputs(
+            get_config(arch, reduced=True), SERVE_B, SERVE_P).items()}
+        cases[arch] = (jax.tree.map(np.asarray, jparams), inputs, SERVE_P,
+                       SERVE_STEPS)
+        jax_side[arch] = (jm, jparams, inputs)
+    tmp = tmp_path_factory.mktemp("serve")
+    (tmp / "world.py").write_text(WORLD)
+    ref, out, got = tmp / "cases.pkl", tmp / "out.json", tmp / "got.pkl"
+    ref.write_bytes(pickle.dumps(cases))
+    env = dict(os.environ, PYTHONPATH=os.path.abspath("src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, str(tmp / "world.py"), str(tmp / "store"),
+         str(out), str(ref), str(got)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        want = {arch: _jax_greedy(jm, jp, inputs, SERVE_P, SERVE_STEPS)
+                for arch, (jm, jp, inputs) in jax_side.items()}
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err[-4000:]
+    return (json.loads(out.read_text()), pickle.loads(got.read_bytes()),
+            want)
+
+
+@pytest.fixture(scope="module")
+def world(world_and_jax):
+    return world_and_jax[0]
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_sharded_serve_matches_one_device(world, key):
+    """Whole logits within 1e-5 of one device's at every step, greedy
+    streams equal, each rank's cache its spec shard of one device's."""
+    got = world[key]
+    print(f"{key}: logit gap {got['logit_gap']!r}, cache gap "
+          f"{got['cache_gap']!r} over {got['model_ranks']} model ranks")
+    assert got["model_ranks"] == (2 if "debug22" in key else 4)
+    assert got["logits_close"] and got["logit_gap"] < 2 * SERVE_TOL, got
+    assert got["streams_equal"], got
+    assert got["cache_close"], got
+
+
+@pytest.mark.parametrize("arch", ROUTED)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_serve_routes_as_one_device(world, mesh, arch):
+    """The all-column layout keeps every contraction whole: no (token,
+    choice) pair of the prefill's or a decode step's MoE layer routes to
+    another expert than on one device."""
+    got = world[f"serve/{mesh}/{arch}"]
+    assert got["routes"] == 1 + SERVE_STEPS, got       # one MoE layer
+    assert got["flips"] == 0, got
+
+
+@pytest.mark.parametrize("arch", JAX_ARCHS)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_serve_matches_the_jax_reference(world_and_jax, mesh, arch):
+    """The TP rank's whole logits of the prefill and each greedy decode
+    step, and its tokens, against the JAX reference's on its bridged
+    parameters and the same inputs."""
+    blocks = world_and_jax[1][f"{mesh}/{arch}"]
+    logits = np.concatenate([lg for lg, _ in blocks])
+    toks = np.concatenate([tk for _, tk in blocks])
+    want_logits, want_toks = world_and_jax[2][arch]
+    gap = float(np.abs(logits - want_logits).max())
+    print(f"{arch} on {mesh}: logit gap to the reference {gap!r}")
+    np.testing.assert_allclose(logits, want_logits, **TOL)
+    np.testing.assert_array_equal(toks, want_toks)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("key", RANKS)
+def test_dryrun_serve_rank_equals_the_real_step(world, key, kind):
+    """``launch.dryrun.trace_serve`` on ``meta`` against the real rank's
+    step: collective bytes by kind, matrix-product FLOPs and the held
+    memory equal."""
+    got = world[key][kind]
+    print(f"{key} {kind}: {got['measured']} FLOPs {got['flops']['step']}")
+    assert got["measured"] == got["predicted"], got
+    assert got["flops"]["step"] == got["flops"]["dryrun"] > 0, got["flops"]
+    assert got["memory"]["held"] == got["memory"]["reckoned"], got["memory"]
+    assert "tensor-parallel" in got["program"], got["program"]
+
+
+@pytest.mark.parametrize("key", RANKS)
+def test_no_model_op_receives_a_dtensor_serving(world, key):
+    for kind in ("prefill", "decode"):
+        got = world[key][kind]
+        assert got["model_ops"] > 0 and got["dtensor_ops"] == [], got
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("sizes,reduced", [((2, 2), True), ((1, 4), True),
+                                           ((16, 16), False)])
+def test_local_cache_is_the_serve_specs_shard(arch, sizes, reduced):
+    """``init_cache(model_ranks=m)`` builds exactly each leaf's shard of
+    ``serve_shardings``' cache spec on a rank of a (data, model) mesh of
+    ``sizes`` (its rows given), on ``meta``: at reduced size on the test
+    meshes and at full width on the production mesh."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tl_step import serve_shardings
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist import tp
+    from repro_torch.dist.tensor import local_chunk
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    cfg = get_config(arch, reduced=reduced)
+    model = build_model(cfg)
+    mesh = Mesh(np.arange(sizes[0] * sizes[1]).reshape(sizes),
+                ("data", "model"))
+    B, L = 2 * sizes[0], 24
+    whole = model.init_cache(B, L, device="meta")
+    specs = serve_shardings(model.init(device="meta"), whole, cfg, mesh,
+                            InputShape("c", L, B, "decode"))[0][1]
+    m = sizes[1] if tp.partitions(cfg, mesh) else 1
+    local = model.init_cache(2, L, device="meta", model_ranks=m)
+    for rank in (0, mesh.size - 1):
+        coord = mesh.coordinate(rank)
+        want = [tuple(local_chunk(t, s.spec, mesh, coord).shape)
+                for t, s in zip(tree_leaves(whole), tree_leaves(specs))]
+        assert [tuple(t.shape) for t in tree_leaves(local)] == want
+
+
+def test_cache_helpers_unset_are_the_identity():
+    from repro_torch.dist import tp
+    x = torch.zeros(2, 3, 4)
+    assert tp.cache_whole(x, 1, 3) is x and tp.cache_shard(x, 1, 3) is x
+    assert tp.cache_split(48, 16) == 3 and tp.cache_split(3, 16) == 3
+    assert tp.cache_split(2, 4) == 2 and tp.cache_split(8, 1) == 8
