@@ -254,7 +254,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    equals the whole product's columns on the card; (e) deepseek-7b
    (depth 30 -> 2) and mamba2-780m (depth 48 -> 4) at full width (B 4, a
    32-token prompt, 8 tokens) through the sharded serve step (``core.tl_step.ShardedServe``,
-   which on a model axis of size 1 runs the one-device expression)
+   which on a model axis of size 1 runs the one-device expression), and
+   deepseek-7b again with ``cache_seq_shard=True`` (the split-sequence
+   decode; one chunk on one rank, so the one-device expression too),
    against ``launch/serve.py`` 's ``generate``: every logit and token
    bit-equal, K4 / K5 once a layer in the sharded prefill, each launch
    held against its plain version on its own inputs.
@@ -3705,9 +3707,13 @@ def sharded_moe_step(card: str, mesh):
             "seconds": seconds}
 
 
-# arch -> (its prefill's kernel, the layer kind that launches it, depth)
-SHARDED_SERVE = {"deepseek-7b": ("flash_attention_bh", "attn", 2),
-                 "mamba2-780m": ("ssd_bh", "ssm", 4)}
+# case -> (arch, its prefill's kernel, the layer kind that launches it,
+# depth, cache_seq_shard)
+SHARDED_SERVE = {
+    "deepseek-7b": ("deepseek-7b", "flash_attention_bh", "attn", 2, False),
+    "mamba2-780m": ("mamba2-780m", "ssd_bh", "ssm", 4, False),
+    "deepseek-7b/seq": ("deepseek-7b", "flash_attention_bh", "attn", 2,
+                        True)}
 SHARDED_SERVE_P, SHARDED_SERVE_GEN = 32, 8
 
 
@@ -3715,11 +3721,13 @@ def sharded_serve(card: str, mesh):
     """Phase 4e (e): deepseek-7b (2 layers) and mamba2-780m (4 layers) at
     full width (B 4, a 32-token prompt, 8 tokens, weights from seed 0)
     prefilled and decoded through the sharded serve step
-    (``core.tl_step.ShardedServe``) on the one-rank (1, 1) NCCL mesh,
-    against ``launch/serve.py`` 's ``generate`` on the card: every step's
-    logits and the tokens bit-equal; K4 / K5 once a layer in the sharded
-    prefill (counts from 0 just before, read just after), each launch held
-    against its plain version on its own inputs."""
+    (``core.tl_step.ShardedServe``) on the one-rank (1, 1) NCCL mesh, and
+    deepseek-7b once more with ``cache_seq_shard=True`` (the split-sequence
+    decode, one sequence chunk on one rank), against ``launch/serve.py`` 's
+    ``generate`` on the card: every step's logits and the tokens
+    bit-equal; K4 / K5 once a layer in the sharded prefill (counts from 0
+    just before, read just after), each launch held against its plain
+    version on its own inputs."""
     import numpy as np
     import torch
 
@@ -3733,7 +3741,7 @@ def sharded_serve(card: str, mesh):
     t0 = time.perf_counter()
     kernels = {k.name: k for k in (flash_attention_bh, ssd_bh)}
     out = {}
-    for arch, (kname, kind, depth) in SHARDED_SERVE.items():
+    for case, (arch, kname, kind, depth, seq) in SHARDED_SERVE.items():
         cfg = dataclasses.replace(get_config(arch), n_layers=depth)
         model = build_model(cfg)
         params = model.init(seed=0, device=DEVICE)
@@ -3751,8 +3759,9 @@ def sharded_serve(card: str, mesh):
         oracle = dataclasses.replace(model, prefill=keep(model.prefill),
                                      decode_step=keep(model.decode_step))
         tokens = generate(oracle, cfg, params, prompts, G, device=DEVICE)
-        serve = ShardedServe(model, cfg, mesh, B)
+        serve = ShardedServe(model, cfg, mesh, B, cache_seq_shard=seq)
         assert serve.model_ranks == 1 and serve.rows == slice(0, B)
+        assert serve.seq_ranks == (1 if seq else None)
         placed = serve.place(params)
         cache = serve.init_cache(P + G)
         pt = torch.as_tensor(prompts, device=DEVICE)
@@ -3780,14 +3789,15 @@ def sharded_serve(card: str, mesh):
             torch.equal(a, b) for a, b in zip(got, seen))
         same_tokens = torch.equal(torch.stack(toks, 1), tokens)
         print(f"  (e) {arch} (full width, {cfg.n_layers} layers) through the "
-              f"sharded serve step on the (1, 1) mesh: logits of the "
+              f"sharded serve step on the (1, 1) mesh"
+              f"{', cache_seq_shard=True' if seq else ''}: logits of the "
               f"prefill and {G - 1} decode steps bit-equal to generate's "
               f"{bit_equal}, tokens equal {same_tokens}; {kname} "
               f"{launches[kname]} a prefill ({n_layers} layers), each "
               f"launch against its plain version: max_abs_err {err:.3e} "
               f"[{card}]")
-        assert bit_equal and same_tokens, arch
-        out[arch] = {"launches": launches, "max_abs_err": err,
+        assert bit_equal and same_tokens, case
+        out[case] = {"launches": launches, "max_abs_err": err,
                      "bit_equal": bit_equal, "tokens_equal": same_tokens}
         del params, placed, cache, calls
         free_cuda()
@@ -5128,6 +5138,10 @@ def main() -> None:
                   "launches"]["flash_attention_bh"],
               sharded_serve_max_abs_err=dist["serve"]["deepseek-7b"][
                   "max_abs_err"],
+              launches_seq_sharded_serve=dist["serve"]["deepseek-7b/seq"][
+                  "launches"]["flash_attention_bh"],
+              seq_sharded_serve_max_abs_err=dist["serve"][
+                  "deepseek-7b/seq"]["max_abs_err"],
               launches_analysis_prefill=analysis["prefill"]["k4_launches"],
               launches_restore=fire["launches_restore"]["flash_attention_bh"],
               launches_recovery=fire["launches_recovery"][

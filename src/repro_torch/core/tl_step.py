@@ -380,19 +380,31 @@ class ShardedServe:
     * **Rows and logits**: the rank runs its own rows (:attr:`rows`,
       ``tokens_pspec`` 's block; every row where the batch axes do not
       divide the batch) and gets their logits over the whole vocab.
+    * ``cache_seq_shard=True`` (the reference's split-sequence,
+      flash-decoding layout; ``dist.tp`` 's split-sequence table): each
+      attention cache leaf is held as the rank's chunk of its sequence
+      over :func:`sequence_axes` ("model", with the batch axes where the
+      batch does not shard over them: there every rank runs every row),
+      every KV head; a decode step attends over the chunk and the ranks
+      combine their partial softmax statistics over that entry's process
+      group (``tp.serve_sequence``).  The weights and the state leaves
+      stay as above.  A leaf whose sequence does not divide the chunks
+      stays whole (its spec drops the entry) and runs the one-device
+      expression, as does a sequence entry of one rank.
 
     The step takes no gradient and sets no grad mode: under
     ``torch.no_grad`` the attentions and scans take the kernels (K4-K6),
-    as one device's serving does.  ``cache_seq_shard`` (the reference's
-    split-sequence decode) is not ported."""
+    as one device's serving does."""
 
     def __init__(self, model: Model, cfg: ModelConfig, mesh,
-                 global_batch: int, *, fsdp=None):
+                 global_batch: int, *, fsdp=None,
+                 cache_seq_shard: bool = False):
         import torch.distributed as dist
 
         from repro_torch.dist.sharding import batch_axes, tokens_pspec
         self.model, self.cfg, self.mesh = model, cfg, mesh
         self.global_batch, self.fsdp = global_batch, fsdp
+        self.cache_seq_shard = cache_seq_shard
         self.rank = dist.get_rank()
         B = global_batch
         if tokens_pspec(mesh, B)[0] is None:
@@ -403,6 +415,14 @@ class ShardedServe:
             self.rows = slice(i * B // n, (i + 1) * B // n)
         self.model_ranks = mesh.sizes.get("model", 1) \
             if tp.partitions(cfg, mesh) else 1
+        # the sequence entry's chunks and this rank's (cache_seq_shard)
+        axes = sequence_axes(mesh, B)
+        self.seq_ranks = math.prod(mesh.sizes[a] for a in axes) \
+            if cache_seq_shard else None
+        self.seq_index = mesh.index_along(self.rank, axes)
+        if cache_seq_shard and self.seq_ranks > 1:
+            _sequence_spans(mesh, axes)                 # raises elsewhere
+        self._seq_axes = axes
         self.device = torch.device(
             "cuda", torch.cuda.current_device()) \
             if mesh.device_type == "cuda" else torch.device("cpu")
@@ -416,6 +436,7 @@ class ShardedServe:
                                       device="meta")
         shape = InputShape("serve", max_len, self.global_batch, "decode")
         return serve_shardings(params, whole, self.cfg, self.mesh, shape,
+                               cache_seq_shard=self.cache_seq_shard,
                                fsdp=self.fsdp)[0][:2]
 
     def place(self, params):
@@ -434,7 +455,8 @@ class ShardedServe:
         rows = self.rows.stop - self.rows.start
         cache = self.model.init_cache(rows, max_len, device=self.device,
                                       dtype=dtype,
-                                      model_ranks=self.model_ranks)
+                                      model_ranks=self.model_ranks,
+                                      seq_ranks=self.seq_ranks)
         whole = self.model.init_cache(self.global_batch, max_len,
                                       device="meta", dtype=dtype)
         coord = self.mesh.coordinate(self.rank)
@@ -453,6 +475,10 @@ class ShardedServe:
         is handed on without a redistribution."""
         if self._layout is None:
             entry, scope = tensor_parallel(self.cfg, self.mesh, params)
+            if self.seq_ranks is not None and self.seq_ranks > 1:
+                group = sequence_group(self.mesh, self._seq_axes)
+                scope = _within(scope, lambda: tp.serve_sequence(
+                    group, self.seq_ranks, self.seq_index))
             self._layout = [s.placements for s in tree_flatten(entry)[0]], \
                 scope
         placements, scope = self._layout
@@ -477,6 +503,52 @@ class ShardedServe:
         local, scope = self._entry(params)
         with scope():
             return self.model.decode_step(local, cache, token, cache_len)
+
+
+def sequence_axes(mesh, global_batch: int) -> tuple:
+    """The mesh axes a sequence-sharded cache's sequence dim lies over, as
+    :func:`serve_shardings` ' ``cache_seq_shard`` entry names them:
+    "model", and the batch axes after it where the batch does not shard
+    over them."""
+    from repro_torch.dist.sharding import batch_axes, tokens_pspec
+    if tokens_pspec(mesh, global_batch)[0] is not None:
+        return ("model",)
+    return ("model",) + tuple(batch_axes(mesh))
+
+
+def _sequence_spans(mesh, axes) -> bool:
+    """True where ``axes`` are the model axis alone, False where they are
+    every axis of ``mesh``; raises otherwise (no process group of the
+    port's spans them)."""
+    if tuple(axes) == ("model",):
+        return True
+    if set(axes) == set(mesh.axis_names):
+        return False
+    raise ValueError(
+        f"a sequence entry over {tuple(axes)} on a mesh of axes "
+        f"{mesh.axis_names}: the port combines a sequence-sharded cache "
+        "over the model axis or over the whole mesh only")
+
+
+def sequence_group(mesh, axes):
+    """The process group of a running world over the mesh's ``axes`` (of
+    :func:`sequence_axes`): the model axis's group, or the mesh's own
+    group where they are every axis (collective on its first use, as
+    ``mesh.device_mesh()``)."""
+    if _sequence_spans(mesh, axes):
+        return mesh.device_mesh().get_group("model")
+    return mesh.group()
+
+
+def _within(outer, inner):
+    """A context factory entering ``outer()`` then ``inner()``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def both():
+        with outer(), inner():
+            yield
+    return both
 
 
 # -------------------------------------------------------------- shardings

@@ -186,6 +186,41 @@ enc-dec ``enc_out`` (B, F, d)      frames on "model": gathered whole for
                                    the cross-attention of a decode step
 ``pos``                            replicated
 =================================  =========================================
+
+**Split-sequence decode** (``ShardedServe(cache_seq_shard=True)``, the
+reference's flash-decoding layout): ``serve_shardings(cache_seq_shard=
+True)`` puts an attention cache's sequence dim on "model", or on "model"
+and the batch axes where the batch does not shard over them (a
+``("model", "data")`` entry, whose chunk index runs major to minor as
+``dist.tensor.local_chunk`` 's).  The scope (:func:`serve_sequence`) is
+that entry's process group, its size and this rank's chunk index.  Leaf
+by leaf, with n sequence chunks (the weights and the state leaves as in
+the table above):
+
+=================================  =========================================
+cache leaf                         at rest / what a rank computes
+=================================  =========================================
+GQA ``k``, ``v`` (B, S, KV, hd)    the rank's chunk of S / n slots (of the
+                                   ring's ``min(S, window)``), every KV
+                                   head: a prefill's and a decode step's
+                                   k / v are gathered over "model" where
+                                   the rank projects a KV-head shard, and
+                                   only the slots of the chunk are written
+                                   (:func:`chunk_runs`); a decode step
+                                   gathers q over the heads, attends over
+                                   the chunk with every head and combines
+                                   the chunks' partial softmax statistics
+                                   (:func:`combine_softmax`), then keeps
+                                   the rank's heads for the row-parallel
+                                   ``w_o``
+MLA ``c_kv`` (B, S, lora),         the rank's chunk of S / n positions, the
+``k_rope`` (B, S, rope)            whole latent (computed whole on every
+                                   rank: the write is a narrow); a decode
+                                   step as GQA's, over the latent
+``pos`` (S)                        replicated, written by every rank
+a leaf whose S does not divide n   whole (the spec drops the entry): the
+                                   one-device expression, every KV head
+=================================  =========================================
 """
 from __future__ import annotations
 
@@ -204,6 +239,16 @@ class _Context:
 
 
 _CTX: Optional[_Context] = None
+
+
+@dataclass(frozen=True)
+class _Sequence:
+    group_name: str          # the sequence entry's process group
+    size: int                # its chunks
+    index: int               # this rank's chunk
+
+
+_SEQ: Optional[_Sequence] = None
 
 
 def layout(cfg) -> str:
@@ -248,6 +293,20 @@ def model_parallel(group, size: int, rank: int):
         yield
     finally:
         _CTX = prev
+
+
+@contextlib.contextmanager
+def serve_sequence(group, size: int, index: int):
+    """Serve a sequence-sharded cache (module docstring): its chunks lie
+    over ``group`` (``size`` ranks, this one holding chunk ``index``);
+    ``size == 1`` leaves the scope unset.  Restores the previous scope."""
+    global _SEQ
+    prev = _SEQ
+    _SEQ = _Sequence(group.group_name, size, index) if size > 1 else None
+    try:
+        yield
+    finally:
+        _SEQ = prev
 
 
 def rank() -> int:
@@ -410,6 +469,59 @@ def cache_shard(x, dim: int, local: int):
     if not partitioned(local, x.shape[dim]):
         return x
     return x.narrow(dim, _CTX.rank * local, local)
+
+
+def seq_chunk(local: int, slots: int) -> Optional[int]:
+    """The first slot of this rank's chunk of a cache leaf of ``slots``
+    slots held as ``local`` of them (:func:`serve_sequence`), or None
+    where the leaf is whole.  A leaf held in part outside the scope, or
+    by a share the scope does not give, raises."""
+    if local == slots:
+        return None
+    if _SEQ is None or local * _SEQ.size != slots:
+        raise ValueError(
+            f"a cache leaf holding {local} of {slots} slots needs the "
+            "serve_sequence scope of its chunks"
+            + ("" if _SEQ is None else f" ({_SEQ.size}, not "
+               f"{slots // local if local else 0})"))
+    return _SEQ.index * local
+
+
+def chunk_runs(first: int, n: int, slots: int, start: int,
+               length: int) -> list:
+    """Where positions ``first .. first + n - 1`` (``n <= slots``), each
+    written at slot ``position % slots`` of a ring, land in the chunk of
+    slots ``start .. start + length - 1``: ``(offset, slot, count)``
+    runs, ``offset`` into the n positions and ``slot`` into the chunk.
+    The n slots are one arc of the ring, so at most two runs."""
+    a = first % slots
+    arcs = [(a, min(a + n, slots), 0)]
+    if a + n > slots:
+        arcs.append((0, a + n - slots, slots - a))
+    runs = []
+    for lo, hi, offset in arcs:
+        lo2, hi2 = max(lo, start), min(hi, start + length)
+        if lo2 < hi2:
+            runs.append((offset + lo2 - lo, lo2 - start, hi2 - lo2))
+    return runs
+
+
+def combine_softmax(o, m, l):
+    """Attention's output from per-chunk partial softmax statistics
+    (``models.attention.attend_partial``, f32): ``o`` (..., dv) the
+    unnormalised weighted values under this chunk's max ``m`` (...) with
+    the sum of exps ``l`` (...).  Over the :func:`serve_sequence` group:
+    the max of the maxima ``M``, each chunk rescaled by ``exp(m - M)``
+    (a chunk with no visible key has ``m`` near ``NEG_INF``, finite, and
+    its rescale underflows to 0), the rescaled ``l`` and ``o`` summed
+    (one all-reduce), then ``o / l``.  Forward only: serving takes no
+    gradient."""
+    with torch.no_grad():
+        top = _all_reduce(m, "max", _SEQ.group_name)
+        w = torch.exp(m - top)
+        packed = torch.cat([o * w[..., None], (l * w)[..., None]], -1)
+        packed = _all_reduce(packed, "sum", _SEQ.group_name)
+        return packed[..., :-1] / packed[..., -1:]
 
 
 # ------------------------------------------------------- vocab-parallel

@@ -148,6 +148,8 @@ import tempfile
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs import list_archs
+
 ARCHS = ("deepseek-7b", "deepseek-v3-671b", "mamba2-780m",
          "recurrentgemma-9b")
 # the tensor-parallel step (dist.tp): 4 KV heads on 4 heads, and one KV
@@ -1246,12 +1248,51 @@ RING = ("starcoder2-3b", 70)
 SERVE_CELLS = {"deepseek-7b": 30, "deepseek-v2-236b": 3, "mamba2-780m": 48,
                "recurrentgemma-9b": 6, ENCDEC: 12}
 CELL_B, CELL_P, CELL_STEPS = 4, 1024, 16
+# --serve --cache-seq-shard: (arch, (data, model) mesh, B), each on a cache
+# of SEQ_CELL_LEN positions, so that on 4 sequence chunks (of 512) the
+# 1024-token prompt fills two, the 16 decode steps write into a third and
+# the fourth stays empty ((2, 2) at B 4: 2 chunks of 1024, the second
+# written by decode alone); B 1 on (2, 2) lays the sequence over
+# ("model", "data")
+SEQ_CELL_LEN = 2048
+SEQ_CELLS = (("deepseek-7b", (1, 4), 4), ("deepseek-7b", (2, 2), 4),
+             ("deepseek-7b", (2, 2), 1), ("deepseek-v2-236b", (1, 4), 4),
+             ("recurrentgemma-9b", (1, 4), 4), (ENCDEC, (1, 4), 4))
 CELL_GAP = 1e-3           # a step's argmax is held where one card's top-2
 CELL_CACHE_RTOL = 1e-4    # gap exceeds it; the cache shards' relative gap
 # the forward-only kernels a TP prefill launches, with their plain
 # versions' tolerance (chip_smoke.py phase 2's)
 SERVE_KERNELS = {"flash_attention_bh": 1e-5, "ssd_bh": 2e-4,
                  "rglru_scan_b": 1e-5}
+
+
+# the split-sequence decode (ShardedServe(cache_seq_shard=True)), key ->
+# (arch, mesh, B, prompt, cache positions; None: prompt + SERVE_STEPS):
+# every arch on (2, 2) and (1, 4) at B 4; B 1 on (2, 2), whose sequence
+# entry is ("model", "data"); the ring of RING wrapping in the prefill; and
+# caches of 32 positions, 8 a chunk on 4 ranks: a 14-token prompt, decode
+# writing across a chunk boundary (14, 15 | 16, 17), the last chunk empty
+SEQ_CASES = {
+    **{f"serve/{m}/{a}/seq": (a, m, SERVE_B, SERVE_P, None)
+       for m in ("debug22", "model4") for a in list_archs()},
+    "serve/debug22/deepseek-7b/seq_b1": ("deepseek-7b", "debug22", 1,
+                                         SERVE_P, None),
+    "serve/debug22/recurrentgemma-9b/seq_b1": ("recurrentgemma-9b",
+                                               "debug22", 1, SERVE_P, None),
+    f"serve/model4/{RING[0]}/ring_seq": (RING[0], "model4", SERVE_B,
+                                         RING[1], None),
+    "serve/model4/deepseek-7b/seq_empty": ("deepseek-7b", "model4", SERVE_B,
+                                           14, 32),
+    "serve/model4/deepseek-v2-236b/seq_empty": ("deepseek-v2-236b",
+                                                "model4", SERVE_B, 14, 32),
+}
+# a sequence-sharded rank against the dryrun's trace: key -> (arch, mesh,
+# B): every arch on both meshes, and B 1 on (2, 2)
+SEQ_RANKS = {
+    **{f"serve_rank/{m}/{a}/seq": (a, m, SERVE_B)
+       for m in ("debug22", "model4") for a in list_archs()},
+    "serve_rank/debug22/deepseek-7b/seq_b1": ("deepseek-7b", "debug22", 1),
+}
 
 
 def serve_inputs(cfg, B: int, P: int, seed: int = 1) -> dict:
@@ -1292,9 +1333,10 @@ def _serve(prefill, decode, cache, inputs, steps: int, start: int,
     return torch.stack(out, 1), torch.stack(toks, 1), cache
 
 
-def _one_device(model, params, inputs, steps, start, teacher=None):
+def _one_device(model, params, inputs, steps, start, teacher=None,
+                max_len=None):
     rows = inputs["tokens"].shape[0]
-    cache = model.init_cache(rows, start + steps,
+    cache = model.init_cache(rows, max_len or start + steps,
                              device=inputs["tokens"].device,
                              dtype=params["embed"].dtype)
     return _serve(lambda c, t, e: model.prefill(params, c, t, e),
@@ -1302,8 +1344,9 @@ def _one_device(model, params, inputs, steps, start, teacher=None):
                   cache, inputs, steps, start, teacher)
 
 
-def _sharded(serve, placed, inputs, steps, start, teacher=None):
-    cache = serve.init_cache(start + steps)
+def _sharded(serve, placed, inputs, steps, start, teacher=None,
+             max_len=None):
+    cache = serve.init_cache(max_len or start + steps)
     return _serve(lambda c, t, e: serve.prefill(placed, c, t, e),
                   lambda c, t, n: serve.decode_step(placed, c, t, n),
                   cache, inputs, steps, start, teacher)
@@ -1357,14 +1400,19 @@ def _all_max(values, device) -> list:
 
 
 def serve_against_one_device(cfg, mesh, whole, inputs, start: int, *,
-                             steps: int = SERVE_STEPS, fsdp=None) -> dict:
+                             steps: int = SERVE_STEPS, fsdp=None,
+                             cache_seq_shard: bool = False,
+                             max_len: int = None) -> dict:
     """The sharded serve step on ``mesh`` (every rank; collective) against
     one device on the same rows: this rank's rows of ``inputs`` (host
     tensors of every row) prefilled and decoded greedily ``steps`` steps
     by ``model.prefill`` / ``decode_step`` at the whole parameters
-    ``whole`` and by ``ShardedServe`` at the same parameters placed by
-    ``serve_shardings`` (the prefill filling ``start`` positions).  Over every rank: the largest logit gap and
+    ``whole`` and by ``ShardedServe`` (``cache_seq_shard`` as there) at
+    the same parameters placed by ``serve_shardings`` (the prefill
+    filling ``start`` positions of caches of ``max_len``, ``start +
+    steps`` by default).  Over every rank: the largest logit gap and
     whether each is within :data:`SERVE_TOL` (allclose), whether every
+    logit is finite, whether every
     token stream is equal, the cache leaves against their spec shards of
     the one-device cache (largest gap, relative gap, allclose), and for an
     MoE arch the (token, choice) pairs routed to another expert in the
@@ -1373,21 +1421,24 @@ def serve_against_one_device(cfg, mesh, whole, inputs, start: int, *,
     from repro_torch.models import build_model
     model = build_model(cfg)
     B = inputs["tokens"].shape[0]
-    max_len = start + steps
-    serve = ShardedServe(model, cfg, mesh, B, fsdp=fsdp)
+    max_len = max_len or start + steps
+    serve = ShardedServe(model, cfg, mesh, B, fsdp=fsdp,
+                         cache_seq_shard=cache_seq_shard)
     dev = whole["embed"].device
     mine = {k: v[serve.rows].to(dev) for k, v in inputs.items()}
     routed = cfg.moe is not None
     with torch.no_grad():
         run1 = []
         routes1 = _recorded_routes(lambda: run1.extend(_one_device(
-            model, whole, mine, steps, start))) if routed else \
-            run1.extend(_one_device(model, whole, mine, steps, start))
+            model, whole, mine, steps, start, max_len=max_len))) \
+            if routed else run1.extend(_one_device(
+                model, whole, mine, steps, start, max_len=max_len))
         placed = serve.place(whole)
         run2 = []
         routes2 = _recorded_routes(lambda: run2.extend(_sharded(
-            serve, placed, mine, steps, start))) if routed else \
-            run2.extend(_sharded(serve, placed, mine, steps, start))
+            serve, placed, mine, steps, start, max_len=max_len))) \
+            if routed else run2.extend(_sharded(
+                serve, placed, mine, steps, start, max_len=max_len))
     (l1, t1, c1), (l2, t2, c2) = run1, run2
     gap = float((l2 - l1).abs().max())
     close = bool(torch.allclose(l2, l1, atol=SERVE_TOL, rtol=SERVE_TOL))
@@ -1401,21 +1452,26 @@ def serve_against_one_device(cfg, mesh, whole, inputs, start: int, *,
         flips = sum(int((a[2] != b[2]).sum())
                     for a, b in zip(routes1, routes2))
     bad = [float(not close), float(not torch.equal(t1, t2)),
-           float(not c_close)]
+           float(not c_close), float(not bool(torch.isfinite(l2).all()))]
     worst = _all_max([gap, c_gap, c_rel, float(flips)] + bad, dev)
     flips_all = torch.tensor([flips], device=dev)
     dist.all_reduce(flips_all)
     return {"logit_gap": worst[0], "logits_close": not worst[4],
             "streams_equal": not worst[5], "cache_gap": worst[1],
             "cache_rel": worst[2], "cache_close": not worst[6],
+            "finite": not worst[7],
             "flips": int(flips_all.item()), "rows": B, "prompt": start,
-            "steps": steps, "model_ranks": serve.model_ranks,
+            "steps": steps, "max_len": max_len,
+            "model_ranks": serve.model_ranks, "seq_ranks": serve.seq_ranks,
             "routes": len(routes1) if routed else 0}
 
 
-def _serve_rank(mesh, device, arch: str, fsdp=None) -> dict:
+def _serve_rank(mesh, device, arch: str, fsdp=None,
+                cache_seq_shard: bool = False, B: int = SERVE_B) -> dict:
     """One rank's sharded prefill (B 4, P 16) and decode step (the cache
-    holding 17 positions) of reduced ``arch`` under the dispatch
+    holding 17 positions; sequence-sharded, ``cache_seq_shard``, 20, so
+    that it divides into 2 and 4 chunks) of reduced ``arch`` under the
+    dispatch
     accounting, beside ``launch.dryrun.trace_serve`` 's trace of the same
     rank on ``meta``: each kind's collective result bytes issued
     (``measured``) and predicted, the matrix-product FLOPs of the two,
@@ -1437,16 +1493,17 @@ def _serve_rank(mesh, device, arch: str, fsdp=None) -> dict:
 
     cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
-    B, S = SERVE_B, SERVE_P
+    S = SERVE_P
     whole = model.init(seed=0, device=device)
-    serve = ShardedServe(model, cfg, mesh, B, fsdp=fsdp)
+    serve = ShardedServe(model, cfg, mesh, B, fsdp=fsdp,
+                         cache_seq_shard=cache_seq_shard)
     placed = tree_map(lambda t: t.detach().requires_grad_(True),
                       serve.place(whole))
     inputs = {k: v[serve.rows].to(device)
               for k, v in serve_inputs(cfg, B, S).items()}
     out = {}
     for kind in ("prefill", "decode"):
-        seq = S if kind == "prefill" else S + 1
+        seq = S if kind == "prefill" else S + (4 if cache_seq_shard else 1)
         cache = serve.init_cache(seq)
         if kind == "decode":
             with torch.no_grad():
@@ -1482,7 +1539,8 @@ def _serve_rank(mesh, device, arch: str, fsdp=None) -> dict:
             serve._entry = real_entry
         pred, coll, memory, program = trace_serve(
             model, cfg, InputShape(kind, seq, B, kind), mesh,
-            abstract_params(model, torch.float32), serve_fsdp=fsdp)
+            abstract_params(model, torch.float32),
+            cache_seq_shard=cache_seq_shard, serve_fsdp=fsdp)
         held = {"param_shard_bytes": sum(
                     t._local_tensor.numel() * t.element_size()
                     for t in tree_leaves(placed)),
@@ -1514,7 +1572,9 @@ def serve_checks(device: str) -> dict:
     and (1, 4), the ring case (:data:`RING`) on (1, 4) and deepseek-7b
     with TP-only weights (``fsdp=False``) on (2, 2); a rank's program
     against the dryrun's trace (:func:`_serve_rank`) for every arch on
-    (2, 2) and (1, 4) and for deepseek-7b with ``fsdp=False``.  The first
+    (2, 2) and (1, 4) and for deepseek-7b with ``fsdp=False``; the
+    split-sequence decode's cases (:data:`SEQ_CASES`, ``cache_seq_shard=
+    True``) and ranks against the trace (:data:`SEQ_RANKS`).  The first
     rank's readings; an empty dict on the others."""
     from repro_torch.configs import get_config, list_archs
     from repro_torch.launch.mesh import make_mesh_compat
@@ -1540,12 +1600,21 @@ def serve_checks(device: str) -> dict:
     out["serve/debug22/deepseek-7b/tp_only"] = serve_against_one_device(
         cfg, meshes["debug22"], build_model(cfg).init(seed=0, device=device),
         serve_inputs(cfg, SERVE_B, SERVE_P), SERVE_P, fsdp=False)
+    for key, (arch, mesh, B, P, max_len) in SEQ_CASES.items():
+        cfg = get_config(arch, reduced=True)
+        out[key] = serve_against_one_device(
+            cfg, meshes[mesh], build_model(cfg).init(seed=0, device=device),
+            serve_inputs(cfg, B, P), P, cache_seq_shard=True,
+            max_len=max_len)
     for name, mesh in meshes.items():
         for arch in list_archs():
             out[f"serve_rank/{name}/{arch}"] = _serve_rank(mesh, device,
                                                            arch)
     out["serve_rank/debug22/deepseek-7b/tp_only"] = _serve_rank(
         meshes["debug22"], device, "deepseek-7b", fsdp=False)
+    for key, (arch, mesh, B) in SEQ_RANKS.items():
+        out[key] = _serve_rank(meshes[mesh], device, arch,
+                               cache_seq_shard=True, B=B)
     return out if dist.get_rank() == 0 else {}
 
 
@@ -1643,12 +1712,20 @@ def _argmax_misses(got, want, gap: float) -> int:
     return int(((got.argmax(-1) != want.argmax(-1)) & held).sum())
 
 
-def serve_cell(device: str, arch: str, mesh_shape=(1, 4)) -> dict:
+def serve_cell(device: str, arch: str, mesh_shape=(1, 4), *,
+               cache_seq_shard: bool = False, B: int = CELL_B) -> dict:
     """``--serve``: the sharded serve step of ``arch`` at full width (the
     depth of :data:`SERVE_CELLS`) on a (data, model) mesh of
-    ``mesh_shape`` (every rank; collective): B :data:`CELL_B`, a prompt of
-    :data:`CELL_P` positions (seamless: its 1024 seeded frames too), then
-    :data:`CELL_STEPS` decode steps fed one card's greedy stream.  Each
+    ``mesh_shape`` (every rank; collective): B rows (:data:`CELL_B`), a
+    prompt of :data:`CELL_P` positions (seamless: its 1024 seeded frames
+    too), then :data:`CELL_STEPS` decode steps fed one card's greedy
+    stream.  With ``cache_seq_shard`` (``--cache-seq-shard``) the cache
+    holds :data:`SEQ_CELL_LEN` positions on one card and in the sharded
+    runs, the gated run is ``ShardedServe(cache_seq_shard=True)``, and
+    the head-sharded ``ShardedServe`` is timed beside it on the same
+    placed weights, in turns (head-sharded twice, then the
+    sequence-sharded step again; each run's ms, peak and largest logit
+    gap, its cache freed before the next run).  Each
     rank runs one card's prefill and decode of its rows at the whole
     parameters (the reference; the first rank also runs it with every
     weight moved one ulp, the witness), then ``ShardedServe``: each
@@ -1669,11 +1746,13 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4)) -> dict:
 
     lead = dist.get_rank() == 0
     cfg = dataclasses.replace(get_config(arch), n_layers=SERVE_CELLS[arch])
-    B, P, steps = CELL_B, CELL_P, CELL_STEPS
+    P, steps = CELL_P, CELL_STEPS
+    max_len = SEQ_CELL_LEN if cache_seq_shard else P + steps
     model = build_model(cfg)
     mesh = make_mesh_compat(tuple(mesh_shape), ("data", "model"),
                             device=device)
-    serve = ShardedServe(model, cfg, mesh, B)
+    serve = ShardedServe(model, cfg, mesh, B,
+                         cache_seq_shard=cache_seq_shard)
     dev = torch.device(device, torch.cuda.current_device()) \
         if device != "cpu" else torch.device("cpu")
     mine = {k: v[serve.rows].to(dev)
@@ -1681,7 +1760,7 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4)) -> dict:
     whole = model.init(seed=0, device=dev)
 
     def one(params, teacher=None):
-        cache = model.init_cache(len(mine["tokens"]), P + steps, device=dev)
+        cache = model.init_cache(len(mine["tokens"]), max_len, device=dev)
         return _timed_serve(
             lambda c, t, e: model.prefill(params, c, t, e),
             lambda c, t, n: model.decode_step(params, c, t, n), cache,
@@ -1702,20 +1781,39 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4)) -> dict:
         if device != "cpu":
             torch.cuda.empty_cache()
 
-        def sharded(teacher, n=steps):
+        def sharded(teacher, n=steps, s=serve):
             return _timed_serve(
-                lambda c, t, e: serve.prefill(placed, c, t, e),
-                lambda c, t, n_: serve.decode_step(placed, c, t, n_),
-                serve.init_cache(P + steps), mine, n, P, device, teacher)
+                lambda c, t, e: s.prefill(placed, c, t, e),
+                lambda c, t, n_: s.decode_step(placed, c, t, n_),
+                s.init_cache(max_len), mine, n, P, device, teacher)
         sharded(ref["tokens"], 2)                  # warm
+        heads = None
+        if cache_seq_shard:      # the head-sharded layout, on the weights
+            heads = ShardedServe(model, cfg, mesh, B)
+            sharded(ref["tokens"], 2, heads)       # warm
         kernels = (flash_attention_bh, ssd_bh, rglru_scan_b)
         for k in kernels:
             k.launches = 0
         got = sharded(ref["tokens"])
         launches = {k.name: k.launches for k in kernels}
+        c_gap, c_rel, _ = _cache_gaps(got.pop("cache"), cache_shards(
+            serve, ref["cache"], max_len))     # freed before the turns
+        repeat = None
+        if heads is not None:
+            # in turns after the gated run: head-sharded twice, then the
+            # sequence-sharded step once more; each run's cache freed
+            turns = []
+            for s in (heads, heads, serve):
+                run = sharded(ref["tokens"], s=s)
+                turns.append({k: run[k] for k in ("prefill_ms", "decode_ms",
+                                                  "peak_bytes")})
+                turns[-1]["logit_gap"] = float(
+                    (run["logits"] - ref["logits"]).abs().max())
+                del run
+            heads, repeat = turns[:2], turns[2]
         calls, restore = _record(kernels)
         try:
-            serve.prefill(placed, serve.init_cache(P + steps),
+            serve.prefill(placed, serve.init_cache(max_len),
                           mine["tokens"], mine.get("embeds"))
         finally:
             restore()
@@ -1725,11 +1823,11 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4)) -> dict:
         del calls
         gaps = (got["logits"] - ref["logits"]).abs().amax(dim=(0, 2))
         misses = _argmax_misses(got["logits"], ref["logits"], CELL_GAP)
-        c_gap, c_rel, _ = _cache_gaps(got["cache"], cache_shards(
-            serve, ref["cache"], P + steps))
-        profile = _profile_serve(serve, placed, mine, P, steps, device) \
-            if device != "cpu" else None
-    worst = _all_max([float(gaps.max()), c_gap, c_rel, float(misses)], dev)
+        finite = bool(torch.isfinite(got["logits"]).all())
+        profile = _profile_serve(serve, placed, mine, P, steps, device,
+                                 max_len) if device != "cpu" else None
+    worst = _all_max([float(gaps.max()), c_gap, c_rel, float(misses),
+                      float(not finite)], dev)
     counts = torch.tensor([launches[k.name] for k in kernels], device=dev)
     lo = counts.clone()
     dist.all_reduce(lo, op=dist.ReduceOp.MIN)
@@ -1737,7 +1835,9 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4)) -> dict:
     out = {"arch": arch, "mesh": list(mesh_shape), "layers": cfg.n_layers,
            "encoder_layers": cfg.n_encoder_layers if cfg.is_encdec else 0,
            "pattern": list(cfg.pattern), "rows": B, "prompt": P,
-           "steps": steps, "model_ranks": serve.model_ranks,
+           "steps": steps, "max_len": max_len,
+           "model_ranks": serve.model_ranks, "seq_ranks": serve.seq_ranks,
+           "finite": not worst[4],
            "logit_gap": worst[0], "step_gaps": gaps.tolist(),
            "witness_step_gaps": witness, "argmax_misses": int(worst[3]),
            "cache_gap": worst[1], "cache_rel": worst[2],
@@ -1749,26 +1849,28 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4)) -> dict:
                                              "peak_bytes")},
            "sharded": {k: got[k] for k in ("prefill_ms", "decode_ms",
                                            "peak_bytes")},
+           "head_sharded": heads, "sharded_repeat": repeat,
            "profile": profile}
     dist.barrier()
     return out if lead else {}
 
 
 def _profile_serve(serve, placed, mine, P: int, steps: int,
-                   device) -> dict:
+                   device, max_len: int = None) -> dict:
     """One sharded prefill and ``steps`` decode steps of this rank under
-    ``launch.profile_serve`` 's profiler (every rank; collective): per
+    ``launch.profile_serve`` 's profiler (every rank; collective), on
+    caches of ``max_len`` (``P + steps``) positions: per
     phase the wall ms unprofiled and profiled, the device busy ms and the
     top kernels' device ms a call; the first rank prints the tables."""
     from repro_torch.launch.profile_serve import _device_us, _profile, \
         _report
     dev = torch.device(device, torch.cuda.current_device())
     out = {}
-    cache = serve.init_cache(P + steps)
-    state = {"cache": cache, "pos": P}
+    max_len = max_len or P + steps
+    state = {"cache": None, "pos": P}
 
     def prefill():
-        state["cache"] = serve.init_cache(P + steps)
+        state["cache"] = serve.init_cache(max_len)
         return serve.prefill(placed, state["cache"], mine["tokens"],
                              mine.get("embeds"))
     tok = prefill()[0].argmax(-1).to(torch.int32)
@@ -1804,7 +1906,8 @@ def serve_gates(out: dict) -> dict:
     for key, got in out.items():
         if key.startswith("serve/"):
             ok[key] = (got["logits_close"] and got["streams_equal"]
-                       and got["cache_close"] and got["flips"] == 0)
+                       and got["cache_close"] and got["finite"]
+                       and got["flips"] == 0)
         elif key.startswith("serve_rank/"):
             ok[key] = all(
                 r["measured"] == r["predicted"]
@@ -1812,16 +1915,18 @@ def serve_gates(out: dict) -> dict:
                 and r["memory"]["held"] == r["memory"]["reckoned"]
                 and r["model_ops"] > 0 and not r["dtensor_ops"]
                 for r in got.values())
-    if "serve_cell" in out:
-        c = out["serve_cell"]
+    for key, c in out.items():
+        if not key.startswith("serve_cell"):
+            continue
         attn = c["pattern"].count("attn")
         if c["encoder_layers"]:
             attn = 2 * attn + c["encoder_layers"]
         want = {"flash_attention_bh": attn,
                 "ssd_bh": c["pattern"].count("ssm"),
                 "rglru_scan_b": c["pattern"].count("rglru")}
-        ok["serve_cell"] = (
+        ok[key] = (
             c["argmax_misses"] == 0 and c["cache_rel"] <= CELL_CACHE_RTOL
+            and c["finite"]
             and c["launches_min"] == want and c["launches_max"] == want
             and c["recorded"] == want)
     return ok
@@ -1955,6 +2060,10 @@ def main(argv=None):
     ap.add_argument("--mesh", default="1x4", choices=["1x4", "2x2", "1x1"],
                     help="with --serve: the (data, model) mesh (1x1: one "
                          "rank, no torchrun)")
+    ap.add_argument("--cache-seq-shard", action="store_true",
+                    help="with --serve: the split-sequence decode's cells "
+                         "(SEQ_CELLS; those of --arch where given) on four "
+                         "ranks, each timed beside the head-sharded step")
     ap.add_argument("--layers", type=int, default=None,
                     help="with --order: the cell's depth (default: "
                          "PRODUCTION's)")
@@ -1965,6 +2074,8 @@ def main(argv=None):
                          "against the same run with only the summation "
                          "order changed (order_only)")
     args = ap.parse_args(argv)
+    if args.cache_seq_shard and not args.serve:
+        ap.error("--cache-seq-shard runs the --serve cells")
     arch = args.arch or ("deepseek-7b" if args.serve else "starcoder2-3b")
     if (args.serve and arch not in SERVE_CELLS) or (
             not args.serve and arch not in PRODUCTION):
@@ -1986,7 +2097,7 @@ def main(argv=None):
     _, world = init_distributed(args.device)
     try:
         need = math.prod(int(n) for n in args.mesh.split("x")) \
-            if args.serve else 4
+            if args.serve and not args.cache_seq_shard else 4
         if world != need:
             raise SystemExit(f"check_dist needs {need} ranks, got {world}")
         box = [args.ckpt or (tempfile.mkdtemp(prefix="tl_check_dist_")
@@ -1996,7 +2107,15 @@ def main(argv=None):
             else run_checks(args.device, box[0])
         if args.production:
             out["production_cell"] = production(args.device, arch)
-        if args.serve:
+        if args.serve and args.cache_seq_shard:
+            for a, shape, B in SEQ_CELLS:
+                if args.arch in (None, a):
+                    key = f"serve_cell/seq/{a}/{shape[0]}x{shape[1]}/b{B}"
+                    out[key] = serve_cell(args.device, a, shape,
+                                          cache_seq_shard=True, B=B)
+                    if args.device != "cpu":
+                        torch.cuda.empty_cache()
+        elif args.serve:
             out["serve_cell"] = serve_cell(
                 args.device, arch, tuple(int(n) for n in args.mesh.split("x")))
         failed = []

@@ -58,9 +58,11 @@ the ``dist.tp`` context over :func:`model_axis_group`; its collectives
 over "model" (the activations' and the cache's gathers) come off the
 trace, the entry's gathers from the placements
 (:func:`entry_gather_bytes`).  ``--cache-seq-shard`` (the
-reference's split-sequence, flash-decoding layout, not ported) keeps the
-gather-whole reckoning: every parameter whole, the rank's rows' cache
-gathered over the other axes.
+reference's split-sequence, flash-decoding layout) traces the same rank
+with each attention cache leaf held as its chunk of the sequence
+(``ShardedServe(cache_seq_shard=True)``): a decode step's partial softmax
+statistics are combined over the sequence entry's group, which
+:func:`axis_groups` makes beside the model axis's.
 
 **Collectives a rank issues** (result bytes, all-reduce x2), modelled on
 what ``DTensor`` dispatches, which ``tests/test_torch_dist_gloo.py`` holds
@@ -304,38 +306,59 @@ def _storage_shard(tree, pspecs, especs, mesh):
 
 
 @contextlib.contextmanager
-def model_axis_group(mesh):
-    """The process group a traced rank's tensor-parallel collectives name:
-    the mesh's "model" group when a process group is running (a rank of a
-    real world; collective), else one over a fake process group of the
-    mesh's size (``torch.testing._internal.distributed.fake_pg``; its
-    collectives do nothing, and on ``meta`` none reads data), torn down
-    after the trace."""
+def axis_groups(mesh, *axes):
+    """The process groups a traced rank's collectives name, one over each
+    tuple of mesh axes in ``axes``: when a process group is running (a
+    rank of a real world; collective), the model axis's group or the
+    mesh's own (``core.tl_step.sequence_group``); else groups of a fake
+    process group of the mesh's size
+    (``torch.testing._internal.distributed.fake_pg``; its collectives do
+    nothing, and on ``meta`` none reads data) over the first rank's
+    peers along those axes, torn down after the trace."""
     import torch.distributed as dist
+
+    from repro_torch.core.tl_step import sequence_group
     if dist.is_initialized():
-        yield mesh.device_mesh().get_group("model")
+        yield tuple(sequence_group(mesh, a) for a in axes)
         return
     from torch.testing._internal.distributed.fake_pg import FakeStore
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=mesh.size)
     try:
         coord = mesh.coordinate(mesh.ranks()[0])
-        axis = mesh.axis_names.index("model")
-        index = tuple(slice(None) if i == axis else c
-                      for i, c in enumerate(coord))
-        yield dist.new_group(
-            ranks=[int(r) for r in mesh.devices[index].flatten()])
+        groups = []
+        for along in axes:
+            index = tuple(slice(None) if name in along else c
+                          for name, c in zip(mesh.axis_names, coord))
+            groups.append(dist.new_group(
+                ranks=[int(r) for r in mesh.devices[index].flatten()]))
+        yield tuple(groups)
     finally:
         dist.destroy_process_group()
 
 
 @contextlib.contextmanager
-def _model_parallel(mesh):
-    """The ``dist.tp`` context of the mesh's first rank over
-    :func:`model_axis_group`."""
+def model_axis_group(mesh):
+    """:func:`axis_groups` ' group over the "model" axis."""
+    with axis_groups(mesh, ("model",)) as (group,):
+        yield group
+
+
+@contextlib.contextmanager
+def _model_parallel(mesh, seq_axes=None):
+    """The ``dist.tp`` context of the mesh's first rank over the model
+    axis's group (unset where the axis has size 1), and with ``seq_axes``
+    the ``tp.serve_sequence`` scope of its chunk over those axes' group
+    (:func:`axis_groups`)."""
     from repro_torch.dist import tp
-    with model_axis_group(mesh) as group, \
-            tp.model_parallel(group, mesh.sizes["model"], 0):
+    axes = (("model",),) + ((tuple(seq_axes),) if seq_axes else ())
+    rank = mesh.ranks()[0]
+    with axis_groups(mesh, *axes) as groups, \
+            tp.model_parallel(groups[0], mesh.sizes["model"], 0), \
+            (tp.serve_sequence(
+                groups[1], math.prod(mesh.sizes[a] for a in seq_axes),
+                mesh.index_along(rank, seq_axes)) if seq_axes
+             else contextlib.nullcontext()):
         yield
 
 
@@ -435,12 +458,21 @@ def entry_gather_bytes(params, cfg, mesh, fsdp=None) -> int:
     return total
 
 
-def _serve_program(cfg, shape, mesh, rows, fsdp) -> str:
+def _serve_program(cfg, shape, mesh, rows, fsdp, seq_axes=None) -> str:
     from repro_torch.dist import tp
     what = "model.prefill" if shape.kind == "prefill" else "make_serve_step"
     head = f"{what} on {rows} of {shape.global_batch} rows"
+    seq = ""
+    if seq_axes:
+        n = math.prod(mesh.sizes[a] for a in seq_axes)
+        seq = (f"; each attention cache leaf held as the rank's chunk of "
+               f"its sequence over {'+'.join(seq_axes)} ({n} chunks, every "
+               "KV head; whole where the sequence does not divide), a "
+               "decode step's partial softmax statistics combined over "
+               "them (ShardedServe(cache_seq_shard=True))")
     if not tp.partitions(cfg, mesh):
-        return head + " with every parameter whole (a model axis of 1)"
+        return head + " with every parameter whole (a model axis of 1)" \
+            + seq
     m = mesh.sizes["model"]
     weights = ("stored TP-only" if fsdp is False or tp.layout(cfg)
                == "all_column" else "stored with FSDP over the batch axes "
@@ -455,7 +487,7 @@ def _serve_program(cfg, shape, mesh, rows, fsdp) -> str:
             f"{weights}, each kept on its model shard where dist.tp "
             "partitions it; the cache held as the rank's shard of "
             "serve_shardings' specs, gathered over model where a layer "
-            "reads more (core.tl_step.ShardedServe)")
+            "reads more (core.tl_step.ShardedServe)" + seq)
 
 
 def trace_serve(model, cfg, shape, mesh, params, cache_seq_shard=False,
@@ -463,29 +495,32 @@ def trace_serve(model, cfg, shape, mesh, params, cache_seq_shard=False,
     """``(costs, collectives, memory, program)`` of one rank's prefill or
     decode step of ``core.tl_step.ShardedServe`` (module docstring),
     traced on ``params``' device (``meta`` for the dryrun) under the
-    ``dist.tp`` context over :func:`model_axis_group`.  With
-    ``cache_seq_shard`` (the reference's split-sequence decode, not
-    ported) the rank is reckoned as before the port served on a mesh:
-    every parameter gathered whole (:func:`_reckon_serve`)."""
-    from repro_torch.core.tl_step import serve_shardings
+    ``dist.tp`` context over :func:`axis_groups`; with
+    ``cache_seq_shard`` each attention cache leaf is the rank's chunk of
+    its sequence, under ``tp.serve_sequence`` over the sequence entry's
+    axes (``core.tl_step.sequence_axes``)."""
+    from repro_torch.core.tl_step import sequence_axes, serve_shardings
     from repro_torch.dist import tp
 
-    if cache_seq_shard:
-        return _reckon_serve(model, cfg, shape, mesh, params, serve_fsdp)
     dtype = params["embed"].dtype
     device = params["embed"].device
     rows = _rows(mesh, shape.global_batch)
     whole_cache = abstract_cache(model, shape.global_batch, shape.seq_len,
                                  dtype)
     in_sh, _ = serve_shardings(params, whole_cache, cfg, mesh, shape,
+                               cache_seq_shard=cache_seq_shard,
                                fsdp=serve_fsdp)
     pspecs = tree_map(lambda s: s.spec, in_sh[0])
     local = _local(params, pspecs, mesh)
     entry = _local(params, tp.entry_specs(params, cfg, mesh), mesh)
     parallel = tp.partitions(cfg, mesh)
-    cache = model.init_cache(rows, shape.seq_len, device=device, dtype=dtype,
-                             model_ranks=mesh.sizes["model"] if parallel
-                             else 1)
+    seq_axes = sequence_axes(mesh, shape.global_batch) \
+        if cache_seq_shard else None
+    cache = model.init_cache(
+        rows, shape.seq_len, device=device, dtype=dtype,
+        model_ranks=mesh.sizes["model"] if parallel else 1,
+        seq_ranks=math.prod(mesh.sizes[a] for a in seq_axes)
+        if seq_axes else None)
     specs = input_specs(cfg, InputShape(shape.name, shape.seq_len, rows,
                                         shape.kind), dtype)
     if device.type != "meta":                       # zeros of the specs
@@ -503,8 +538,9 @@ def trace_serve(model, cfg, shape, mesh, params, cache_seq_shard=False,
         def run():
             return model.decode_step(entry, cache, specs["token"],
                                      shape.seq_len - 1)
-    with (_model_parallel(mesh) if parallel else contextlib.nullcontext()), \
-            accounting() as costs, torch.no_grad():
+    scope = _model_parallel(mesh, seq_axes) if parallel or seq_axes \
+        else contextlib.nullcontext()
+    with scope, accounting() as costs, torch.no_grad():
         run()
     gathers = entry_gather_bytes(params, cfg, mesh, serve_fsdp)
     coll = {"all-gather": gathers} if gathers else {}
@@ -516,62 +552,7 @@ def trace_serve(model, cfg, shape, mesh, params, cache_seq_shard=False,
               "input_bytes": _tree_bytes(inputs),
               "traced_live_peak_bytes": int(costs.peak_live_bytes)}
     return costs, coll, memory, _serve_program(cfg, shape, mesh, rows,
-                                               serve_fsdp)
-
-
-def _reckon_serve(model, cfg, shape, mesh, params, serve_fsdp):
-    """The ``cache_seq_shard`` rank, reckoned the way the train step runs
-    its loss: its rows with every parameter gathered whole and its rows'
-    cache whole (for decode gathered over the other axes; a prefill fills
-    it), keeping its shard of the cache after the step."""
-    from repro_torch.core.tl_step import make_serve_step, serve_shardings
-    from repro_torch.dist.sharding import batch_axes
-
-    rows = _rows(mesh, shape.global_batch)
-    cache = abstract_cache(model, rows, shape.seq_len,
-                           params["embed"].dtype)
-    full_cache = abstract_cache(model, shape.global_batch, shape.seq_len,
-                                params["embed"].dtype)
-    in_sh, _ = serve_shardings(params, full_cache, cfg, mesh, shape,
-                               cache_seq_shard=True, fsdp=serve_fsdp)
-    pspecs = tree_map(lambda s: s.spec, in_sh[0])
-    cspecs = tree_map(lambda s: s.spec, in_sh[1])
-    local = _local(params, pspecs, mesh)
-    local_cache = _local(full_cache, cspecs, mesh)
-    keep = {i for i, a in enumerate(mesh.axis_names)
-            if a in batch_axes(mesh)} if rows < shape.global_batch else set()
-    gathers = sum(gather_bytes(tuple(p.shape), p.element_size(), s, mesh)
-                  for p, s in leaf_specs(params, pspecs))
-    specs = input_specs(cfg, InputShape(shape.name, shape.seq_len, rows,
-                                        shape.kind), params["embed"].dtype)
-    if shape.kind == "prefill":
-        def run():
-            return model.prefill(params, cache, specs["tokens"],
-                                 specs.get("embeds"))
-    else:
-        step = make_serve_step(model, cfg)
-
-        def run():
-            return step(params, cache, specs["token"], shape.seq_len - 1)
-        # the rank's rows' cache, whole over the axes that are not its rows
-        gathers += sum(
-            gather_bytes(tuple(c.shape), c.element_size(), s, mesh, keep)
-            for c, s in leaf_specs(full_cache, cspecs))
-    with accounting() as costs, torch.no_grad():
-        run()
-    coll = {"all-gather": gathers} if gathers else {}
-    memory = {"param_shard_bytes": _tree_bytes(local),
-              "cache_shard_bytes": _tree_bytes(local_cache),
-              "gathered_param_bytes": _tree_bytes(params),
-              "rank_cache_bytes": _tree_bytes(cache),
-              "input_bytes": _tree_bytes(specs),
-              "traced_live_peak_bytes": int(costs.peak_live_bytes)}
-    what = "model.prefill" if shape.kind == "prefill" else "make_serve_step"
-    program = (f"{what} on {rows} of {shape.global_batch} rows with every "
-               "parameter gathered whole, reckoned as the train step runs "
-               "its loss: the split-sequence decode of cache_seq_shard "
-               "(the reference's flash-decoding layout) is not ported")
-    return costs, coll, memory, program
+                                               serve_fsdp, seq_axes)
 
 
 def lower_one(arch: str, shape_name: str, mesh_kind: str, remat: str = "tl",
@@ -626,9 +607,8 @@ def lower_one(arch: str, shape_name: str, mesh_kind: str, remat: str = "tl",
     out = r.to_dict()
     tags = {"device": DEVICE,
             "peak_source": "reckoned: parameter (and cache) shards + "
-                           "optimizer-state shards + gathered whole "
-                           "parameters (and cache) + inputs + traced live "
-                           "high-water",
+                           "optimizer-state shards + parameters received "
+                           "gathered + inputs + traced live high-water",
             "rank_program": program,
             "counts": "dispatch (analysis.dispatch_costs) on meta; "
                       "collectives from the placements",

@@ -99,6 +99,26 @@ def attend_dense(q, k, v, q_pos, k_pos, window: int, scale: float):
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
+def attend_partial(q, k, v, q_pos, k_pos, window: int, scale: float):
+    """:func:`attend_dense` over one chunk of the keys, unnormalised, for
+    ``dist.tp.combine_softmax``: ``(o (B,Sq,H,dv), m (B,Sq,H), l
+    (B,Sq,H))`` in f32, the values weighted by ``exp(score - m)``, ``m``
+    the chunk's max score (``NEG_INF`` plus a score where no key is
+    visible) and ``l`` the sum of the weights."""
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, dh)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float() * scale
+    scores = scores + _mask_bias(q_pos, k_pos, window)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+
+    def heads(t):                                  # (B,KV,rep,Sq) -> (B,Sq,H)
+        return t.permute(0, 3, 1, 2).reshape(B, Sq, H)
+    return o.reshape(B, Sq, H, v.shape[-1]), heads(m), heads(p.sum(dim=-1))
+
+
 def attend_blockwise(q, k, v, q_pos, k_pos, window: int, scale: float,
                      block: int = KV_BLOCK):
     """Online-softmax attention over KV blocks: O(Sq * block) memory."""
@@ -294,7 +314,12 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
     and every KV head where they do not (the rank's heads reading
     :func:`kv_run` of them); a cache holding its share of KV heads the
     rank projects whole is written by shard and read gathered
-    (``tp.cache_shard`` / ``tp.cache_whole``).  Returns (out, cache)."""
+    (``tp.cache_shard`` / ``tp.cache_whole``), and a cache of every KV
+    head is written from a rank's KV-head shard gathered over "model".
+    A sequence-sharded cache (``tp.serve_sequence``: the rank's chunk of
+    the ``pos`` slots) is written only in its chunk, and a decode step
+    attends over the chunk (:func:`_attend_chunks`).  Returns (out,
+    cache)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H = params["w_q"].shape[1] // hd          # this rank's heads under TP
@@ -306,6 +331,9 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
         and cache["k"].shape[2] == cfg.n_kv_heads
     q, k, v = gqa_project(params, cfg, x, q_pos.expand(B, S),
                           positions=positions, pick=not every)
+    if cache is not None and k.shape[2] < cache["k"].shape[2]:
+        # every KV head cached (sequence-sharded) from the rank's shard
+        k, v = tp.gather_from_model(k, 2), tp.gather_from_model(v, 2)
     run = kv_run(cfg, H) if every else slice(None)
 
     scale = 1.0 / math.sqrt(hd)
@@ -313,50 +341,100 @@ def gqa_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
         out = attend(q, k, v, q_pos, q_pos, cfg.sliding_window, scale)
     else:
         max_len, width = cache["k"].shape[1], cache["k"].shape[2]
+        slots = cache["pos"].shape[0]
+        start = tp.seq_chunk(max_len, slots)        # None: the whole leaf
         if S > 1:
             # prefill-from-empty: attend over the current keys, then write
-            # (only) the last `max_len` positions into the ring buffer
+            # (only) the last `slots` positions into the ring buffer
             out = attend(q, k[:, :, run], v[:, :, run], q_pos, q_pos,
                          cfg.sliding_window, scale)
-            W = min(S, max_len)
-            idx = (q_pos[-W:] % max_len).long()
-            cache["k"][:, idx] = tp.cache_shard(k[:, -W:], 2, width).to(
-                cache["k"].dtype)
-            cache["v"][:, idx] = tp.cache_shard(v[:, -W:], 2, width).to(
-                cache["v"].dtype)
+            W = min(S, slots)
+            idx = (q_pos[-W:] % slots).long()
+            if start is None:
+                cache["k"][:, idx] = tp.cache_shard(k[:, -W:], 2, width).to(
+                    cache["k"].dtype)
+                cache["v"][:, idx] = tp.cache_shard(v[:, -W:], 2, width).to(
+                    cache["v"].dtype)
+            else:
+                _write_chunk(cache["k"], k[:, -W:], pos0 + S - W, slots,
+                             start)
+                _write_chunk(cache["v"], v[:, -W:], pos0 + S - W, slots,
+                             start)
             cache["pos"][idx] = q_pos[-W:]
         else:
             # single-token decode: the new k / v keep the batch layout (a
             # no-op without an activation mesh), as in the reference
             from repro_torch.dist.constraints import constrain_batch
             k, v = constrain_batch(k), constrain_batch(v)
-            idx = (q_pos % max_len).long()     # ring buffer for sliding windows
-            cache["k"][:, idx] = tp.cache_shard(k, 2, width).to(
-                cache["k"].dtype)
-            cache["v"][:, idx] = tp.cache_shard(v, 2, width).to(
-                cache["v"].dtype)
+            idx = (q_pos % slots).long()     # ring buffer for sliding windows
             cache["pos"][idx] = q_pos
-            ck = tp.cache_whole(cache["k"], 2, k.shape[2])
-            cv = tp.cache_whole(cache["v"], 2, v.shape[2])
-            out = attend(q, ck[:, :, run], cv[:, :, run], q_pos,
-                         cache["pos"], cfg.sliding_window, scale)
+            if start is not None:
+                _write_chunk(cache["k"], k, pos0, slots, start)
+                _write_chunk(cache["v"], v, pos0, slots, start)
+                out = _attend_chunks(
+                    q, cache["k"], cache["v"], q_pos,
+                    cache["pos"][start:start + max_len], cfg.sliding_window,
+                    scale, cfg.n_heads)
+            else:
+                cache["k"][:, idx] = tp.cache_shard(k, 2, width).to(
+                    cache["k"].dtype)
+                cache["v"][:, idx] = tp.cache_shard(v, 2, width).to(
+                    cache["v"].dtype)
+                ck = tp.cache_whole(cache["k"], 2, k.shape[2])
+                cv = tp.cache_whole(cache["v"], 2, v.shape[2])
+                out = attend(q, ck[:, :, run], cv[:, :, run], q_pos,
+                             cache["pos"], cfg.sliding_window, scale)
     out = out.reshape(B, S, H * hd) @ params["w_o"]
     if heads:
         out = tp.reduce_from_model(out)         # row-parallel w_o
     return out, cache
 
 
+def _write_chunk(leaf, x, first: int, slots: int, start: int):
+    """Write ``x`` (B, n, ...), positions ``first ..`` at their ring slots
+    ``position % slots``, into the part of them in ``leaf``, this rank's
+    chunk of slots from ``start`` (``tp.chunk_runs``)."""
+    for offset, slot, n in tp.chunk_runs(first, x.shape[1], slots, start,
+                                         leaf.shape[1]):
+        leaf[:, slot:slot + n] = x[:, offset:offset + n].to(leaf.dtype)
+
+
+def _attend_chunks(q, k, v, q_pos, k_pos, window: int, scale: float,
+                   n_heads: int):
+    """A decode step's attention over this rank's chunk ``k`` / ``v`` (at
+    ``k_pos``) of a sequence-sharded cache: q (B,1,H',dh) gathered over
+    "model" to every head where the rank holds H' of the ``n_heads``,
+    :func:`attend_partial` over the chunk, the chunks combined over the
+    sequence group (``tp.combine_softmax``); returns the rank's H' heads
+    (B,1,H',dv), for the row-parallel ``w_o`` (each rank holds every
+    head's output after the combine, so taking its own needs no
+    communication)."""
+    n = q.shape[2]
+    part = tp.partitioned(n, n_heads)
+    if part:
+        q = tp.gather_from_model(q, 2)
+    out = tp.combine_softmax(*attend_partial(q, k, v, q_pos, k_pos, window,
+                                             scale)).to(v.dtype)
+    return out.narrow(2, tp.rank() * n, n) if part else out
+
+
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
-                   dtype=torch.float32, model_ranks: int = 1):
+                   dtype=torch.float32, model_ranks: int = 1,
+                   seq_ranks: int = None):
     """``{k, v, pos}``; over ``model_ranks`` model ranks the KV heads the
-    rank holds at rest (``tp.cache_split``)."""
-    KV, hd = tp.cache_split(cfg.n_kv_heads, model_ranks), \
-        cfg.resolved_head_dim
+    rank holds at rest (``tp.cache_split``), or with ``seq_ranks`` (the
+    sequence-sharded layout) every KV head and the rank's chunk of the
+    slots, ``pos`` whole."""
+    hd = cfg.resolved_head_dim
     if cfg.sliding_window:
         max_len = min(max_len, cfg.sliding_window)
+    if seq_ranks is None:
+        KV, held = tp.cache_split(cfg.n_kv_heads, model_ranks), max_len
+    else:
+        KV, held = cfg.n_kv_heads, tp.cache_split(max_len, seq_ranks)
     return {
-        "k": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
+        "k": torch.zeros((batch, held, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, held, KV, hd), dtype=dtype, device=device),
         "pos": torch.full((max_len,), INT32_MAX, dtype=torch.int32,
                           device=device),
     }
@@ -418,21 +496,40 @@ def mla_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
     (cache=None), prefill into an empty cache (S > 1) or one decode step.
     ``positions`` is taken and ignored, as in the reference.  Under
     ``dist.tp`` a rank attends with its H/m heads over the whole latent,
-    and its cache holds its columns of the latent and the rope key.
-    Returns (out, cache)."""
+    and its cache holds its columns of the latent and the rope key; a
+    sequence-sharded cache (``tp.serve_sequence``) holds the whole latent
+    of the rank's chunk of positions, written only there, and a decode
+    step attends over the chunk (:func:`_attend_chunks`).  Returns (out,
+    cache)."""
     m = cfg.mla
     B, S, _ = x.shape
     pos0 = 0 if cache_len is None else int(cache_len)
     q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
     q_full, c_kv, k_rope = mla_project(params, cfg, x, q_pos.expand(B, S))
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     if cache is not None:
-        # under dist.tp the cache holds the rank's latent / rope columns
+        slots, held = cache["pos"].shape[0], cache["c_kv"].shape[1]
+        start = tp.seq_chunk(held, slots)           # None: the whole leaf
         idx = q_pos.long()
-        cache["c_kv"][:, idx] = tp.cache_shard(
-            c_kv, 2, cache["c_kv"].shape[2]).to(cache["c_kv"].dtype)
-        cache["k_rope"][:, idx] = tp.cache_shard(
-            k_rope, 2, cache["k_rope"].shape[2]).to(cache["k_rope"].dtype)
+        if start is None:
+            # under dist.tp the cache holds the rank's latent / rope columns
+            cache["c_kv"][:, idx] = tp.cache_shard(
+                c_kv, 2, cache["c_kv"].shape[2]).to(cache["c_kv"].dtype)
+            cache["k_rope"][:, idx] = tp.cache_shard(
+                k_rope, 2, cache["k_rope"].shape[2]).to(
+                    cache["k_rope"].dtype)
+        else:
+            # the latent is whole on every rank: the chunk's positions
+            _write_chunk(cache["c_kv"], c_kv, pos0, slots, start)
+            _write_chunk(cache["k_rope"], k_rope, pos0, slots, start)
         cache["pos"][idx] = q_pos
+        if S == 1 and start is not None:
+            k_full = torch.cat([cache["c_kv"], cache["k_rope"]],
+                               dim=-1)[:, :, None, :]
+            out_lat = _attend_chunks(
+                q_full, k_full, k_full[..., :m.kv_lora_rank], q_pos,
+                cache["pos"][start:start + held], 0, scale, cfg.n_heads)
+            return mla_output(params, cfg, out_lat), cache
     if cache is None or S > 1:
         # full forward / prefill-from-empty: attend over the current latents
         lat, rope, k_pos = c_kv, k_rope, q_pos
@@ -444,23 +541,30 @@ def mla_apply(params, cfg: ModelConfig, x, *, positions=None, cache=None,
     k_full = torch.cat([lat, rope], dim=-1)[:, :, None, :]          # MQA
     if tp.partitioned(q_full.shape[2], cfg.n_heads):
         k_full = tp.copy_to_model(k_full)     # read by this rank's heads
-    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     out_lat = attend(q_full, k_full, None, q_pos, k_pos, 0, scale,
                      v_width=m.kv_lora_rank)                    # (B,S,H,lora)
     return mla_output(params, cfg, out_lat), cache
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
-                   dtype=torch.float32, model_ranks: int = 1):
+                   dtype=torch.float32, model_ranks: int = 1,
+                   seq_ranks: int = None):
     """``{c_kv, k_rope, pos}``; over ``model_ranks`` model ranks the
-    latent and rope columns the rank holds at rest."""
+    latent and rope columns the rank holds at rest, or with ``seq_ranks``
+    (the sequence-sharded layout) the whole latent and rope key of the
+    rank's chunk of the positions, ``pos`` whole."""
     m = cfg.mla
     kw = dict(dtype=dtype, device=device)
-    lora = tp.cache_split(m.kv_lora_rank, model_ranks)
-    rope = tp.cache_split(m.qk_rope_head_dim, model_ranks)
+    if seq_ranks is None:
+        lora = tp.cache_split(m.kv_lora_rank, model_ranks)
+        rope = tp.cache_split(m.qk_rope_head_dim, model_ranks)
+        held = max_len
+    else:
+        lora, rope = m.kv_lora_rank, m.qk_rope_head_dim
+        held = tp.cache_split(max_len, seq_ranks)
     return {
-        "c_kv": torch.zeros((batch, max_len, lora), **kw),
-        "k_rope": torch.zeros((batch, max_len, rope), **kw),
+        "c_kv": torch.zeros((batch, held, lora), **kw),
+        "k_rope": torch.zeros((batch, held, rope), **kw),
         "pos": torch.full((max_len,), INT32_MAX, dtype=torch.int32,
                           device=device),
     }
@@ -475,7 +579,8 @@ def attention_apply(params, cfg: ModelConfig, x, **kw):
 
 
 def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
-                         device, dtype=torch.float32, model_ranks: int = 1):
+                         device, dtype=torch.float32, model_ranks: int = 1,
+                         seq_ranks: int = None):
     init = mla_cache_init if cfg.attention == "mla" else gqa_cache_init
     return init(cfg, batch, max_len, device=device, dtype=dtype,
-                model_ranks=model_ranks)
+                model_ranks=model_ranks, seq_ranks=seq_ranks)

@@ -102,12 +102,16 @@ def ffn_apply(params, cfg: ModelConfig, ffn: str, h):
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, *,
-                     device, dtype=torch.float32, model_ranks: int = 1):
+                     device, dtype=torch.float32, model_ranks: int = 1,
+                     seq_ranks: int = None):
     """The mixer's cache of ``batch`` rows; over ``model_ranks`` model
-    ranks the shard a rank holds at rest (``dist.tp`` 's serve table)."""
+    ranks the shard a rank holds at rest (``dist.tp`` 's serve table),
+    an attention cache split by sequence over ``seq_ranks`` where given
+    (the recurrent state is not)."""
     kw = dict(device=device, dtype=dtype, model_ranks=model_ranks)
     if kind == "attn":
-        return attention.attention_cache_init(cfg, batch, max_len, **kw)
+        return attention.attention_cache_init(cfg, batch, max_len,
+                                              seq_ranks=seq_ranks, **kw)
     if kind == "rglru":
         return rglru.rglru_cache_init(cfg, batch, **kw)
     if kind == "ssm":

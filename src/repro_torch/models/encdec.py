@@ -119,14 +119,18 @@ def forward(params, cfg: ModelConfig, tokens, extra_embeds=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
-               dtype=torch.float32, model_ranks: int = 1):
+               dtype=torch.float32, model_ranks: int = 1,
+               seq_ranks: int = None):
     """The decoder's self-attention caches and ``enc_out``; over
     ``model_ranks`` model ranks each leaf's shard a rank holds at rest
-    (``enc_out`` 's frames, ``dist.tp`` 's serve table)."""
+    (``enc_out`` 's frames, ``dist.tp`` 's serve table), the
+    self-attention caches split by sequence over ``seq_ranks`` where
+    given."""
     frames = tp.cache_split(cfg.frontend_tokens or 1, model_ranks)
     return {"self": [attention.attention_cache_init(
                 cfg, batch, max_len, device=device, dtype=dtype,
-                model_ranks=model_ranks) for _ in range(cfg.n_layers)],
+                model_ranks=model_ranks, seq_ranks=seq_ranks)
+                for _ in range(cfg.n_layers)],
             "enc_out": torch.zeros((batch, frames, cfg.d_model),
                                    dtype=dtype, device=device)}
 

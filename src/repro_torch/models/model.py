@@ -61,7 +61,8 @@ class Model:
     forward: Callable        # (params, tokens, extra_embeds=None) -> logits
     loss: Callable           # (params, batch) -> (scalar, metrics)
     init_cache: Callable     # (batch, max_len, *, device, dtype,
-    #                           model_ranks=1) -> caches (a rank's shards)
+    #                           model_ranks=1, seq_ranks=None)
+    #                           -> caches (a rank's shards)
     decode_step: Callable    # (params, caches, token, cache_len) -> (logits, caches)
     prefill: Callable        # (params, caches, tokens, extra_embeds=None) -> (logits, caches)
     embed: Callable = None   # (params, tokens, extra_embeds=None) -> h0

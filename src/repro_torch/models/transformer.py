@@ -183,12 +183,15 @@ def mtp_logits(params, cfg: ModelConfig, tokens, h_final):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
-               dtype=torch.float32, model_ranks: int = 1):
+               dtype=torch.float32, model_ranks: int = 1,
+               seq_ranks: int = None):
     """One cache a layer; over ``model_ranks`` model ranks each leaf's
-    shard a rank holds at rest (``dist.tp`` 's serve table)."""
+    shard a rank holds at rest (``dist.tp`` 's serve table), the
+    attention caches split by sequence over ``seq_ranks`` where given."""
     return [blocks.block_cache_init(cfg, cfg.pattern[i], batch, max_len,
                                     device=device, dtype=dtype,
-                                    model_ranks=model_ranks)
+                                    model_ranks=model_ranks,
+                                    seq_ranks=seq_ranks)
             for i in range(cfg.n_layers)]
 
 

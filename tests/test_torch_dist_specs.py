@@ -340,3 +340,83 @@ def test_mesh_makers():
     m = pm.make_multipod_debug_mesh(device="cpu")
     assert m.coordinate(5) == (1, 0, 1) and m.coordinate(8) is None
     assert m == pm.make_multipod_debug_mesh(device="cpu")
+
+
+SEQ_MESHES = {"2x2": (2, 2), "1x4": (1, 4), "16x16": (16, 16)}
+
+
+def _abstract_mesh(shape):
+    """A JAX ``AbstractMesh`` of (data, model) sizes ``shape``: no devices,
+    so the reference's ``serve_shardings`` runs on any mesh size; a skip
+    where the installed JAX has none (or another constructor)."""
+    mesh_type = getattr(jax.sharding, "AbstractMesh", None)
+    if mesh_type is None:
+        pytest.skip(f"jax {jax.__version__} has no jax.sharding.AbstractMesh")
+    try:
+        return mesh_type(tuple(shape), ("data", "model"))
+    except TypeError as e:
+        pytest.skip(f"jax {jax.__version__}'s AbstractMesh takes other "
+                    f"arguments: {e}")
+
+
+def _cache_spec_set(leaves):
+    """``{(leaf name, shape, spec)}`` of ``(path names, shape, spec,
+    lead)`` rows, the leading stacked-layer axis (``lead``) dropped from
+    a reference leaf that has one (its ``cycles`` / ``self`` stacks; the
+    port keeps one cache a layer), so that the two packages' trees
+    compare leaf by leaf."""
+    return {(names[-1], tuple(shape[lead:]), _norm(tuple(spec)[lead:]))
+            for names, shape, spec, lead in leaves}
+
+
+@pytest.mark.parametrize("mesh", sorted(SEQ_MESHES))
+@pytest.mark.parametrize("arch", sorted(jax_configs.ARCHS))
+def test_seq_shard_cache_specs_equal_reference(arch, mesh):
+    """``serve_shardings(..., cache_seq_shard=True)`` 's cache specs (the
+    sequence dim on "model", or on ``("model", "data")`` where the batch
+    does not shard) against the reference's on a JAX ``AbstractMesh``,
+    every leaf, at B 1, 2, 4 and 128 and caches of 24 and 512 positions
+    (a sequence that divides the entry, and one that does not on the
+    larger meshes)."""
+    from repro.configs.base import InputShape as JaxShape
+    from repro.core.tl_step import serve_shardings as jax_serve_shardings
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tl_step import serve_shardings
+    jmesh = _abstract_mesh(SEQ_MESHES[mesh])
+    sizes = dict(zip(("data", "model"), SEQ_MESHES[mesh]))
+    jcfg = jax_configs.get_config(arch, reduced=True)
+    jm = jax_build_model(jcfg)
+    jparams = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(device="meta")
+    on_model = 0
+    for B in (1, 2, 4, 128):
+        for L in (24, 512):
+            jcache = jax.eval_shape(lambda: jm.init_cache(B, L))
+            jspecs = jax_serve_shardings(
+                jparams, jcache, jcfg, jmesh, JaxShape("s", L, B, "decode"),
+                cache_seq_shard=True)[0][1]
+            ref = []
+            for (path, leaf), named in zip(
+                    jax.tree_util.tree_flatten_with_path(jcache)[0],
+                    jax.tree_util.tree_leaves(jspecs)):
+                names = [str(getattr(e, "key", getattr(e, "idx", e)))
+                         for e in path]
+                ref.append((names, leaf.shape, named.spec,
+                            int(names[0] in ("cycles", "self"))))
+            cache = _flat(model.init_cache(B, L, device="meta"))
+            specs = _flat(serve_shardings(
+                params, model.init_cache(B, L, device="meta"), cfg, sizes,
+                InputShape("s", L, B, "decode"), cache_seq_shard=True)[0][1])
+            assert cache.keys() == specs.keys()
+            got = _cache_spec_set([(k, cache[k].shape, specs[k].spec, 0)
+                                   for k in cache])
+            assert got == _cache_spec_set(ref), (B, L)
+            on_model += sum(len(sp) > 1 and sp[1] is not None
+                            and "model" in (sp[1] if isinstance(sp[1], tuple)
+                                            else (sp[1],))
+                            for name, _, sp in got
+                            if name in ("k", "v", "c_kv", "k_rope"))
+    # a sequence on the model axis somewhere, where the arch caches keys
+    assert (on_model > 0) == (cfg.attention != "none"), on_model

@@ -421,13 +421,45 @@ def test_lower_one_traces_the_tp_serve_rank(arch, kind, monkeypatch):
 
 def test_long_context_skip_and_the_seq_shard_reckoning_stay(monkeypatch):
     """A full-attention arch's ``long_500k`` keeps the reference's skip
-    verdict; ``--cache-seq-shard`` (the split-sequence decode, not ported)
-    keeps the gather-whole reckoning and says so."""
+    verdict; ``--cache-seq-shard`` (the split-sequence decode) traces the
+    ``ShardedServe(cache_seq_shard=True)`` rank: its program says so, its
+    cache is the rank's chunk of the sequence, and it receives gathered
+    parameters only where FSDP stores them over the batch axes."""
     art = dryrun.lower_one("deepseek-7b", "long_500k", "single")
     assert art["status"] == "skipped" and "quadratic" in art["reason"]
-    art = dryrun.lower_one("deepseek-7b",
-                           _small_shape(monkeypatch, "decode").name,
-                           "single", cache_seq_shard=True)
+    from repro_torch.configs import shapes
+    # B 2 does not shard over the 16 data ranks: the sequence lies over
+    # ("model", "data"), 256 chunks of 2 of the 512 positions
+    shape = InputShape("seq_decode", 512, 2, "decode")
+    monkeypatch.setitem(shapes.SHAPES, shape.name, shape)
+    art = dryrun.lower_one("deepseek-7b", shape.name, "single",
+                           cache_seq_shard=True)
     assert art["status"] == "ok"
-    assert "not ported" in art["extra_tags"]["rank_program"]
+    program = art["extra_tags"]["rank_program"]
+    assert "not ported" not in program and "ShardedServe" in program
+    assert "cache_seq_shard=True" in program and "256 chunks" in program
     assert art["memory_analysis"]["gathered_param_bytes"] > 0
+    tp_only = dryrun.lower_one("deepseek-7b", shape.name, "single",
+                               cache_seq_shard=True, serve_fsdp=False)
+    assert tp_only["memory_analysis"]["gathered_param_bytes"] == 0
+    cfg = get_config("deepseek-7b")
+    # 2 rows x 2 positions x every KV head, k and v, bf16
+    kv = 2 * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * 2
+    assert art["memory_analysis"]["cache_shard_bytes"] == \
+        cfg.n_layers * (kv + 512 * 4)                # pos, int32, whole
+    assert art["coll_breakdown"].get("all-reduce", 0) > 0
+
+
+def test_seq_shard_decode_32k_holds_a_sixteenth_of_the_cache():
+    """qwen2-vl-72b's 8 KV heads do not divide the 16 model ranks, so its
+    head-sharded ``decode_32k`` rank holds its 8 rows' cache at every
+    position (85.9 GB); sequence-sharded, 1/16 of it (within 1%: ``pos``
+    stays whole on every rank)."""
+    heads = dryrun.lower_one("qwen2-vl-72b", "decode_32k", "single")
+    seq = dryrun.lower_one("qwen2-vl-72b", "decode_32k", "single",
+                           cache_seq_shard=True)
+    whole = heads["memory_analysis"]["cache_shard_bytes"]
+    chunk = seq["memory_analysis"]["cache_shard_bytes"]
+    print(f"qwen2-vl-72b decode_32k cache a rank: {whole} -> {chunk}")
+    assert whole > 80e9
+    assert chunk == pytest.approx(whole / 16, rel=1e-2)

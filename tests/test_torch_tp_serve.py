@@ -27,7 +27,17 @@ and the tests below assert on them:
   ``launch.dryrun.trace_serve``'s trace of that rank on ``meta``: the
   collective bytes and the matrix-product FLOPs equal, the memory it
   holds (parameter and cache shards, parameters received gathered, the
-  inputs) equal to the reckoned, and no model op handed a ``DTensor``.
+  inputs) equal to the reckoned, and no model op handed a ``DTensor``;
+* the split-sequence decode (``ShardedServe(cache_seq_shard=True)``,
+  ``check_dist.SEQ_CASES``): every arch on both meshes at B 4, B 1 on
+  (2, 2) (the sequence over ``("model", "data")``), the ring, and caches
+  of 32 positions with a chunk left empty and decode writing across a
+  chunk boundary, held as above (the cache leaves against their chunks
+  under ``serve_shardings(cache_seq_shard=True)``, empty slots included,
+  every logit finite); the JAX archs' sequence-sharded ranks against the
+  reference too, Mamba-2's (no attention cache) bit-equal to its
+  head-sharded rank; and a sequence-sharded rank of every arch, and of
+  B 1, against the dryrun's trace (``check_dist.SEQ_RANKS``).
 
 The JAX side runs in this process while the world runs.  The cache
 shapes against ``serve_shardings``' shards and the cache helpers' unset
@@ -48,8 +58,9 @@ torch.set_num_threads(1)
 
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.launch.check_dist import (ROUTED, RING,  # noqa: E402
-                                           SERVE_B, SERVE_P, SERVE_STEPS,
-                                           SERVE_TOL, serve_inputs)
+                                           SEQ_CASES, SEQ_RANKS, SERVE_B,
+                                           SERVE_P, SERVE_STEPS, SERVE_TOL,
+                                           serve_inputs)
 
 ARCHS = list_archs()
 MESHES = ["debug22", "model4"]
@@ -63,6 +74,8 @@ KEYS = [f"serve/{m}/{a}" for m in MESHES for a in ARCHS] + [
     f"serve/model4/{RING[0]}/ring", "serve/debug22/deepseek-7b/tp_only"]
 RANKS = [f"serve_rank/{m}/{a}" for m in MESHES for a in ARCHS] + [
     "serve_rank/debug22/deepseek-7b/tp_only"]
+SEQ_KEYS = list(SEQ_CASES)
+SEQ_RANK_KEYS = list(SEQ_RANKS)
 
 WORLD = textwrap.dedent('''
     import json, pickle, sys
@@ -92,9 +105,11 @@ WORLD = textwrap.dedent('''
             cfg = get_config(arch, reduced=True)
             whole = params_from_jax(np_params, cfg, torch.device("cpu"))
             inputs = {k: torch.from_numpy(v) for k, v in inputs.items()}
-            for name, mesh in meshes.items():
+            for (name, mesh), seq in ((m, q) for m in meshes.items()
+                                      for q in (False, True)):
                 serve = ShardedServe(build_model(cfg), cfg, mesh,
-                                     len(inputs["tokens"]))
+                                     len(inputs["tokens"]),
+                                     cache_seq_shard=seq)
                 mine = {k: v[serve.rows] for k, v in inputs.items()}
                 with torch.no_grad():
                     logits, toks, _ = _sharded(serve, serve.place(whole),
@@ -105,7 +120,8 @@ WORLD = textwrap.dedent('''
                 seen = {}
                 for r0, lg, tk in parts:         # each block of rows once
                     seen[r0] = (lg, tk)
-                got[f"{name}/{arch}"] = [seen[r0] for r0 in sorted(seen)]
+                got[f"{name}/{arch}" + ("/seq" if seq else "")] = [
+                    seen[r0] for r0 in sorted(seen)]
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump(out, f)
@@ -211,24 +227,71 @@ def test_sharded_serve_routes_as_one_device(world, mesh, arch):
     assert got["flips"] == 0, got
 
 
+@pytest.mark.parametrize("key", SEQ_KEYS)
+def test_seq_sharded_serve_matches_one_device(world, key):
+    """The split-sequence decode: whole logits within 1e-5 of one
+    device's at every step and finite, greedy streams equal, each rank's
+    cache leaves (empty slots included) its chunk of one device's under
+    ``serve_shardings(cache_seq_shard=True)``."""
+    got = world[key]
+    arch, mesh, B, P, max_len = SEQ_CASES[key]
+    print(f"{key}: logit gap {got['logit_gap']!r}, cache gap "
+          f"{got['cache_gap']!r} over {got['seq_ranks']} chunks")
+    assert got["seq_ranks"] == (4 if mesh == "model4" or B == 1 else 2)
+    assert got["max_len"] == (max_len or P + SERVE_STEPS)
+    assert got["logits_close"] and got["logit_gap"] < 2 * SERVE_TOL, got
+    assert got["finite"] and got["streams_equal"], got
+    assert got["cache_close"], got
+
+
+@pytest.mark.parametrize("arch", ROUTED)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_seq_sharded_serve_routes_as_one_device(world, mesh, arch):
+    got = world[f"serve/{mesh}/{arch}/seq"]
+    assert got["routes"] == 1 + SERVE_STEPS and got["flips"] == 0, got
+
+
 @pytest.mark.parametrize("arch", JAX_ARCHS)
 @pytest.mark.parametrize("mesh", MESHES)
 def test_sharded_serve_matches_the_jax_reference(world_and_jax, mesh, arch):
     """The TP rank's whole logits of the prefill and each greedy decode
     step, and its tokens, against the JAX reference's on its bridged
     parameters and the same inputs."""
-    blocks = world_and_jax[1][f"{mesh}/{arch}"]
+    _hold_to_the_reference(world_and_jax, f"{mesh}/{arch}", arch)
+
+
+@pytest.mark.parametrize("arch", JAX_ARCHS)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_seq_sharded_serve_matches_the_jax_reference(world_and_jax, mesh,
+                                                     arch):
+    """The same with the cache sequence-sharded (``cache_seq_shard``)."""
+    _hold_to_the_reference(world_and_jax, f"{mesh}/{arch}/seq", arch)
+
+
+def _hold_to_the_reference(world_and_jax, key, arch):
+    blocks = world_and_jax[1][key]
     logits = np.concatenate([lg for lg, _ in blocks])
     toks = np.concatenate([tk for _, tk in blocks])
     want_logits, want_toks = world_and_jax[2][arch]
     gap = float(np.abs(logits - want_logits).max())
-    print(f"{arch} on {mesh}: logit gap to the reference {gap!r}")
+    print(f"{key}: logit gap to the reference {gap!r}")
     np.testing.assert_allclose(logits, want_logits, **TOL)
     np.testing.assert_array_equal(toks, want_toks)
 
 
+@pytest.mark.parametrize("mesh", MESHES)
+def test_seq_sharded_mamba2_is_its_head_sharded_rank(world_and_jax, mesh):
+    """Mamba-2 holds no attention cache: its sequence-sharded rank is its
+    head-sharded rank, logits and tokens bit for bit."""
+    got = world_and_jax[1]
+    for (a, b), (c, d) in zip(got[f"{mesh}/mamba2-780m"],
+                              got[f"{mesh}/mamba2-780m/seq"]):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+
+
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-@pytest.mark.parametrize("key", RANKS)
+@pytest.mark.parametrize("key", RANKS + SEQ_RANK_KEYS)
 def test_dryrun_serve_rank_equals_the_real_step(world, key, kind):
     """``launch.dryrun.trace_serve`` on ``meta`` against the real rank's
     step: collective bytes by kind, matrix-product FLOPs and the held
@@ -239,9 +302,11 @@ def test_dryrun_serve_rank_equals_the_real_step(world, key, kind):
     assert got["flops"]["step"] == got["flops"]["dryrun"] > 0, got["flops"]
     assert got["memory"]["held"] == got["memory"]["reckoned"], got["memory"]
     assert "tensor-parallel" in got["program"], got["program"]
+    assert ("cache_seq_shard=True" in got["program"]) == key.endswith(
+        ("/seq", "/seq_b1")), got["program"]
 
 
-@pytest.mark.parametrize("key", RANKS)
+@pytest.mark.parametrize("key", RANKS + SEQ_RANK_KEYS)
 def test_no_model_op_receives_a_dtensor_serving(world, key):
     for kind in ("prefill", "decode"):
         got = world[key][kind]
@@ -286,3 +351,113 @@ def test_cache_helpers_unset_are_the_identity():
     assert tp.cache_whole(x, 1, 3) is x and tp.cache_shard(x, 1, 3) is x
     assert tp.cache_split(48, 16) == 3 and tp.cache_split(3, 16) == 3
     assert tp.cache_split(2, 4) == 2 and tp.cache_split(8, 1) == 8
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("sizes,reduced", [((2, 2), True), ((1, 4), True),
+                                           ((16, 16), False)])
+def test_local_seq_cache_is_the_serve_specs_chunk(arch, sizes, reduced):
+    """``init_cache(seq_ranks=n)`` builds exactly each leaf's shard of
+    ``serve_shardings(cache_seq_shard=True)`` 's cache spec on a rank of a
+    (data, model) mesh of ``sizes``, n the chunks of
+    ``core.tl_step.sequence_axes``: at a batch that shards over "data"
+    (the sequence on "model") and at B 1 (on ``("model", "data")``), 512
+    positions."""
+    import math
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tl_step import sequence_axes, serve_shardings
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist import tp
+    from repro_torch.dist.tensor import local_chunk
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    cfg = get_config(arch, reduced=reduced)
+    model = build_model(cfg)
+    mesh = Mesh(np.arange(sizes[0] * sizes[1]).reshape(sizes),
+                ("data", "model"))
+    m = sizes[1] if tp.partitions(cfg, mesh) else 1
+    L = 512
+    for B, rows in ((2 * sizes[0], 2), (1, 1)):
+        whole = model.init_cache(B, L, device="meta")
+        specs = serve_shardings(model.init(device="meta"), whole, cfg, mesh,
+                                InputShape("c", L, B, "decode"),
+                                cache_seq_shard=True)[0][1]
+        n = math.prod(mesh.sizes[a] for a in sequence_axes(mesh, B))
+        local = model.init_cache(rows, L, device="meta", model_ranks=m,
+                                 seq_ranks=n)
+        for rank in (0, mesh.size - 1):
+            coord = mesh.coordinate(rank)
+            want = [tuple(local_chunk(t, s.spec, mesh, coord).shape)
+                    for t, s in zip(tree_leaves(whole), tree_leaves(specs))]
+            assert [tuple(t.shape) for t in tree_leaves(local)] == want, B
+
+
+def test_chunk_runs_cover_each_written_slot_once():
+    """``tp.chunk_runs`` against writing every position's ring slot one by
+    one: over every ring of up to 12 slots, chunking, first position and
+    count, each slot of the chunk written by the position that lands
+    there, and no other."""
+    from repro_torch.dist import tp
+    for slots in range(1, 13):
+        for n_chunks in (d for d in range(1, slots + 1) if slots % d == 0):
+            length = slots // n_chunks
+            for first in range(0, 2 * slots):
+                for n in range(1, slots + 1):
+                    want = {}
+                    for t in range(n):
+                        s = (first + t) % slots
+                        want[s] = t
+                    for c in range(n_chunks):
+                        start = c * length
+                        got = {}
+                        for off, slot, k in tp.chunk_runs(first, n, slots,
+                                                          start, length):
+                            for i in range(k):
+                                assert start + slot + i not in got
+                                got[start + slot + i] = off + i
+                        assert got == {s: t for s, t in want.items()
+                                       if start <= s < start + length}
+
+
+def test_seq_helpers_unset():
+    """Outside ``tp.serve_sequence`` a whole leaf has no chunk and a leaf
+    held in part raises (a sequence-sharded cache served without its
+    scope)."""
+    from repro_torch.dist import tp
+    assert tp.seq_chunk(8, 8) is None
+    with pytest.raises(ValueError, match="serve_sequence"):
+        tp.seq_chunk(2, 8)
+
+
+def test_partial_attention_combined_is_attend_dense():
+    """``attend_partial`` over chunks of the keys, combined by the same
+    rescaling ``tp.combine_softmax`` does over ranks (here in one
+    process), against ``attend_dense`` over all of them within 1e-6:
+    GQA with a window, a chunk whose keys are all empty slots
+    (``INT32_MAX``) among them, and MQA with ``v`` a view of ``k`` (MLA's
+    latent)."""
+    from repro_torch.models.attention import (INT32_MAX, attend_dense,
+                                              attend_partial)
+    gen = torch.Generator().manual_seed(0)
+    for H, KV, dk, dv, window, latent in ((8, 2, 16, 16, 6, False),
+                                          (4, 1, 24, 16, 0, True)):
+        S, n = 16, 4
+        q = torch.randn(2, 1, H, dk, generator=gen)
+        k = torch.randn(2, S, KV, dk, generator=gen)
+        v = k[..., :dv] if latent else torch.randn(2, S, KV, dv,
+                                                   generator=gen)
+        k_pos = torch.arange(S, dtype=torch.int32)
+        k_pos[12:] = INT32_MAX                   # the last chunk is empty
+        q_pos = torch.tensor([11], dtype=torch.int32)
+        want = attend_dense(q, k, v, q_pos, k_pos, window, 0.3)
+        parts = [attend_partial(q, k[:, i:i + S // n], v[:, i:i + S // n],
+                                q_pos, k_pos[i:i + S // n], window, 0.3)
+                 for i in range(0, S, S // n)]
+        top = torch.stack([m for _, m, _ in parts]).amax(0)
+        w = [torch.exp(m - top) for _, m, _ in parts]
+        num = sum(o * wi[..., None] for (o, _, _), wi in zip(parts, w))
+        den = sum(l * wi for (_, _, l), wi in zip(parts, w))
+        got = num / den[..., None]
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
