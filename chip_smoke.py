@@ -249,7 +249,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``dist.tp`` 's all-column layout, whose context stays unset over a
    model axis of size 1; losses and parameters bit-equal (K1 held
    against its plain version at this X^(1)), K1 once a step each way,
-   ms a step and peak; and a reading: whether each of the cell's column
+   ms a step and peak; then the same cell for 2 steps with the one-rank
+   mesh set as the expert-parallel mesh (``models.moe.expert_parallel``):
+   the mesh-less engine (``moe_apply_ep`` on whole tensors, reassembly
+   "torch") against the sharded one (``moe_ep_local`` on the rank's
+   rows, K1), losses and parameters bit-equal, K1 once a step each way;
+   and a reading: whether each of the cell's column
    products, cut in two column halves at a (2, 2) rank's 2048 rows,
    equals the whole product's columns on the card; (e) deepseek-7b
    (depth 30 -> 2) and mamba2-780m (depth 48 -> 4) at full width (B 4, a
@@ -3636,9 +3641,14 @@ def sharded_moe_step(card: str, mesh):
     parameters bit-equal, which holds K1 at this cell's X^(1) against
     its plain version, K1 once a step each way in the sharded run, ms a
     step, peak.  The arch takes ``dist.tp`` 's all-column layout, whose
-    context stays unset on a model axis of size 1.  Then a reading, not a
-    check: :func:`column_products` at a (2, 2) rank's rows of this cell,
-    halves as on its two model ranks."""
+    context stays unset on a model axis of size 1 (its scope is
+    ``models.moe.rank_rows``).  Then the same cell with the one-rank mesh
+    set as the expert-parallel mesh, :data:`EP_STEPS` steps each: the
+    mesh-less engine (``moe_apply_ep`` on whole tensors, reassembly
+    "torch") against the sharded one (``moe_ep_local`` on the rank's
+    rows, K1), losses and parameters bit-equal, K1 once a step each way.
+    Then a reading, not a check: :func:`column_products` at a (2, 2)
+    rank's rows of this cell, halves as on its two model ranks."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3647,13 +3657,14 @@ def sharded_moe_step(card: str, mesh):
     from repro_torch.dist import tp
     from repro_torch.dist.tensor import full_tree
     from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.models.moe import rank_rows
     from repro_torch.optim import sgd
 
     t0 = time.perf_counter()
     k1 = {"permute_rows": permute_rows, "take_rows": take_rows}
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     assert tp.supported(cfg) and tp.layout(cfg) == "all_column"
-    assert tensor_parallel(cfg, mesh, None)[1] is contextlib.nullcontext
+    assert tensor_parallel(cfg, mesh, None)[1] is rank_rows
     eng, res, plain = production_run(cfg, DIST_STEPS, k1, opt=sgd(1e-3),
                                      reassembly="torch")
     assert plain["launches"] == {"permute_rows": 0, "take_rows": 0}, \
@@ -3690,6 +3701,7 @@ def sharded_moe_step(card: str, mesh):
           f"(d) took {seconds:.1f} s [{card}]")
     del eng, res, host
     free_cuda()
+    ep = sharded_ep_step(card, mesh, cfg, info["losses"])
     rows = PROD_BATCH * PROD_SEQ // 2
     gemm = column_products(cfg, rows)
     for name, K, N, shards in gemm:
@@ -3704,6 +3716,63 @@ def sharded_moe_step(card: str, mesh):
             "extra_ms": extra, "peak_gb": info["peak_gb"],
             "plain_peak_gb": plain["peak_gb"], "loss_gap": loss_gap,
             "param_gap": param_gap, "losses": info["losses"],
+            "seconds": seconds, "ep": ep}
+
+
+EP_STEPS = 2                # the fewest whose ms a step has a median
+
+
+def sharded_ep_step(card: str, mesh, cfg, all_column_losses):
+    """Phase 4e (d), expert parallelism: ``cfg`` (phase (d)'s cell) with
+    the one-rank ``mesh`` set as the expert-parallel mesh, :data:`EP_STEPS`
+    sgd steps from seed 0: the mesh-less engine (``moe_apply`` takes
+    ``moe_apply_ep`` on whole tensors; reassembly "torch", no K1 launch)
+    against the sharded engine on ``mesh`` (``moe_ep_local`` on the
+    rank's rows; K1, counted from 0 just before): losses and parameters
+    bit-equal, which holds K1 against its plain version at this X^(1);
+    K1 once a step each way; ms a step and peak.  The losses are printed
+    beside the all-column run's (another capacity and aux grouping)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist.tensor import full_tree
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.models.moe import expert_parallel
+    from repro_torch.optim import sgd
+
+    t0 = time.perf_counter()
+    k1 = {"permute_rows": permute_rows, "take_rows": take_rows}
+    with expert_parallel(mesh):
+        eng, res, plain = production_run(cfg, EP_STEPS, k1, opt=sgd(1e-3),
+                                         reassembly="torch")
+        host = [t.detach().cpu() for t in tree_leaves(res.params)]
+        del eng, res
+        free_cuda()
+        eng, res, info = production_run(cfg, EP_STEPS, k1, mesh=mesh,
+                                        opt=sgd(1e-3))
+    assert plain["launches"] == {"permute_rows": 0, "take_rows": 0}, \
+        plain["launches"]
+    want = {"permute_rows": EP_STEPS, "take_rows": EP_STEPS}
+    assert info["launches"] == want, info["launches"]
+    loss_gap = max(abs(a - b) for a, b in zip(info["losses"],
+                                              plain["losses"]))
+    param_gap = max(float((t.detach().cpu() - h).abs().max())
+                    for t, h in zip(tree_leaves(full_tree(res.params)), host))
+    seconds = time.perf_counter() - t0
+    print(f"  (d) expert-parallel on the one-rank mesh, {EP_STEPS} steps: "
+          f"sharded (moe_ep_local, K1) vs mesh-less (moe_apply_ep, torch "
+          f"reassembly): largest loss gap {loss_gap:.3e}, largest param gap "
+          f"{param_gap:.3e} (bit-equality expected); losses "
+          f"{[round(x, 6) for x in info['losses']]} against the all-column "
+          f"run's {[round(x, 6) for x in all_column_losses[:EP_STEPS]]}; "
+          f"{info['step_ms']:.3f} ms a step against {plain['step_ms']:.3f} "
+          f"mesh-less, peak {info['peak_gb']:.2f} GB; K1 "
+          f"{info['launches']}; {seconds:.1f} s [{card}]")
+    assert loss_gap == 0.0 and param_gap == 0.0, (loss_gap, param_gap)
+    del eng, res, host
+    free_cuda()
+    return {"steps": EP_STEPS, "losses": info["losses"],
+            "launches": info["launches"], "step_ms": info["step_ms"],
+            "plain_step_ms": plain["step_ms"], "peak_gb": info["peak_gb"],
+            "loss_gap": loss_gap, "param_gap": param_gap,
             "seconds": seconds}
 
 

@@ -82,7 +82,14 @@ the activations are all-gathered over "model" where a contraction or a
 norm reads them whole, and the only forward reductions are the exact
 vocab-parallel embedding and the CEs (the MTP head's too), so every
 forward contraction is whole and a token routes on the same sums as on
-one device.  X^(1)
+one device.  With an expert-parallel mesh set
+(``models.moe.set_expert_parallel_mesh``, as the reference's dryrun sets
+it around its jitted programs) the MoE layers of this step and of
+:class:`ShardedServe` take the reference's ``moe_apply_ep`` route on
+local tensors (``dist.tp`` 's EP table): the rank's positions routed, its
+E/m experts resharded from the all-column shards by an ``all_to_all``,
+two ``all_to_all`` s a layer; the placements and the entry specs stay
+as above.  X^(1)
 leaves block 0 replicated over
 "model" and sharded over the batch, so the perm stays shard-local (each
 block holds a permutation of its own rows, see ``launch.engine``) and the
@@ -248,12 +255,19 @@ def tensor_parallel(cfg: ModelConfig, mesh, params):
     whole for an arch ``dist.tp`` does not partition or a model axis of
     size 1) and a context factory that sets the tensor-parallel context
     over the mesh's "model" axis for the forward pass, the backward pass
-    and the tail's recompute inside it (``nullcontext`` where no leaf
-    keeps a model shard)."""
+    and the tail's recompute inside it; where no leaf keeps a model
+    shard, ``models.moe.rank_rows`` for an MoE arch (so that an EP mesh
+    routes the rank's rows) and ``nullcontext`` for the others.  The
+    MoE layers under an EP mesh (``models.moe.set_expert_parallel_mesh``)
+    take the expert-parallel path inside either scope; the entry is the
+    same."""
     import contextlib
 
     entry = _named(mesh, tp.entry_specs(params, cfg, mesh))
     if not tp.partitions(cfg, mesh):
+        if cfg.moe is not None:
+            from repro_torch.models.moe import rank_rows
+            return entry, rank_rows
         return entry, contextlib.nullcontext
     import torch.distributed as dist
     group = mesh.device_mesh().get_group("model")

@@ -48,7 +48,10 @@ The functions:
   ``(B, S, V/m)``: all-reduces of the max, of the sum of exps and of the
   target's logit; ``models.model.cross_entropy`` , masks included;
 * :func:`partitioned` -- whether a layer runs on local shards, read from
-  a local dim beside its whole size.
+  a local dim beside its whole size;
+* :func:`all_to_all`, :func:`experts_to_ep`, :func:`sequence_share`,
+  :func:`sequence_whole`, :func:`mean_over_model` -- expert parallelism
+  inside the context (the EP table below).
 
 The context (:func:`model_parallel`) is set by the sharded step around its
 forward and backward passes, the way ``dist.constraints.
@@ -146,6 +149,32 @@ dense / shared SwiGLU              as the experts (``w_down`` column); a
                                    together, when m divides f and d
 MTP ``proj`` (2d, d)               column shard, output gathered
 norms (1-D)                        whole
+=================================  =========================================
+
+**Expert parallelism** (``models.moe.set_expert_parallel_mesh``, the
+reference's ``moe_apply_ep`` inside its jitted step) changes only the MoE
+layers' compute: the leaves keep the all-column rows above at the entry
+and at rest, and each MoE layer reshards them over "model" on every call,
+as the reference's ``shard_map`` entry does:
+
+=================================  =========================================
+leaf / activation (EP)             what a rank computes on
+=================================  =========================================
+experts ``w_gate|w_up`` (E, d, f)  E/m whole experts (E/m, d, f): the
+experts ``w_down`` (E, f, d)       all-column shard (E, ., ./m) through an
+                                   ``all_to_all`` (:func:`experts_to_ep`),
+                                   the inverse ``all_to_all`` backward
+``router`` (d, E)                  whole (:func:`gather_weight`)
+the MoE input x (B, S, d)          the rank's S/m positions
+                                   (:func:`sequence_share`); every rank all
+                                   S where m does not divide S (a decode
+                                   step): :func:`sequence_whole` then
+                                   divides the gradient by m
+the dispatch, the two              ``models.moe_ep.moe_ep_local`` on the
+``all_to_all`` s, the combine      rank's tokens, capacity counted over them
+the aux loss                       the mean over the rank's tokens, averaged
+                                   over "model" (:func:`mean_over_model`)
+shared experts                     all-column, as above
 =================================  =========================================
 
 A leaf whose spec lost "model" (``_filter_divisible``) is gathered whole
@@ -443,6 +472,113 @@ def reduce_from_model(x):
     if _CTX is None:
         return x
     return _ReduceFromModel.apply(_plain(x), _CTX.group_name)
+
+
+# ------------------------------------------------------ expert parallelism
+
+def _all_to_all(x, group_name: str, size: int):
+    n = x.shape[0] // size
+    out = torch.ops._c10d_functional.all_to_all_single(
+        x.contiguous(), [n] * size, [n] * size, group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group_name, size):
+        ctx.group_name, ctx.size = group_name, size
+        return _all_to_all(x, group_name, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group_name, ctx.size), None, None
+
+
+def all_to_all(x, group_name: str, size: int):
+    """The tiled ``all_to_all`` of dim 0 over the process group named
+    ``group_name`` (``size`` ranks): dim 0 cut into ``size`` equal blocks,
+    block j sent to the group's j-th rank, block s of the result received
+    from its s-th (``jax.lax.all_to_all(split_axis=0, concat_axis=0,
+    tiled=True)``).  It is its own transpose, so the backward pass sends
+    the gradient back the same way."""
+    if x.shape[0] % size:
+        raise ValueError(f"dim 0 of {x.shape[0]} does not cut into {size} "
+                         "equal blocks")
+    return _AllToAll.apply(_plain(x), group_name, size)
+
+
+def model_group():
+    """``(group name, size)`` of the context's model axis; ``(None, 1)``
+    unset."""
+    return (None, 1) if _CTX is None else (_CTX.group_name, _CTX.size)
+
+
+def experts_to_ep(w, width: int):
+    """An expert stack ``w`` (E, a, b), held as the all-column layout
+    keeps it (this rank's b/m columns, ``width`` = b in all), as this
+    rank's E/m whole experts (E/m, a, b), rank-major: one
+    :func:`all_to_all` (each rank sends every rank its experts' columns),
+    whose inverse sends each gradient back onto the stored shard.  A
+    stack held whole is narrowed to the rank's experts after
+    :func:`copy_to_model`, so its gradient is every rank's summed (each
+    rank computes only its experts')."""
+    if _CTX is None:
+        return w
+    E, m = w.shape[0], _CTX.size
+    if E % m:
+        raise ValueError(f"{E} experts do not divide over {m} model ranks")
+    if not partitioned(w.shape[-1], width):
+        return copy_to_model(w).narrow(0, _CTX.rank * (E // m), E // m)
+    got = all_to_all(w, _CTX.group_name, m)    # block s: rank s's columns
+    a, bl = w.shape[1], w.shape[2]
+    return got.reshape(m, E // m, a, bl).permute(1, 2, 0, 3).reshape(
+        E // m, a, m * bl)
+
+
+def sequence_share(xs, dim: int = 1):
+    """The tokens a rank routes under expert parallelism: its 1/m block of
+    ``xs`` 's dim ``dim`` (the positions) where m divides it, else all of
+    them (every model rank routes the same tokens, as the reference's
+    ``seq_shard = 1``).  ``xs`` is the caller's :func:`copy_to_model`, so
+    the backward pass sums the blocks' gradients over "model"."""
+    n = xs.shape[dim]
+    if _CTX is None or n % _CTX.size:
+        return xs
+    share = n // _CTX.size
+    return xs.narrow(dim, _CTX.rank * share, share)
+
+
+class _Copies(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, copies):
+        ctx.copies = copies
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.copies, None
+
+
+def sequence_whole(y, whole: int, dim: int = 1):
+    """The inverse of :func:`sequence_share` on its output ``y``: the
+    ranks' blocks gathered along ``dim`` (``whole`` positions) where it
+    split them; where it did not, ``y`` itself, whose gradient is divided
+    by m: every model rank computed the same ``y`` and the gradient
+    reaches each rank whole, so the m contributions it sends back (through
+    the experts, the router and :func:`copy_to_model`) must sum to one."""
+    if _CTX is None:
+        return y
+    if y.shape[dim] != whole:
+        return gather_from_model(y, dim)
+    return _Copies.apply(_plain(y), _CTX.size)
+
+
+def mean_over_model(t):
+    """The mean over "model" of a per-rank value (an all-reduce of t/m);
+    each rank's share of the gradient is 1/m of it."""
+    if _CTX is None:
+        return t
+    return reduce_from_model(t / _CTX.size)
 
 
 # ----------------------------------------------------------- serve caches

@@ -64,6 +64,17 @@ exit code is 1 when a gate fails.
   shards), and
   no op
   inside the loss's forward pass handed a ``DTensor``;
+* expert parallelism inside the sharded step
+  (``models.moe.expert_parallel``; :func:`expert_parallel_checks`): for
+  reduced deepseek-v2 and deepseek-v3 on (2, 2) and (1, 4), the EP step's
+  loss, gradients and every MoE layer's top-k against the all-column
+  step's on the same rows (:func:`ep_against_all_column`; the reduced
+  capacity factor E / k drops nothing, so the top-k and the drops gate),
+  a rank's EP step against the dryrun's trace (all-to-all bytes
+  included), the all-column step bit-equal before and after an EP step,
+  and ``dist.tp`` 's EP functions on the 2-rank group; the serve checks
+  run the two archs' EP prefill and decode against one device and
+  deepseek-v2's EP serve rank against the trace;
 * ``constrain_batch`` (identity without a mesh or on a plain tensor,
   ``Shard(0)`` of a ``DTensor`` with one), the row permuter on
   ``DTensor`` s (shard-local, no collective), K1's refusal of a
@@ -127,6 +138,17 @@ weights moved one ulp.
   more without grad, whose scans launch K5 once an SSM layer and K6 once
   an RG-LRU layer on each rank's heads / channels, its loss within 1e-4
   of the grad path's (the ``production_no_grad`` gate);
+* ``--production --moe-ep`` (:func:`ep_cell`, deepseek-v2-236b, alone):
+  the cell with its MoE layers expert-parallel beside the all-column TP
+  step in one process: the step-1 routing, drops, loss and gradients of
+  both, each one's collectives against the dryrun's trace of the rank,
+  ms a step, peak, busy share, and K1 held bit-equal to its plain
+  version; ``--serve --moe-ep`` (:func:`serve_cell`) runs the serve cell
+  (deepseek-v2 by default) again with its MoE layers expert-parallel on
+  the same placed weights.  A pair dropped past its capacity changes
+  what later layers and the cache hold, so the top-k gate stops at the
+  first routing call that drops one (:func:`topk_held`), and the loss
+  and gradient gate holds only where neither run dropped a pair;
 * seamless-m4t-medium at full width, its published 12 + 12 layers,
   adamw, reassembly "none" (K1 0 + 0), on seeded random frames
   (:class:`FramedLoader`): Megatron's layout over its 16 heads, d_ff and
@@ -162,6 +184,11 @@ TP_CASES = (("deepseek-7b", "torch"), ("deepseek-7b", "kernel"),
             ("seamless-m4t-medium", "none"))
 # the archs whose routing is read against one device (all-column)
 ROUTED = ("deepseek-v2-236b", "deepseek-v3-671b")
+# the arch whose expert-parallel serve rank is held to the dryrun's trace
+EP_SERVE = "deepseek-v2-236b"
+# expert parallelism's dist.tp functions, checked on a 2-rank group
+EP_PRIMITIVES = ("all_to_all", "experts_to_ep", "experts_to_ep_whole",
+                 "sequence_split", "sequence_copies", "mean_over_model")
 # the recurrent archs (Megatron's layout over the SSD heads / RG-LRU width)
 RECURRENT = ("mamba2-780m", "recurrentgemma-9b")
 # the encoder-decoder (Megatron's layout over its three attentions)
@@ -346,6 +373,7 @@ def run_checks(device: str, ckdir: str, serve: bool = True) -> dict:
                 seed=0, device=device), _routing_batch(cfg_r, device))
             if lead:
                 out[f"routing/{name}/{arch}"] = got
+    out.update(expert_parallel_checks(mesh, row, device))
     out["collectives"] = {
         "debug22": _rank_step(mesh, device),
         "model4": _rank_step(row, device),
@@ -414,9 +442,13 @@ class _RefuseDTensor(torch.overrides.TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
-    """One step of the sharded TL step of reduced ``arch`` (B 4, S 16, sgd)
-    on this rank under the dispatch accounting, beside
+def _rank_step(mesh, device, arch: str = "deepseek-7b", *, cfg=None,
+               B: int = 4, S: int = 16, moe_ep: bool = False,
+               one_device: bool = True) -> dict:
+    """One step of the sharded TL step of reduced ``arch`` (B 4, S 16, sgd;
+    ``cfg`` at ``B`` x ``S`` where given; the MoE layers expert-parallel
+    over the mesh with ``moe_ep``) on this rank under the dispatch
+    accounting, beside
     ``launch.dryrun.trace_train``'s trace of the same rank on ``meta``
     (with the same optimizer): the collective result bytes issued
     (``measured``) and predicted (``predicted``); the matrix-product
@@ -427,7 +459,8 @@ def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
     gathered, the inputs);
     and whether any op inside the loss's forward pass received a
     ``DTensor``.  sgd is elementwise, so the optimizer
-    issues no collective."""
+    issues no collective.  ``one_device=False`` skips the one-device
+    loss and gradient (and the share of it)."""
     from repro_torch.analysis.dispatch_costs import accounting, analyze_step
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -440,11 +473,13 @@ def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
     from repro_torch.launch.dryrun import trace_train
     from repro_torch.launch.specs import abstract_params, text_len
     from repro_torch.models import build_model
+    from repro_torch.models.moe import expert_parallel
     from repro_torch.optim import sgd
 
-    cfg = get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True) if cfg is None else cfg
     model = build_model(cfg)
-    B, S = 4, 16
+    def ep():
+        return expert_parallel(mesh if moe_ep else None)
     shape = InputShape("rank", S, B, "train")
     whole = model.init(seed=0, device=device)
     opt = sgd(0.05)
@@ -461,11 +496,12 @@ def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
     if cfg.frontend:            # S positions in all, as launch.specs makes
         batch["embeds"] = 0.02 * torch.randn(
             B, cfg.frontend_tokens, cfg.d_model, generator=g)[rows].to(device)
-    step = make_train_step(model, cfg, opt, mesh=mesh, global_batch=B)
-    with accounting() as costs:
-        step(params, state, batch)
     one = analyze_step(value_and_grad, tl_loss_fn(model, cfg, "tl"), whole,
-                       batch)
+                       batch) if one_device else None
+    del whole
+    step = make_train_step(model, cfg, opt, mesh=mesh, global_batch=B)
+    with ep(), accounting() as costs:
+        step(params, state, batch)
     # what the loss receives, and whether a model op sees a DTensor
     entry, scope = tensor_parallel(cfg, mesh, params)
     seen = {}
@@ -482,12 +518,13 @@ def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
             != s._local_tensor.untyped_storage().data_ptr())
         with watch:
             return loss_fn(p, b)
-    with scope():
+    with ep(), scope():
         sharded_value_and_grad(watched, params, batch, mesh,
                                batch_sharded=sharded, entry=entry)
-    pred, coll, memory, _ = trace_train(
-        model, cfg, shape, mesh, abstract_params(model, torch.float32),
-        opt=opt)
+    with ep():
+        pred, coll, memory, _ = trace_train(
+            model, cfg, shape, mesh, abstract_params(model, torch.float32),
+            opt=opt)
     held = {"param_shard_bytes": sum(
                 t._local_tensor.numel() * t.element_size()
                 for t in tree_leaves(params)),
@@ -499,10 +536,11 @@ def _rank_step(mesh, device, arch: str = "deepseek-7b") -> dict:
                                for t in batch.values())}
     m = mesh.sizes.get("model", 1)
     share = 1 / m + (1 - 1 / m) * replicated_products(
-        cfg, rows.stop - rows.start, S, m) / one.flops
+        cfg, rows.stop - rows.start, S, m) / one.flops if one else None
     return {"measured": costs.coll, "predicted": coll,
             "flops": {"step": costs.flops, "dryrun": pred.flops,
-                      "one_device": one.flops, "share": share},
+                      "one_device": one.flops if one else None,
+                      "share": share},
             "memory": {"held": held,
                        "reckoned": {k: memory[k] for k in held}},
             "model_ops": watch.ops, "dtensor_ops": watch.dtensor_ops}
@@ -553,9 +591,10 @@ def replicated_products(cfg, rows: int, seq: int, m: int,
     return float(total)
 
 
-def tp_value_and_grad(cfg, whole, batch, mesh, reassembly: str):
-    """``(loss, grads)`` of ``cfg`` 's production TL loss (remat
-    "tl", ``reassembly``) at the parameters ``whole`` (plain tensors, on
+def tp_value_and_grad(cfg, whole, batch, mesh, reassembly: str,
+                      remat: str = "tl"):
+    """``(loss, grads)`` of ``cfg`` 's production TL loss (``remat``,
+    ``reassembly``) at the parameters ``whole`` (plain tensors, on
     the batch's device or the host) on ``batch`` (every row, plain
     tensors), through the sharded step's gradient on ``mesh``
     (every rank; collective): the parameters placed by
@@ -593,9 +632,35 @@ def tp_value_and_grad(cfg, whole, batch, mesh, reassembly: str):
     entry, scope = tensor_parallel(cfg, mesh, params)
     with scope():
         loss, grads = sharded_value_and_grad(
-            tl_loss_fn(model, cfg, "tl", reassembly=reassembly, mesh=mesh),
+            tl_loss_fn(model, cfg, remat, reassembly=reassembly, mesh=mesh),
             params, mine, mesh, batch_sharded=sharded, entry=entry)
     return float(loss), full_tree(grads)
+
+
+def sgd_step(cfg, whole, batch, mesh, lr: float,
+             reassembly: str = "none"):
+    """``(loss, params)`` of one ``sgd(lr)`` step of the sharded TL step
+    (remat "tl", ``reassembly``) on ``mesh`` (every rank; collective)
+    from the whole parameters ``whole`` on ``batch`` (every row, plain
+    tensors on the ranks' device): the global batch's loss and the
+    updated parameters gathered whole."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tl_step import make_train_step, train_shardings
+    from repro_torch.dist.tensor import distribute_tree, full_tree
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+
+    opt = sgd(lr)
+    B, S = batch["tokens"].shape
+    in_sh, _ = train_shardings(whole, opt.init(whole), cfg, mesh,
+                               InputShape("sgd", S, B, "train"))
+    params = distribute_tree(whole, in_sh[0], dist.get_rank())
+    _, rows = _rank_rows(mesh, B)
+    step = make_train_step(build_model(cfg), cfg, opt, mesh=mesh,
+                           global_batch=B, reassembly=reassembly)
+    params, _, loss = step(params, opt.init(params),
+                           {k: v[rows] for k, v in batch.items()})
+    return float(loss), full_tree(params)
 
 
 def _routing_batch(cfg, device, B: int = 4, S: int = 16, seed: int = 1):
@@ -701,6 +766,109 @@ def routing_flips(cfg, mesh, whole, batch) -> dict:
             "margin_flipped": drifts[:, 2].tolist()}
 
 
+def _recorded_topk(fn) -> tuple:
+    """``(fn(), calls)``: for every MoE routing ``fn`` made, in order, its
+    top-k expert indices and whether each (token, choice) pair kept its
+    slot, both (G, T, k) from ``models.moe.route`` (one device and the
+    all-column layout) and (T, k) from ``models.moe_ep._local_route``
+    (expert parallelism)."""
+    from repro_torch.models import moe, moe_ep
+    real_route, real_local, seen = moe.route, moe_ep._local_route, []
+
+    def route(params, cfg, x, xs=None):
+        out = real_route(params, cfg, x, xs)
+        idx = out[2].detach()
+        seen.append((idx.clone(), out[3].detach().reshape(idx.shape).clone()))
+        return out
+
+    def local_route(x_flat, router_w, cfg, tp_size, cap):
+        out = real_local(x_flat, router_w, cfg, tp_size, cap)
+        seen.append((out[5].detach().clone(), out[3].detach().clone()))
+        return out
+    moe.route, moe_ep._local_route = route, local_route
+    try:
+        result = fn()
+    finally:
+        moe.route, moe_ep._local_route = real_route, real_local
+    return result, seen
+
+
+def ep_routing(cfg, mesh, all_column, ep) -> list:
+    """Per MoE layer, this rank's ``[flips, set_flips, pairs, dropped
+    all-column, dropped EP]`` (:func:`_recorded_topk` 's calls of the
+    all-column step and of the expert-parallel one on the same rows):
+    the EP rank's top-k on its tokens (its 1/m of the positions where m
+    divides S, else every position) against the all-column rank's on the
+    same tokens, as :func:`_routing_reading` counts them, and the (token,
+    choice) pairs each dropped past its capacity.  What every model rank
+    computes alike (the all-column routing; EP's where the positions do
+    not split) is counted on the first model rank only, so the counts
+    summed over the world count each pair once."""
+    rank = dist.get_rank()
+    m = mesh.sizes.get("model", 1)
+    mi = mesh.coordinate(rank)[mesh.axis_names.index("model")] \
+        if "model" in mesh.axis_names else 0
+    if len(all_column) != len(ep):
+        raise AssertionError(f"{len(ep)} EP routings against "
+                             f"{len(all_column)}")
+    out = []
+    for (e1, k1), (e2, k2) in zip(all_column, ep):
+        G, S, k = e1.shape
+        split = S % m == 0 and e2.shape[0] == G * S // m
+        share = S // m if split else S
+        s0 = mi * share if split else 0
+        want = e1[:, s0:s0 + share].reshape(-1, k)
+        if want.shape != e2.shape:
+            raise AssertionError(f"EP routed {tuple(e2.shape)} against "
+                                 f"{tuple(want.shape)}")
+        same = (want[..., :, None] == e2[..., None, :]).any(-1)
+        mine = split or mi == 0
+        out.append([int((want != e2).sum()) if mine else 0,
+                    int((~same).sum()) if mine else 0,
+                    want.numel() if mine else 0,
+                    int((~k1).sum()) if mi == 0 else 0,
+                    int((~k2).sum()) if mine else 0])
+    return out
+
+
+def ep_against_all_column(cfg, mesh, whole, batch, reassembly: str) -> dict:
+    """The sharded step's loss and gradient on ``mesh`` (every rank;
+    collective; remat "none", one routing a MoE layer) at the whole
+    parameters ``whole`` on ``batch`` (every row), in the all-column
+    layout and with the MoE layers expert-parallel
+    (``models.moe.expert_parallel``): both losses and their gap, per MoE
+    layer summed over the world :func:`ep_routing` 's counts, and on the
+    first rank the EP gradients against the all-column ones leaf by leaf
+    (:func:`grad_reading`; gathered whole and held on the host); the
+    other ranks' readings hold only the collective counts."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.moe import expert_parallel
+    lead = dist.get_rank() == 0
+    runs = {}
+    for name in ("all_column", "ep"):
+        with expert_parallel(mesh if name == "ep" else None):
+            (loss, g), seen = _recorded_topk(lambda: tp_value_and_grad(
+                cfg, whole, batch, mesh, reassembly, remat="none"))
+        runs[name] = (loss, [t.cpu() for t in tree_leaves(g)]
+                      if lead else None, seen)
+        del g
+    counts = torch.tensor(ep_routing(cfg, mesh, runs["all_column"][2],
+                                     runs["ep"][2]), dtype=torch.int64,
+                          device=batch["tokens"].device).reshape(-1, 5)
+    dist.all_reduce(counts)
+    out = {"loss_all_column": runs["all_column"][0],
+           "loss_ep": runs["ep"][0],
+           "loss_gap": abs(runs["ep"][0] - runs["all_column"][0]),
+           "layers": counts.shape[0],
+           "flips": counts[:, 0].tolist(), "set_flips": counts[:, 1].tolist(),
+           "pairs": counts[:, 2].tolist(),
+           "dropped_all_column": counts[:, 3].tolist(),
+           "dropped_ep": counts[:, 4].tolist()}
+    if lead:
+        out["grads"] = grad_reading(runs["ep"][1], runs["all_column"][1])
+    return out
+
+
 def _rank_rows(mesh, B: int):
     """``(batch_sharded, rows)``: whether the batch axes split ``B`` rows,
     and this rank's block of them."""
@@ -785,10 +953,127 @@ def _tp_primitives(device) -> dict:
             "forward": bool(torch.equal(whole.detach().cpu(), want)),
             "backward": bool(torch.equal(
                 xw.grad.cpu(), 3 * w[:, rank * 2:(rank + 1) * 2].cpu()))}
+        out.update(_ep_primitives(group, rank, device))
     out["identity_unset"] = tp.copy_to_model(x) is x \
         and tp.reduce_from_model(x) is x and tp.gather_from_model(x) is x \
-        and tp.gather_weight(x) is x
+        and tp.gather_weight(x) is x and tp.experts_to_ep(x, 4) is x \
+        and tp.sequence_share(x) is x and tp.sequence_whole(x, 4) is x \
+        and tp.mean_over_model(x) is x
     return out if rank == 0 else {}
+
+
+def _ep_primitives(group, rank: int, device) -> dict:
+    """Expert parallelism's ``dist.tp`` functions on the 2-rank model
+    group (inside its context), forward and backward against what they
+    compute by definition: ``all_to_all`` of a (4, 2) block per rank;
+    ``experts_to_ep`` of 4 experts (4, 3, 4) held as column shards (4,
+    3, 2) and held whole; ``sequence_share`` / ``sequence_whole`` over 4
+    positions (split) and 3 (every rank routes all, the gradient divided
+    by 2); ``mean_over_model``."""
+    from repro_torch.dist import tp
+    out = {}
+    t = (torch.arange(8.).reshape(4, 2) + 100 * rank).to(device) \
+        .requires_grad_(True)
+    got = tp.all_to_all(t, group.group_name, 2)
+    c = torch.arange(8.).reshape(4, 2).to(device) * (rank + 1)
+    (got * c).sum().backward()
+    # rank r receives block r (rows 2r, 2r + 1) of each rank, rank-major;
+    # rank s's gradient of its block r is rank r's coefficients of block s
+    send = [torch.arange(8.).reshape(4, 2) + 100 * r for r in (0, 1)]
+    coef = [torch.arange(8.).reshape(4, 2) * (r + 1) for r in (0, 1)]
+    out["all_to_all"] = {
+        "forward": bool(torch.equal(got.detach().cpu(), torch.cat(
+            [send[s][2 * rank:2 * rank + 2] for s in (0, 1)]))),
+        "backward": bool(torch.equal(t.grad.cpu(), torch.cat(
+            [coef[r][2 * rank:2 * rank + 2] for r in (0, 1)])))}
+    whole = torch.arange(48.).reshape(4, 3, 4)
+    coef = [torch.arange(24.).reshape(2, 3, 4) + 10 * r for r in (0, 1)]
+    grad = torch.cat(coef, 0)                # expert e: its owner's
+    for name, held in (("experts_to_ep",
+                        whole[..., 2 * rank:2 * rank + 2]),
+                       ("experts_to_ep_whole", whole)):
+        w = held.to(device).requires_grad_(True)
+        mine = tp.experts_to_ep(w, 4)
+        (mine * coef[rank].to(device)).sum().backward()
+        want = grad if held.shape[-1] == 4 else \
+            grad[..., 2 * rank:2 * rank + 2]
+        out[name] = {
+            "forward": bool(torch.equal(mine.detach().cpu(),
+                                        whole[2 * rank:2 * rank + 2])),
+            "backward": bool(torch.equal(w.grad.cpu(), want))}
+    for name, S in (("sequence_split", 4), ("sequence_copies", 3)):
+        x = torch.arange(2. * S * 3).reshape(2, S, 3)
+        w = torch.arange(2. * S * 3).reshape(2, S, 3).flip(1)
+        xs = x.to(device).requires_grad_(True)
+        y = tp.sequence_whole(tp.sequence_share(tp.copy_to_model(xs))
+                              * (rank + 1), S)
+        (y * w.to(device)).sum().backward()
+        scale = torch.ones(1, S, 1)
+        if S == 4:                 # positions 2, 3 came from the 2nd rank
+            scale[:, 2:] = 2
+        else:                      # every rank's copy, the mean of them
+            scale = scale * 1.5
+        out[name] = {
+            "forward": bool(torch.equal(y.detach().cpu(), x * (
+                scale if S == 4 else rank + 1))),
+            "backward": bool(torch.equal(xs.grad.cpu(), w * scale))}
+    a = torch.tensor(float(rank + 1), device=device, requires_grad=True)
+    mean = tp.mean_over_model(a)
+    mean.backward()
+    out["mean_over_model"] = {"forward": mean.item() == 1.5,
+                              "backward": float(a.grad) == 0.5}
+    return out
+
+
+def expert_parallel_checks(mesh, row, device) -> dict:
+    """Expert parallelism inside the sharded step on the (2, 2) mesh
+    ``mesh`` and the (1, 4) mesh ``row`` (every rank; collective), for the
+    two MoE archs at reduced size: the step's loss, gradients and routing
+    against the all-column step's on the same rows
+    (:func:`ep_against_all_column`; the reduced configs' capacity factor
+    E / k gives every expert room for every token, so nothing drops), a
+    rank's EP step against the dryrun's trace of it (:func:`_rank_step`
+    with ``moe_ep``), and the all-column step bit-equal before and after
+    an EP step (an unset EP mesh leaves nothing behind); and on a (4, 1)
+    mesh, where no rank partitions over "model" (``models.moe.rank_rows``
+    routes each rank's own row), the EP step's loss and gradients against
+    the step without EP (one row a rank: the same groups, capacity and
+    aux).  The first rank's readings; an empty dict on the others."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import expert_parallel
+    out = {}
+    for name, m in (("debug22", mesh), ("model4", row)):
+        for arch in ROUTED:
+            cfg = get_config(arch, reduced=True)
+            out[f"ep/{name}/{arch}"] = ep_against_all_column(
+                cfg, m, build_model(cfg).init(seed=0, device=device),
+                _routing_batch(cfg, device), "none")
+            out[f"rank_ep/{name}/{arch}"] = _rank_step(m, device, arch,
+                                                       moe_ep=True)
+    cfg = get_config("deepseek-v2-236b", reduced=True)
+    whole = build_model(cfg).init(seed=0, device=device)
+    batch = _routing_batch(cfg, device)
+    runs = []
+    for ep in (None, mesh, None):
+        with expert_parallel(ep):
+            loss, g = tp_value_and_grad(cfg, whole, batch, mesh, "none")
+        runs.append((loss, tree_leaves(g)))
+    (l0, g0), _, (l1, g1) = runs
+    out["ep_unset"] = l0 == l1 and all(
+        torch.equal(a, b) for a, b in zip(g0, g1))
+    rows = make_mesh_compat((4, 1), ("data", "model"), device=device)
+    runs = []
+    for ep in (None, rows):
+        with expert_parallel(ep):
+            loss, g = tp_value_and_grad(cfg, whole, batch, rows, "none")
+        runs.append((loss, tree_leaves(g)))
+    (l0, g0), (l1, g1) = runs
+    out["ep_rows"] = {"loss_gap": abs(l0 - l1), "grad_gap": max(
+        float((a - b).abs().max()) for a, b in zip(g0, g1))}
+    return out if dist.get_rank() == 0 else {}
 
 
 def _expert_parallel(mesh, device, lead) -> dict:
@@ -1115,6 +1400,113 @@ def order_only(device: str, arch: str, layers: int = None) -> dict:
     return out
 
 
+def cell_run(cfg, docs, optimizer, reassembly: str, mesh, device: str):
+    """The production cell's :data:`STEPS` steps from seed 0 through the
+    engine on ``mesh`` (None: one card; collective otherwise), K1's
+    counts set to 0 just before: ``(engine, result, readings)``, the
+    readings the losses, ms a step (synced host clock, median of steps
+    2..), the peak this run added on a card and K1's launches."""
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import build_model
+    card = device != "cpu"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    eng = Engine(build_model(cfg), cfg, optimizer(), mesh=mesh,
+                 reassembly=reassembly, log_every=1, device=device).init(0)
+    for k in (permute_rows, take_rows):
+        k.launches = 0
+    res = eng.run(_cell_loader(cfg, docs), steps=STEPS)
+    return eng, res, {
+        "losses": [float(x) for x in res.losses],
+        "step_ms": statistics.median(1e3 * t for t in res.step_s[1:]),
+        "step_s": res.step_s,
+        "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9
+        if card else 0.0,
+        "launches": {"permute_rows": permute_rows.launches,
+                     "take_rows": take_rows.launches}}
+
+
+def held_k1_step(eng, loader) -> dict:
+    """One more step of ``eng`` (every rank; collective) with every K1
+    call recorded and held against its plain version, bit for bit
+    (:func:`hold_recorded`): the calls recorded and the largest error of
+    each kernel."""
+    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
+    step = eng._build_step()
+    batch = {k: v.to(eng.device) for k, v in
+             eng._host_batch(next(iter(loader))).items()}
+    calls, restore = _record((permute_rows, take_rows))
+    try:
+        eng.params, eng.opt_state, _ = step(eng.params, eng.opt_state,
+                                            batch)
+    finally:
+        restore()
+    return {"recorded": {k: len(c) for k, c in calls.items()},
+            "max_abs_err": {k: hold_recorded(k, c)
+                            for k, c in calls.items() if c}}
+
+
+def ep_cell(device: str, arch: str = "deepseek-v2-236b") -> dict:
+    """``--production --moe-ep``: the production cell of ``arch`` (an MoE
+    arch of :data:`PRODUCTION`; full width, its depth) on the (2, 2)
+    debug mesh with the MoE layers expert-parallel
+    (``models.moe.expert_parallel``) beside the all-column TP step, in
+    one process (every rank; collective):
+
+    * at seed 0's parameters on the first batch, the step-1 loss,
+      gradients and routing of both (:func:`ep_against_all_column`: each
+      MoE layer's top-k on the same tokens, the (token, choice) pairs
+      each drops);
+    * one sgd step of each under the dispatch accounting against the
+      dryrun's trace of the rank (:func:`_rank_step` at the cell's B 8 x
+      512): collective bytes by kind, FLOPs, the held memory;
+    * :data:`STEPS` steps of each through the engine (:func:`cell_run`:
+      ms a step, peak, K1's launches), one more step with K1's calls
+      held against its plain version (:func:`held_k1_step`), and on a
+      card one more under the profiler (busy share, NCCL ms).
+
+    The first rank's readings; an empty dict on the others."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.dist.sharding import tokens_pspec
+    from repro_torch.dist.tensor import batch_width
+    from repro_torch.launch.mesh import resolve_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import expert_parallel
+
+    cfg, docs, optimizer, reassembly = _cell(arch)
+    card = device != "cpu"
+    mesh = resolve_mesh("debug", device=device)
+    out = {"mesh": list(mesh.shape), "layers": cfg.n_layers, "arch": arch,
+           "reassembly": reassembly, "optimizer": PRODUCTION[arch][1],
+           "card": torch.cuda.get_device_name(0) if card else "cpu"}
+    n = batch_width(mesh, tokens_pspec(mesh, 8)[0] is not None)
+    whole = tree_map(lambda t: t.cpu(),
+                     build_model(cfg).init(seed=0, device=device))
+    out["step1"] = ep_against_all_column(
+        cfg, mesh, whole, first_batch(cfg, docs, device, n), reassembly)
+    del whole
+    for name in ("all_column", "ep"):
+        if card:
+            torch.cuda.empty_cache()
+        out.setdefault("collectives", {})[name] = _rank_step(
+            mesh, device, cfg=cfg, B=8, S=512, moe_ep=name == "ep",
+            one_device=False)
+    for name in ("all_column", "ep"):
+        if card:
+            torch.cuda.empty_cache()
+        with expert_parallel(mesh if name == "ep" else None):
+            eng, res, info = cell_run(cfg, docs, optimizer, reassembly,
+                                      mesh, device)
+            info["k1"] = held_k1_step(eng, _cell_loader(cfg, docs))
+            if card:
+                info["profile"] = _profile_step(eng, _cell_loader(cfg, docs))
+        out[name] = info
+        del eng, res
+    return out if dist.get_rank() == 0 else {}
+
+
 def production(device: str, arch: str = "starcoder2-3b") -> dict:
     """The ``--production`` cell of ``arch`` (module docstring); the first
     rank's readings, an empty dict on the others."""
@@ -1123,8 +1515,6 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
     from repro_torch.dist import tp
     from repro_torch.dist.sharding import tokens_pspec
     from repro_torch.dist.tensor import batch_width, full_tree
-    from repro_torch.kernels.vb_scatter import permute_rows, take_rows
-    from repro_torch.launch.engine import Engine
     from repro_torch.launch.mesh import resolve_mesh
     from repro_torch.models import build_model
 
@@ -1132,21 +1522,7 @@ def production(device: str, arch: str = "starcoder2-3b") -> dict:
     lead = dist.get_rank() == 0
 
     def run(mesh):
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        eng = Engine(build_model(cfg), cfg, optimizer(), mesh=mesh,
-                     reassembly=reassembly, log_every=1,
-                     device=device).init(0)
-        for k in (permute_rows, take_rows):
-            k.launches = 0
-        res = eng.run(_cell_loader(cfg, docs), steps=STEPS)
-        return eng, res, {
-            "losses": [float(x) for x in res.losses],
-            "step_ms": statistics.median(1e3 * t for t in res.step_s[1:]),
-            "step_s": res.step_s,
-            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
-            "launches": {"permute_rows": permute_rows.launches,
-                         "take_rows": take_rows.launches}}
+        return cell_run(cfg, docs, optimizer, reassembly, mesh, device)
 
     def gathered(res):
         return [t.cpu() if lead else None        # full_tree is collective
@@ -1261,9 +1637,10 @@ SEQ_CELLS = (("deepseek-7b", (1, 4), 4), ("deepseek-7b", (2, 2), 4),
 CELL_GAP = 1e-3           # a step's argmax is held where one card's top-2
 CELL_CACHE_RTOL = 1e-4    # gap exceeds it; the cache shards' relative gap
 # the forward-only kernels a TP prefill launches, with their plain
-# versions' tolerance (chip_smoke.py phase 2's)
+# versions' tolerance (chip_smoke.py phase 2's), and K1's (bit for bit)
 SERVE_KERNELS = {"flash_attention_bh": 1e-5, "ssd_bh": 2e-4,
-                 "rglru_scan_b": 1e-5}
+                 "rglru_scan_b": 1e-5, "permute_rows": 0.0,
+                 "take_rows": 0.0}
 
 
 # the split-sequence decode (ShardedServe(cache_seq_shard=True)), key ->
@@ -1402,7 +1779,8 @@ def _all_max(values, device) -> list:
 def serve_against_one_device(cfg, mesh, whole, inputs, start: int, *,
                              steps: int = SERVE_STEPS, fsdp=None,
                              cache_seq_shard: bool = False,
-                             max_len: int = None) -> dict:
+                             max_len: int = None,
+                             moe_ep: bool = False) -> dict:
     """The sharded serve step on ``mesh`` (every rank; collective) against
     one device on the same rows: this rank's rows of ``inputs`` (host
     tensors of every row) prefilled and decoded greedily ``steps`` steps
@@ -1416,7 +1794,12 @@ def serve_against_one_device(cfg, mesh, whole, inputs, start: int, *,
     token stream is equal, the cache leaves against their spec shards of
     the one-device cache (largest gap, relative gap, allclose), and for an
     MoE arch the (token, choice) pairs routed to another expert in the
-    prefill and the decode steps."""
+    prefill and the decode steps.  With ``moe_ep`` the sharded run's MoE
+    layers are expert-parallel (``models.moe.expert_parallel``), its
+    routing held against one device's on the same tokens by
+    :func:`ep_routing` (``flips`` then counts the order swaps, ``ep`` the
+    rest, per routing call)."""
+    from repro_torch.models.moe import expert_parallel
     from repro_torch.core.tl_step import ShardedServe
     from repro_torch.models import build_model
     model = build_model(cfg)
@@ -1427,25 +1810,32 @@ def serve_against_one_device(cfg, mesh, whole, inputs, start: int, *,
     dev = whole["embed"].device
     mine = {k: v[serve.rows].to(dev) for k, v in inputs.items()}
     routed = cfg.moe is not None
+    record = (lambda fn: _recorded_topk(fn)[1]) if moe_ep \
+        else _recorded_routes
     with torch.no_grad():
         run1 = []
-        routes1 = _recorded_routes(lambda: run1.extend(_one_device(
+        routes1 = record(lambda: run1.extend(_one_device(
             model, whole, mine, steps, start, max_len=max_len))) \
             if routed else run1.extend(_one_device(
                 model, whole, mine, steps, start, max_len=max_len))
         placed = serve.place(whole)
         run2 = []
-        routes2 = _recorded_routes(lambda: run2.extend(_sharded(
-            serve, placed, mine, steps, start, max_len=max_len))) \
-            if routed else run2.extend(_sharded(
-                serve, placed, mine, steps, start, max_len=max_len))
+        with expert_parallel(mesh if moe_ep else None):
+            routes2 = record(lambda: run2.extend(_sharded(
+                serve, placed, mine, steps, start, max_len=max_len))) \
+                if routed else run2.extend(_sharded(
+                    serve, placed, mine, steps, start, max_len=max_len))
     (l1, t1, c1), (l2, t2, c2) = run1, run2
     gap = float((l2 - l1).abs().max())
     close = bool(torch.allclose(l2, l1, atol=SERVE_TOL, rtol=SERVE_TOL))
     c_gap, c_rel, c_close = _cache_gaps(c2, cache_shards(serve, c1,
                                                          max_len))
-    flips = 0
-    if routed:
+    flips, ep = 0, None
+    if moe_ep:
+        ep = torch.tensor(ep_routing(cfg, mesh, routes1, routes2),
+                          dtype=torch.int64, device=dev).reshape(-1, 5)
+        dist.all_reduce(ep)
+    elif routed:
         if len(routes1) != len(routes2):
             raise AssertionError(f"{len(routes2)} route calls against "
                                  f"{len(routes1)}")
@@ -1456,6 +1846,11 @@ def serve_against_one_device(cfg, mesh, whole, inputs, start: int, *,
     worst = _all_max([gap, c_gap, c_rel, float(flips)] + bad, dev)
     flips_all = torch.tensor([flips], device=dev)
     dist.all_reduce(flips_all)
+    if ep is not None:
+        flips_all = ep[:, 0].sum()
+        ep = {"set_flips": ep[:, 1].tolist(), "pairs": ep[:, 2].tolist(),
+              "dropped_one_device": ep[:, 3].tolist(),
+              "dropped_ep": ep[:, 4].tolist()}
     return {"logit_gap": worst[0], "logits_close": not worst[4],
             "streams_equal": not worst[5], "cache_gap": worst[1],
             "cache_rel": worst[2], "cache_close": not worst[6],
@@ -1463,11 +1858,12 @@ def serve_against_one_device(cfg, mesh, whole, inputs, start: int, *,
             "flips": int(flips_all.item()), "rows": B, "prompt": start,
             "steps": steps, "max_len": max_len,
             "model_ranks": serve.model_ranks, "seq_ranks": serve.seq_ranks,
-            "routes": len(routes1) if routed else 0}
+            "routes": len(routes1) if routed else 0, "ep": ep}
 
 
 def _serve_rank(mesh, device, arch: str, fsdp=None,
-                cache_seq_shard: bool = False, B: int = SERVE_B) -> dict:
+                cache_seq_shard: bool = False, B: int = SERVE_B,
+                moe_ep: bool = False) -> dict:
     """One rank's sharded prefill (B 4, P 16) and decode step (the cache
     holding 17 positions; sequence-sharded, ``cache_seq_shard``, 20, so
     that it divides into 2 and 4 chunks) of reduced ``arch`` under the
@@ -1481,7 +1877,8 @@ def _serve_rank(mesh, device, arch: str, fsdp=None,
     real step runs on parameters that require grad, so its attentions
     and scans take the reference's own paths, as the trace on ``meta``
     does (the kernels' plain versions would hide their products from the
-    accounting)."""
+    accounting).  ``moe_ep``: the MoE layers expert-parallel, in the real
+    step and in the trace."""
     from repro_torch.analysis.dispatch_costs import accounting
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -1490,10 +1887,13 @@ def _serve_rank(mesh, device, arch: str, fsdp=None,
     from repro_torch.launch.dryrun import trace_serve
     from repro_torch.launch.specs import abstract_params
     from repro_torch.models import build_model
+    from repro_torch.models.moe import expert_parallel
 
     cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
     S = SERVE_P
+    def ep():
+        return expert_parallel(mesh if moe_ep else None)
     whole = model.init(seed=0, device=device)
     serve = ShardedServe(model, cfg, mesh, B, fsdp=fsdp,
                          cache_seq_shard=cache_seq_shard)
@@ -1506,7 +1906,7 @@ def _serve_rank(mesh, device, arch: str, fsdp=None,
         seq = S if kind == "prefill" else S + (4 if cache_seq_shard else 1)
         cache = serve.init_cache(seq)
         if kind == "decode":
-            with torch.no_grad():
+            with torch.no_grad(), ep():
                 serve.prefill(placed, cache, inputs["tokens"],
                               inputs.get("embeds"))
         seen = {}
@@ -1525,7 +1925,7 @@ def _serve_rank(mesh, device, arch: str, fsdp=None,
             return local, lambda: _watched(scope, watch)
         serve._entry = entry
         try:
-            with accounting() as costs:
+            with ep(), accounting() as costs:
                 if kind == "prefill":
                     serve.prefill(placed, cache, inputs["tokens"],
                                   inputs.get("embeds"))
@@ -1537,10 +1937,11 @@ def _serve_rank(mesh, device, arch: str, fsdp=None,
                     fed = [token]
         finally:
             serve._entry = real_entry
-        pred, coll, memory, program = trace_serve(
-            model, cfg, InputShape(kind, seq, B, kind), mesh,
-            abstract_params(model, torch.float32),
-            cache_seq_shard=cache_seq_shard, serve_fsdp=fsdp)
+        with ep():
+            pred, coll, memory, program = trace_serve(
+                model, cfg, InputShape(kind, seq, B, kind), mesh,
+                abstract_params(model, torch.float32),
+                cache_seq_shard=cache_seq_shard, serve_fsdp=fsdp)
         held = {"param_shard_bytes": sum(
                     t._local_tensor.numel() * t.element_size()
                     for t in tree_leaves(placed)),
@@ -1615,6 +2016,16 @@ def serve_checks(device: str) -> dict:
     for key, (arch, mesh, B) in SEQ_RANKS.items():
         out[key] = _serve_rank(meshes[mesh], device, arch,
                                cache_seq_shard=True, B=B)
+    # expert parallelism: the MoE layers' all_to_all path in the sharded
+    # prefill and decode steps, against one device and the dryrun's trace
+    for name, mesh in meshes.items():
+        for arch in ROUTED:
+            cfg = get_config(arch, reduced=True)
+            out[f"serve/{name}/{arch}/ep"] = serve_against_one_device(
+                cfg, mesh, build_model(cfg).init(seed=0, device=device),
+                serve_inputs(cfg, SERVE_B, SERVE_P), SERVE_P, moe_ep=True)
+        out[f"serve_rank/{name}/{EP_SERVE}/ep"] = _serve_rank(
+            mesh, device, EP_SERVE, moe_ep=True)
     return out if dist.get_rank() == 0 else {}
 
 
@@ -1657,21 +2068,21 @@ def _record(kernels) -> tuple:
     """Patch each kernel wrapper's ``__call__`` to keep a copy of every
     call's arguments and output (made after the call, so the path sees
     its own tensors); returns ``(calls by name, restore)``."""
-    calls, real = {}, {}
+    calls, real = {k.name: [] for k in kernels}, {}
 
     def keep(x):
         return x.clone() if isinstance(x, torch.Tensor) else x
 
-    for k in kernels:
-        cls, name = type(k), k.name
+    for cls in {type(k) for k in kernels}:   # K1's two share a class
         real[cls] = cls.__call__
-        calls[name] = []
 
-        def call(self, *a, _real=cls.__call__, _name=name, **kw):
+        def call(self, *a, _real=cls.__call__, **kw):
             out = _real(self, *a, **kw)
-            calls[_name].append(([keep(x) for x in a], kw,
-                                 tuple(keep(o) for o in out)
-                                 if isinstance(out, tuple) else keep(out)))
+            if self.name in calls:
+                calls[self.name].append((
+                    [keep(x) for x in a], kw,
+                    tuple(keep(o) for o in out)
+                    if isinstance(out, (tuple, list)) else keep(out)))
             return out
         cls.__call__ = call
 
@@ -1689,15 +2100,19 @@ def hold_recorded(name: str, calls: list) -> float:
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.rglru import rglru_ref
     from repro_torch.kernels.ssd import ssd_chunked_ref
+    from repro_torch.kernels.vb_scatter.ref import permute_rows_ref
     refs = {"flash_attention_bh": flash_attention_ref,
             "ssd_bh": lambda dA, x, Bm, Cm, chunk=256: ssd_chunked_ref(
                 dA, x, Bm, Cm, chunk),
-            "rglru_scan_b": lambda a, b, chunk=64: rglru_ref(a, b)}
+            "rglru_scan_b": lambda a, b, chunk=64: rglru_ref(a, b),
+            "permute_rows": lambda idx, *t: permute_rows_ref(idx, *t),
+            "take_rows": lambda idx, *t: permute_rows_ref(
+                idx, *t, mode="gather")}
     tol, worst = SERVE_KERNELS[name], 0.0
     for args, kw, out in calls:
         want = refs[name](*args, **kw)
-        outs = out if isinstance(out, tuple) else (out,)
-        wants = want if isinstance(want, tuple) else (want,)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        wants = want if isinstance(want, (tuple, list)) else (want,)
         for o, w in zip(outs, wants):
             torch.testing.assert_close(o, w, atol=tol, rtol=tol)
             worst = max(worst, float((o.float() - w.float()).abs().max()))
@@ -1713,7 +2128,8 @@ def _argmax_misses(got, want, gap: float) -> int:
 
 
 def serve_cell(device: str, arch: str, mesh_shape=(1, 4), *,
-               cache_seq_shard: bool = False, B: int = CELL_B) -> dict:
+               cache_seq_shard: bool = False, B: int = CELL_B,
+               moe_ep: bool = False) -> dict:
     """``--serve``: the sharded serve step of ``arch`` at full width (the
     depth of :data:`SERVE_CELLS`) on a (data, model) mesh of
     ``mesh_shape`` (every rank; collective): B rows (:data:`CELL_B`), a
@@ -1735,9 +2151,16 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4), *,
     sharded prefill and each one held against its plain version on its
     own inputs, ms a prefill and a decode step and peak bytes of both
     runs, and on a card one more sharded prefill and decode run under the
-    profiler (``launch.profile_serve``)."""
+    profiler (``launch.profile_serve``).  With ``moe_ep``
+    (``--serve --moe-ep``, an MoE arch) the same ``ShardedServe`` runs
+    again on the same placed weights with its MoE layers expert-parallel
+    (``models.moe.expert_parallel``), read as the gated run is (``ep``:
+    argmax misses, step gaps, cache, K4 launches held, ms, peak, the
+    profile), and each of its routing calls held against the gated run's
+    on the same tokens (:func:`ep_routing`: top-k, pairs dropped)."""
     from repro_torch.configs import get_config
     from repro_torch.core.tl_step import ShardedServe
+    from repro_torch.models.moe import expert_parallel
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bh
     from repro_torch.kernels.rglru.kernel import rglru_scan_b
     from repro_torch.kernels.ssd.kernel import ssd_bh
@@ -1794,7 +2217,7 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4), *,
         kernels = (flash_attention_bh, ssd_bh, rglru_scan_b)
         for k in kernels:
             k.launches = 0
-        got = sharded(ref["tokens"])
+        got, seen = _recorded_topk(lambda: sharded(ref["tokens"]))
         launches = {k.name: k.launches for k in kernels}
         c_gap, c_rel, _ = _cache_gaps(got.pop("cache"), cache_shards(
             serve, ref["cache"], max_len))     # freed before the turns
@@ -1826,6 +2249,64 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4), *,
         finite = bool(torch.isfinite(got["logits"]).all())
         profile = _profile_serve(serve, placed, mine, P, steps, device,
                                  max_len) if device != "cpu" else None
+        ep = None
+        if moe_ep:
+            with expert_parallel(mesh):
+                sharded(ref["tokens"], 2)          # warm
+                for k in kernels:
+                    k.launches = 0
+                ep_got, seen_ep = _recorded_topk(
+                    lambda: sharded(ref["tokens"]))
+                ep_launches = [k.launches for k in kernels]
+                e_gap, e_rel, _ = _cache_gaps(ep_got.pop("cache"),
+                                              cache_shards(serve,
+                                                           ref["cache"],
+                                                           max_len))
+                calls, restore = _record(kernels)
+                try:
+                    serve.prefill(placed, serve.init_cache(max_len),
+                                  mine["tokens"], mine.get("embeds"))
+                finally:
+                    restore()
+                ep = {"kernel_max_abs_err": {
+                          name: hold_recorded(name, c)
+                          for name, c in calls.items() if c},
+                      "recorded": {name: len(c)
+                                   for name, c in calls.items()},
+                      "sharded": {k: ep_got[k] for k in (
+                          "prefill_ms", "decode_ms", "peak_bytes")},
+                      "profile": _profile_serve(
+                          serve, placed, mine, P, steps, device, max_len)
+                      if device != "cpu" else None}
+                del calls
+            e_gaps = (ep_got["logits"] - ref["logits"]).abs().amax(
+                dim=(0, 2))
+            e_misses = _argmax_misses(ep_got["logits"], ref["logits"],
+                                      CELL_GAP)
+            e_finite = bool(torch.isfinite(ep_got["logits"]).all())
+            del ep_got
+    if moe_ep:
+        e_worst = _all_max([float(e_gaps.max()), e_gap, e_rel,
+                            float(e_misses), float(not e_finite)], dev)
+        routes = torch.tensor(ep_routing(cfg, mesh, seen, seen_ep),
+                              dtype=torch.int64, device=dev).reshape(-1, 5)
+        dist.all_reduce(routes)
+        e_lo = torch.tensor(ep_launches, device=dev)
+        e_hi = e_lo.clone()
+        dist.all_reduce(e_lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(e_hi, op=dist.ReduceOp.MAX)
+        names = [k.name for k in kernels]
+        ep.update({"logit_gap": e_worst[0], "step_gaps": e_gaps.tolist(),
+                   "cache_gap": e_worst[1], "cache_rel": e_worst[2],
+                   "argmax_misses": int(e_worst[3]),
+                   "finite": not e_worst[4],
+                   "launches_min": dict(zip(names, e_lo.tolist())),
+                   "launches_max": dict(zip(names, e_hi.tolist())),
+                   "flips": routes[:, 0].tolist(),
+                   "set_flips": routes[:, 1].tolist(),
+                   "pairs": routes[:, 2].tolist(),
+                   "dropped_all_column": routes[:, 3].tolist(),
+                   "dropped_ep": routes[:, 4].tolist()})
     worst = _all_max([float(gaps.max()), c_gap, c_rel, float(misses),
                       float(not finite)], dev)
     counts = torch.tensor([launches[k.name] for k in kernels], device=dev)
@@ -1850,7 +2331,7 @@ def serve_cell(device: str, arch: str, mesh_shape=(1, 4), *,
            "sharded": {k: got[k] for k in ("prefill_ms", "decode_ms",
                                            "peak_bytes")},
            "head_sharded": heads, "sharded_repeat": repeat,
-           "profile": profile}
+           "profile": profile, "ep": ep}
     dist.barrier()
     return out if lead else {}
 
@@ -1905,9 +2386,12 @@ def serve_gates(out: dict) -> dict:
     ok = {}
     for key, got in out.items():
         if key.startswith("serve/"):
+            ep = got.get("ep") or {}
             ok[key] = (got["logits_close"] and got["streams_equal"]
                        and got["cache_close"] and got["finite"]
-                       and got["flips"] == 0)
+                       and got["flips"] == 0
+                       and not any(ep.get("set_flips", ()))
+                       and not any(ep.get("dropped_ep", ())))
         elif key.startswith("serve_rank/"):
             ok[key] = all(
                 r["measured"] == r["predicted"]
@@ -1929,6 +2413,64 @@ def serve_gates(out: dict) -> dict:
             and c["finite"]
             and c["launches_min"] == want and c["launches_max"] == want
             and c["recorded"] == want)
+        if c.get("ep"):
+            e = c["ep"]
+            ok[f"{key}/ep"] = (
+                e["finite"] and topk_held(e) and e["launches_min"] == want
+                and e["launches_max"] == want and e["recorded"] == want
+                and (e["argmax_misses"] == 0 or dropped(e)))
+    return ok
+
+
+def dropped(r: dict) -> bool:
+    """Whether either run of an EP reading (:func:`ep_routing` 's counts)
+    dropped a (token, choice) pair."""
+    return any(r["dropped_ep"]) or any(r["dropped_all_column"])
+
+
+def topk_held(r: dict) -> bool:
+    """An EP reading's top-k gate: no token's top-k set differs from the
+    other run's on every routing call up to the first in which either
+    run dropped a pair (that one included); past it the two runs' inputs
+    may differ (a dropped pair changes what the next layer and the cache
+    hold), so the later calls are reported, not gated."""
+    for sets, a, b in zip(r["set_flips"], r["dropped_ep"],
+                          r["dropped_all_column"]):
+        if sets:
+            return False
+        if a or b:
+            return True
+    return len(r["set_flips"]) > 0
+
+
+def ep_gates(cell: dict) -> dict:
+    """``--production --moe-ep`` 's verdicts (:func:`ep_cell`): the step-1
+    top-k (:func:`topk_held`); where neither step dropped a pair, the
+    step-1 loss within 1e-4 and the gradients within
+    :func:`grads_hold` of the all-column step's (where one did, the
+    counts and the gaps are reported); each run's collectives, FLOPs and
+    held memory equal to the dryrun's trace of the rank, EP's with
+    all-to-all bytes; K1 once a step each way in both runs and every
+    K1 call of the extra step bit-equal to its plain version; finite
+    losses."""
+    ok, r = {}, cell["step1"]
+    ok["ep_cell/topk"] = topk_held(r)
+    ok["ep_cell/step1"] = dropped(r) or (
+        r["loss_gap"] < 1e-4 and grads_hold(r["grads"]))
+    ok["ep_cell/collectives"] = all(
+        c["measured"] == c["predicted"]
+        and c["flops"]["step"] == c["flops"]["dryrun"]
+        and c["memory"]["held"] == c["memory"]["reckoned"]
+        and not c["dtensor_ops"] for c in cell["collectives"].values()) \
+        and cell["collectives"]["ep"]["measured"].get("all-to-all", 0) > 0
+    k1 = {"permute_rows": STEPS, "take_rows": STEPS}
+    ok["ep_cell/k1"] = all(
+        cell[n]["launches"] == k1
+        and cell[n]["k1"]["recorded"] == {"permute_rows": 1, "take_rows": 1}
+        and max(cell[n]["k1"]["max_abs_err"].values()) == 0.0
+        for n in ("all_column", "ep"))
+    ok["ep_cell/losses"] = all(math.isfinite(x) for n in ("all_column", "ep")
+                               for x in cell[n]["losses"])
     return ok
 
 
@@ -1938,6 +2480,8 @@ def gates(out: dict) -> dict:
     ok = serve_gates(out)
     if "production_cell" in out:
         ok.update(production_gates(out["production_cell"]))
+    if "ep_cell" in out:
+        ok.update(ep_gates(out["ep_cell"]))
     if "debug_shape" not in out:
         return ok
     for key, got in out.items():
@@ -1976,6 +2520,21 @@ def gates(out: dict) -> dict:
         if key.startswith("routing/"):
             ok[key] = got["layers"] > 0 and not any(got["flips"]) \
                 and not any(got["set_flips"])
+        elif key.startswith("ep/"):
+            # reduced: nothing can drop, so the top-k and the drops gate
+            ok[key] = (got["layers"] > 0 and not any(got["flips"])
+                       and not any(got["set_flips"])
+                       and not any(got["dropped_all_column"])
+                       and not any(got["dropped_ep"]))
+        elif key.startswith("rank_ep/"):
+            ok[key] = (got["measured"] == got["predicted"]
+                       and got["measured"].get("all-to-all", 0) > 0
+                       and got["flops"]["step"] == got["flops"]["dryrun"]
+                       and got["memory"]["held"]
+                       == got["memory"]["reckoned"]
+                       and got["model_ops"] > 0 and not got["dtensor_ops"])
+    ok["ep_unset"] = out["ep_unset"] is True
+    ok["ep_rows"] = max(out["ep_rows"].values()) < 1e-5
     pr = out["tp_primitives"]
     ok["tp_primitives"] = (
         max(pr["ce"].values()) < 1e-6 and max(pr["ce_mask"].values()) < 1e-6
@@ -1983,7 +2542,8 @@ def gates(out: dict) -> dict:
         and all(pr["copy_to_model"].values())
         and all(pr["reduce_from_model"].values())
         and all(pr["gather_from_model"].values())
-        and all(pr["gather_weight"].values()))
+        and all(pr["gather_weight"].values())
+        and all(all(pr[k].values()) for k in EP_PRIMITIVES))
     c, p = out["constrain"], out["permuter"]
     ok["constrain"] = (c["identity"] and c["plain_identity"] and c["values"]
                        and c["placements"] == ["S(0)", "R"])
@@ -2069,6 +2629,11 @@ def main(argv=None):
                          "PRODUCTION's)")
     ap.add_argument("--cell-only", action="store_true",
                     help="with --production: the cell alone, no other check")
+    ap.add_argument("--moe-ep", action="store_true",
+                    help="with --production: the MoE arch's cell with its "
+                         "MoE layers expert-parallel beside the all-column "
+                         "step (ep_cell); with --serve: the serve cell's "
+                         "expert-parallel run beside the all-column one")
     ap.add_argument("--order", action="store_true",
                     help="one card, no torchrun: the cell's one-device run "
                          "against the same run with only the summation "
@@ -2076,7 +2641,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.cache_seq_shard and not args.serve:
         ap.error("--cache-seq-shard runs the --serve cells")
-    arch = args.arch or ("deepseek-7b" if args.serve else "starcoder2-3b")
+    if args.moe_ep and not (args.serve or args.production) \
+            or args.moe_ep and args.cache_seq_shard:
+        ap.error("--moe-ep runs with --production or --serve")
+    arch = args.arch or ("deepseek-v2-236b" if args.moe_ep else
+                         "deepseek-7b" if args.serve else "starcoder2-3b")
+    if args.moe_ep and arch not in ROUTED:
+        ap.error(f"--moe-ep needs an MoE arch ({', '.join(ROUTED)})")
     if (args.serve and arch not in SERVE_CELLS) or (
             not args.serve and arch not in PRODUCTION):
         ap.error(f"--arch {arch} has no "
@@ -2103,9 +2674,11 @@ def main(argv=None):
         box = [args.ckpt or (tempfile.mkdtemp(prefix="tl_check_dist_")
                              if dist.get_rank() == 0 else None)]
         dist.broadcast_object_list(box, src=0)
-        out = {} if (args.production and args.cell_only) or args.serve \
-            else run_checks(args.device, box[0])
-        if args.production:
+        out = {} if (args.production and (args.cell_only or args.moe_ep)) \
+            or args.serve else run_checks(args.device, box[0])
+        if args.production and args.moe_ep:
+            out["ep_cell"] = ep_cell(args.device, arch)
+        elif args.production:
             out["production_cell"] = production(args.device, arch)
         if args.serve and args.cache_seq_shard:
             for a, shape, B in SEQ_CELLS:
@@ -2117,7 +2690,8 @@ def main(argv=None):
                         torch.cuda.empty_cache()
         elif args.serve:
             out["serve_cell"] = serve_cell(
-                args.device, arch, tuple(int(n) for n in args.mesh.split("x")))
+                args.device, arch, tuple(int(n) for n in args.mesh.split("x")),
+                moe_ep=args.moe_ep)
         failed = []
         if dist.get_rank() == 0:
             ok = gates(out)
@@ -2128,6 +2702,13 @@ def main(argv=None):
                     reading = out["production_cell"]["routing"]
                 elif key.startswith("production_"):
                     reading = out["production_cell"]
+                elif key in ("ep_cell/topk", "ep_cell/step1"):
+                    reading = out["ep_cell"]["step1"]
+                elif key.startswith("ep_cell/"):
+                    reading = {k: v for k, v in out["ep_cell"].items()
+                               if k != "step1"}
+                elif key == "serve_cell/ep":
+                    reading = out["serve_cell"]["ep"]
                 print(f"DIST_CHECK {key} ok={str(ok[key]).lower()} "
                       f"{json.dumps(reading)}")
             if args.out:

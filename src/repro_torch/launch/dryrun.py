@@ -62,7 +62,15 @@ reference's split-sequence, flash-decoding layout) traces the same rank
 with each attention cache leaf held as its chunk of the sequence
 (``ShardedServe(cache_seq_shard=True)``): a decode step's partial softmax
 statistics are combined over the sequence entry's group, which
-:func:`axis_groups` makes beside the model axis's.
+:func:`axis_groups` makes beside the model axis's.  ``--moe-ep`` (the
+reference's flag) sets the production mesh as the expert-parallel mesh
+(``models.moe.expert_parallel``) around the trace, so the MoE archs'
+train, prefill and decode ranks run their MoE layers expert-parallel
+(``dist.tp`` 's EP table): each rank's E/m experts resharded from the
+all-column shards by an ``all_to_all`` on every call, its share of the
+positions routed, two ``all_to_all`` s a layer; the trace counts them
+(``all-to-all`` in ``coll_breakdown``) and the artifact records
+``moe_ep``.
 
 **Collectives a rank issues** (result bytes, all-reduce x2), modelled on
 what ``DTensor`` dispatches, which ``tests/test_torch_dist_gloo.py`` holds
@@ -564,6 +572,7 @@ def lower_one(arch: str, shape_name: str, mesh_kind: str, remat: str = "tl",
     from repro_torch.dist.sharding import batch_axes
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import build_model
+    from repro_torch.models.moe import expert_parallel
 
     cfg = get_config(arch)
     shape = get_shape(shape_name)
@@ -573,19 +582,13 @@ def lower_one(arch: str, shape_name: str, mesh_kind: str, remat: str = "tl",
                 "status": "skipped",
                 "reason": "full-attention arch: long-context decode is "
                           "quadratic by design (DESIGN.md §4)"}
-    if moe_ep:
-        raise NotImplementedError(
-            "--moe-ep: expert parallelism dispatches all_to_all over a "
-            "process group, and the dryrun traces one rank without one; "
-            "the port's sharded TL step routes each rank's rows with "
-            "moe_apply in any case")
-
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
     model = build_model(cfg)
     params = abstract_params(model, dtype)
     t0 = time.time()
     axes = batch_axes(mesh) if activation_constraints else None
-    with activation_sharding(axes):
+    with activation_sharding(axes), \
+            expert_parallel(mesh if moe_ep else None):
         if shape.kind == "train":
             costs, coll, memory, program = trace_train(
                 model, cfg, shape, mesh, params, remat, microbatch)
@@ -594,6 +597,12 @@ def lower_one(arch: str, shape_name: str, mesh_kind: str, remat: str = "tl",
                 model, cfg, shape, mesh, params, cache_seq_shard,
                 serve_fsdp)
     t_lower = time.time() - t0
+    if moe_ep and cfg.moe is not None:
+        program += (f"; the MoE layers expert-parallel over model (each "
+                    f"rank {cfg.moe.n_routed_experts // mesh.sizes['model']}"
+                    " whole experts resharded from the all-column layout "
+                    "by an all_to_all, the rank's share of the positions "
+                    "routed, two all_to_all a layer)")
 
     peak = sum(v for k, v in memory.items())
     r = Roofline(
@@ -617,7 +626,7 @@ def lower_one(arch: str, shape_name: str, mesh_kind: str, remat: str = "tl",
             "n_scatter_add": costs.n_scatter_add}
     tags.update(extra_tags or {})
     out.update(status="ok", remat=remat, microbatch=microbatch,
-               cache_seq_shard=cache_seq_shard,
+               cache_seq_shard=cache_seq_shard, moe_ep=moe_ep,
                activation_constraints=activation_constraints,
                memory_analysis=memory,
                t_lower_s=t_lower, t_compile_s=0.0,

@@ -23,11 +23,31 @@ GEMM library's kernel does not change with the output width).  A
 sharded prefill and decode step (``core.tl_step.ShardedServe``) take the
 same route on the rank's rows: the capacity is per group (batch row), so
 a decode step's is ``top_k`` and a prefill's ``ceil(S k cf / E)`` (cf the
-config's capacity factor), as on one device.  Expert parallelism and the
-tensor-parallel context exclude each other.
+config's capacity factor), as on one device.
+
+With an EP mesh set, ``moe_apply`` takes the expert-parallel path in
+every context, as the reference's jitted train, prefill and decode
+programs do:
+
+* inside the tensor-parallel context (the sharded TL step and
+  ``ShardedServe`` on a model axis of m > 1): the rank's rows as they
+  come, its S/m positions routed (every position where m does not divide
+  S), the router gathered whole, its E/m experts resharded from the
+  all-column layout by an ``all_to_all`` (``dist.tp`` 's EP table), the
+  dispatch, expert FFN and combine of ``moe_ep.moe_ep_local`` with its
+  two ``all_to_all`` s, the aux loss averaged over "model" (the sharded
+  step's mean over the batch shards supplies the rest of the reference's
+  ``pmean``), the shared experts all-column;
+* inside a sharded step on a model axis of 1 (:func:`rank_rows`, set by
+  ``core.tl_step.tensor_parallel``): ``moe_ep_local`` on the rank's rows,
+  no collective;
+* elsewhere: ``moe_ep.moe_apply_ep`` on whole tensors over the mesh.
+
+Unset, nothing of this runs.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -72,6 +92,37 @@ def set_expert_parallel_mesh(mesh):
     _EP_MESH = mesh
 
 
+@contextlib.contextmanager
+def expert_parallel(mesh):
+    """:func:`set_expert_parallel_mesh` (``mesh``) inside the block, the
+    previous mesh restored after it."""
+    prev = _EP_MESH
+    set_expert_parallel_mesh(mesh)
+    try:
+        yield
+    finally:
+        set_expert_parallel_mesh(prev)
+
+
+# Set (rank_rows) while moe_apply's input is one rank's rows of a sharded
+# step on a model axis of 1
+_RANK_ROWS = False
+
+
+@contextlib.contextmanager
+def rank_rows():
+    """Inside the block, ``moe_apply`` receives one rank's rows of a
+    sharded step that does not partition over "model": with an EP mesh
+    set it routes them locally (``moe_ep_local`` on one rank) instead of
+    cutting whole tensors.  Restores the previous state."""
+    global _RANK_ROWS
+    prev, _RANK_ROWS = _RANK_ROWS, True
+    try:
+        yield
+    finally:
+        _RANK_ROWS = prev
+
+
 def route(params, cfg: ModelConfig, x, xs=None):
     """Routing of x (G, T, d): returns ``(probs (G,T,E) f32, gate (G,T,k)
     renormalised, expert_idx (G,T,k), keep (G,T*k) bool, slot (G,T*k),
@@ -112,10 +163,8 @@ def route(params, cfg: ModelConfig, x, xs=None):
 def moe_apply(params, cfg: ModelConfig, x):
     """x (B,S,d) -> (out (B,S,d), aux_loss).  Groups are batch rows."""
     if _EP_MESH is not None:
-        if tp.active():
-            raise ValueError("expert parallelism (set_expert_parallel_mesh) "
-                             "and the tensor-parallel context exclude each "
-                             "other")
+        if tp.active() or _RANK_ROWS:
+            return _moe_apply_ep_rank(params, cfg, x)
         from repro_torch.dist.sharding import batch_axes
         from repro_torch.models.moe_ep import moe_apply_ep
         return moe_apply_ep(params, cfg, x, _EP_MESH,
@@ -168,3 +217,29 @@ def moe_apply(params, cfg: ModelConfig, x):
     if m.n_shared_experts:
         combined = combined + swiglu(params["shared"], x, xs=xs)
     return combined, aux
+
+
+def _moe_apply_ep_rank(params, cfg: ModelConfig, x):
+    """Expert parallelism on a rank's rows x (B, S, d) of a sharded step
+    (module docstring): over the tensor-parallel context's model axis, or
+    alone on a model axis of 1."""
+    from repro_torch.models.moe_ep import moe_ep_local
+    m = cfg.moe
+    group_name, size = tp.model_group()
+    xs = tp.copy_to_model(x)
+    # the router read whole by ranks that route different tokens: either
+    # way their gradients are summed over "model"
+    router = params["router"]
+    router = tp.gather_weight(router) \
+        if tp.partitioned(router.shape[-1], m.n_routed_experts) \
+        else tp.copy_to_model(router)
+    w = [tp.experts_to_ep(params[n], width) for n, width in (
+        ("w_gate", m.d_ff_expert), ("w_up", m.d_ff_expert),
+        ("w_down", cfg.d_model))]
+    y, aux = moe_ep_local(tp.sequence_share(xs), router.to(x.dtype), *w,
+                          cfg, group_name=group_name, size=size)
+    y = tp.sequence_whole(y, x.shape[1])
+    aux = tp.mean_over_model(aux)
+    if m.n_shared_experts:
+        y = y + swiglu(params["shared"], x, xs=xs)
+    return y, aux

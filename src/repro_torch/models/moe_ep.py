@@ -1,8 +1,7 @@
 """Expert-parallel MoE: explicit ``all_to_all`` dispatch over the model axis.
 
-Port of ``repro/models/moe_ep.py``.  ``moe_apply_ep(params, cfg, x,
-mesh)`` computes what ``moe.moe_apply`` computes, with the reference's
-``shard_map`` body run by each rank of ``mesh`` (a ``launch.mesh.Mesh``):
+Port of ``repro/models/moe_ep.py``.  The reference's ``shard_map`` body is
+:func:`moe_ep_local`, which each rank runs on its own tensors:
 
   per (data, model) rank, locally:
     route its tokens -> per-destination buffers (TP, E_local, C, d)
@@ -11,23 +10,30 @@ mesh)`` computes what ``moe.moe_apply`` computes, with the reference's
   all_to_all back                       (results return to token owners)
   local combine with the saved slot map
 
-The two ``all_to_all`` s are ``torch.distributed.nn.functional
-.all_to_all_single`` over the model axis's group, which carries gradients.
-Tokens shard over the data axes (batch rows) and the model axis (sequence,
-when it divides S), so each rank routes only its own slice; the capacity
-counts the rank's local tokens.  The ranks of the top-k follow
-``jax.lax.top_k``'s order (a stable descending sort, as ``moe.route``).
-The expert products are ``torch`` einsums, as the reference leaves them to
-XLA.
+The two ``all_to_all`` s are ``dist.tp.all_to_all`` over the model axis's
+group, which carries gradients.  Tokens shard over the data axes (batch
+rows) and the model axis (sequence, when it divides S), so each rank
+routes only its own slice; the capacity counts the rank's local tokens
+(:func:`capacity`: ``max(1, ceil(T k cf / E))``, not ``moe._capacity`` 's
+``top_k`` floor for a one-token group, so a decode step can drop tokens as
+the reference's does).  The ranks of the top-k follow ``jax.lax.top_k``'s
+order (a stable descending sort, as ``moe.route``).  The expert products
+are ``torch`` einsums, as the reference leaves them to XLA.
 
-``x`` and ``params`` are whole tensors, the same on every rank (the
-reference's global arrays), and so are the results: ``y`` is gathered
-from the ranks, the aux loss is the mean of the ranks' (the reference's
-``pmean`` over the model and data axes).  Gradients follow: a rank's
-contributions to ``x``, the router and its experts' weights are summed
-over the mesh in the backward pass, so every rank ends with the whole
-gradient.  (Inside the sharded TL step, whose loss runs on a rank's own
-rows, ``moe.moe_apply``'s batch-row groups are used instead.)
+Two callers hand it its tensors:
+
+* :func:`moe_apply_ep` takes whole tensors, the same on every rank of a
+  mesh (the reference's global arrays), and returns whole ones: ``y`` is
+  gathered from the ranks, the aux loss is the mean of the ranks' (the
+  reference's ``pmean`` over the model and data axes).  Gradients follow:
+  a rank's contributions to ``x``, the router and its experts' weights
+  are summed over the mesh in the backward pass, so every rank ends with
+  the whole gradient.  ``moe.moe_apply`` delegates to it when an EP mesh
+  is set outside a sharded step.
+* ``moe.moe_apply`` inside the sharded TL step and ``ShardedServe``
+  (``dist.tp`` 's EP table) hands it the rank's own rows, its positions'
+  share, the router gathered whole and its E/m experts resharded from
+  the all-column layout.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tp as tpar
 from repro_torch.models.layers import swiglu
 
 
@@ -110,11 +117,19 @@ class _MeanAcross(torch.autograd.Function):
         return g / ctx.n if ctx.n > 1 else g, None, None
 
 
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for a rank routing ``tokens`` tokens:
+    ``max(1, ceil(tokens k cf / E))`` (``repro/models/moe_ep.py:94``)."""
+    m = cfg.moe
+    return max(1, int(math.ceil(tokens * m.top_k * m.capacity_factor
+                                / m.n_routed_experts)))
+
+
 def _local_route(x_flat, router_w, cfg: ModelConfig, tp: int, cap: int):
     """Route local tokens; build per-destination buffers and the slot map.
 
     x_flat: (T, d).  Returns (buffers (tp, E_loc, cap, d), slot map (T, k),
-    gates (T, k), keep (T, k), aux)."""
+    gates (T, k), keep (T, k), aux, the top-k expert indices (T, k))."""
     m = cfg.moe
     E, k = m.n_routed_experts, m.top_k
     E_loc = E // tp
@@ -147,13 +162,40 @@ def _local_route(x_flat, router_w, cfg: ModelConfig, tp: int, cap: int):
                       device=x_flat.device)
     buf = buf.index_add(0, slot, x_flat.repeat_interleave(k, dim=0))
     return (buf[:-1].reshape(tp, E_loc, cap, d), slot.reshape(T, k),
-            gate.to(x_flat.dtype), keep, aux)
+            gate.to(x_flat.dtype), keep, aux, expert_idx)
 
 
-def _all_to_all(t, group):
-    from torch.distributed.nn.functional import all_to_all_single
-    t = t.contiguous()                  # the output must be contiguous too
-    return all_to_all_single(torch.empty_like(t), t, group=group)
+def moe_ep_local(x, router, w_gate, w_up, w_down, cfg: ModelConfig, *,
+                 group_name: str = None, size: int = 1):
+    """One rank's expert-parallel MoE, the reference's ``shard_map`` body:
+    ``x`` (Bl, Sl, d) this rank's tokens, ``router`` (d, E) whole, ``w_*``
+    this rank's E/m experts ((E/m, d, f), (E/m, d, f), (E/m, f, d)), the
+    model group by name and size (``size`` 1: one rank, no collective).
+    Returns this rank's ``y`` (Bl, Sl, d) and the aux loss as a mean over
+    this rank's tokens."""
+    Bl, Sl, d = x.shape
+    E_loc = w_gate.shape[0]
+    if E_loc * size != cfg.moe.n_routed_experts:
+        raise ValueError(f"{E_loc} experts a rank over {size} ranks is not "
+                         f"{cfg.moe.n_routed_experts}")
+    cap = capacity(Bl * Sl, cfg)
+    x_flat = x.reshape(Bl * Sl, d)
+    buf, slot, gate, keep, aux, _ = _local_route(x_flat, router, cfg, size,
+                                                 cap)
+    # tokens -> expert owners (split dim 0 across model, gather sources)
+    recv = tpar.all_to_all(buf, group_name, size) if size > 1 else buf
+    h_in = recv.transpose(0, 1).reshape(E_loc, size * cap, d)
+    g = torch.einsum("ecd,edf->ecf", h_in, w_gate)
+    u = torch.einsum("ecd,edf->ecf", h_in, w_up)
+    h_out = torch.einsum("ecf,efd->ecd", F.silu(g) * u, w_down)
+    # results -> token owners (same layout back)
+    send = h_out.reshape(E_loc, size, cap, d).transpose(0, 1)
+    back = tpar.all_to_all(send, group_name, size) if size > 1 else send
+    out_buf = torch.cat([back.reshape(size * E_loc * cap, d),
+                         back.new_zeros((1, d))], dim=0)
+    gathered = out_buf[slot.reshape(-1)].reshape(Bl * Sl, cfg.moe.top_k, d)
+    wts = (gate * keep).to(gathered.dtype)
+    return (gathered * wts[..., None]).sum(dim=1).reshape(Bl, Sl, d), aux
 
 
 def moe_apply_ep(params, cfg: ModelConfig, x, mesh, *,
@@ -166,7 +208,7 @@ def moe_apply_ep(params, cfg: ModelConfig, x, mesh, *,
     m = cfg.moe
     sizes = mesh.sizes
     tp = int(sizes[model_axis])
-    E, k = m.n_routed_experts, m.top_k
+    E = m.n_routed_experts
     assert E % tp == 0, "experts must divide the model axis"
     B, S, d = x.shape
     n_data = math.prod(int(sizes[a]) for a in data_axis)
@@ -177,7 +219,6 @@ def moe_apply_ep(params, cfg: ModelConfig, x, mesh, *,
     # only its own slice
     seq_shard = tp if S % tp == 0 else 1
     Bl, Sl = B // n_data, S // seq_shard
-    cap = max(1, int(math.ceil(Bl * Sl * k * m.capacity_factor / E)))
 
     rank = dist.get_rank()
 
@@ -196,26 +237,11 @@ def moe_apply_ep(params, cfg: ModelConfig, x, mesh, *,
 
     x_loc = _LocalPart.apply(x, ((0, r0, Bl), (1, s0, Sl)), group)
     router = _LocalPart.apply(params["router"].to(x.dtype), (), group)
-    w = {n: _LocalPart.apply(params[n], ((0, mi * E_loc, E_loc),), group)
-         for n in ("w_gate", "w_up", "w_down")}
-
-    x_flat = x_loc.reshape(Bl * Sl, d)
-    buf, slot, gate, keep, aux = _local_route(x_flat, router, cfg, tp, cap)
-    # tokens -> expert owners (split dim 0 across model, gather sources)
-    recv = _all_to_all(buf, model_group) if model_group is not None else buf
-    h_in = recv.transpose(0, 1).reshape(E_loc, tp * cap, d)
-    g = torch.einsum("ecd,edf->ecf", h_in, w["w_gate"])
-    u = torch.einsum("ecd,edf->ecf", h_in, w["w_up"])
-    h_out = torch.einsum("ecf,efd->ecd", F.silu(g) * u, w["w_down"])
-    # results -> token owners (same layout back)
-    send = h_out.reshape(E_loc, tp, cap, d).transpose(0, 1)
-    back = (_all_to_all(send, model_group) if model_group is not None
-            else send)
-    out_buf = torch.cat([back.reshape(tp * E_loc * cap, d),
-                         back.new_zeros((1, d))], dim=0)
-    gathered = out_buf[slot.reshape(-1)].reshape(Bl * Sl, k, d)
-    wts = (gate * keep).to(gathered.dtype)
-    y_loc = (gathered * wts[..., None]).sum(dim=1).reshape(Bl, Sl, d)
+    w = [_LocalPart.apply(params[n], ((0, mi * E_loc, E_loc),), group)
+         for n in ("w_gate", "w_up", "w_down")]
+    y_loc, aux = moe_ep_local(
+        x_loc, router, *w, cfg, size=tp,
+        group_name=None if model_group is None else model_group.group_name)
 
     members = sorted(mesh.ranks())         # the group's rank order
     where = [block_of(r)[:2] for r in members]

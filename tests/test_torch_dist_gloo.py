@@ -50,6 +50,18 @@ checks, which a 4-card machine runs under ``torchrun`` with NCCL, and
   with and without a mask, the embedding exact, ``copy_to_model`` /
   ``reduce_from_model`` / ``gather_from_model`` / ``gather_weight``
   forward and backward);
+* expert parallelism inside the sharded step
+  (``models.moe.set_expert_parallel_mesh``, the reference's
+  ``moe_apply_ep`` under ``train_shardings``): one sgd step of reduced
+  deepseek-v2 and deepseek-v3 on (2, 2) and (1, 4) from the reference's
+  bridged parameters against the reference's EP step (run in a
+  subprocess on 4 forced host devices while the world runs): loss 1e-4,
+  params 5e-3, the reference's gates; every MoE layer's top-k against
+  the all-column step's on the same rows and no pair dropped (the reduced
+  capacity factor E / k leaves room for every token); a rank's EP step
+  against the dryrun's trace (all-to-all bytes included); the all-column
+  step bit-equal before and after an EP step; ``dist.tp`` 's EP
+  functions on a 2-rank group;
 * ``constrain_batch`` and the DTensor row permuter; ``resolve_mesh``.
 
 ``check_dist`` 's serve checks run in ``tests/test_torch_tp_serve.py``'s
@@ -73,9 +85,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.launch.check_dist import (ARCHS, ENCDEC,  # noqa: E402
-                                           EXACT_SHARE, FRAME_STD,
-                                           RANK_ARCHS, RECURRENT, ROUTED,
-                                           TP_CASES)
+                                           EP_PRIMITIVES, EXACT_SHARE,
+                                           FRAME_STD, RANK_ARCHS, RECURRENT,
+                                           ROUTED, TP_CASES)
 
 REASSEMBLY = ["torch", "kernel"]
 TP_MESHES = ["debug22", "model4"]
@@ -86,7 +98,8 @@ WORLD = textwrap.dedent('''
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
-    def work(rank, world, store, ckdir, out_path, ref_path, grads_path):
+    def work(rank, world, store, ckdir, out_path, ref_path, grads_path,
+             ep_path):
         torch.set_num_threads(1)
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=world)
@@ -105,6 +118,19 @@ WORLD = textwrap.dedent('''
                   "debug22": make_mesh_compat((2, 2), ("data", "model"),
                                               device="cpu")}
         got = {}
+        # expert parallelism: one sgd step from the reference's parameters
+        from repro_torch.launch.check_dist import sgd_step
+        from repro_torch.models.moe import expert_parallel
+        with open(ep_path, "rb") as f:
+            ep_cases = pickle.load(f)
+        for arch, (np_params, batch) in ep_cases.items():
+            cfg = get_config(arch, reduced=True)
+            whole = params_from_jax(np_params, cfg, torch.device("cpu"))
+            batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+            for name, mesh in meshes.items():
+                with expert_parallel(mesh):
+                    got[f"ep/{name}/{arch}"] = sgd_step(cfg, whole, batch,
+                                                        mesh, 0.1)
         for key, (arch, reas, np_params, batch, names) in cases.items():
             cfg = get_config(arch, reduced=True)
             whole = params_from_jax(np_params, cfg, torch.device("cpu"))
@@ -122,7 +148,53 @@ WORLD = textwrap.dedent('''
         dist.destroy_process_group()
 
     if __name__ == "__main__":
-        mp.spawn(work, args=(4,) + tuple(sys.argv[1:6]), nprocs=4)
+        mp.spawn(work, args=(4,) + tuple(sys.argv[1:7]), nprocs=4)
+''')
+
+# the reference's EP step on 4 forced host devices: one sgd(0.1) step of
+# make_train_step under train_shardings with set_expert_parallel_mesh, on
+# the (2, 2) debug mesh and a (1, 4) mesh, from PRNGKey(0) parameters and
+# the batch the world steps on
+JAX_EP = textwrap.dedent('''
+    import os, pickle, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax
+    import numpy as np
+    from repro.configs import get_config
+    from repro.configs.shapes import InputShape
+    from repro.core.tl_step import make_train_step, train_shardings
+    from repro.launch.mesh import make_mesh_compat
+    from repro.models import build_model, moe
+    from repro.optim import sgd
+
+    with open(sys.argv[1], "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for arch, (_, batch) in cases.items():
+        cfg = get_config(arch, reduced=True)
+        model = build_model(cfg)
+        params = jax.jit(model.init)(jax.random.PRNGKey(0))
+        opt = sgd(0.1)
+        state = opt.init(params)
+        step = make_train_step(model, cfg, opt)
+        B, S = batch["tokens"].shape
+        for name, shape in (("debug22", (2, 2)), ("model4", (1, 4))):
+            mesh = make_mesh_compat(shape, ("data", "model"))
+            moe.set_expert_parallel_mesh(mesh)
+            try:
+                with mesh:
+                    in_sh, out_sh = train_shardings(
+                        params, state, cfg, mesh, InputShape("ep", S, B,
+                                                             "train"))
+                    new, _, loss = jax.jit(step, in_shardings=in_sh,
+                                           out_shardings=out_sh)(
+                        params, state, batch)
+            finally:
+                moe.set_expert_parallel_mesh(None)
+            out[f"{name}/{arch}"] = (float(loss),
+                                     jax.tree.map(np.asarray, new))
+    with open(sys.argv[2], "wb") as f:
+        pickle.dump(out, f)
 ''')
 
 # a TP rank against the JAX reference: 4 KV heads split over 4 model
@@ -182,16 +254,68 @@ def jax_reference(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def world_and_grads(tmp_path_factory, jax_reference):
+def jax_ep(tmp_path_factory):
+    """The reference's EP steps (:data:`JAX_EP`), started in a subprocess
+    at once for the two MoE archs on the batch the world steps on (B 4,
+    S 16, seeded tokens); yields the cases handed to the world and a
+    function that waits for the reference's ``{f"{mesh}/{arch}": (loss,
+    params)}``."""
+    from repro_torch.configs import get_config
+    tmp = tmp_path_factory.mktemp("jax_ep")
+    cases = {}
+    for arch in ROUTED:
+        cfg = get_config(arch, reduced=True)
+        rng = np.random.default_rng(1)
+        toks = rng.integers(0, cfg.vocab_size, size=(4, 16)).astype(np.int32)
+        cases[arch] = (None, {"tokens": toks,
+                              "targets": np.roll(toks, -1, 1)})
+    src, got = tmp / "cases.pkl", tmp / "ep.pkl"
+    src.write_bytes(pickle.dumps(cases))
+    (tmp / "jax_ep.py").write_text(JAX_EP)
+    env = dict(os.environ, PYTHONPATH=os.path.abspath("src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, str(tmp / "jax_ep.py"),
+                             str(src), str(got)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    done = {}
+
+    def result():
+        if not done:
+            _, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-4000:]
+            done.update(pickle.loads(got.read_bytes()))
+        return done
+    try:
+        yield cases, result
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.fixture(scope="module")
+def world_and_grads(tmp_path_factory, jax_reference, jax_ep):
+    import jax
+
+    from repro.models import build_model as jax_build_model
+    from repro.configs import get_config as jax_get_config
     tmp = tmp_path_factory.mktemp("gloo")
     script = tmp / "world.py"
     script.write_text(WORLD)
     out, grads = tmp / "out.json", tmp / "grads.pkl"
+    ep_cases = {}
+    for arch, (_, batch) in jax_ep[0].items():   # PRNGKey(0) parameters
+        jm = jax_build_model(jax_get_config(arch, reduced=True))
+        ep_cases[arch] = (jax.tree.map(np.asarray, jax.jit(jm.init)(
+            jax.random.PRNGKey(0))), batch)
+    ep_path = tmp / "ep_cases.pkl"
+    ep_path.write_bytes(pickle.dumps(ep_cases))
     env = dict(os.environ, PYTHONPATH=os.path.abspath("src"),
                OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, str(script), str(tmp / "store"), str(tmp / "ck"),
-         str(out), str(jax_reference[0]), str(grads)],
+         str(out), str(jax_reference[0]), str(grads), str(ep_path)],
         env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return json.loads(out.read_text()), pickle.loads(grads.read_bytes())
@@ -487,7 +611,8 @@ def test_vocab_parallel_cross_entropy_on_two_ranks(world, case):
 
 
 @pytest.mark.parametrize("what", ["copy_to_model", "reduce_from_model",
-                                  "gather_from_model", "gather_weight"])
+                                  "gather_from_model", "gather_weight"]
+                         + list(EP_PRIMITIVES))
 def test_tp_autograd_functions_on_two_ranks(world, what):
     assert world["tp_primitives"][what] == {"forward": True,
                                             "backward": True}
@@ -496,6 +621,77 @@ def test_tp_autograd_functions_on_two_ranks(world, what):
 def test_vocab_parallel_embedding_is_exact_and_unset_is_identity(world):
     pr = world["tp_primitives"]
     assert pr["embedding_exact"] and pr["identity_unset"], pr
+
+
+@pytest.mark.parametrize("arch", ROUTED)
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_expert_parallel_step_matches_the_jax_reference(
+        world_and_grads, jax_ep, mesh, arch):
+    """One sgd step of the sharded step with the MoE layers
+    expert-parallel (the rank's positions routed, its E/m experts
+    resharded by an ``all_to_all``, two ``all_to_all`` s a layer) from
+    the reference's bridged parameters, against the reference's EP step
+    (``moe_apply_ep`` in its jitted step under ``train_shardings``) on
+    the same batch: loss 1e-4 and params 5e-3, the reference's gates."""
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    loss, params = world_and_grads[1][f"ep/{mesh}/{arch}"]
+    want_loss, want_np = jax_ep[1]()[f"{mesh}/{arch}"]
+    want = params_from_jax(want_np, get_config(arch, reduced=True),
+                           torch.device("cpu"))
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(tree_leaves(params), tree_leaves(want)))
+    print(f"{mesh} {arch}: EP loss {loss!r} against the reference's "
+          f"{want_loss!r}, param gap {gap!r}")
+    assert abs(loss - want_loss) < 1e-4, (loss, want_loss)
+    assert gap < 5e-3, gap
+
+
+@pytest.mark.parametrize("arch", ROUTED)
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_expert_parallel_routes_as_all_column(world, mesh, arch):
+    """Every MoE layer's top-k on an EP rank's tokens equals the
+    all-column step's on the same tokens, and neither drops a pair (the
+    reduced capacity factor is E / k); the loss moves only by the aux
+    term's grouping (the mean over a rank's tokens, as the reference's
+    EP averages it)."""
+    got = world[f"ep/{mesh}/{arch}"]
+    print(f"{mesh} {arch}: EP loss gap to all-column {got['loss_gap']!r}, "
+          f"grad gap {got['grads']['max_gap']!r}")
+    assert got["layers"] == 1 and got["pairs"] == [4 * 16 * 2], got
+    assert got["flips"] == [0] and got["set_flips"] == [0], got
+    assert got["dropped_all_column"] == [0] and got["dropped_ep"] == [0]
+
+
+@pytest.mark.parametrize("arch", ROUTED)
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_dryrun_expert_parallel_rank_equals_the_real_step(world, mesh,
+                                                          arch):
+    """``launch.dryrun.trace_train`` with the EP mesh set against a real
+    EP rank's step: collective bytes by kind (the all-to-all's included),
+    FLOPs and the held memory equal, no model op handed a ``DTensor``."""
+    got = world[f"rank_ep/{mesh}/{arch}"]
+    print(f"{mesh} {arch}: {got['measured']}")
+    assert got["measured"] == got["predicted"], got
+    assert got["measured"]["all-to-all"] > 0, got
+    assert got["flops"]["step"] == got["flops"]["dryrun"], got["flops"]
+    assert got["memory"]["held"] == got["memory"]["reckoned"], got
+    assert got["model_ops"] > 0 and got["dtensor_ops"] == [], got
+
+
+def test_unset_expert_parallelism_leaves_the_step_bit_equal(world):
+    assert world["ep_unset"] is True
+
+
+def test_expert_parallel_step_on_rank_rows_without_a_model_axis(world):
+    """On a (4, 1) mesh no rank partitions over "model": with the EP mesh
+    set each rank routes its own row (``models.moe.rank_rows``), whose
+    group, capacity and aux term are the step's without EP, so the loss
+    and gradients agree within 1e-5."""
+    got = world["ep_rows"]
+    print(f"(4, 1) EP against no EP: {got}")
+    assert got["loss_gap"] < 1e-5 and got["grad_gap"] < 1e-5, got
 
 
 def test_constrain_batch(world):

@@ -15,6 +15,10 @@
   gather-whole rank's FLOPs, no parameter gathered.  A rank's FLOPs,
   collectives and held memory on (2, 2), (1, 4) and (2, 2, 1) against the
   real step's on four gloo ranks are in ``tests/test_torch_dist_gloo.py``.
+  With ``moe_ep`` (``--moe-ep``) deepseek-v2's rank (depth cut to one
+  MoE layer) traces the expert-parallel MoE layers: its all-to-all bytes
+  and its FLOPs beside the all-column rank's as stated from the shapes,
+  at ``train_4k`` and a small prefill and decode.
 * The ``skipped`` verdicts equal the reference's for every arch at
   ``decode_32k`` and ``long_500k`` (the reference's in a subprocess: its
   module forces 512 host devices on import).
@@ -463,3 +467,81 @@ def test_seq_shard_decode_32k_holds_a_sixteenth_of_the_cache():
     print(f"qwen2-vl-72b decode_32k cache a rank: {whole} -> {chunk}")
     assert whole > 80e9
     assert chunk == pytest.approx(whole / 16, rel=1e-2)
+
+
+def _ep_all_to_all_bytes(cfg, rows: int, seq: int, m: int, passes: int,
+                         itemsize: int = 2) -> int:
+    """The all-to-all result bytes of one MoE layer of an EP rank
+    (``models.moe_ep``), stated from the shapes: its tokens (``rows`` x
+    ``seq / m`` positions, every position where m does not divide it),
+    two dispatch buffers (m, E/m, C, d) with C = ceil(T k cf / E), and
+    the three expert stacks' reshard (E, ., ./m), each ``passes`` times
+    (a serve step 1; the TL tail 3: forward, recompute, backward)."""
+    import math
+    e = cfg.moe
+    tokens = rows * (seq // m if seq % m == 0 else seq)
+    cap = max(1, math.ceil(tokens * e.top_k * e.capacity_factor
+                           / e.n_routed_experts))
+    buffers = 2 * e.n_routed_experts * cap * cfg.d_model
+    experts = 3 * e.n_routed_experts * cfg.d_model * e.d_ff_expert // m
+    return passes * (buffers + experts) * itemsize
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "small_prefill",
+                                        "small_decode"])
+def test_lower_one_moe_ep_traces_the_expert_parallel_rank(shape_name,
+                                                          monkeypatch):
+    """``lower_one(moe_ep=True)`` (``--moe-ep``) for deepseek-v2-236b at
+    full width, depth cut to its dense layer and one MoE layer, on the
+    16 x 16 mesh: ``status: ok``, ``moe_ep`` recorded, the program naming
+    the expert-parallel MoE layers, its all-to-all bytes those stated from
+    the shapes (``train_4k``: 16 rows x 256 positions a rank, C 192; the
+    small prefill: 2 rows x 20 positions; a decode step: every rank routes
+    the same 2 tokens, C 1), the rank's FLOPs the all-column rank's plus
+    the difference stated from the shapes (:func:`_ep_flops_over_all_column`;
+    none at ``train_4k``), and the artifact's keys the all-column run's."""
+    arch = "deepseek-v2-236b"
+    cut = dataclasses.replace(get_config(arch), n_layers=2)
+    monkeypatch.setattr(dryrun, "get_config", lambda name: cut)
+    if shape_name.startswith("small_"):
+        shape_name = _small_shape(monkeypatch, shape_name[6:]).name
+    shape = get_shape(shape_name)
+    ep = dryrun.lower_one(arch, shape_name, "single", moe_ep=True)
+    col = dryrun.lower_one(arch, shape_name, "single")
+    assert ep["status"] == "ok" and ep["moe_ep"] is True, ep
+    assert col["moe_ep"] is False and set(ep) == set(col)
+    assert "expert-parallel over model" in ep["extra_tags"]["rank_program"]
+    assert "all-to-all" not in col["coll_breakdown"]
+    rows = shape.global_batch // 16 if shape.kind != "decode" \
+        and shape.global_batch >= 16 else shape.global_batch
+    seq = 1 if shape.kind == "decode" else shape.seq_len
+    want = _ep_all_to_all_bytes(cut, rows, seq, 16,
+                                3 if shape.kind == "train" else 1)
+    print(f"{shape_name}: all-to-all {ep['coll_breakdown']['all-to-all']} "
+          f"(stated {want}); FLOPs {ep['flops_per_chip']!r} against the "
+          f"all-column rank's {col['flops_per_chip']!r}")
+    assert ep["coll_breakdown"]["all-to-all"] == want
+    assert ep["flops_per_chip"] - col["flops_per_chip"] \
+        == _ep_flops_over_all_column(cut, rows, seq, 16)
+    assert not torch.distributed.is_initialized()
+
+
+def _ep_flops_over_all_column(cfg, rows: int, seq: int, m: int) -> int:
+    """An EP rank's matrix-product FLOPs over the all-column rank's in one
+    MoE layer of a serve step, stated from the shapes: the expert
+    products run on E x C_ep rows of the whole f against rows x E x C
+    rows of f/m (C the one-device capacity of a row, ``top_k`` for one
+    token), and the router on the rank's tokens and every expert against
+    every token and E/m of them.  0 at ``train_4k`` (C_ep = C, the
+    positions split), so the train step's count is equal too."""
+    import math
+    e = cfg.moe
+    E, k, d, f = e.n_routed_experts, e.top_k, cfg.d_model, e.d_ff_expert
+    split = seq % m == 0
+    tokens = rows * (seq // m if split else seq)
+    cap = max(1, math.ceil(tokens * k * e.capacity_factor / E))
+    c_row = max(math.ceil(seq * k * e.capacity_factor / E),
+                k if seq == 1 else 1)
+    experts = 6 * d * f * (E * cap * m - rows * E * c_row) // m
+    router = 2 * d * E * (tokens * m - rows * seq) // m
+    return experts + router

@@ -37,7 +37,14 @@ and the tests below assert on them:
   every logit finite); the JAX archs' sequence-sharded ranks against the
   reference too, Mamba-2's (no attention cache) bit-equal to its
   head-sharded rank; and a sequence-sharded rank of every arch, and of
-  B 1, against the dryrun's trace (``check_dist.SEQ_RANKS``).
+  B 1, against the dryrun's trace (``check_dist.SEQ_RANKS``);
+* expert parallelism (``models.moe.set_expert_parallel_mesh``): the two
+  MoE archs' sharded prefill and decode with their MoE layers
+  expert-parallel on both meshes against one device (as above, and every
+  routing call's top-k equal, no pair dropped), reduced deepseek-v2's EP
+  rank against the reference's EP ``prefill`` / ``decode_step`` jitted
+  under ``serve_shardings`` (a subprocess on 4 forced host devices) within
+  1e-5, tokens equal, and its EP rank against the dryrun's trace.
 
 The JAX side runs in this process while the world runs.  The cache
 shapes against ``serve_shardings``' shards and the cache helpers' unset
@@ -57,10 +64,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import get_config, list_archs  # noqa: E402
-from repro_torch.launch.check_dist import (ROUTED, RING,  # noqa: E402
-                                           SEQ_CASES, SEQ_RANKS, SERVE_B,
-                                           SERVE_P, SERVE_STEPS, SERVE_TOL,
-                                           serve_inputs)
+from repro_torch.launch.check_dist import (EP_SERVE, ROUTED,  # noqa: E402
+                                           RING, SEQ_CASES, SEQ_RANKS,
+                                           SERVE_B, SERVE_P, SERVE_STEPS,
+                                           SERVE_TOL, serve_inputs)
 
 ARCHS = list_archs()
 MESHES = ["debug22", "model4"]
@@ -76,6 +83,8 @@ RANKS = [f"serve_rank/{m}/{a}" for m in MESHES for a in ARCHS] + [
     "serve_rank/debug22/deepseek-7b/tp_only"]
 SEQ_KEYS = list(SEQ_CASES)
 SEQ_RANK_KEYS = list(SEQ_RANKS)
+EP_KEYS = [f"serve/{m}/{a}/ep" for m in MESHES for a in ROUTED]
+EP_RANK_KEYS = [f"serve_rank/{m}/{EP_SERVE}/ep" for m in MESHES]
 
 WORLD = textwrap.dedent('''
     import json, pickle, sys
@@ -83,7 +92,7 @@ WORLD = textwrap.dedent('''
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
-    def work(rank, world, store, out_path, ref_path, got_path):
+    def work(rank, world, store, out_path, ref_path, got_path, ep_arch):
         torch.set_num_threads(1)
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=world)
@@ -101,17 +110,21 @@ WORLD = textwrap.dedent('''
         with open(ref_path, "rb") as f:
             cases = pickle.load(f)
         got = {}
+        from repro_torch.models.moe import expert_parallel
         for arch, (np_params, inputs, start, steps) in cases.items():
             cfg = get_config(arch, reduced=True)
             whole = params_from_jax(np_params, cfg, torch.device("cpu"))
             inputs = {k: torch.from_numpy(v) for k, v in inputs.items()}
-            for (name, mesh), seq in ((m, q) for m in meshes.items()
-                                      for q in (False, True)):
+            runs = [(m, q, None) for m in meshes.items()
+                    for q in (False, True)]
+            if arch == ep_arch:          # and with the MoE layers EP
+                runs += [(m, False, m[1]) for m in meshes.items()]
+            for (name, mesh), seq, ep in runs:
                 serve = ShardedServe(build_model(cfg), cfg, mesh,
                                      len(inputs["tokens"]),
                                      cache_seq_shard=seq)
                 mine = {k: v[serve.rows] for k, v in inputs.items()}
-                with torch.no_grad():
+                with torch.no_grad(), expert_parallel(ep):
                     logits, toks, _ = _sharded(serve, serve.place(whole),
                                                mine, steps, start)
                 parts = [None] * world
@@ -120,7 +133,8 @@ WORLD = textwrap.dedent('''
                 seen = {}
                 for r0, lg, tk in parts:         # each block of rows once
                     seen[r0] = (lg, tk)
-                got[f"{name}/{arch}" + ("/seq" if seq else "")] = [
+                got[f"{name}/{arch}" + ("/seq" if seq else "")
+                    + ("/ep" if ep is not None else "")] = [
                     seen[r0] for r0 in sorted(seen)]
         if rank == 0:
             with open(out_path, "w") as f:
@@ -131,7 +145,58 @@ WORLD = textwrap.dedent('''
         dist.destroy_process_group()
 
     if __name__ == "__main__":
-        mp.spawn(work, args=(4,) + tuple(sys.argv[1:5]), nprocs=4)
+        mp.spawn(work, args=(4,) + tuple(sys.argv[1:6]), nprocs=4)
+''')
+
+# the reference's EP prefill and greedy decode on 4 forced host devices:
+# model.prefill and make_serve_step jitted under serve_shardings with
+# set_expert_parallel_mesh, on the (2, 2) and (1, 4) meshes
+JAX_EP = textwrap.dedent('''
+    import os, pickle, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import get_config
+    from repro.configs.shapes import InputShape
+    from repro.core.tl_step import make_serve_step, serve_shardings
+    from repro.launch.mesh import make_mesh_compat
+    from repro.models import build_model, moe
+
+    arch, start, steps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    with open(sys.argv[4], "rb") as f:
+        tokens = pickle.load(f)
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = jax.jit(model.init)(jax.random.PRNGKey(0))
+    B = tokens.shape[0]
+    out = {}
+    for name, shape in (("debug22", (2, 2)), ("model4", (1, 4))):
+        mesh = make_mesh_compat(shape, ("data", "model"))
+        moe.set_expert_parallel_mesh(mesh)
+        try:
+            with mesh:
+                cache = model.init_cache(B, start + steps)
+                in_sh, out_sh = serve_shardings(
+                    params, cache, cfg, mesh,
+                    InputShape("ep", start + steps, B, "decode"))
+                prefill = jax.jit(lambda p, c, t: model.prefill(p, c, t),
+                                  in_shardings=(in_sh[0], in_sh[1], None),
+                                  out_shardings=out_sh)
+                decode = jax.jit(make_serve_step(model, cfg),
+                                 in_shardings=in_sh, out_shardings=out_sh)
+                logits, cache = prefill(params, cache, tokens)
+                seq, toks = [np.asarray(logits)], []
+                for t in range(steps):
+                    tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+                    toks.append(np.asarray(tok))
+                    logits, cache = decode(params, cache, tok, start + t)
+                    seq.append(np.asarray(logits))
+        finally:
+            moe.set_expert_parallel_mesh(None)
+        out[name] = (np.stack(seq, 1), np.stack(toks, 1))
+    with open(sys.argv[5], "wb") as f:
+        pickle.dump(out, f)
 ''')
 
 
@@ -165,8 +230,20 @@ def world_and_jax(tmp_path_factory):
 
     from repro.configs import get_config as jax_get_config
     from repro.models import build_model as jax_build_model
+    tmp = tmp_path_factory.mktemp("serve")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath("src"),
+               OMP_NUM_THREADS="1")
+    # the reference's EP programs, on 4 forced host devices, meanwhile
+    toks = serve_inputs(get_config(EP_SERVE, reduced=True), SERVE_B,
+                        SERVE_P)["tokens"].numpy()
+    (tmp / "ep_tokens.pkl").write_bytes(pickle.dumps(toks))
+    (tmp / "jax_ep.py").write_text(JAX_EP)
+    ep_proc = subprocess.Popen(
+        [sys.executable, str(tmp / "jax_ep.py"), EP_SERVE, str(SERVE_P),
+         str(SERVE_STEPS), str(tmp / "ep_tokens.pkl"), str(tmp / "ep.pkl")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     cases, jax_side = {}, {}
-    for arch in JAX_ARCHS:
+    for arch in JAX_ARCHS + (EP_SERVE,):
         jcfg = jax_get_config(arch, reduced=True)
         jm = jax_build_model(jcfg)
         jparams = jax.jit(jm.init)(jax.random.PRNGKey(0))
@@ -174,26 +251,29 @@ def world_and_jax(tmp_path_factory):
             get_config(arch, reduced=True), SERVE_B, SERVE_P).items()}
         cases[arch] = (jax.tree.map(np.asarray, jparams), inputs, SERVE_P,
                        SERVE_STEPS)
-        jax_side[arch] = (jm, jparams, inputs)
-    tmp = tmp_path_factory.mktemp("serve")
+        if arch in JAX_ARCHS:
+            jax_side[arch] = (jm, jparams, inputs)
     (tmp / "world.py").write_text(WORLD)
     ref, out, got = tmp / "cases.pkl", tmp / "out.json", tmp / "got.pkl"
     ref.write_bytes(pickle.dumps(cases))
-    env = dict(os.environ, PYTHONPATH=os.path.abspath("src"),
-               OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, str(tmp / "world.py"), str(tmp / "store"),
-         str(out), str(ref), str(got)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+         str(out), str(ref), str(got), EP_SERVE], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         want = {arch: _jax_greedy(jm, jp, inputs, SERVE_P, SERVE_STEPS)
                 for arch, (jm, jp, inputs) in jax_side.items()}
         _, err = proc.communicate(timeout=600)
+        _, ep_err = ep_proc.communicate(timeout=600)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for p in (proc, ep_proc):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     assert proc.returncode == 0, err[-4000:]
+    assert ep_proc.returncode == 0, ep_err[-4000:]
+    for name, got_ep in pickle.loads((tmp / "ep.pkl").read_bytes()).items():
+        want[f"{name}/{EP_SERVE}/ep"] = got_ep
     return (json.loads(out.read_text()), pickle.loads(got.read_bytes()),
             want)
 
@@ -268,6 +348,34 @@ def test_seq_sharded_serve_matches_the_jax_reference(world_and_jax, mesh,
     _hold_to_the_reference(world_and_jax, f"{mesh}/{arch}/seq", arch)
 
 
+@pytest.mark.parametrize("mesh", MESHES)
+def test_expert_parallel_serve_matches_the_jax_reference(world_and_jax,
+                                                         mesh):
+    """Reduced deepseek-v2's sharded prefill and greedy decode steps with
+    the MoE layers expert-parallel, against the reference's EP programs
+    (``moe_apply_ep`` inside ``prefill`` / ``make_serve_step`` jitted
+    under ``serve_shardings``) on the same mesh: logits 1e-5, tokens
+    equal."""
+    key = f"{mesh}/{EP_SERVE}/ep"
+    _hold_to_the_reference(world_and_jax, key, key)
+
+
+@pytest.mark.parametrize("key", EP_KEYS)
+def test_expert_parallel_serve_matches_one_device(world, key):
+    """The EP sharded prefill and decode against one device on the same
+    rows: logits within 1e-5, streams equal, cache shards equal, and every
+    routing call's top-k equal to one device's on the same tokens with no
+    pair dropped (the reduced capacity leaves room for every token)."""
+    got = world[key]
+    print(f"{key}: logit gap {got['logit_gap']!r}")
+    assert got["logits_close"] and got["logit_gap"] < 2 * SERVE_TOL, got
+    assert got["streams_equal"] and got["cache_close"], got
+    ep = got["ep"]
+    assert got["routes"] == 1 + SERVE_STEPS == len(ep["set_flips"]), got
+    assert got["flips"] == 0 and not any(ep["set_flips"]), got
+    assert not any(ep["dropped_ep"]) and not any(ep["dropped_one_device"])
+
+
 def _hold_to_the_reference(world_and_jax, key, arch):
     blocks = world_and_jax[1][key]
     logits = np.concatenate([lg for lg, _ in blocks])
@@ -291,7 +399,7 @@ def test_seq_sharded_mamba2_is_its_head_sharded_rank(world_and_jax, mesh):
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-@pytest.mark.parametrize("key", RANKS + SEQ_RANK_KEYS)
+@pytest.mark.parametrize("key", RANKS + SEQ_RANK_KEYS + EP_RANK_KEYS)
 def test_dryrun_serve_rank_equals_the_real_step(world, key, kind):
     """``launch.dryrun.trace_serve`` on ``meta`` against the real rank's
     step: collective bytes by kind, matrix-product FLOPs and the held
@@ -306,7 +414,7 @@ def test_dryrun_serve_rank_equals_the_real_step(world, key, kind):
         ("/seq", "/seq_b1")), got["program"]
 
 
-@pytest.mark.parametrize("key", RANKS + SEQ_RANK_KEYS)
+@pytest.mark.parametrize("key", RANKS + SEQ_RANK_KEYS + EP_RANK_KEYS)
 def test_no_model_op_receives_a_dtensor_serving(world, key):
     for kind in ("prefill", "decode"):
         got = world[key][kind]
